@@ -1,0 +1,12 @@
+"""lol_tpu_torch: the PyTorch + CUDA (H100) port of lol_tpu.
+
+The JAX package `lol_tpu` is the reference; module names here mirror its
+own (`numtheory`, `zq`, `ops/ntt`, `ops/cuda/ntt_kernel` for
+`ops/pallas/ntt_kernel`, `rns`, `gadget`, `ring`, `sampling`, `she`,
+`she_batched`), and every result is bit-identical to it.  This package
+imports torch and numpy, never jax and never lol_tpu.
+
+Residues are `torch.int32` tensors holding values in [0, q) with q < 2^30,
+in the coefficient-major (nrns, n, B) layout.  CUDA kernels live in
+`csrc/` and are built with nvcc at first use (`ops/cuda/build.py`).
+"""

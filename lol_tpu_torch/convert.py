@@ -1,0 +1,44 @@
+"""Carry state across from the JAX package as numpy arrays.
+
+The JAX package's keys, hints and packed ciphertexts become the port's
+objects, so both sides compute on identical state:
+
+    sk_from_numpy(params, sk.s_ints)
+    hint_from_numpy(params, np.stack([np.asarray(h.data) for h in hint.h0]),
+                            np.stack([np.asarray(h.data) for h in hint.h1]))
+    cts_from_numpy(*bb.pack(cts))
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import zq
+from .she import KSHint, SHEParams, SK
+
+
+def _residues(x, device) -> torch.Tensor:
+    """u32 residue array (values < 2^30) -> int32 tensor on device."""
+    a = np.asarray(x)
+    if a.size and (int(a.min()) < 0 or int(a.max()) >= 1 << zq.MAX_MODULUS_BITS):
+        raise ValueError("residues must lie in [0, 2^30)")
+    return torch.from_numpy(a.astype(np.int32)).to(device)
+
+
+def sk_from_numpy(params: SHEParams, s_ints) -> SK:
+    """Secret key from its (n,) integer coefficients."""
+    s = torch.from_numpy(np.asarray(s_ints, dtype=np.int64).copy())
+    if s.shape != (params.ctx.n,):
+        raise ValueError(f"sk_from_numpy: shape {tuple(s.shape)} != ({params.ctx.n},)")
+    return SK(params, s, params.var)
+
+
+def hint_from_numpy(params: SHEParams, h0, h1, device="cpu") -> KSHint:
+    """Key-switch hint from (ell, nrns, n) CRT residue arrays."""
+    return KSHint(params, _residues(h0, device), _residues(h1, device))
+
+
+def cts_from_numpy(c0, c1, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed ciphertext components, (nrns, n, B) residue arrays each."""
+    return _residues(c0, device), _residues(c1, device)

@@ -1,0 +1,189 @@
+"""Fused negacyclic NTT over axis 0 of a coefficient-major (n, B) tensor.
+
+Counterpart of `lol_tpu/ops/pallas/ntt_kernel.py`.  `ntt_cm` keeps the
+contract of the Pallas `ntt_cm` (`ntt_kernel.py:899-971` there): the
+input's n must match the plan, and `pre_digit_q` is a forward-only
+prologue.  The TPU-only knobs (lanes, window, radix, full_tables,
+scale=False, alg, interpret) have no counterpart here.
+
+For a CUDA tensor `ntt_cm` launches the hand-written Hopper kernels of
+`csrc/ntt.cu` (`ntt_fwd_pass`, replacing `_kernel_cross` + `_kernel_block`
+forward; `ntt_inv_pass`, replacing them inverse) and raises on any build
+or launch error.  For a CPU tensor, and only then, it runs the plain
+int64 torch version `ntt_cm_ref`.
+
+Bound on the H100: every pass reads and writes the (n, B) array once,
+8*n*B bytes; `_schedule` keeps all stages of a pass in shared memory so
+there is one such pass for n <= 4096 and two above (see the note at the
+top of `csrc/ntt.cu`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from ... import zq
+from ..ntt import NTTPlan, ntt_forward_cm, ntt_inverse_cm
+from . import build
+
+# Launch counts of the two kernels, one per kernel launch (a transform at
+# n > SINGLE_PASS_MAX_N is two launches).  Reset by callers that check
+# which kernels a path ran.
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0}
+
+SINGLE_PASS_MAX_N = 4096  # whole (n, 8) column tile in 128 KiB of shared memory
+SINGLE_TILE_ELEMS = 32768  # 128 KiB
+WINDOW = 512  # tS: rows of one block-pass sequence when n > SINGLE_PASS_MAX_N
+TILE_ELEMS = 16384  # 64 KiB per thread block in the two-pass schedule
+MAX_TILE_ELEMS = 232448 // 4  # the H100's per-block shared memory limit
+THREADS = 1024  # measured on the H100: ~23% faster than 512 at n = 4096
+MIN_COLS = 8  # 8 u32 = one 32-byte sector per row segment
+MAX_COLS = 32
+
+
+@dataclass(frozen=True)
+class Pass:
+    """One kernel launch's geometry (see csrc/ntt.cu)."""
+
+    L: int
+    nseq: int
+    elem_stride: int
+    seq_stride: int
+    base0: int
+    base_step: int
+    G: int
+    TB: int
+
+    @property
+    def threads(self) -> int:
+        work = (self.L // 2) * self.G * self.TB
+        return min(THREADS, max(32, -(-work // 32) * 32))
+
+
+def _cols(L: int, budget: int) -> int:
+    return max(MIN_COLS, min(MAX_COLS, budget // L))
+
+
+def _schedule(n: int) -> list[Pass]:
+    """The forward pass sequence for length n (the inverse runs it
+    reversed).  One pass up to SINGLE_PASS_MAX_N; above, the cross pass
+    (first log2(n/WINDOW) stages, rows WINDOW apart) then the block pass
+    (the rest, inside contiguous WINDOW-row blocks)."""
+    if n <= SINGLE_PASS_MAX_N:
+        return [Pass(n, 1, 1, 0, 1, 0, 1, _cols(n, SINGLE_TILE_ELEMS))]
+    tS = WINDOW
+    P = n // tS
+    tb = _cols(P, TILE_ELEMS)
+    G = max(1, min(tS, TILE_ELEMS // (P * tb)))
+    if P * tb * G > MAX_TILE_ELEMS:
+        raise NotImplementedError(f"ntt_cm: n={n} exceeds the two-pass schedule")
+    cross = Pass(P, tS, tS, 1, 1, 0, G, tb)
+    block = Pass(tS, P, 1, tS, P, 1, 1, _cols(tS, TILE_ELEMS))
+    return [cross, block]
+
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_uint32]
+    + [ctypes.c_int] + [ctypes.c_uint32] * 8 + [ctypes.c_void_p]
+)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load()
+    if lib.lol_ntt_pass.argtypes is None:
+        lib.lol_ntt_pass.argtypes = _ARGTYPES
+        lib.lol_ntt_pass.restype = ctypes.c_int
+    return lib
+
+
+def redigit(x: torch.Tensor, q_src: int, q: int) -> torch.Tensor:
+    """RNS-gadget digit re-expansion (plain form of the kernel prologue,
+    `_redigit` of the Pallas module): x holds residues in [0, q_src);
+    returns the centered representative's residue mod q, in x's dtype.
+    Identity when q_src == q."""
+    if q_src == q:
+        return x
+    x64 = x.long()
+    r = x64 % q if q_src > q else x64
+    r = torch.where(x64 >= (q_src + 1) // 2, (r - q_src % q) % q, r)
+    return r.to(x.dtype)
+
+
+def ntt_cm_ref(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
+               pre_digit_q: int | None = None) -> torch.Tensor:
+    """Plain torch version of `ntt_cm` (int64 stages), int32 out."""
+    if inverse:
+        return ntt_inverse_cm(x, plan).to(torch.int32)
+    if pre_digit_q is not None:
+        x = redigit(x, pre_digit_q, plan.q)
+    return ntt_forward_cm(x, plan).to(torch.int32)
+
+
+def _check_args(x, plan, inverse, pre_digit_q):
+    if x.dim() != 2 or x.dtype != torch.int32:
+        raise ValueError(f"ntt_cm: need an (n, B) int32 tensor, got {x.dtype} {tuple(x.shape)}")
+    n, B = x.shape
+    if n != plan.n:
+        raise ValueError(f"ntt_cm: x has n={n}, plan has n={plan.n}")
+    if B < 1:
+        raise ValueError("ntt_cm: empty batch")
+    if pre_digit_q is not None:
+        if inverse:
+            raise ValueError("ntt_cm: pre_digit_q is a forward-only prologue")
+        if not (2 <= pre_digit_q < (1 << zq.MAX_MODULUS_BITS)):
+            raise ValueError(f"ntt_cm: pre_digit_q={pre_digit_q} out of range")
+
+
+def ntt_cm(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
+           pre_digit_q: int | None = None) -> torch.Tensor:
+    """Negacyclic NTT over axis 0 of a coefficient-major (n, B) int32
+    tensor of residues in [0, q).
+
+    Forward: natural order in, bit-reversed-exponent order out.  Inverse:
+    the reverse, 1/n applied once.  pre_digit_q: the input holds residues
+    mod pre_digit_q, re-expanded (centered) into Z_q before the forward
+    transform (`redigit`)."""
+    _check_args(x, plan, inverse, pre_digit_q)
+    if x.device.type == "cpu":
+        return ntt_cm_ref(x, plan, inverse, pre_digit_q)
+    if x.device.type != "cuda":
+        raise ValueError(f"ntt_cm: unsupported device {x.device}")
+    return _ntt_cuda(x, plan, inverse, pre_digit_q)
+
+
+def _ntt_cuda(x, plan, inverse, pre_q):
+    if not x.is_contiguous():
+        raise ValueError("ntt_cm: the CUDA kernel needs a contiguous (n, B) tensor")
+    lib = _lib()
+    n, B = x.shape
+    q = plan.q
+    w, wsh, iw, iwsh = plan.tables(x.device)
+    tw, twsh = (iw, iwsh) if inverse else (w, wsh)
+    passes = _schedule(n)
+    if inverse:
+        passes = passes[::-1]
+    has_pre = pre_q is not None and pre_q != q
+    pre_q = pre_q if has_pre else q
+    w0n = int(plan.ipsi_rev[1 % n]) * plan.n_inv % q
+    name = "ntt_inv" if inverse else "ntt_fwd"
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    src = x
+    with torch.cuda.device(x.device):
+        for i, p in enumerate(passes):
+            last = i == len(passes) - 1
+            err = lib.lol_ntt_pass(
+                src.data_ptr(), y.data_ptr(), tw.data_ptr(), twsh.data_ptr(),
+                B, p.L, p.nseq, p.elem_stride, p.seq_stride, p.base0,
+                p.base_step, p.G, p.TB, p.threads, int(inverse), int(last), q,
+                int(has_pre and i == 0), pre_q, (pre_q + 1) // 2, pre_q % q,
+                zq.shoup(1, q), plan.n_inv, plan.n_inv_sh, w0n,
+                zq.shoup(w0n, q), stream,
+            )
+            build.check(err, f"{name} pass {i} (n={n}, B={B})")
+            LAUNCHES[name] += 1
+            src = y  # later passes run in place: each block owns its tile
+    return y

@@ -1,0 +1,99 @@
+"""RNS modulus chains: the decrypt-side lifts.
+
+Counterpart of the parts of `lol_tpu/rns.py` the batched BGV slice uses:
+`RnsBasis.modulus`, the host-exact `lift_centered` (numpy object ints) and
+the Garner mixed-radix digits plus the centered lift reduced mod p
+(`to_mixed_radix_jnp`/`lift_mod_jnp` there), here in int64 torch with the
+residue axis first: (nrns, ...).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from . import numtheory as nt
+from . import zq
+
+
+@dataclass(frozen=True)
+class RnsBasis:
+    """An ordered chain of distinct, pairwise coprime moduli q_i < 2^30."""
+
+    qs: tuple[int, ...]
+
+    def __post_init__(self):
+        for i, a in enumerate(self.qs):
+            if not (2 <= a < (1 << zq.MAX_MODULUS_BITS)):
+                raise ValueError(f"RnsBasis: modulus {a} out of [2, 2^30)")
+            for b in self.qs[i + 1 :]:
+                if math.gcd(a, b) != 1:
+                    raise ValueError(f"RnsBasis: moduli {a}, {b} not coprime")
+
+    @property
+    def nrns(self) -> int:
+        return len(self.qs)
+
+    @property
+    def modulus(self) -> int:
+        """The full composite modulus Q = prod q_i (Python int)."""
+        return math.prod(self.qs)
+
+    def to_mixed_radix(self, r: torch.Tensor) -> torch.Tensor:
+        """(nrns, ...) residues -> int64 Garner digits v with
+        x = v_0 + q_0 v_1 + q_0 q_1 v_2 + ..., v_i in [0, q_i)."""
+        if r.shape[0] != self.nrns:
+            raise ValueError(f"to_mixed_radix: {r.shape[0]} channels, basis has {self.nrns}")
+        r = r.long()
+        digits = [r[0]]
+        for i in range(1, self.nrns):
+            qi = self.qs[i]
+            t = r[i]
+            for j in range(i):
+                t = (t - digits[j]) % qi
+                t = t * nt.modinv(self.qs[j] % qi, qi) % qi
+            digits.append(t)
+        return torch.stack(digits)
+
+    def _horner_mod(self, v: torch.Tensor, p: int) -> torch.Tensor:
+        acc = v[-1] % p
+        for j in range(self.nrns - 2, -1, -1):
+            acc = (acc * (self.qs[j] % p) + v[j] % p) % p
+        return acc
+
+    def lift_mod(self, r: torch.Tensor, p: int) -> torch.Tensor:
+        """[lift_centered(r)]_p in [0, p) as int64, for (nrns, ...)
+        residues: Horner over the Garner digits gives x mod p; x >= (Q+1)/2
+        is a most-significant-first digit compare."""
+        v = self.to_mixed_radix(r)
+        acc = self._horner_mod(v, p)
+        t = (self.modulus + 1) // 2
+        tdig = []
+        for q in self.qs:
+            tdig.append(t % q)
+            t //= q
+        ge = torch.zeros(acc.shape, dtype=torch.bool, device=acc.device)
+        eq = torch.ones(acc.shape, dtype=torch.bool, device=acc.device)
+        for i in range(self.nrns - 1, -1, -1):
+            ge = ge | (eq & (v[i] > tdig[i]))
+            eq = eq & (v[i] == tdig[i])
+        ge = ge | eq  # x == T counts as high (lift in [-Q/2, Q/2))
+        return torch.where(ge, (acc - self.modulus % p) % p, acc)
+
+    def lift_centered(self, r: np.ndarray) -> np.ndarray:
+        """(nrns, ...) residues -> object ints in [-Q/2, Q/2)."""
+        digits = self.to_mixed_radix(torch.from_numpy(np.asarray(r, dtype=np.int64))).numpy()
+        x = digits[-1].astype(object)
+        for j in range(self.nrns - 2, -1, -1):
+            x = x * self.qs[j] + digits[j].astype(object)
+        Q = self.modulus
+        return np.where(x >= (Q + 1) // 2, x - Q, x)
+
+
+@lru_cache(maxsize=256)
+def rns_basis(qs: tuple[int, ...]) -> RnsBasis:
+    return RnsBasis(tuple(qs))

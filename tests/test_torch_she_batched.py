@@ -1,0 +1,212 @@
+"""The port's batched BGV slice against the JAX package, bit for bit.
+
+The JAX package makes the keys, the hint and the ciphertexts (m = 64,
+three 30-bit primes, B = 4, as tests/test_she_batched.py does); they are
+carried across as numpy arrays through `lol_tpu_torch.convert`, and the
+port's step and decrypt must reproduce the JAX package's
+`BatchedBGV(params, use_pallas=False)` exactly.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lol_tpu import gadget as jgd
+from lol_tpu import numtheory as jnt
+from lol_tpu import she as jshe
+from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import convert, numtheory as nt, she
+from lol_tpu_torch.she_batched import BatchedBGV
+
+torch.set_num_threads(2)
+
+M = 64
+QS = tuple(nt.ntt_primes(M, 30, 3))
+J_PARAMS = jshe.SHEParams(m=M, p=257, qs=QS, var=2.0)
+PARAMS = she.SHEParams(m=M, p=257, qs=QS, var=2.0)
+B = 4
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    """Keys, hint and packed ciphertexts made by the JAX package."""
+    rng = np.random.default_rng(0)
+    ks, kh, *kes = jax.random.split(jax.random.PRNGKey(0), 2 + 2 * B)
+    sk = jshe.gen_sk(J_PARAMS, ks)
+    hint = jshe.ks_quad_circ_hint(sk, jgd.RnsGad(), kh)
+    msgs = [(jshe.pt_random(J_PARAMS, rng), jshe.pt_random(J_PARAMS, rng))
+            for _ in range(B)]
+    cts_a = [jshe.encrypt(sk, m1, kes[2 * b]) for b, (m1, _) in enumerate(msgs)]
+    cts_b = [jshe.encrypt(sk, m2, kes[2 * b + 1]) for b, (_, m2) in enumerate(msgs)]
+    jbb = JBatchedBGV(J_PARAMS, use_pallas=False)
+    return dict(sk=sk, hint=hint, msgs=msgs, jbb=jbb, cts_a=cts_a,
+                c=jbb.pack(cts_a), d=jbb.pack(cts_b))
+
+
+def _carry(state):
+    sk = convert.sk_from_numpy(PARAMS, state["sk"].s_ints)
+    h = state["hint"]
+    hint = convert.hint_from_numpy(
+        PARAMS, np.stack([np.asarray(c.data) for c in h.h0]),
+        np.stack([np.asarray(c.data) for c in h.h1]))
+    c0, c1 = convert.cts_from_numpy(*(np.asarray(a) for a in state["c"]))
+    d0, d1 = convert.cts_from_numpy(*(np.asarray(a) for a in state["d"]))
+    return sk, hint, (c0, c1, d0, d1)
+
+
+def _dropped(params):
+    return params.__class__(m=M, p=params.p, qs=QS[:-1], var=params.var)
+
+
+def test_step_matches_jax_pipeline(jax_state):
+    sk, hint, cts = _carry(jax_state)
+    e0, e1 = BatchedBGV(PARAMS, "cpu").build_step(hint)(*cts)
+    assert e0.dtype == torch.int32 and e0.shape == (len(QS) - 1, M // 2, B)
+    j0, j1 = jax_state["jbb"].build_step(jax_state["hint"])(
+        *jax_state["c"], *jax_state["d"])
+    np.testing.assert_array_equal(e0.numpy(), np.asarray(j0).astype(np.int32))
+    np.testing.assert_array_equal(e1.numpy(), np.asarray(j1).astype(np.int32))
+
+
+@pytest.mark.parametrize("after_step", [False, True])
+def test_decrypt_matches_jax_pipeline(jax_state, after_step):
+    sk, hint, (c0, c1, d0, d1) = _carry(jax_state)
+    jsk = jax_state["sk"]
+    if not after_step:
+        got = BatchedBGV(PARAMS, "cpu").build_decrypt(sk)(c0, c1)
+        want = jax_state["jbb"].build_decrypt(jsk)(*jax_state["c"])
+        np.testing.assert_array_equal(
+            got.numpy(), np.array([m1 for m1, _ in jax_state["msgs"]]).T)
+    else:
+        bb = BatchedBGV(PARAMS, "cpu")
+        e0, e1 = bb.build_step(hint)(c0, c1, d0, d1)
+        f = bb.step_f()
+        got = BatchedBGV(_dropped(PARAMS), "cpu").build_decrypt(
+            she.SK(_dropped(PARAMS), sk.s_ints, sk.var), f=f)(e0, e1)
+        jp2 = _dropped(J_PARAMS)
+        want = JBatchedBGV(jp2, use_pallas=False).build_decrypt(
+            jshe.SK(jp2, jsk.s_ints, jsk.var), f=f)(
+                jnp.asarray(e0.numpy().astype(np.uint32)),
+                jnp.asarray(e1.numpy().astype(np.uint32)))
+        for b, (m1, m2) in enumerate(jax_state["msgs"]):
+            np.testing.assert_array_equal(got[:, b].numpy(),
+                                          she.pt_mul(PARAMS, m1, m2))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_port_encryption_decrypts_in_jax_package():
+    """Ciphertexts the port encrypts (its own sampler) are valid for the
+    JAX package's decrypt under the same key."""
+    g = torch.Generator().manual_seed(5)
+    sk = she.gen_sk(PARAMS, g)
+    msgs = she.pt_random(PARAMS, g, (B,))
+    c0, c1 = BatchedBGV(PARAMS, "cpu").build_encrypt(sk)(msgs, g)
+    jsk = jshe.SK(J_PARAMS, sk.s_ints.numpy(), sk.var)
+    got = JBatchedBGV(J_PARAMS, use_pallas=False).build_decrypt(jsk)(
+        jnp.asarray(c0.numpy().astype(np.uint32)),
+        jnp.asarray(c1.numpy().astype(np.uint32)))
+    np.testing.assert_array_equal(np.asarray(got), msgs.numpy())
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_port_keygen_encrypt_step_decrypt_round_trip(seed):
+    g = torch.Generator().manual_seed(seed)
+    sk = she.gen_sk(PARAMS, g)
+    bb = BatchedBGV(PARAMS, "cpu")
+    hint = bb.gen_ks_quad_hint(sk, g)
+    assert hint.h0.shape == hint.h1.shape == (len(QS), len(QS), M // 2)
+    enc = bb.build_encrypt(sk)
+    m1, m2 = she.pt_random(PARAMS, g, (B,)), she.pt_random(PARAMS, g, (B,))
+    e0, e1 = bb.build_step(hint)(*enc(m1, g), *enc(m2, g))
+    p2 = _dropped(PARAMS)
+    got = BatchedBGV(p2, "cpu").build_decrypt(
+        she.SK(p2, sk.s_ints, sk.var), f=bb.step_f())(e0, e1)
+    for b in range(B):
+        np.testing.assert_array_equal(
+            got[:, b].numpy(), she.pt_mul(PARAMS, m1[:, b].numpy(), m2[:, b].numpy()))
+
+
+def test_pt_mul_and_gadget_match_reference(rng):
+    a = rng.integers(0, PARAMS.p, M // 2)
+    b = rng.integers(0, PARAMS.p, M // 2)
+    np.testing.assert_array_equal(she.pt_mul(PARAMS, a, b),
+                                  jshe.pt_mul(J_PARAMS, a, b))
+    from lol_tpu_torch import gadget
+    from lol_tpu.rns import rns_basis as j_rns_basis
+    assert gadget.gadget_ints(PARAMS.ctx.basis) == jgd.gadget_ints(
+        jgd.RnsGad(), j_rns_basis(QS))
+    np.testing.assert_array_equal(gadget.gadget_rns(PARAMS.ctx.basis),
+                                  jgd.gadget_rns(jgd.RnsGad(), j_rns_basis(QS)))
+
+
+def test_lifts_match_reference(rng):
+    from lol_tpu.rns import rns_basis as j_rns_basis
+    r = np.stack([rng.integers(0, q, (16, 3)) for q in QS]).astype(np.uint32)
+    r[:, 0, 0] = [(PARAMS.ctx.basis.modulus + 1) // 2 % q for q in QS]  # x == T
+    jb = j_rns_basis(QS)
+    mine = PARAMS.ctx.basis
+    np.testing.assert_array_equal(mine.lift_centered(r), jb.lift_centered(r))
+    got = mine.lift_mod(torch.from_numpy(r.astype(np.int32)), 257)
+    want = jb.lift_mod_jnp(jnp.moveaxis(jnp.asarray(r), 0, 1), 257)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_unported_paths_raise():
+    with pytest.raises(NotImplementedError):
+        she.SHEParams(m=72, p=7, qs=(73,)).ctx
+    sk = convert.sk_from_numpy(PARAMS, np.zeros(M // 2, dtype=np.int64))
+    with pytest.raises(NotImplementedError):
+        BatchedBGV(PARAMS, "cpu").build_decrypt(sk, encoding="msd")
+
+
+def test_pack_matches_jax_pack(jax_state):
+    cols = [tuple(np.asarray(c.to_crt().data) for c in ct.cs)
+            for ct in jax_state["cts_a"]]
+    packed = BatchedBGV(PARAMS, "cpu").pack(cols)
+    for mine, ref in zip(packed, convert.cts_from_numpy(*jax_state["c"])):
+        assert mine.dtype == torch.int32 and torch.equal(mine, ref)
+
+
+def test_step_module_moves_with_its_buffers(jax_state):
+    sk, hint, cts = _carry(jax_state)
+    step = BatchedBGV(PARAMS, "cpu").build_step(hint)
+    assert {name for name, _ in step.named_buffers()} == {"qv", "h0", "h1"}
+    assert all(b.device.type == "cpu" for b in step.buffers())
+    assert torch.equal(step.h0[..., 0].to(torch.int32), hint.h0)
+
+
+def test_port_never_imports_jax():
+    """In a fresh interpreter where importing jax or lol_tpu fails, the
+    port still builds a pipeline and runs a step on the CPU."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["lol_tpu"] = None
+        import torch
+        torch.set_num_threads(1)
+        from lol_tpu_torch import numtheory as nt, she
+        from lol_tpu_torch.she_batched import BatchedBGV
+        params = she.SHEParams(m=32, p=17, qs=tuple(nt.ntt_primes(32, 30, 2)), var=2.0)
+        g = torch.Generator().manual_seed(0)
+        sk = she.gen_sk(params, g)
+        bb = BatchedBGV(params, "cpu")
+        enc = bb.build_encrypt(sk)
+        m1, m2 = she.pt_random(params, g, (2,)), she.pt_random(params, g, (2,))
+        e0, e1 = bb.build_step(bb.gen_ks_quad_hint(sk, g))(*enc(m1, g), *enc(m2, g))
+        assert e0.shape == (1, 16, 2)
+        assert not any(k == "jax" or k.startswith(("jax.", "lol_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
