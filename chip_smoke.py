@@ -13,19 +13,34 @@ then runs four phases and exits non-zero on the first failure:
 2. every kernel against its plain torch version on the card, bit-exact, at
    n in {256, 4096, 16384} with the largest 30-bit NTT primes and
    B in {1000, 1024}: forward, forward with the digit prologue (source
-   modulus above and below q), inverse, and the forward->inverse round trip;
+   modulus above and below q), the GS inverse, the route-B inverse
+   (against its plain version and against the GS kernel), the
+   forward->inverse round trip, and ct_mul with the extremal residues
+   0, 1 and q - 1; then the NTT kernels on phase 4's n = 4096 inputs
+   (B = 1024 and 16384, both primes), and the u32 chain kernel at a
+   ragged shape and on the u32 ceiling's own input and iterations;
 3. the batched BGV slice at full width (m = 32768 so n = 2^14, three
    30-bit primes, p = 257, var = 2.0, B = 1024): keygen, encrypt, the
    ct-mult + key-switch + rescale step, decrypt.  It checks the kernels'
-   launch counts over that run, decrypts columns 0-7 against the exact
+   launch counts over that run (the NTT kernels and one ct_mul per
+   channel; no route-B launch), decrypts columns 0-7 against the exact
    plaintext product, and reruns the step on the CPU over columns 0-63,
    which must equal the card's output bit for bit;
-4. timings with CUDA events (warm-up, then the median of 5 windows):
-   NTT/s at n = 4096 over 2x30-bit primes, kernel against plain at the
-   step's shapes, and BGV step ops/s at n = 2^14 and n = 4096.
+4. timings with CUDA events (warm-up, then the median of 5 windows),
+   each op timed once, on inputs checked kernel == plain (one channel of
+   the step's is checked first): NTT/s at n = 4096 over 2x30-bit primes;
+   the route-B against the GS inverse (its own path: its launches are
+   counted over this A/B alone), which also gives both inverses' times
+   at one step channel; the forward NTT and ct_mul kernels there, every
+   plain version, and route B's single pass at n = 4096; the u32 ceiling
+   (the chain kernel's path); a device copy's bandwidth; the roofline
+   rows from those times against both; the steptime breakdown of the
+   step, whose step leg gives the ops/s at n = 2^14; the ops/s at
+   n = 4096.
 
 The last three lines of standard output are the card line, a JSON object
-describing each kernel, and {"ok": true, "device": {...}}.
+with one entry per TPU kernel ported (the CUDA kernel that replaces it,
+its launches, error and times), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -42,7 +57,6 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
-WINDOWS = 5
 T0 = time.time()
 
 
@@ -58,37 +72,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int) -> tuple[float, list[float]]:
-    """Median milliseconds per call of fn over WINDOWS CUDA-event windows of
-    `iters` calls each, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(WINDOWS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / iters)
-    return statistics.median(per_call), per_call
-
-
-def import_port():
-    """The port from this checkout (and only from here)."""
+def import_port() -> None:
+    """Put this checkout's port first on the path, and check that it is
+    the one imported."""
     sys.path.insert(0, ROOT)
     import lol_tpu_torch
 
     if os.path.dirname(os.path.dirname(os.path.abspath(lol_tpu_torch.__file__))) != ROOT:
         raise RuntimeError(f"lol_tpu_torch imported from {lol_tpu_torch.__file__}, not {ROOT}")
-    from lol_tpu_torch import numtheory as nt, she
-    from lol_tpu_torch.ops import ntt
-    from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk
-    from lol_tpu_torch.she_batched import BatchedBGV
 
-    return nt, she, ntt, build, tk, BatchedBGV
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return (a.long() - b.long()).abs().max().item()
+
+
+def extremal(xs, q: int) -> None:
+    """Every combination of 0, 1 and q - 1 across the operands xs, in
+    their first 81 elements."""
+    ext = torch.tensor([0, 1, q - 1], dtype=xs[0].dtype, device=xs[0].device)
+    idx = torch.arange(81, device=xs[0].device)
+    for j, x in enumerate(xs):
+        x.view(-1)[:81] = ext[(idx // 3 ** j) % 3]
 
 
 def main() -> int:
@@ -96,7 +100,23 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
               file=sys.stderr)
         return 2
-    nt, she, ntt, build, tk, BatchedBGV = import_port()
+    import_port()
+    from lol_tpu_torch import numtheory as nt, she
+    from lol_tpu_torch.bench import mxu_ntt as mx, roofline, steptime, time_ms
+    from lol_tpu_torch.ops import ntt
+    from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw
+    from lol_tpu_torch.she_batched import BatchedBGV
+
+    counters = (tk.LAUNCHES, pw.LAUNCHES, mx.LAUNCHES)
+
+    def reset_counts():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def counts():
+        return {k: v for c in counters for k, v in c.items()}
+
     dev = torch.device("cuda")
     if "jax" in sys.modules or any(k.startswith("lol_tpu.") for k in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -116,19 +136,29 @@ def main() -> int:
 
     # -- phase 2: kernel vs plain, bit-exact ----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED)
-    err = {"ntt_fwd": 0, "ntt_inv": 0}
+    err = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_invb": 0, "ct_mul": 0, "chain": 0}
     checks = 0
+
+    def check_ntt(x, plan):
+        """The forward, GS and route-B inverse kernels on x against their
+        plain versions, and route B against the GS kernel; folds the
+        errors into err.  Four checks."""
+        got = tk.ntt_cm(x, plan)
+        err["ntt_fwd"] = max(err["ntt_fwd"], max_err(got, tk.ntt_cm_ref(x, plan)))
+        gs = tk.ntt_cm(x, plan, inverse=True)
+        err["ntt_inv"] = max(err["ntt_inv"], max_err(gs, tk.ntt_cm_ref(x, plan, inverse=True)))
+        got = tk.ntt_cm(x, plan, inverse=True, alg="dit")
+        err["ntt_invb"] = max(err["ntt_invb"], max_err(got, gs), max_err(
+            got, tk.ntt_cm_ref(x, plan, inverse=True, alg="dit")))
+        return 4
+
     for n in (256, 4096, 16384):
         q_src, q = nt.ntt_primes(2 * n, 30, 2)  # the largest two
         plan = ntt.ntt_plan(n, q)
         for B in (1000, 1024):
             x = torch.randint(0, q, (n, B), generator=g, device=dev, dtype=torch.int32)
             x[0] = q - 1  # extremal residues stress the lazy [0, 4q) range
-            for inverse, name in ((False, "ntt_fwd"), (True, "ntt_inv")):
-                got = tk.ntt_cm(x, plan, inverse=inverse)
-                want = tk.ntt_cm_ref(x, plan, inverse=inverse)
-                err[name] = max(err[name], (got.long() - want.long()).abs().max().item())
-                checks += 1
+            checks += check_ntt(x, plan)
             for src in (q_src, 12289):  # source modulus above and below q
                 xs = torch.randint(0, src, (n, B), generator=g, device=dev,
                                    dtype=torch.int32)
@@ -136,12 +166,42 @@ def main() -> int:
                 xs[1] = (src + 1) // 2
                 got = tk.ntt_cm(xs, plan, pre_digit_q=src)
                 want = tk.ntt_cm_ref(xs, plan, pre_digit_q=src)
-                err["ntt_fwd"] = max(err["ntt_fwd"],
-                                     (got.long() - want.long()).abs().max().item())
+                err["ntt_fwd"] = max(err["ntt_fwd"], max_err(got, want))
                 checks += 1
             back = tk.ntt_cm(tk.ntt_cm(x, plan), plan, inverse=True)
             if not torch.equal(back, x):
                 raise AssertionError(f"round trip failed at n={n}, B={B}")
+            for qc in (q_src, q):
+                ops = [torch.randint(0, qc, (n, B), generator=g, device=dev,
+                                     dtype=torch.int32) for _ in range(4)]
+                extremal(ops, qc)
+                for a, b in zip(pw.ct_mul_cm(*ops, qc), pw.ct_mul_cm_ref(*ops, qc)):
+                    err["ct_mul"] = max(err["ct_mul"], max_err(a, b))
+                checks += 1
+    # phase 4's inputs at n = 4096 over 2x30-bit primes, checked at their
+    # own shapes: B = 16384 (NTT/s and the route-B A/B) and B = 1024
+    n4 = 4096
+    plans4 = [ntt.ntt_plan(n4, q) for q in nt.ntt_primes(2 * n4, 30, 2)]
+    x4 = {B4: [torch.randint(0, pl.q, (n4, B4), generator=g, device=dev,
+                             dtype=torch.int32) for pl in plans4] for B4 in (1024, 16384)}
+    for xs in x4.values():
+        for v, pl in zip(xs, plans4):
+            checks += check_ntt(v, pl)
+    # the chain kernel on a ragged shape, and on the u32 ceiling's own run
+    # (its input and iterations); the plain run there is timed too
+    xc = torch.randint(-(1 << 31), 1 << 31, (1000, 1000), generator=g, device=dev,
+                       dtype=torch.int32)
+    err["chain"] = max_err(mx.chain(xc, 64), mx.chain_ref(xc, 64))
+    xc = mx.ceiling_input()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = mx.chain_ref(xc, mx.ITERS)
+    ev[1].record()
+    ev[1].synchronize()
+    chain_plain_ms = ev[0].elapsed_time(ev[1])
+    err["chain"] = max(err["chain"], max_err(mx.chain(xc, mx.ITERS), want))
+    checks += 2
+    del xc, want
     torch.cuda.synchronize()
     if any(err.values()):
         raise AssertionError(f"kernel != plain: max abs err {err}")
@@ -164,27 +224,27 @@ def main() -> int:
     m2 = she.pt_random(params, g, (B,))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in tk.LAUNCHES:
-        tk.LAUNCHES[k] = 0
+    reset_counts()
     c0, c1 = enc(m1, g)
     d0, d1 = enc(m2, g)
-    before_step = dict(tk.LAUNCHES)
+    before_step = counts()
     e0, e1 = step(c0, c1, d0, d1)
-    after_step = dict(tk.LAUNCHES)
+    after_step = counts()
     got = dec(e0, e1)
     torch.cuda.synchronize()
-    launches = dict(tk.LAUNCHES)
+    launches = counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     passes = len(tk._schedule(n))
     step_calls = {"ntt_fwd": nrns * (nrns - 1) + 2 * (nrns - 1), "ntt_inv": nrns + 2}
-    path_calls = {"ntt_fwd": step_calls["ntt_fwd"] + 2 * nrns,
-                  "ntt_inv": step_calls["ntt_inv"] + nrns - 1}
-    for k in tk.LAUNCHES:
+    want_step = {k: v * passes for k, v in step_calls.items()}
+    want_step.update(ntt_invb_block=0, ntt_invb_cross=0, ct_mul=nrns, chain=0)
+    want_path = dict(want_step, ntt_fwd=want_step["ntt_fwd"] + 2 * nrns * passes,
+                     ntt_inv=want_step["ntt_inv"] + (nrns - 1) * passes)
+    for k in launches:
         in_step = after_step[k] - before_step[k]
-        if in_step != step_calls[k] * passes or launches[k] != path_calls[k] * passes:
+        if in_step != want_step[k] or launches[k] != want_path[k]:
             raise AssertionError(f"{k}: {in_step} launches in the step, {launches[k]} "
-                                 f"on the path; want {step_calls[k] * passes}, "
-                                 f"{path_calls[k] * passes}")
+                                 f"on the path; want {want_step[k]}, {want_path[k]}")
     in_bytes = sum(t.numel() * t.element_size() for t in (c0, c1, d0, d1))
     mark(f"phase 3: step ran; launches {launches}; inputs {in_bytes / 1e6:.0f} MB; "
          f"peak {peak_gib:.2f} GiB")
@@ -206,40 +266,111 @@ def main() -> int:
     mark("phase 3: decrypt of columns 0-7 == pt_mul; GPU == CPU over columns 0-63")
 
     # -- phase 4: timings -----------------------------------------------
+    # Each op is timed once, on an input checked kernel == plain: the
+    # n = 4096 ones in phase 2, one channel of the step's here.
+    plan, q0 = bb.plans()[0], params.qs[0]
+    x = e0[0].contiguous()  # one channel of the step's output
+    xd = (e0[1] % params.qs[1]).contiguous()  # a digit the step re-expands into q0
+    ops = [t[0].contiguous() for t in (c0, c1, d0, d1)]
+    checks = check_ntt(x, plan)
+    err["ntt_fwd"] = max(err["ntt_fwd"], max_err(
+        tk.ntt_cm(xd, plan, pre_digit_q=params.qs[1]),
+        tk.ntt_cm_ref(xd, plan, pre_digit_q=params.qs[1])))
+    for a, b in zip(pw.ct_mul_cm(*ops, q0), pw.ct_mul_cm_ref(*ops, q0)):
+        err["ct_mul"] = max(err["ct_mul"], max_err(a, b))
+    checks += 2
+    if any(err.values()):
+        raise AssertionError(f"kernel != plain on the timed inputs: max abs err {err}")
+    mark(f"phase 4: {checks} kernel-vs-plain checks on the step channel bit-exact")
     timings = {}
     # NTT/s at n = 4096 over 2x30-bit primes: one NTT = one column through both
-    n4 = 4096
-    plans4 = [ntt.ntt_plan(n4, q) for q in nt.ntt_primes(2 * n4, 30, 2)]
-    for B4 in (1024, 16384):
-        xs = [torch.randint(0, pl.q, (n4, B4), generator=g, device=dev,
-                            dtype=torch.int32) for pl in plans4]
+    for B4, xs in x4.items():
         for inverse, key in ((False, "ntt"), (True, "intt")):
-            ms, wins = time_ms(lambda: [tk.ntt_cm(x, pl, inverse=inverse)
-                                        for x, pl in zip(xs, plans4)], 20)
+            ms, wins = time_ms(lambda: [tk.ntt_cm(v, pl, inverse=inverse)
+                                        for v, pl in zip(xs, plans4)], 20)
             timings[f"{key}_per_s_n4096_B{B4}"] = B4 / (ms / 1e3)
             timings[f"{key}_ms_windows_n4096_B{B4}"] = wins
-        del xs
-    # kernel vs plain at the step's shapes (one channel, n = 2^14, B = 1024)
-    plan = bb.plans()[0]
-    x = e0[0].contiguous()
-    xd = (e0[1] % params.qs[1]).contiguous()
-    legs = {
-        "ntt_fwd": (lambda: tk.ntt_cm(xd, plan, pre_digit_q=params.qs[1]),
-                    lambda: tk.ntt_cm_ref(xd, plan, pre_digit_q=params.qs[1])),
-        "ntt_inv": (lambda: tk.ntt_cm(x, plan, inverse=True),
-                    lambda: tk.ntt_cm_ref(x, plan, inverse=True)),
+    # the route-B path: route B against GS in turns (GS, B, B, GS), at
+    # n = 4096 over 2x30-bit primes (B = 16384) and at one channel of the
+    # step; the latter are the GS and route-B kernel times below
+    ab = {
+        "n4096_B16384": lambda alg: [tk.ntt_cm(v, pl, inverse=True, alg=alg)
+                                     for v, pl in zip(x4[16384], plans4)],
+        "n16384_B1024": lambda alg: tk.ntt_cm(x, plan, inverse=True, alg=alg),
     }
-    for name, (kern, plain) in legs.items():
-        timings[f"{name}_ms"], _ = time_ms(kern, 20)
-        timings[f"{name}_plain_ms"], _ = time_ms(plain, 3)
-    # BGV step ops/s
-    step_ms, wins = time_ms(lambda: step(c0, c1, d0, d1), 3)
-    timings["bgv_ops_per_s_n16384"] = B / (step_ms / 1e3)
-    timings["bgv_step_ms_windows_n16384"] = wins
+    reset_counts()
+    for shape, fn in ab.items():
+        runs = {"gs": [], "dit": []}
+        for alg in ("gs", "dit", "dit", "gs"):
+            runs[alg].append(time_ms(lambda: fn(alg), 20)[0])
+        for alg, ms in runs.items():
+            timings[f"intt_{alg}_ms_{shape}"] = ms
+    invb = counts()
+    for k in ("ntt_invb_block", "ntt_invb_cross"):
+        if invb[k] == 0:
+            raise AssertionError(f"the route-B path launched no {k} pass")
+    timings["intt_dit_per_s_n4096_B16384"] = 16384 / (
+        statistics.mean(timings["intt_dit_ms_n4096_B16384"]) / 1e3)
+    timings["ntt_inv_ms"] = statistics.mean(timings["intt_gs_ms_n16384_B1024"])
+    timings["ntt_invb_ms"] = statistics.mean(timings["intt_dit_ms_n16384_B1024"])
+    # kernel and plain at the step's shapes (one channel, n = 2^14,
+    # B = 1024), and route B's single block pass at n = 4096, B = 1024
+    x4b = x4[1024][0]
+    kern = {
+        "ntt_fwd": lambda: tk.ntt_cm(xd, plan, pre_digit_q=params.qs[1]),
+        "ntt_invb_n4096": lambda: tk.ntt_cm(x4b, plans4[0], inverse=True, alg="dit"),
+        "ct_mul": lambda: pw.ct_mul_cm(*ops, q0),
+    }
+    plain = {
+        "ntt_fwd": lambda: tk.ntt_cm_ref(xd, plan, pre_digit_q=params.qs[1]),
+        "ntt_inv": lambda: tk.ntt_cm_ref(x, plan, inverse=True),
+        "ntt_invb": lambda: tk.ntt_cm_ref(x, plan, inverse=True, alg="dit"),
+        "ntt_invb_n4096": lambda: tk.ntt_cm_ref(x4b, plans4[0], inverse=True, alg="dit"),
+        "ct_mul": lambda: pw.ct_mul_cm_ref(*ops, q0),
+    }
+    for name, fn in kern.items():
+        timings[f"{name}_ms"], _ = time_ms(fn, 20)
+    for name, fn in plain.items():
+        timings[f"{name}_plain_ms"], _ = time_ms(fn, 3)
+    del x4
+    # the u32 ceiling (the chain kernel's path; its input was checked in
+    # phase 2) and a copy's bandwidth
+    reset_counts()
+    ceiling = mx.u32_ceiling()
+    chain_launches = counts()["chain"]
+    if chain_launches == 0:
+        raise AssertionError("the u32 ceiling launched no u32_chain")
+    timings["u32_ceiling_T_mul_add_per_s"] = ceiling / 1e12
+    timings["chain_ms"] = mx.GRID * mx.ROWS * mx.LANES * mx.ITERS / ceiling * 1e3
+    timings["chain_plain_ms"] = chain_plain_ms
+    src_buf = torch.empty(2 ** 28, dtype=torch.int32, device=dev)  # 1 GiB
+    dst_buf = torch.empty_like(src_buf)
+    copy_ms, _ = time_ms(lambda: dst_buf.copy_(src_buf), 10)
+    copy_gbps = 2 * src_buf.numel() * 4 / copy_ms / 1e6
+    timings["copy_GB_per_s"] = copy_gbps
+    del src_buf, dst_buf
+    # the roofline rows from the times above; only the plain mul_mod and
+    # add_mod rows are timed here
+    roof_ms = {"ntt_fwd": timings["ntt_fwd_ms"], "ntt_inv_gs": timings["ntt_inv_ms"],
+               "ntt_inv_dit": timings["ntt_invb_ms"], "ct_mul": timings["ct_mul_ms"]}
+    roof_calls = roofline.calls(*ops, plan)
+    for op in ("mul_mod", "add_mod"):
+        roof_ms[op], _ = time_ms(roof_calls[op], 20)
+    rows = [roofline.row(op, n, B, roof_ms[op], ceiling / 1e9, copy_gbps)
+            for op in roofline.OPS]
+    roofline.show(rows, f"{torch.cuda.get_device_name(0)}, n={n}, batch={B}, q={q0} "
+                        "(ntt_fwd with the step's digit prologue)")
+    timings["roofline_n16384_B1024"] = rows
+    # the step's breakdown; its `step` leg is the n = 2^14 step's ops/s
+    st = steptime.breakdown(step, c0, c1, d0, d1)
+    timings["steptime_n16384"] = st
+    step_ms = st["ms_per_call"]["step"]
+    timings["bgv_ops_per_s_n16384"] = st["step_ops_per_sec"]
     ntt_ms = (step_calls["ntt_fwd"] * timings["ntt_fwd_ms"]
               + step_calls["ntt_inv"] * timings["ntt_inv_ms"])
     timings["bgv_step_ntt_share_n16384"] = ntt_ms / step_ms
-    del c0, c1, d0, d1, e0, e1, x, xd
+    timings["bgv_step_ct_mul_share_n16384"] = nrns * timings["ct_mul_ms"] / step_ms
+    del c0, c1, d0, d1, e0, e1, x, xd, x4b, ops
     m8 = 8192
     params8 = she.SHEParams(m=m8, p=p, qs=tuple(nt.ntt_primes(m8, 30, 3)), var=2.0)
     bb8 = BatchedBGV(params8, dev)
@@ -252,21 +383,45 @@ def main() -> int:
     timings["bgv_ops_per_s_n4096"] = B / (step8_ms / 1e3)
     timings["bgv_step_ms_windows_n4096"] = wins8
     for k, v in timings.items():
-        print(f"timing {k} = {v}", flush=True)
+        print(f"timing {k} = {json.dumps(v)}", flush=True)
     mark("phase 4: timings done")
 
-    src = "lol_tpu_torch/csrc/ntt.cu"
+    ntt_src = "lol_tpu_torch/csrc/ntt.cu"
     kernels = [
-        {"name": "ntt_fwd_pass", "route": "cuda", "source": src,
+        {"name": "ntt_fwd_pass", "route": "cuda", "source": ntt_src,
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:539",
          "also_replaces": "lol_tpu/ops/pallas/ntt_kernel.py:593",
          "launches": launches["ntt_fwd"], "max_abs_err": err["ntt_fwd"],
          "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"]},
-        {"name": "ntt_inv_pass", "route": "cuda", "source": src,
+        {"name": "ntt_inv_pass", "route": "cuda", "source": ntt_src,
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:593",
          "also_replaces": "lol_tpu/ops/pallas/ntt_kernel.py:539",
          "launches": launches["ntt_inv"], "max_abs_err": err["ntt_inv"],
          "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"]},
+        # one kernel in two geometries, as the reference's two bodies: the
+        # block pass times alone at n = 4096 (the single call), the cross
+        # pass inside the two-pass transform at n = 2^14
+        {"name": "ntt_invb_pass[block]", "route": "cuda", "source": ntt_src,
+         "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:421",
+         "path": "route-B inverse A/B (ntt_cm alg='dit')",
+         "launches": invb["ntt_invb_block"], "max_abs_err": err["ntt_invb"],
+         "shape": "n=4096, B=1024, one pass",
+         "ms": timings["ntt_invb_n4096_ms"], "plain_ms": timings["ntt_invb_n4096_plain_ms"]},
+        {"name": "ntt_invb_pass[cross]", "route": "cuda", "source": ntt_src,
+         "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:437",
+         "path": "route-B inverse A/B (ntt_cm alg='dit')",
+         "launches": invb["ntt_invb_cross"], "max_abs_err": err["ntt_invb"],
+         "shape": "n=16384, B=1024, block + cross passes",
+         "ms": timings["ntt_invb_ms"], "plain_ms": timings["ntt_invb_plain_ms"]},
+        {"name": "ct_mul", "route": "cuda", "source": "lol_tpu_torch/csrc/pointwise.cu",
+         "replaces": "lol_tpu/ops/pallas/pointwise.py:31",
+         "launches": launches["ct_mul"], "max_abs_err": err["ct_mul"],
+         "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"]},
+        {"name": "u32_chain", "route": "cuda", "source": "lol_tpu_torch/csrc/chain.cu",
+         "replaces": "lol_tpu/bench/mxu_ntt.py:169", "path": "u32_ceiling",
+         "launches": chain_launches, "max_abs_err": err["chain"],
+         "shape": f"({mx.GRID * mx.ROWS}, {mx.LANES}), iters={mx.ITERS}; plain: one call",
+         "ms": timings["chain_ms"], "plain_ms": timings["chain_plain_ms"]},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

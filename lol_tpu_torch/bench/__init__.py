@@ -1,0 +1,39 @@
+"""Measurement instruments of the port (counterpart of `lol_tpu/bench`).
+
+`roofline` (per-kernel throughput against measured ceilings), `steptime`
+(the BGV step's time by component) and `mxu_ntt.u32_ceiling` (the integer
+ceiling) time on a CUDA card with CUDA events and refuse to run without
+one: a CPU run gives no device number.  Their work counts and their legs
+are plain functions that the CPU tests reach.
+"""
+
+from __future__ import annotations
+
+import statistics
+
+import torch
+
+
+def require_cuda() -> torch.device:
+    """The card to measure on; raises when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("this measurement needs a CUDA device; none is available")
+    return torch.device("cuda")
+
+
+def time_ms(fn, iters: int, windows: int = 5) -> tuple[float, list[float]]:
+    """Median milliseconds per call of fn over `windows` CUDA-event windows
+    of `iters` calls each, after one warm-up call; and the windows."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    return statistics.median(per_call), per_call

@@ -1,0 +1,144 @@
+"""Per-kernel roofline table and profiler hook (counterpart of
+`lol_tpu/bench/roofline.py`).
+
+One row per op at (n, B) on the card: ms (CUDA-event median), achieved
+u32 Gop/s and GB/s, the op's ops/byte, and, when ceilings are given, the
+share of each.  The ops: the three NTT kernels (forward, GS inverse,
+route-B inverse), the fused `ct_mul`, and the plain torch `mul_mod` and
+`add_mod` the reference also times.
+
+The work counts are functions of (op, n, B) only, never of the port's
+pass schedule, and `work` is the one place that states them:
+
+- u32 ops: 9 per butterfly (k*n/2 butterflies per transform, k = log2 n)
+  and 9 per modmul, as the reference counts them; 2 per modadd; ct_mul
+  is 4 modmuls and 1 modadd per element.
+- bytes: the least the op must move.  A transform reads and writes the
+  int32 (n, B) array once, 8*n*B, whatever its number of passes; ct_mul
+  reads four arrays and writes three, 28*n*B; modmul and modadd 12*n*B.
+
+Ceilings are measured, not assumed: `chip_smoke.py` passes the chain
+kernel's u32 (mul+add)/s (`mxu_ntt.u32_ceiling`, one op per IMAD) and the
+bandwidth of a large device `copy_`, and builds the rows (`row`) from the
+times its own kernel-vs-plain legs took, so no op is timed twice there.
+
+Run on the card: python -m lol_tpu_torch.bench.roofline [--n 4096]
+[--batch 8192] [--peak-gops G] [--peak-gbps G]
+Profiler traces: `with trace("dir"): ...` writes dir/trace.json (Chrome
+trace format; open it in Perfetto or chrome://tracing).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+
+import torch
+
+from .. import numtheory as nt, zq
+from ..ops import ntt
+from ..ops.cuda import ntt_kernel as tk, pointwise as pw
+from . import require_cuda, time_ms
+
+OPS = ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit", "ct_mul", "mul_mod", "add_mod")
+
+
+def work(op: str, n: int, B: int) -> tuple[int, int]:
+    """(u32 ops, least bytes moved) of one call of `op` on (n, B) int32."""
+    k = n.bit_length() - 1
+    if op in ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit"):
+        return 9 * (k * n // 2) * B, 8 * n * B
+    if op == "ct_mul":
+        return (4 * 9 + 2) * n * B, 28 * n * B
+    if op == "mul_mod":
+        return 9 * n * B, 12 * n * B
+    if op == "add_mod":
+        return 2 * n * B, 12 * n * B
+    raise ValueError(f"roofline: unknown op {op!r}")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler trace (host and device timelines) around a block,
+    written to log_dir/trace.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield prof
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def calls(c0, c1, d0, d1, plan: ntt.NTTPlan) -> dict:
+    """The zero-argument call of each op of OPS on (n, B) residues mod
+    plan.q."""
+    q = plan.q
+    return {
+        "ntt_fwd": lambda: tk.ntt_cm(c0, plan),
+        "ntt_inv_gs": lambda: tk.ntt_cm(c0, plan, inverse=True),
+        "ntt_inv_dit": lambda: tk.ntt_cm(c0, plan, inverse=True, alg="dit"),
+        "ct_mul": lambda: pw.ct_mul_cm(c0, c1, d0, d1, q),
+        "mul_mod": lambda: zq.mul_mod(c0, c1, q),
+        "add_mod": lambda: zq.add_mod(c0, c1, q),
+    }
+
+
+def row(op: str, n: int, B: int, ms: float, peak_gops: float | None = None,
+        peak_gbps: float | None = None) -> dict:
+    """One table row from a measured ms per call of `op` on (n, B): op,
+    ms, gops, gbps, ops_per_byte, and pct_ops / pct_bw when the ceilings
+    are given."""
+    ops, nbytes = work(op, n, B)
+    r = {"op": op, "ms": ms, "gops": ops / ms / 1e6, "gbps": nbytes / ms / 1e6,
+         "ops_per_byte": ops / nbytes}
+    if peak_gops:
+        r["pct_ops"] = 100 * r["gops"] / peak_gops
+    if peak_gbps:
+        r["pct_bw"] = 100 * r["gbps"] / peak_gbps
+    return r
+
+
+def show(rows: list[dict], title: str) -> None:
+    """Print the rows as a table under `# roofline @ title`."""
+    has_ops, has_bw = "pct_ops" in rows[0], "pct_bw" in rows[0]
+    print(f"# roofline @ {title}")
+    hdr = f"{'op':12} {'ms':>8} {'u32 Gop/s':>10} {'GB/s':>8} {'ops/byte':>9}"
+    hdr += f" {'%ceil-ops':>10}" if has_ops else ""
+    hdr += f" {'%ceil-bw':>9}" if has_bw else ""
+    print(hdr)
+    for r in rows:
+        line = (f"{r['op']:12} {r['ms']:8.3f} {r['gops']:10.1f} {r['gbps']:8.1f} "
+                f"{r['ops_per_byte']:9.2f}")
+        line += f" {r['pct_ops']:9.1f}%" if has_ops else ""
+        line += f" {r['pct_bw']:8.1f}%" if has_bw else ""
+        print(line)
+
+
+def run(n: int = 4096, batch: int = 8192, peak_gops: float | None = None,
+        peak_gbps: float | None = None) -> list[dict]:
+    """Time every op of OPS on the card and print the table; returns the
+    rows (see `row`)."""
+    dev = require_cuda()
+    q = nt.ntt_primes(2 * n, 30, 1)[0]
+    g = torch.Generator(device=dev).manual_seed(0)
+    ops = calls(*(torch.randint(0, q, (n, batch), generator=g, device=dev,
+                                dtype=torch.int32) for _ in range(4)), ntt.ntt_plan(n, q))
+    rows = [row(op, n, batch, time_ms(ops[op], 20)[0], peak_gops, peak_gbps)
+            for op in OPS]
+    show(rows, f"{torch.cuda.get_device_name(0)}, n={n}, batch={batch}, q={q}")
+    return rows
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=4096)
+    ap.add_argument("--batch", type=int, default=8192)
+    ap.add_argument("--peak-gops", type=float, default=None)
+    ap.add_argument("--peak-gbps", type=float, default=None)
+    args = ap.parse_args()
+    run(args.n, args.batch, args.peak_gops, args.peak_gbps)
+
+
+if __name__ == "__main__":
+    main()

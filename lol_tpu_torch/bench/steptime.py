@@ -1,0 +1,119 @@
+"""Where the BGV step's time goes (counterpart of `lol_tpu/bench/steptime.py`).
+
+Times the step's components on the same inputs (m = 32768, so n = 2^14,
+nrns = 3, B = 1024 by default), with the reference's legs:
+
+  intt      the key switch's per-channel inverse stack (nrns GS inverses)
+  digits    the RNS-digit forward transforms with the re-expansion
+            prologue (nrns digits x (nrns - 1) forward NTTs)
+  hadamard  ct_mul (nrns `ct_mul_cm` launches) and the 2*nrns^2 hint
+            inner-product multiply-accumulates (plain int64 torch)
+  rescale   the exact CRT-domain drop-last rescale of both components
+  step      the whole step
+
+The legs run interleaved round-robin, one CUDA-event window each per
+round, so drift on the card hits every leg alike.  PyTorch runs eagerly,
+so the parts should add up to the step: `overlap_dividend_pct` (1 -
+step / sum of parts) near 0 says the breakdown accounts for the step.
+
+Run on the card: python -m lol_tpu_torch.bench.steptime [--m 32768]
+[--rns 3] [--batch 1024].  Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+
+import torch
+
+from .. import numtheory as nt, sampling, she
+from ..she_batched import BatchedBGV, BGVStep
+from . import require_cuda, time_ms
+
+PARTS = ("intt", "digits", "hadamard", "rescale")
+
+
+def build_legs(step: BGVStep, c0, c1, d0, d1) -> dict:
+    """The zero-argument callables of each leg, on the inputs' device,
+    with every leg's inputs made up front."""
+    bb, nrns = step.bb, len(step.bb.qs)
+    c1c = bb._ntt(c1, inverse=True)
+    ds = [bb._digit_crt(c1c[i], i, c1) for i in range(nrns)]
+
+    def hadamard():
+        e0, e1, _ = step.ct_mul(c0, c1, d0, d1)
+        for i, di in enumerate(ds):
+            e0, e1 = step.inner_product(e0, e1, di, i)
+        return e0, e1
+
+    he0, he1 = (e.to(torch.int32) for e in hadamard())
+    return {
+        "intt": lambda: bb._ntt(c1, inverse=True),
+        "digits": lambda: [bb._digit_crt(c1c[i], i, c1) for i in range(nrns)],
+        "hadamard": hadamard,
+        "rescale": lambda: (bb._rescale_crt(he0, step.qv),
+                            bb._rescale_crt(he1, step.qv)),
+        "step": lambda: step(c0, c1, d0, d1),
+    }
+
+
+def measure(legs: dict, iters: int, windows: int) -> dict[str, list[float]]:
+    """ms per call of each leg in each of `windows` round-robin rounds."""
+    times = {k: [] for k in legs}
+    for _ in range(windows):
+        for name, fn in legs.items():
+            times[name].append(time_ms(fn, iters, windows=1)[0])
+    return times
+
+
+def summarize(times: dict[str, list[float]], n: int, nrns: int, B: int,
+              device: str) -> dict:
+    """The JSON line: medians, windows, each part's share and the step."""
+    med = {k: statistics.median(v) for k, v in times.items()}
+    parts = sum(med[k] for k in PARTS)
+    return {
+        "metric": f"BGV step by component, n={n}, {nrns}x30-bit, B={B}",
+        "device": device,
+        "ms_per_call": med,
+        "ms_windows": times,
+        "pct_of_parts": {k: 100 * med[k] / parts for k in PARTS},
+        "parts_sum_ms": parts,
+        "overlap_dividend_pct": 100 * (1 - med["step"] / parts),
+        "step_ops_per_sec": B / (med["step"] / 1e3),
+    }
+
+
+def breakdown(step: BGVStep, c0, c1, d0, d1, iters: int = 5, windows: int = 5) -> dict:
+    """The JSON line of `step` on these (nrns, n, B) inputs on the card."""
+    require_cuda()
+    nrns, n, B = c0.shape
+    times = measure(build_legs(step, c0, c1, d0, d1), iters, windows)
+    return summarize(times, n, nrns, B, torch.cuda.get_device_name(c0.device))
+
+
+def run(m: int = 32768, nrns: int = 3, B: int = 1024, iters: int = 5,
+        windows: int = 5, seed: int = 0) -> dict:
+    dev = require_cuda()
+    params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bb = BatchedBGV(params, dev)
+    step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, g), g))
+    cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), g) for _ in range(4)]
+    return breakdown(step, *cts, iters=iters, windows=windows)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--m", type=int, default=32768)
+    ap.add_argument("--rns", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--windows", type=int, default=5)
+    args = ap.parse_args()
+    print(json.dumps(run(args.m, args.rns, args.batch, args.iters, args.windows)))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
-Every `lol_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a` into
-one shared library with a plain C interface, under
+Every `lol_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` for
+`sm_90a`, all started together, and the objects are linked into one
+shared library with a plain C interface, under
 `lol_tpu_torch/_build/<hash of the sources>/`, so an edit to any source
 builds anew and an unchanged tree reuses the library.  Nothing here runs
 at import time: the CPU test suite imports every module without nvcc.
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _sources() -> list[Path]:
@@ -50,26 +51,32 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
-    path.  The compiler's log (with `-Xptxas -v`'s register and shared
-    memory report) is kept beside the library as build.log."""
+    path.  The compilers' log (with `-Xptxas -v`'s register and shared
+    memory report per kernel) is kept beside the library as build.log."""
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (lib.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent process never sees a partial file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        cu = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [f"{tmp}/{src.stem}.o" for src in cu]
+        jobs = []
+        for src, obj in zip(cu, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        steps = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in jobs]
+        if all(rc == 0 for _, _, rc in steps):
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}/lib.so", *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            steps.append((cmd, proc.stdout + proc.stderr, proc.returncode))
+        log = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in steps)
+        (lib.parent / "build.log").write_text(log)
+        if any(rc != 0 for _, _, rc in steps):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        # atomic: a concurrent process never sees a partial file
+        os.replace(f"{tmp}/lib.so", lib)
     return lib
 
 

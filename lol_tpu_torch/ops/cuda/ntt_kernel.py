@@ -2,20 +2,25 @@
 
 Counterpart of `lol_tpu/ops/pallas/ntt_kernel.py`.  `ntt_cm` keeps the
 contract of the Pallas `ntt_cm` (`ntt_kernel.py:899-971` there): the
-input's n must match the plan, and `pre_digit_q` is a forward-only
-prologue.  The TPU-only knobs (lanes, window, radix, full_tables,
-scale=False, alg, interpret) have no counterpart here.
+input's n must match the plan, `pre_digit_q` is a forward-only prologue,
+and `alg` picks the inverse's route, "gs" (Gentleman-Sande, the default
+and the BGV step's) or "dit" (route B: DIT-bitrev-input DFTs with a
+twist and a per-row n^-1 psi^-j scale, `ops/ntt.py`), with the
+reference's checks.  The TPU-only knobs (lanes, window, radix,
+full_tables, scale=False, interpret) have no counterpart here.
 
 For a CUDA tensor `ntt_cm` launches the hand-written Hopper kernels of
 `csrc/ntt.cu` (`ntt_fwd_pass`, replacing `_kernel_cross` + `_kernel_block`
-forward; `ntt_inv_pass`, replacing them inverse) and raises on any build
-or launch error.  For a CPU tensor, and only then, it runs the plain
-int64 torch version `ntt_cm_ref`.
+forward; `ntt_inv_pass`, replacing them inverse; `ntt_invb_pass`,
+replacing `_kernel_block_invb` + `_kernel_cross_invb`) and raises on any
+build or launch error.  For a CPU tensor, and only then, it runs the
+plain int64 torch version `ntt_cm_ref`.
 
 Bound on the H100: every pass reads and writes the (n, B) array once,
 8*n*B bytes; `_schedule` keeps all stages of a pass in shared memory so
 there is one such pass for n <= 4096 and two above (see the note at the
-top of `csrc/ntt.cu`).
+top of `csrc/ntt.cu`).  Route B runs the same passes in the GS inverse's
+order: block DFT + twist, then cross DFT + scale.
 """
 
 from __future__ import annotations
@@ -26,13 +31,16 @@ from dataclasses import dataclass
 import torch
 
 from ... import zq
-from ..ntt import NTTPlan, ntt_forward_cm, ntt_inverse_cm
+from ..ntt import NTTPlan, ntt_forward_cm, ntt_inverse_cm, ntt_inverse_dit_cm
 from . import build
 
-# Launch counts of the two kernels, one per kernel launch (a transform at
-# n > SINGLE_PASS_MAX_N is two launches).  Reset by callers that check
-# which kernels a path ran.
-LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0}
+# Launch counts of the kernels, one per kernel launch (a transform at
+# n > SINGLE_PASS_MAX_N is two launches); route B counts its block passes
+# (`_kernel_block_invb`'s counterpart) and its cross passes
+# (`_kernel_cross_invb`'s) apart.  Reset by callers that check which
+# kernels a path ran.
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_invb_block": 0, "ntt_invb_cross": 0}
+ALGS = ("gs", "dit")
 
 SINGLE_PASS_MAX_N = 4096  # whole (n, 8) column tile in 128 KiB of shared memory
 SINGLE_TILE_ELEMS = 32768  # 128 KiB
@@ -91,12 +99,25 @@ _ARGTYPES = (
 )
 
 
+_INVB_ARGTYPES = (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_uint32, ctypes.c_void_p]
+)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load()
     if lib.lol_ntt_pass.argtypes is None:
         lib.lol_ntt_pass.argtypes = _ARGTYPES
         lib.lol_ntt_pass.restype = ctypes.c_int
+        lib.lol_ntt_invb_pass.argtypes = _INVB_ARGTYPES
+        lib.lol_ntt_invb_pass.restype = ctypes.c_int
     return lib
+
+
+def _dit_block_rows(n: int) -> int:
+    """tS of the route-B split: the rows of the block pass, so the plain
+    version and the kernels factor n the same way."""
+    return _schedule(n)[-1].L
 
 
 def redigit(x: torch.Tensor, q_src: int, q: int) -> torch.Tensor:
@@ -113,13 +134,23 @@ def redigit(x: torch.Tensor, q_src: int, q: int) -> torch.Tensor:
 
 
 def ntt_cm_ref(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
-               pre_digit_q: int | None = None) -> torch.Tensor:
+               pre_digit_q: int | None = None, alg: str = "gs") -> torch.Tensor:
     """Plain torch version of `ntt_cm` (int64 stages), int32 out."""
+    _check_alg(inverse, alg)
+    if inverse and alg == "dit":
+        return ntt_inverse_dit_cm(x, plan, _dit_block_rows(plan.n)).to(torch.int32)
     if inverse:
         return ntt_inverse_cm(x, plan).to(torch.int32)
     if pre_digit_q is not None:
         x = redigit(x, pre_digit_q, plan.q)
     return ntt_forward_cm(x, plan).to(torch.int32)
+
+
+def _check_alg(inverse, alg):
+    if alg not in ALGS:
+        raise ValueError(f"ntt_cm: unknown alg {alg!r}")
+    if alg == "dit" and not inverse:
+        raise ValueError("ntt_cm: alg='dit' is an inverse-only route")
 
 
 def _check_args(x, plan, inverse, pre_digit_q):
@@ -138,25 +169,57 @@ def _check_args(x, plan, inverse, pre_digit_q):
 
 
 def ntt_cm(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
-           pre_digit_q: int | None = None) -> torch.Tensor:
+           pre_digit_q: int | None = None, alg: str = "gs") -> torch.Tensor:
     """Negacyclic NTT over axis 0 of a coefficient-major (n, B) int32
     tensor of residues in [0, q).
 
     Forward: natural order in, bit-reversed-exponent order out.  Inverse:
     the reverse, 1/n applied once.  pre_digit_q: the input holds residues
     mod pre_digit_q, re-expanded (centered) into Z_q before the forward
-    transform (`redigit`)."""
+    transform (`redigit`).  alg: the inverse's route, "gs" or "dit"
+    (inverse only); both give the same result."""
     _check_args(x, plan, inverse, pre_digit_q)
+    _check_alg(inverse, alg)
     if x.device.type == "cpu":
-        return ntt_cm_ref(x, plan, inverse, pre_digit_q)
+        return ntt_cm_ref(x, plan, inverse, pre_digit_q, alg)
     if x.device.type != "cuda":
         raise ValueError(f"ntt_cm: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("ntt_cm: the CUDA kernel needs a contiguous (n, B) tensor")
+    if inverse and alg == "dit":
+        return _ntt_invb_cuda(x, plan)
     return _ntt_cuda(x, plan, inverse, pre_digit_q)
 
 
+def _ntt_invb_cuda(x, plan):
+    """Route B: the block pass (DFT_tS, then the twist; at n <= 4096 the
+    only pass, then the scale), then the cross pass (DFT_P, the scale and
+    the fold), each reading its stage table and per-row multiplier."""
+    lib = _lib()
+    n, B = x.shape
+    passes = _schedule(n)[::-1]
+    tab = plan.dit_tables(_dit_block_rows(n), x.device)
+    stage = ("blk", "cross")
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    src = x
+    with torch.cuda.device(x.device):
+        for i, p in enumerate(passes):
+            last = i == len(passes) - 1
+            post = "scale" if last else "twist"
+            err = lib.lol_ntt_invb_pass(
+                src.data_ptr(), y.data_ptr(), tab[stage[i]].data_ptr(),
+                tab[stage[i] + "_sh"].data_ptr(), tab[post].data_ptr(),
+                tab[post + "_sh"].data_ptr(), B, p.L, p.nseq, p.elem_stride,
+                p.seq_stride, p.G, p.TB, p.threads, int(last), plan.q, stream,
+            )
+            build.check(err, f"ntt_invb pass {i} (n={n}, B={B})")
+            LAUNCHES["ntt_invb_cross" if stage[i] == "cross" else "ntt_invb_block"] += 1
+            src = y  # in place, as in _ntt_cuda
+    return y
+
+
 def _ntt_cuda(x, plan, inverse, pre_q):
-    if not x.is_contiguous():
-        raise ValueError("ntt_cm: the CUDA kernel needs a contiguous (n, B) tensor")
     lib = _lib()
     n, B = x.shape
     q = plan.q

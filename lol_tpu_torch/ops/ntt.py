@@ -12,10 +12,23 @@ whose hints and ciphertexts are stored in that order.
 
 `NTTPlan` keeps its tables as host numpy (u32, identical to the JAX
 package's plan table for table) and hands out device copies through
-`tables(device)`.  `ntt_forward_cm`/`ntt_inverse_cm` are the plain int64
-torch networks along axis 0 of a coefficient-major (n, B) tensor;
+`tables(device)` and, for the route-B inverse, `dit_tables(tS, device)`.
+`ntt_forward_cm`/`ntt_inverse_cm` are the plain int64 torch networks
+along axis 0 of a coefficient-major (n, B) tensor, and
+`ntt_inverse_dit_cm` is the plain route-B inverse;
 `np_ntt_forward`/`np_ntt_inverse` are the numpy mirrors used for host
 keygen and plaintext products.
+
+Route B (`lol_tpu/ops/pallas/ntt_kernel.py`, the note above `_wb_f`)
+evaluates the same inverse four-step over n = P*tS: storage row
+i = b*tS + r holds z_k with k = rev_tS(r)*P + rev_P(b), and
+
+    block:  per block b, DIT-bitrev-input DFT_tS at root omega^-P
+    twist:  row rho of block b  *= omega^-(rho * rev_P(b))
+    cross:  per rho, DIT-bitrev-input DFT_P at root omega^-tS along b
+    scale:  output row j  *= n^-1 psi^-j
+
+(omega = psi^2).  With P = 1 (S = 0) it is the block DFT and the scale.
 """
 
 from __future__ import annotations
@@ -74,6 +87,28 @@ class NTTPlan:
             )
         return self._dev[device]
 
+    def dit_tables(self, tS: int, device) -> dict[str, torch.Tensor | None]:
+        """The route-B tables for block length tS as int32 tensors on
+        `device`, each beside its Shoup companions ("<name>_sh", u32 bits):
+        "blk" and "cross" are the packed per-row stage tables of the block
+        and cross DFTs, "twist" and "scale" the (n,) per-row multipliers
+        (row b*tS + rho of `invb_tables`' (P, tS) tables).  "cross" and
+        "twist" are None when tS == n."""
+        device = torch.device(device)
+        key = ("dit", tS, device)
+        if key not in self._dev:
+            _, S, _ = split(self.n, tS)
+            out = {}
+            for name, t in zip(("blk", "cross", "twist", "scale"),
+                               invb_tables(self, S, tS)):
+                if t is None:
+                    out[name] = out[name + "_sh"] = None
+                    continue
+                for k, a in ((name, t), (name + "_sh", zq.shoup_np(t, self.q))):
+                    out[k] = torch.from_numpy(a.reshape(-1).view(np.int32).copy()).to(device)
+            self._dev[key] = out
+        return self._dev[key]
+
 
 @lru_cache(maxsize=256)
 def ntt_plan(n: int, q: int) -> NTTPlan:
@@ -107,6 +142,61 @@ def ntt_plan(n: int, q: int) -> NTTPlan:
 def crt_output_exponents(n: int) -> np.ndarray:
     """exponent e(i) with forward(a)[i] = a(psi^e(i)): e = 2*brv(i)+1."""
     return 2 * _bit_reverse_perm(n) + 1
+
+
+# ---------------------------------------------------------------------------
+# route-B inverse tables (host numpy, equal to the JAX package's
+# `_split`, `_pow_seq`, `_stage_table_bitrev` and `_invb_tables`)
+# ---------------------------------------------------------------------------
+
+
+def split(n: int, window: int) -> tuple[int, int, int]:
+    """-> (k, S, tS): k = log2 n, tS = min(n, window) block rows, and
+    S = log2(n / tS) cross stages."""
+    k = n.bit_length() - 1
+    tS = min(n, window)
+    return k, k - (tS.bit_length() - 1), tS
+
+
+def pow_seq(base: int, count: int, q: int, start: int = 1) -> np.ndarray:
+    """[start, start*base, start*base^2, ...] mod q as u32."""
+    out = np.empty(count, dtype=np.uint32)
+    v = start % q
+    for i in range(count):
+        out[i] = v
+        v = v * base % q
+    return out
+
+
+def stage_table_bitrev(root_inv: int, nloc: int, q: int) -> np.ndarray:
+    """Per-row twiddles of a DIT-bitrev-input DFT of length nloc, packed
+    (kloc*nloc,): row r of stage j (half-size h = 2^j) holds
+    (root_inv^(nloc/2h))^(r mod h), so the v-row of each butterfly reads
+    its own entry.  Stage 0 is all ones."""
+    kloc = nloc.bit_length() - 1
+    T = np.empty((max(kloc, 1), nloc), dtype=np.uint32)
+    T[0] = 1
+    for j in range(kloc):
+        h = 1 << j
+        T[j] = np.tile(pow_seq(pow(root_inv, nloc // (2 * h), q), h, q), nloc // h)
+    return np.ascontiguousarray(T.reshape(-1))
+
+
+def invb_tables(plan: NTTPlan, S: int, tS: int):
+    """(block stage table, cross stage table | None, twist (P, tS) | None,
+    output scale (P, tS)) for n = P*tS, P = 2^S."""
+    n, q = plan.n, plan.q
+    P = n // tS
+    ipsi = pow(int(plan.psi), -1, q)
+    iomega = ipsi * ipsi % q
+    t_blk = stage_table_bitrev(pow(iomega, P, q), tS, q)
+    t_cross = stage_table_bitrev(pow(iomega, tS, q), P, q) if P > 1 else None
+    twist = None
+    if P > 1:
+        twist = np.stack([pow_seq(pow(iomega, int(k1), q), tS, q)
+                          for k1 in _bit_reverse_perm(P)])
+    scale = pow_seq(ipsi, n, q, start=plan.n_inv).reshape(P, tS)
+    return t_blk, t_cross, twist, scale
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +237,39 @@ def ntt_inverse_cm(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
         u, v = xs[:, 0], xs[:, 1]
         x = torch.stack([(u + v) % q, (u - v) * w % q], dim=1).reshape(n, *rest)
     return x * plan.n_inv % q
+
+
+def _dit_bitrev_net(x: torch.Tensor, table: torch.Tensor, q: int) -> torch.Tensor:
+    """DIT network with bit-reversed input along axis 0 of an (nloc, M)
+    int64 tensor (natural order out); `table` is the packed per-row stage
+    table, sliced exactly like the data."""
+    nloc, M = x.shape
+    for s in range(nloc.bit_length() - 1):
+        h = 1 << s
+        nb = nloc >> (s + 1)
+        w = table[s * nloc:(s + 1) * nloc].view(nb, 2, h)[:, 1, :, None]
+        xs = x.view(nb, 2, h, M)
+        u, v = xs[:, 0], xs[:, 1] * w % q
+        x = torch.stack([(u + v) % q, (u - v) % q], dim=1).view(nloc, M)
+    return x
+
+
+def ntt_inverse_dit_cm(x: torch.Tensor, plan: NTTPlan, tS: int) -> torch.Tensor:
+    """Route-B inverse negacyclic NTT along axis 0 of (n, B), int64: the
+    same map as `ntt_inverse_cm`, computed as block DFT, twist, cross DFT
+    and scale over n = P*tS (see the module docstring)."""
+    n, q = plan.n, plan.q
+    B = x.shape[1]
+    P = n // tS
+    tab = plan.dit_tables(tS, x.device)
+    x = x.long() % q
+    y = x.view(P, tS, B).transpose(0, 1).reshape(tS, P * B)
+    y = _dit_bitrev_net(y, tab["blk"].long(), q).view(tS, P, B).transpose(0, 1)
+    if P > 1:
+        y = y * tab["twist"].long().view(P, tS, 1) % q
+        y = _dit_bitrev_net(y.reshape(P, tS * B), tab["cross"].long(), q)
+        y = y.view(P, tS, B)
+    return (y * tab["scale"].long().view(P, tS, 1) % q).reshape(n, B)
 
 
 # ---------------------------------------------------------------------------

@@ -6,12 +6,15 @@ the NTT kernels' native layout), and one `build_step` module performs
 
     ct_mul (CRT Hadamards) -> RNS-gadget key switch -> exact BGV rescale
 
-on the device.  Every NTT goes through `ops.cuda.ntt_kernel.ntt_cm`, so on
-a CUDA device the step runs the Hopper NTT kernels (with the digit
-re-expansion fused into the forward kernel as its prologue), and on the
-CPU their plain torch versions.  The Hadamards and hint inner products
-are plain torch elementwise ops, as the JAX package leaves them to XLA
-(`she_batched.py:828-837` there).  The results are bit-identical to
+on the device.  Every NTT goes through `ops.cuda.ntt_kernel.ntt_cm` and
+the ct-mult Hadamards through `ops.cuda.pointwise.ct_mul_cm`, one launch
+per channel, so on a CUDA device the step runs the Hopper kernels (with
+the digit re-expansion fused into the forward NTT kernel as its
+prologue), and on the CPU their plain torch versions.  The JAX step
+leaves the Hadamards to XLA, which overlaps them with its NTT calls
+(`she_batched.py:828-837` there); eager PyTorch overlaps nothing, so the
+port fuses them.  The hint inner products and the rescale arithmetic are
+plain torch elementwise ops.  The results are bit-identical to
 `lol_tpu.she_batched.BatchedBGV(params, use_pallas=False)`.
 
 MSD encoding and general m are not ported yet: asking for them raises
@@ -29,6 +32,7 @@ from . import numtheory as nt
 from . import sampling, zq
 from .ops import ntt as ntt_mod
 from .ops.cuda.ntt_kernel import ntt_cm
+from .ops.cuda.pointwise import ct_mul_cm
 from .she import KSHint, SHEParams, SK
 
 
@@ -253,19 +257,30 @@ class BGVStep(nn.Module):
         self.register_buffer("h1", hint.h1.to(bb.device, torch.int64)[..., None])
 
     @torch.no_grad()
+    def ct_mul(self, c0, c1, d0, d1):
+        """(c0 + c1 s)(d0 + d1 s) as CRT Hadamards: (e0, e1, e2), each an
+        (nrns, n, B) int32 stack, one `ct_mul_cm` per channel."""
+        c0, c1, d0, d1 = (t.contiguous() for t in (c0, c1, d0, d1))
+        es = tuple(torch.empty_like(c0) for _ in range(3))
+        for i, q in enumerate(self.bb.qs):
+            ct_mul_cm(c0[i], c1[i], d0[i], d1[i], q, out=tuple(e[i] for e in es))
+        return es
+
+    @torch.no_grad()
+    def inner_product(self, e0, e1, di, i):
+        """(e0 + di h0[i], e1 + di h1[i]) mod q for digit i's CRT stack
+        di: the key switch's hint inner products, int64 out."""
+        di = di.long()
+        return (e0 + di * self.h0[i]) % self.qv, (e1 + di * self.h1[i]) % self.qv
+
+    @torch.no_grad()
     def forward(self, c0, c1, d0, d1):
-        bb, qv = self.bb, self.qv
-        # ct_mul: (c0 + c1 s)(d0 + d1 s) as CRT Hadamards
-        c0, c1, d0, d1 = (t.long() for t in (c0, c1, d0, d1))
-        e0 = c0 * d0 % qv
-        e1 = (c0 * d1 + c1 * d0) % qv
-        e2 = (c1 * d1 % qv).to(torch.int32)
+        bb = self.bb
+        e0, e1, e2 = self.ct_mul(c0, c1, d0, d1)
         # key switch e2: coefficient-domain digits, each re-expanded inside
         # its channel's forward NTT, then the hint inner products
         e2c = bb._ntt(e2, inverse=True)
         for i in range(len(bb.qs)):
-            di = bb._digit_crt(e2c[i], i, e2).long()
-            e0 = (e0 + di * self.h0[i]) % qv
-            e1 = (e1 + di * self.h1[i]) % qv
-        return (bb._rescale_crt(e0.to(torch.int32), qv),
-                bb._rescale_crt(e1.to(torch.int32), qv))
+            e0, e1 = self.inner_product(e0, e1, bb._digit_crt(e2c[i], i, e2), i)
+        return (bb._rescale_crt(e0.to(torch.int32), self.qv),
+                bb._rescale_crt(e1.to(torch.int32), self.qv))

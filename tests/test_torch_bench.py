@@ -1,0 +1,119 @@
+"""The port's measurement instruments (`lol_tpu_torch/bench`), where the CPU
+can reach them.
+
+The chain kernel's plain version must equal the JAX `_chain_kernel` run
+through `pl.pallas_call` in interpret mode; the roofline's work counts are
+pinned at two (n, B); the steptime legs run on the CPU at m = 64 and the
+`step` leg gives the step's own output.  Timing needs a card: every
+measurement entry point refuses to run without one.
+"""
+
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from lol_tpu.bench import mxu_ntt as jmx
+from lol_tpu_torch import numtheory as nt, sampling, she
+from lol_tpu_torch.bench import mxu_ntt as mx, roofline, steptime
+from lol_tpu_torch.she_batched import BatchedBGV
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 7])
+def test_chain_ref_matches_pallas_interpret(iters, rng):
+    x = rng.integers(0, 1 << 32, (16, 128), dtype=np.uint64).astype(np.uint32)
+    x[0, :4] = [0, 1, 0xFFFFFFFF, 0x80000000]
+    kern = partial(jmx._chain_kernel, iters=iters)
+    want = pl.pallas_call(
+        kern, out_shape=jax.ShapeDtypeStruct(x.shape, jnp.uint32), interpret=True,
+    )(jnp.asarray(x))
+    got = mx.chain(torch.from_numpy(x.view(np.int32)), iters)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+    assert torch.equal(got, mx.chain_ref(torch.from_numpy(x.view(np.int32)), iters))
+
+
+def test_chain_rejects_bad_arguments():
+    with pytest.raises(ValueError, match="int32"):
+        mx.chain(torch.zeros(4, dtype=torch.int64), 3)
+    with pytest.raises(ValueError, match="iters"):
+        mx.chain(torch.zeros(4, dtype=torch.int32), -1)
+
+
+@pytest.mark.parametrize("n,B", [(4096, 1024), (16384, 1000)])
+def test_roofline_work_counts(n, B):
+    k = n.bit_length() - 1
+    butterflies = k * n // 2 * B
+    for op in ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit"):
+        assert roofline.work(op, n, B) == (9 * butterflies, 8 * n * B)
+    assert roofline.work("ct_mul", n, B) == (38 * n * B, 28 * n * B)
+    assert roofline.work("mul_mod", n, B) == (9 * n * B, 12 * n * B)
+    assert roofline.work("add_mod", n, B) == (2 * n * B, 12 * n * B)
+    assert set(roofline.OPS) == {"ntt_fwd", "ntt_inv_gs", "ntt_inv_dit", "ct_mul",
+                                 "mul_mod", "add_mod"}
+    with pytest.raises(ValueError):
+        roofline.work("ntt_radix4", n, B)
+    # one channel of the BGV step moves 448 MiB through ct_mul
+    assert roofline.work("ct_mul", 16384, 1024)[1] == 448 * 2 ** 20
+
+
+def test_roofline_row_from_a_measured_time():
+    n, B, ms = 16384, 1024, 0.25
+    ops, nbytes = roofline.work("ct_mul", n, B)
+    r = roofline.row("ct_mul", n, B, ms, peak_gops=1000.0, peak_gbps=3000.0)
+    assert r["gops"] == pytest.approx(ops / (ms * 1e6))
+    assert r["gbps"] == pytest.approx(nbytes / (ms * 1e6))
+    assert r["ops_per_byte"] == pytest.approx(ops / nbytes)
+    assert r["pct_ops"] == pytest.approx(100 * r["gops"] / 1000.0)
+    assert r["pct_bw"] == pytest.approx(100 * r["gbps"] / 3000.0)
+    assert "pct_ops" not in roofline.row("ntt_fwd", n, B, ms)
+
+
+def test_measurements_refuse_to_run_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (lambda: roofline.run(n=64, batch=8), lambda: mx.u32_ceiling(1, 8, 8, 1),
+               lambda: mx.ceiling_input(8, 8, 1), lambda: steptime.run(m=64, B=2)):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            fn()
+
+
+def test_steptime_legs_on_cpu_and_step_leg_equals_the_step():
+    m, B = 64, 5
+    params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
+    g = torch.Generator().manual_seed(7)
+    bb = BatchedBGV(params, "cpu")
+    step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, g), g))
+    cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), g) for _ in range(4)]
+    legs = steptime.build_legs(step, *cts)
+    assert list(legs) == [*steptime.PARTS, "step"]
+    out = {name: fn() for name, fn in legs.items()}
+    for got, want in zip(out["step"], step(*cts)):
+        assert torch.equal(got, want)
+    assert out["intt"].shape == (3, m // 2, B)
+    assert len(out["digits"]) == 3 and out["digits"][0].shape == (3, m // 2, B)
+    assert all(e.shape == (2, m // 2, B) for e in out["rescale"])
+    qv = step.qv
+    c0, c1, d0, d1 = (t.long() for t in cts)
+    e0, e1 = c0 * d0 % qv, (c0 * d1 + c1 * d0) % qv
+    for i, di in enumerate(out["digits"]):
+        e0 = (e0 + di.long() * step.h0[i]) % qv
+        e1 = (e1 + di.long() * step.h1[i]) % qv
+    assert torch.equal(out["hadamard"][0], e0) and torch.equal(out["hadamard"][1], e1)
+
+
+def test_steptime_summary():
+    times = {"intt": [1.0, 1.2, 1.1], "digits": [4.0, 4.0, 4.0],
+             "hadamard": [3.0, 3.0, 3.0], "rescale": [2.0, 2.0, 2.0],
+             "step": [10.1, 10.1, 10.1]}
+    out = steptime.summarize(times, 16384, 3, 1024, "a card")
+    assert out["device"] == "a card"
+    assert out["parts_sum_ms"] == pytest.approx(10.1)
+    assert out["pct_of_parts"]["digits"] == pytest.approx(100 * 4.0 / 10.1)
+    assert out["overlap_dividend_pct"] == pytest.approx(0.0, abs=1e-9)
+    assert out["step_ops_per_sec"] == pytest.approx(1024 / 10.1e-3)
