@@ -7,7 +7,7 @@ CUDA card and nvcc:
     python3 chip_smoke.py
 
 It builds the Hopper kernels from lol_tpu_torch/csrc (nvcc, first use),
-then runs four phases and exits non-zero on the first failure:
+then runs its phases and exits non-zero on the first failure:
 
 1. the card's name and power limit (nvidia-smi), and the kernel build;
 2. every kernel against its plain torch version on the card, bit-exact, at
@@ -17,8 +17,11 @@ then runs four phases and exits non-zero on the first failure:
    (against its plain version and against the GS kernel), the
    forward->inverse round trip, and ct_mul with the extremal residues
    0, 1 and q - 1; then the NTT kernels on phase 4's n = 4096 inputs
-   (B = 1024 and 16384, both primes), and the u32 chain kernel at a
-   ragged shape and on the u32 ceiling's own input and iterations;
+   (B = 1024 and 16384, both primes), the u32 chain kernel at a
+   ragged shape and on the u32 ceiling's own input and iterations, and
+   the three ring kernels (the chunk all-to-all, the gather and the
+   scatter pass) over D in {2, 4, 8}, n in {256, 4096, 16384, 65536}
+   (D^2 | n), B in {1, 1000, 1024}, with 0, 1 and q - 1 planted;
 3. the batched BGV slice at full width (m = 32768 so n = 2^14, three
    30-bit primes, p = 257, var = 2.0, B = 1024): keygen, encrypt, the
    ct-mult + key-switch + rescale step, decrypt.  It checks the kernels'
@@ -26,6 +29,13 @@ then runs four phases and exits non-zero on the first failure:
    channel; no route-B launch), decrypts columns 0-7 against the exact
    plaintext product, and reruns the step on the CPU over columns 0-63,
    which must equal the card's output bit for bit;
+3b. the ring-sharded NTT at full width: D = 4 shards on the mesh that
+   make_mesh builds from the visible cards (on one card, four entries of
+   it), the step's ring and three primes (n = 2^14) and n = 2^16 at one
+   prime (phase B in two passes), B = 1024: forward, inverse and the round
+   trip by both routes, equal to the single-card ntt_cm (itself checked
+   against ntt_cm_ref) on the gathered array, with each route's launches
+   counted exactly;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first): NTT/s at n = 4096 over 2x30-bit primes;
@@ -36,11 +46,16 @@ then runs four phases and exits non-zero on the first failure:
    (the chain kernel's path); a device copy's bandwidth; the roofline
    rows from those times against both; the steptime breakdown of the
    step, whose step leg gives the ops/s at n = 2^14; the ops/s at
-   n = 4096.
+   n = 4096; the ring-sharded transforms by route against ntt_cm at the
+   same (n, B), on one card and, where phase 3b's mesh spans several
+   cards, on that mesh too; the exchange's GB/s against the copy_'s, and the gather
+   and scatter passes against the unfused phase-B (B') passes they replace.
 
 The last three lines of standard output are the card line, a JSON object
 with one entry per TPU kernel ported (the CUDA kernel that replaces it,
-its launches, error and times), and {"ok": true, "device": {...}}.
+its launches, error, times, and its bound: the least time the H100 could
+take for the same work, `bench.roofline.bound`), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -105,9 +120,11 @@ def main() -> int:
     from lol_tpu_torch.bench import mxu_ntt as mx, roofline, steptime, time_ms
     from lol_tpu_torch.ops import ntt
     from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw
+    from lol_tpu_torch.ops.cuda import remote_ntt as rn
+    from lol_tpu_torch.parallel import sharding as sh
     from lol_tpu_torch.she_batched import BatchedBGV
 
-    counters = (tk.LAUNCHES, pw.LAUNCHES, mx.LAUNCHES)
+    counters = (tk.LAUNCHES, pw.LAUNCHES, mx.LAUNCHES, rn.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -136,7 +153,8 @@ def main() -> int:
 
     # -- phase 2: kernel vs plain, bit-exact ----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED)
-    err = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_invb": 0, "ct_mul": 0, "chain": 0}
+    err = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_invb": 0, "ct_mul": 0, "chain": 0,
+           "a2a": 0, "ntt_fwd_gather": 0, "ntt_inv_scatter": 0}
     checks = 0
 
     def check_ntt(x, plan):
@@ -151,6 +169,34 @@ def main() -> int:
         err["ntt_invb"] = max(err["ntt_invb"], max_err(got, gs), max_err(
             got, tk.ntt_cm_ref(x, plan, inverse=True, alg="dit")))
         return 4
+
+    def words(shape, hi, plant):
+        """int32 tensor of u32 words uniform in [0, hi), `plant` first."""
+        x = torch.randint(0, hi, shape, generator=g, device=dev, dtype=torch.int64)
+        x.view(-1)[:len(plant)] = torch.tensor(plant, device=dev)
+        return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+    def check_ring_kernels(plan, D, B):
+        """The three ring kernels against their plain versions on D shards
+        of (n/D, B): the exchange on raw words, the gather pass on phase
+        A's lazy words (below 4q), the scatter pass on residues (its lazy
+        words range-checked and compared after one fold); folds the errors
+        into err.  Three checks."""
+        q, tS = plan.q, plan.n // D
+        ext = [0, 1, q - 1]
+        xs = [words((tS, B), 1 << 32, ext) for _ in range(D)]
+        for a, b in zip(rn.a2a_chunks(xs), rn.a2a_chunks_ref(xs)):
+            err["a2a"] = max(err["a2a"], max_err(a, b))
+        xs = [words((tS, B), 4 * q, ext + [4 * q - 1]) for _ in range(D)]
+        for a, b in zip(rn.ntt_fwd_gather(xs, plan), rn.ntt_fwd_gather_ref(xs, plan)):
+            err["ntt_fwd_gather"] = max(err["ntt_fwd_gather"], max_err(a, b))
+        xs = [words((tS, B), q, ext) for _ in range(D)]
+        for a, b in zip(rn.ntt_inv_scatter(xs, plan), rn.ntt_inv_scatter_ref(xs, plan)):
+            if bool((a < 0).any()) or bool((a >= 2 * q).any()):
+                raise AssertionError(f"ntt_inv_scatter wrote words outside [0, 2q) at "
+                                     f"n={plan.n}, D={D}, B={B}")
+            err["ntt_inv_scatter"] = max(err["ntt_inv_scatter"], max_err(a % q, b))
+        return 3
 
     for n in (256, 4096, 16384):
         q_src, q = nt.ntt_primes(2 * n, 30, 2)  # the largest two
@@ -202,6 +248,11 @@ def main() -> int:
     err["chain"] = max(err["chain"], max_err(mx.chain(xc, mx.ITERS), want))
     checks += 2
     del xc, want
+    for n in (256, 4096, 16384, 65536):
+        plan = ntt.ntt_plan(n, nt.ntt_primes(2 * n, 30, 1)[0])
+        for D in (2, 4, 8):
+            for B in (1, 1000, 1024):
+                checks += check_ring_kernels(plan, D, B)
     torch.cuda.synchronize()
     if any(err.values()):
         raise AssertionError(f"kernel != plain: max abs err {err}")
@@ -234,10 +285,11 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    passes = len(tk._schedule(n))
+    passes = len(tk.schedule(n))
     step_calls = {"ntt_fwd": nrns * (nrns - 1) + 2 * (nrns - 1), "ntt_inv": nrns + 2}
     want_step = {k: v * passes for k, v in step_calls.items()}
-    want_step.update(ntt_invb_block=0, ntt_invb_cross=0, ct_mul=nrns, chain=0)
+    want_step.update(dict.fromkeys(rn.LAUNCHES, 0), ntt_invb_block=0, ntt_invb_cross=0,
+                     ct_mul=nrns, chain=0)
     want_path = dict(want_step, ntt_fwd=want_step["ntt_fwd"] + 2 * nrns * passes,
                      ntt_inv=want_step["ntt_inv"] + (nrns - 1) * passes)
     for k in launches:
@@ -264,6 +316,52 @@ def main() -> int:
         if not torch.equal(gpu_e[:, :, :cols].cpu(), cpu_e):
             raise AssertionError("GPU step != CPU step over columns 0-63")
     mark("phase 3: decrypt of columns 0-7 == pt_mul; GPU == CPU over columns 0-63")
+
+    # -- phase 3b: the ring-sharded NTT at full width --------------------
+    D = 4
+    mesh = sh.make_mesh({"ring": D})
+    ring = []  # (plan, x, its shards, single-card forward, inverse)
+    for plan_r in [*bb.plans(), ntt.ntt_plan(65536, nt.ntt_primes(2 * 65536, 30, 1)[0])]:
+        xr = torch.randint(0, plan_r.q, (plan_r.n, B), generator=g, device=dev,
+                           dtype=torch.int32)
+        xr.view(-1)[:3] = torch.tensor([0, 1, plan_r.q - 1], device=dev)
+        fwd, inv = tk.ntt_cm(xr, plan_r), tk.ntt_cm(xr, plan_r, inverse=True)
+        if not (torch.equal(fwd, tk.ntt_cm_ref(xr, plan_r))
+                and torch.equal(inv, tk.ntt_cm_ref(xr, plan_r, inverse=True))):
+            raise AssertionError(f"ntt_cm != ntt_cm_ref at n={plan_r.n}, q={plan_r.q}")
+        ring.append((plan_r, xr, sh.ring_shard(xr, mesh), fwd, inv))
+    print("ring mesh:", {k: v for k, v in mesh.shape.items()}, "shard devices:",
+          [str(s.device) for s in ring[0][2]], flush=True)
+    ring_launches = {}
+    for overlap, route in ((False, "two-call"), (True, "fused")):
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = [(rn.ntt_ring_sharded_cm(mesh, shards, pl_, overlap=overlap),
+                 rn.intt_ring_sharded_cm(mesh, shards, pl_, overlap=overlap))
+                for pl_, _, shards, _, _ in ring]
+        outs = [(f, i, rn.intt_ring_sharded_cm(mesh, f, pl_, overlap=overlap))
+                for (f, i), (pl_, *_) in zip(outs, ring)]
+        torch.cuda.synchronize()
+        got = counts()
+        want = dict.fromkeys(got, 0)
+        for pl_, *_ in ring:  # per case: forward, inverse, inverse of the forward
+            pb = len(rn.phase_b_passes(pl_.n // D, D, 0))
+            fused = dict(a2a=3 * D, ntt_fwd=D * pb, ntt_inv=2 * D * pb,
+                         ntt_fwd_gather=D, ntt_inv_scatter=2 * D)
+            two_call = dict(a2a=6 * D, ntt_fwd=D * (1 + pb), ntt_inv=2 * D * (1 + pb))
+            for k, v in (fused if overlap else two_call).items():
+                want[k] += v
+        if got != want:
+            raise AssertionError(f"ring route {route}: launches {got}, want {want}")
+        ring_launches[route] = got
+        for (pl_, xr, _, fwd, inv), (f, i, b) in zip(ring, outs):
+            for name, ys, ref in (("forward", f, fwd), ("inverse", i, inv), ("round trip", b, xr)):
+                if not torch.equal(sh.ring_unshard(ys), ref):
+                    raise AssertionError(f"ring {route} {name} != single card at n={pl_.n}, "
+                                         f"q={pl_.q}")
+        del outs
+        mark(f"phase 3b: ring route {route}: n=2^14 x 3 primes and n=2^16, B={B}, D={D}: "
+             f"forward, inverse, round trip == ntt_cm; launches {got}")
 
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
@@ -349,6 +447,84 @@ def main() -> int:
     copy_gbps = 2 * src_buf.numel() * 4 / copy_ms / 1e6
     timings["copy_GB_per_s"] = copy_gbps
     del src_buf, dst_buf
+    # the ring-sharded NTT, D = 4 shards on this card: each route against
+    # ntt_cm on the same (n, B) array (phase 3b checked both); where
+    # make_mesh spread phase 3b's shards over several cards, on that mesh
+    # too, each call joined back onto this card's stream so that its
+    # events span every card's work.  At n = 2^14 (the step's first prime,
+    # B = 1024) the exchange against a copy_ and against the one torch
+    # call that computes it, and the fused passes against the unfused
+    # phase-B (B') passes they replace, on inputs checked kernel == plain
+    # here first.
+    one_card = sh.make_mesh({"ring": D}, [dev] * D)
+    meshes = {"": one_card}
+    cards = list(dict.fromkeys(mesh.axis_devices("ring")))
+    if len(cards) > 1:
+        meshes[f"_{len(cards)}cards"] = mesh
+
+    def joined(fn):
+        fn()
+        here = torch.cuda.current_stream(cards[0])
+        for c in cards[1:]:
+            here.wait_event(torch.cuda.current_stream(c).record_event())
+
+    for key, (pl_, x_) in (("n16384", ring[0][:2]), ("n65536", ring[-1][:2])):
+        timings[f"ntt_single_ms_{key}"], _ = time_ms(lambda: tk.ntt_cm(x_, pl_), 10)
+        timings[f"intt_single_ms_{key}"], _ = time_ms(
+            lambda: tk.ntt_cm(x_, pl_, inverse=True), 10)
+        for tag, m in meshes.items():
+            sh_ = sh.ring_shard(x_, m)
+            for overlap, route in ((False, "two_call"), (True, "fused")):
+                timings[f"ring_ntt_ms_{route}_{key}{tag}"], _ = time_ms(lambda: joined(
+                    lambda: rn.ntt_ring_sharded_cm(m, sh_, pl_, overlap=overlap)), 10)
+                timings[f"ring_intt_ms_{route}_{key}{tag}"], _ = time_ms(lambda: joined(
+                    lambda: rn.intt_ring_sharded_cm(m, sh_, pl_, overlap=overlap)), 10)
+    plan_r, xr = ring[0][:2]
+    shards = sh.ring_shard(xr, one_card)
+    n_r = plan_r.n
+    tS, C = rn.check_ring(n_r, D)
+    xa = [rn.phase_a(v, plan_r, D, False) for v in rn.a2a_chunks(shards)]  # lazy words
+    xb = rn.a2a_chunks(xa)
+    stack = torch.stack(shards)
+    lib_a2a = torch.empty((D, D, C * B), dtype=torch.int32, device=dev)
+    lib_a2a.copy_(stack.view(D, D, -1).transpose(0, 1))
+    for d, (a, b) in enumerate(zip(rn.a2a_chunks(shards), rn.a2a_chunks_ref(shards))):
+        err["a2a"] = max(err["a2a"], max_err(a, b), max_err(lib_a2a[d].view(tS, B), b))
+    for a, b in zip(rn.ntt_fwd_gather(xa, plan_r), rn.ntt_fwd_gather_ref(xa, plan_r)):
+        err["ntt_fwd_gather"] = max(err["ntt_fwd_gather"], max_err(a, b))
+    for a, b in zip(rn.ntt_inv_scatter(shards, plan_r), rn.ntt_inv_scatter_ref(shards, plan_r)):
+        err["ntt_inv_scatter"] = max(err["ntt_inv_scatter"], max_err(a % plan_r.q, b))
+    if any(err.values()):
+        raise AssertionError(f"ring kernel != plain on the timed inputs: max abs err {err}")
+    passes = [rn.phase_b_passes(tS, D, d) for d in range(D)]
+    copy_buf = torch.empty_like(xr)
+    ring_kern = {
+        "a2a": lambda: rn.a2a_chunks(shards),
+        "a2a_library": lambda: lib_a2a.copy_(stack.view(D, D, -1).transpose(0, 1)),
+        "ntt_fwd_gather": lambda: rn.ntt_fwd_gather(xa, plan_r),
+        "phase_b_unfused": lambda: [tk.run_passes(v, plan_r, ps, False)
+                                    for v, ps in zip(xb, passes)],
+        "ntt_inv_scatter": lambda: rn.ntt_inv_scatter(shards, plan_r),
+        "phase_b_inv_unfused": lambda: [tk.run_passes(v, plan_r, ps[::-1], True, last=False)
+                                        for v, ps in zip(shards, passes)],
+        "ring_copy": lambda: copy_buf.copy_(xr),
+    }
+    ring_plain = {
+        "a2a": lambda: rn.a2a_chunks_ref(shards),
+        "ntt_fwd_gather": lambda: rn.ntt_fwd_gather_ref(xa, plan_r),
+        "ntt_inv_scatter": lambda: rn.ntt_inv_scatter_ref(shards, plan_r),
+    }
+    # on the device alone: a wrapper issues D launches per call, and at
+    # ~0.07 ms of device work per exchange its host side can outlast them;
+    # a2a_call_ms is the exchange as its caller sees it, host included
+    for name, fn in ring_kern.items():
+        timings[f"{name}_ms"], _ = time_ms(fn, 20, device_only=True)
+    timings["a2a_call_ms"], _ = time_ms(ring_kern["a2a"], 20)
+    for name, fn in ring_plain.items():
+        timings[f"{name}_plain_ms"], _ = time_ms(fn, 3)
+    timings["a2a_GB_per_s"] = 8 * n_r * B / timings["a2a_ms"] / 1e6
+    timings["a2a_share_of_copy"] = timings["a2a_GB_per_s"] / copy_gbps
+    del xa, xb, stack, lib_a2a, copy_buf, ring
     # the roofline rows from the times above; only the plain mul_mod and
     # add_mod rows are timed here
     roof_ms = {"ntt_fwd": timings["ntt_fwd_ms"], "ntt_inv_gs": timings["ntt_inv_ms"],
@@ -386,18 +562,29 @@ def main() -> int:
         print(f"timing {k} = {json.dumps(v)}", flush=True)
     mark("phase 4: timings done")
 
+    def bound(op, n_, B_, D_=1):
+        ms, by = roofline.bound(*roofline.work(op, n_, B_, D_))
+        return {"bound_ms": ms, "bound_by": by}
+
+    chain_bound_ms, chain_bound_by = roofline.bound(
+        mx.GRID * mx.ROWS * mx.LANES * mx.ITERS, 8 * mx.GRID * mx.ROWS * mx.LANES)
     ntt_src = "lol_tpu_torch/csrc/ntt.cu"
+    ring_src = "lol_tpu_torch/csrc/remote_ntt.cu"
+    ring_path = "ring-sharded NTT (ntt_/intt_ring_sharded_cm), D=4 shards on one card"
+    ring_shape = f"n={n_r}, B={B}, D={D}: all {D} shards"
     kernels = [
         {"name": "ntt_fwd_pass", "route": "cuda", "source": ntt_src,
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:539",
          "also_replaces": "lol_tpu/ops/pallas/ntt_kernel.py:593",
          "launches": launches["ntt_fwd"], "max_abs_err": err["ntt_fwd"],
-         "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"]},
+         "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"],
+         **bound("ntt_fwd", n, B), "library_ms": None},
         {"name": "ntt_inv_pass", "route": "cuda", "source": ntt_src,
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:593",
          "also_replaces": "lol_tpu/ops/pallas/ntt_kernel.py:539",
          "launches": launches["ntt_inv"], "max_abs_err": err["ntt_inv"],
-         "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"]},
+         "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"],
+         **bound("ntt_inv_gs", n, B), "library_ms": None},
         # one kernel in two geometries, as the reference's two bodies: the
         # block pass times alone at n = 4096 (the single call), the cross
         # pass inside the two-pass transform at n = 2^14
@@ -406,22 +593,47 @@ def main() -> int:
          "path": "route-B inverse A/B (ntt_cm alg='dit')",
          "launches": invb["ntt_invb_block"], "max_abs_err": err["ntt_invb"],
          "shape": "n=4096, B=1024, one pass",
-         "ms": timings["ntt_invb_n4096_ms"], "plain_ms": timings["ntt_invb_n4096_plain_ms"]},
+         "ms": timings["ntt_invb_n4096_ms"], "plain_ms": timings["ntt_invb_n4096_plain_ms"],
+         **bound("ntt_inv_dit", 4096, 1024), "library_ms": None},
         {"name": "ntt_invb_pass[cross]", "route": "cuda", "source": ntt_src,
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:437",
          "path": "route-B inverse A/B (ntt_cm alg='dit')",
          "launches": invb["ntt_invb_cross"], "max_abs_err": err["ntt_invb"],
          "shape": "n=16384, B=1024, block + cross passes",
-         "ms": timings["ntt_invb_ms"], "plain_ms": timings["ntt_invb_plain_ms"]},
+         "ms": timings["ntt_invb_ms"], "plain_ms": timings["ntt_invb_plain_ms"],
+         **bound("ntt_inv_dit", n, B), "library_ms": None},
         {"name": "ct_mul", "route": "cuda", "source": "lol_tpu_torch/csrc/pointwise.cu",
          "replaces": "lol_tpu/ops/pallas/pointwise.py:31",
          "launches": launches["ct_mul"], "max_abs_err": err["ct_mul"],
-         "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"]},
+         "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"],
+         **bound("ct_mul", n, B), "library_ms": None},
         {"name": "u32_chain", "route": "cuda", "source": "lol_tpu_torch/csrc/chain.cu",
          "replaces": "lol_tpu/bench/mxu_ntt.py:169", "path": "u32_ceiling",
          "launches": chain_launches, "max_abs_err": err["chain"],
          "shape": f"({mx.GRID * mx.ROWS}, {mx.LANES}), iters={mx.ITERS}; plain: one call",
-         "ms": timings["chain_ms"], "plain_ms": timings["chain_plain_ms"]},
+         "ms": timings["chain_ms"], "plain_ms": timings["chain_plain_ms"],
+         "bound_ms": chain_bound_ms, "bound_by": chain_bound_by, "library_ms": None},
+        # the exchange's yardstick is the one torch call computing the same
+        # chunk transpose on a stack of the shards; the fused passes' is a
+        # copy_ of the same bytes (no torch call computes an NTT)
+        {"name": "a2a_chunks", "route": "cuda", "source": ring_src,
+         "replaces": "lol_tpu/ops/pallas/remote_ntt.py:61", "path": ring_path,
+         "launches": ring_launches["two-call"]["a2a"] + ring_launches["fused"]["a2a"],
+         "max_abs_err": err["a2a"], "shape": ring_shape + ", one exchange",
+         "ms": timings["a2a_ms"], "plain_ms": timings["a2a_plain_ms"],
+         **bound("a2a", n_r, B, D), "library_ms": timings["a2a_library_ms"]},
+        {"name": "ntt_fwd_gather_pass", "route": "cuda", "source": ring_src,
+         "replaces": "lol_tpu/ops/pallas/remote_ntt.py:111", "path": ring_path + ", overlap=True",
+         "launches": ring_launches["fused"]["ntt_fwd_gather"],
+         "max_abs_err": err["ntt_fwd_gather"], "shape": ring_shape + ", phase B",
+         "ms": timings["ntt_fwd_gather_ms"], "plain_ms": timings["ntt_fwd_gather_plain_ms"],
+         **bound("ntt_fwd_gather", n_r, B, D), "library_ms": timings["ring_copy_ms"]},
+        {"name": "ntt_inv_scatter_pass", "route": "cuda", "source": ring_src,
+         "replaces": "lol_tpu/ops/pallas/remote_ntt.py:283", "path": ring_path + ", overlap=True",
+         "launches": ring_launches["fused"]["ntt_inv_scatter"],
+         "max_abs_err": err["ntt_inv_scatter"], "shape": ring_shape + ", phase B'",
+         "ms": timings["ntt_inv_scatter_ms"], "plain_ms": timings["ntt_inv_scatter_plain_ms"],
+         **bound("ntt_inv_scatter", n_r, B, D), "library_ms": timings["ring_copy_ms"]},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,15 +21,27 @@ def require_cuda() -> torch.device:
     return torch.device("cuda")
 
 
-def time_ms(fn, iters: int, windows: int = 5) -> tuple[float, list[float]]:
+SPIN_CYCLES = 10 ** 8  # ~50 ms of device clock: time for the host to queue a window
+
+
+def time_ms(fn, iters: int, windows: int = 5,
+            device_only: bool = False) -> tuple[float, list[float]]:
     """Median milliseconds per call of fn over `windows` CUDA-event windows
-    of `iters` calls each, after one warm-up call; and the windows."""
+    of `iters` calls each, after one warm-up call; and the windows.
+
+    device_only: each window starts behind a spin on the device
+    (`torch.cuda._sleep`) while the host queues all its calls, so the
+    events time the device's work alone; otherwise a call whose host side
+    outlasts its kernels is timed at the host's issue rate, as a caller
+    sees it."""
     fn()
     torch.cuda.synchronize()
     per_call = []
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(iters):
             fn()

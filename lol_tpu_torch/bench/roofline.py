@@ -16,6 +16,16 @@ pass schedule, and `work` is the one place that states them:
 - bytes: the least the op must move.  A transform reads and writes the
   int32 (n, B) array once, 8*n*B, whatever its number of passes; ct_mul
   reads four arrays and writes three, 28*n*B; modmul and modadd 12*n*B.
+- the ring-sharded NTT over D shards (`ops/cuda/remote_ntt`): an
+  exchange (`a2a`) moves every word once, 8*n*B bytes and no op; the
+  fused phase-B passes of all D shards (`ntt_fwd_gather`,
+  `ntt_inv_scatter`) read and write 8*n*B bytes for log2(n/D) of the
+  transform's stages, 9*log2(n/D)*n/2*B u32 ops.
+
+`bound` turns a count into the least time the H100 could take: the
+larger of the bytes over the data sheet's 3.35 TB/s and the u32 ops
+over the card's integer issue peak, 132 SMs x 64 IMAD per clock x the
+1.98 GHz boost clock (16.7 T/s; the chain kernel measures ~93% of it).
 
 Ceilings are measured, not assumed: `chip_smoke.py` passes the chain
 kernel's u32 (mul+add)/s (`mxu_ntt.u32_ceiling`, one op per IMAD) and the
@@ -42,11 +52,24 @@ from ..ops.cuda import ntt_kernel as tk, pointwise as pw
 from . import require_cuda, time_ms
 
 OPS = ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit", "ct_mul", "mul_mod", "add_mod")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+U32_OPS_PER_S = 132 * 64 * 1.98e9  # SMs x IMAD per clock per SM x boost clock
 
 
-def work(op: str, n: int, B: int) -> tuple[int, int]:
-    """(u32 ops, least bytes moved) of one call of `op` on (n, B) int32."""
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms on the H100, "bytes" or "operations", whichever bounds)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / U32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def work(op: str, n: int, B: int, D: int = 1) -> tuple[int, int]:
+    """(u32 ops, least bytes moved) of one call of `op` on (n, B) int32;
+    D: the ring ops' shard count."""
     k = n.bit_length() - 1
+    if op == "a2a":
+        return 0, 8 * n * B
+    if op in ("ntt_fwd_gather", "ntt_inv_scatter"):
+        return 9 * (k - (D.bit_length() - 1)) * (n // 2) * B, 8 * n * B
     if op in ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit"):
         return 9 * (k * n // 2) * B, 8 * n * B
     if op == "ct_mul":

@@ -7,6 +7,11 @@ objects, so both sides compute on identical state:
     hint_from_numpy(params, np.stack([np.asarray(h.data) for h in hint.h0]),
                             np.stack([np.asarray(h.data) for h in hint.h1]))
     cts_from_numpy(*bb.pack(cts))
+    shards = ring_shards_from_numpy(x, mesh)          # x: (..., n), ring-sharded
+    x = ring_shards_to_numpy(shards, batch=x.shape[:-1])
+
+Like the port's other entry points they place their tensors on the card
+unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import numpy as np
 import torch
 
 from . import zq
+from .parallel import sharding
 from .she import KSHint, SHEParams, SK
 
 
@@ -34,11 +40,25 @@ def sk_from_numpy(params: SHEParams, s_ints) -> SK:
     return SK(params, s, params.var)
 
 
-def hint_from_numpy(params: SHEParams, h0, h1, device="cpu") -> KSHint:
+def hint_from_numpy(params: SHEParams, h0, h1, device="cuda") -> KSHint:
     """Key-switch hint from (ell, nrns, n) CRT residue arrays."""
     return KSHint(params, _residues(h0, device), _residues(h1, device))
 
 
-def cts_from_numpy(c0, c1, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+def cts_from_numpy(c0, c1, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """Packed ciphertext components, (nrns, n, B) residue arrays each."""
     return _residues(c0, device), _residues(c1, device)
+
+
+def ring_shards_from_numpy(x, mesh: sharding.Mesh, axis: str = "ring") -> list[torch.Tensor]:
+    """A JAX (..., n) residue array (last axis sharded there) as the port's
+    ring shards: the coefficient-major (n, B) array, B = prod(...), split
+    into the D (n/D, B) int32 shards of mesh axis `axis`."""
+    a = np.asarray(x)
+    return sharding.ring_shard(_residues(a.reshape(-1, a.shape[-1]).T, "cpu"), mesh, axis)
+
+
+def ring_shards_to_numpy(shards: list[torch.Tensor], batch: tuple[int, ...] = ()) -> np.ndarray:
+    """The inverse of `ring_shards_from_numpy`: the (*batch, n) u32 array."""
+    x = sharding.ring_unshard(shards).cpu().numpy()
+    return np.ascontiguousarray(x.T).reshape(*batch, x.shape[0]).astype(np.uint32)

@@ -17,7 +17,7 @@ build or launch error.  For a CPU tensor, and only then, it runs the
 plain int64 torch version `ntt_cm_ref`.
 
 Bound on the H100: every pass reads and writes the (n, B) array once,
-8*n*B bytes; `_schedule` keeps all stages of a pass in shared memory so
+8*n*B bytes; `schedule` keeps all stages of a pass in shared memory so
 there is one such pass for n <= 4096 and two above (see the note at the
 top of `csrc/ntt.cu`).  Route B runs the same passes in the GS inverse's
 order: block DFT + twist, then cross DFT + scale.
@@ -75,22 +75,31 @@ def _cols(L: int, budget: int) -> int:
     return max(MIN_COLS, min(MAX_COLS, budget // L))
 
 
-def _schedule(n: int) -> list[Pass]:
+def cross_pass(L: int, nseq: int, base: int) -> Pass:
+    """A pass of nseq length-L transforms whose elements lie nseq rows
+    apart (sequence sq is rows sq, sq + nseq, ...), all on the twiddle
+    base `base`: the cross pass below, and phase A of the ring-sharded
+    transform (ops/cuda/remote_ntt.py)."""
+    tb = _cols(L, TILE_ELEMS)
+    G = max(1, min(nseq, TILE_ELEMS // (L * tb)))
+    if L * tb * G > MAX_TILE_ELEMS:
+        raise NotImplementedError(f"ntt_cm: a length-{L} cross pass exceeds the shared memory")
+    return Pass(L, nseq, nseq, 1, base, 0, G, tb)
+
+
+def schedule(n: int, base: int = 1) -> list[Pass]:
     """The forward pass sequence for length n (the inverse runs it
     reversed).  One pass up to SINGLE_PASS_MAX_N; above, the cross pass
     (first log2(n/WINDOW) stages, rows WINDOW apart) then the block pass
-    (the rest, inside contiguous WINDOW-row blocks)."""
+    (the rest, inside contiguous WINDOW-row blocks).  base: the network's
+    twiddle base (`ops/ntt.dit_net_cm`): 1 for the transform, D + d for
+    block d of a ring sharded over D."""
     if n <= SINGLE_PASS_MAX_N:
-        return [Pass(n, 1, 1, 0, 1, 0, 1, _cols(n, SINGLE_TILE_ELEMS))]
+        return [Pass(n, 1, 1, 0, base, 0, 1, _cols(n, SINGLE_TILE_ELEMS))]
     tS = WINDOW
     P = n // tS
-    tb = _cols(P, TILE_ELEMS)
-    G = max(1, min(tS, TILE_ELEMS // (P * tb)))
-    if P * tb * G > MAX_TILE_ELEMS:
-        raise NotImplementedError(f"ntt_cm: n={n} exceeds the two-pass schedule")
-    cross = Pass(P, tS, tS, 1, 1, 0, G, tb)
-    block = Pass(tS, P, 1, tS, P, 1, 1, _cols(tS, TILE_ELEMS))
-    return [cross, block]
+    block = Pass(tS, P, 1, tS, base * P, 1, 1, _cols(tS, TILE_ELEMS))
+    return [cross_pass(P, tS, base), block]
 
 
 _ARGTYPES = (
@@ -117,7 +126,7 @@ def _lib() -> ctypes.CDLL:
 def _dit_block_rows(n: int) -> int:
     """tS of the route-B split: the rows of the block pass, so the plain
     version and the kernels factor n the same way."""
-    return _schedule(n)[-1].L
+    return schedule(n)[-1].L
 
 
 def redigit(x: torch.Tensor, q_src: int, q: int) -> torch.Tensor:
@@ -197,7 +206,7 @@ def _ntt_invb_cuda(x, plan):
     the fold), each reading its stage table and per-row multiplier."""
     lib = _lib()
     n, B = x.shape
-    passes = _schedule(n)[::-1]
+    passes = schedule(n)[::-1]
     tab = plan.dit_tables(_dit_block_rows(n), x.device)
     stage = ("blk", "cross")
     y = torch.empty_like(x)
@@ -220,33 +229,51 @@ def _ntt_invb_cuda(x, plan):
 
 
 def _ntt_cuda(x, plan, inverse, pre_q):
+    passes = schedule(x.shape[0])
+    return run_passes(x, plan, passes[::-1] if inverse else passes, inverse,
+                      pre_q=pre_q)
+
+
+def scale_consts(plan: NTTPlan) -> tuple[int, int, int, int]:
+    """(n^-1, its Shoup word, ipsi_rev[1]*n^-1, its Shoup word): the GS
+    inverse's global stage 0 with the 1/n scale folded in."""
+    q = plan.q
+    w0n = int(plan.ipsi_rev[1 % plan.n]) * plan.n_inv % q
+    return plan.n_inv, plan.n_inv_sh, w0n, zq.shoup(w0n, q)
+
+
+def run_passes(x: torch.Tensor, plan: NTTPlan, passes: list[Pass], inverse: bool,
+               last: bool = True, out: torch.Tensor | None = None,
+               pre_q: int | None = None) -> torch.Tensor:
+    """Launch `passes` (forward or GS inverse kernels) over the contiguous
+    (rows, B) CUDA tensor x: the first from x into `out` (a new tensor, or
+    x itself), the rest in place there (each block owns its tile).  last:
+    the final pass folds to [0, q), and an inverse one also scales its
+    local stage 0 by n^-1, so it must hold global stage 0; otherwise the
+    output stays lazy (forward [0, 4q), inverse [0, 2q)).  pre_q: the
+    forward digit prologue on the first pass."""
     lib = _lib()
-    n, B = x.shape
+    B = x.shape[1]
     q = plan.q
     w, wsh, iw, iwsh = plan.tables(x.device)
     tw, twsh = (iw, iwsh) if inverse else (w, wsh)
-    passes = _schedule(n)
-    if inverse:
-        passes = passes[::-1]
     has_pre = pre_q is not None and pre_q != q
     pre_q = pre_q if has_pre else q
-    w0n = int(plan.ipsi_rev[1 % n]) * plan.n_inv % q
     name = "ntt_inv" if inverse else "ntt_fwd"
-    y = torch.empty_like(x)
+    y = torch.empty_like(x) if out is None else out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     src = x
     with torch.cuda.device(x.device):
         for i, p in enumerate(passes):
-            last = i == len(passes) - 1
+            fold = last and i == len(passes) - 1
             err = lib.lol_ntt_pass(
                 src.data_ptr(), y.data_ptr(), tw.data_ptr(), twsh.data_ptr(),
                 B, p.L, p.nseq, p.elem_stride, p.seq_stride, p.base0,
-                p.base_step, p.G, p.TB, p.threads, int(inverse), int(last), q,
+                p.base_step, p.G, p.TB, p.threads, int(inverse), int(fold), q,
                 int(has_pre and i == 0), pre_q, (pre_q + 1) // 2, pre_q % q,
-                zq.shoup(1, q), plan.n_inv, plan.n_inv_sh, w0n,
-                zq.shoup(w0n, q), stream,
+                zq.shoup(1, q), *scale_consts(plan), stream,
             )
-            build.check(err, f"{name} pass {i} (n={n}, B={B})")
+            build.check(err, f"{name} pass {i} (rows={x.shape[0]}, B={B}, L={p.L})")
             LAUNCHES[name] += 1
             src = y  # later passes run in place: each block owns its tile
     return y

@@ -14,7 +14,8 @@ whose hints and ciphertexts are stored in that order.
 package's plan table for table) and hands out device copies through
 `tables(device)` and, for the route-B inverse, `dit_tables(tS, device)`.
 `ntt_forward_cm`/`ntt_inverse_cm` are the plain int64 torch networks
-along axis 0 of a coefficient-major (n, B) tensor, and
+along axis 0 of a coefficient-major (n, B) tensor (`dit_net_cm` and
+`gs_net_cm` over a twiddle base, which the ring-sharded blocks share), and
 `ntt_inverse_dit_cm` is the plain route-B inverse;
 `np_ntt_forward`/`np_ntt_inverse` are the numpy mirrors used for host
 keygen and plaintext products.
@@ -204,39 +205,47 @@ def invb_tables(plan: NTTPlan, S: int, tS: int):
 # ---------------------------------------------------------------------------
 
 
-def ntt_forward_cm(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
-    """Forward negacyclic NTT along axis 0 (natural in, brv out), int64."""
-    n, q = plan.n, plan.q
-    k = n.bit_length() - 1
-    rest = x.shape[1:]
-    w_all = plan.tables(x.device)[0].long()
-    x = x.long() % q
-    for s in range(k):
+def dit_net_cm(x: torch.Tensor, w: torch.Tensor, q: int, base: int = 1) -> torch.Tensor:
+    """DIT network along axis 0 of an int64 tensor of residues in [0, q)
+    (natural in, brv out, the length L = x.shape[0] a power of 2): stage s,
+    group g multiplies by w[(base << s) + g].  base = 1 over psi_rev is the
+    plain transform; base = D + d is block d of a ring sharded over D
+    (`lol_tpu/ops/pallas/ntt_kernel.py::_block_twiddles`)."""
+    L, rest = x.shape[0], x.shape[1:]
+    for s in range(L.bit_length() - 1):
         m = 1 << s
-        t = n >> (s + 1)
-        w = w_all[m : 2 * m].view(m, *(1 for _ in range(len(rest) + 1)))
+        t = L >> (s + 1)
+        wv = w[base << s : (base << s) + m].view(m, *(1 for _ in range(len(rest) + 1)))
         xs = x.reshape(m, 2, t, *rest)
         u = xs[:, 0]
-        v = xs[:, 1] * w % q
-        x = torch.stack([(u + v) % q, (u - v) % q], dim=1).reshape(n, *rest)
+        v = xs[:, 1] * wv % q
+        x = torch.stack([(u + v) % q, (u - v) % q], dim=1).reshape(L, *rest)
     return x
+
+
+def gs_net_cm(x: torch.Tensor, w: torch.Tensor, q: int, base: int = 1) -> torch.Tensor:
+    """The Gentleman-Sande mirror of `dit_net_cm` over the same twiddle
+    indices (brv in, natural out), with no 1/n scale."""
+    L, rest = x.shape[0], x.shape[1:]
+    for s in reversed(range(L.bit_length() - 1)):
+        h = 1 << s
+        t = L >> (s + 1)
+        wv = w[base << s : (base << s) + h].view(h, *(1 for _ in range(len(rest) + 1)))
+        xs = x.reshape(h, 2, t, *rest)
+        u, v = xs[:, 0], xs[:, 1]
+        x = torch.stack([(u + v) % q, (u - v) * wv % q], dim=1).reshape(L, *rest)
+    return x
+
+
+def ntt_forward_cm(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+    """Forward negacyclic NTT along axis 0 (natural in, brv out), int64."""
+    return dit_net_cm(x.long() % plan.q, plan.tables(x.device)[0].long(), plan.q)
 
 
 def ntt_inverse_cm(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
     """Inverse negacyclic NTT along axis 0 (brv in, natural out), int64."""
-    n, q = plan.n, plan.q
-    k = n.bit_length() - 1
-    rest = x.shape[1:]
-    w_all = plan.tables(x.device)[2].long()
-    x = x.long() % q
-    for s in reversed(range(k)):
-        h = 1 << s
-        t = n >> (s + 1)
-        w = w_all[h : 2 * h].view(h, *(1 for _ in range(len(rest) + 1)))
-        xs = x.reshape(h, 2, t, *rest)
-        u, v = xs[:, 0], xs[:, 1]
-        x = torch.stack([(u + v) % q, (u - v) * w % q], dim=1).reshape(n, *rest)
-    return x * plan.n_inv % q
+    q = plan.q
+    return gs_net_cm(x.long() % q, plan.tables(x.device)[2].long(), q) * plan.n_inv % q
 
 
 def _dit_bitrev_net(x: torch.Tensor, table: torch.Tensor, q: int) -> torch.Tensor:

@@ -1,0 +1,192 @@
+"""Device meshes and sharded ring / SHE pipelines.
+
+Counterpart of `lol_tpu/parallel/sharding.py`.  The JAX package drives a
+mesh from one process through `shard_map`; the port's mesh is the same in
+one process: named axes over an array of `torch.device`s, on which the
+caller places the shards.  A device may repeat.  `make_mesh({"ring": 4})`
+on a one-card machine is four entries of `cuda:0`: every exchange is then
+a copy inside that card's memory, through the same kernels, chunk
+addressing and twiddles as across cards.
+
+Layouts (coefficient-major, as the port's `ntt_cm`):
+
+- ring: an (n, B) array over the D devices of an axis is D contiguous
+  (n/D, B) int32 shards, shard d holding rows [d*n/D, (d+1)*n/D) on the
+  axis's d-th device (`ring_shard`, `ring_unshard`);
+- rns x data: an (nrns, n, B) stack is an (R, Dd) grid of blocks, the
+  channels split over 'rns' and the batch over 'data' (`shard_batch_rns`).
+
+`ntt_ring_sharded` is the plain torch version of the whole ring-sharded
+forward transform (phase A along the block axis, then each block's
+network), which the tests and the kernels' checks use; the kernels' route
+is `ops/cuda/remote_ntt.ntt_ring_sharded_cm`.  `batched_ntt_sharded` runs
+`ntt_cm` per block on its device; `batched_hadamard_sharded` is plain
+torch, as XLA computes it in the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import zq
+from ..ops.cuda import ntt_kernel as tk
+from ..ops.ntt import NTTPlan, dit_net_cm
+
+
+@dataclass(frozen=True, eq=False)
+class Mesh:
+    """Named axes over an object array of `torch.device`s (one array axis
+    per name; entries may repeat)."""
+
+    devices: np.ndarray
+    axis_names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def axis_devices(self, axis: str) -> list[torch.device]:
+        """The devices along `axis`, at index 0 of every other axis."""
+        ax = self.axis_names.index(axis)
+        return list(np.moveaxis(self.devices, ax, 0).reshape(self.devices.shape[ax], -1)[:, 0])
+
+
+def _canonical(dev) -> torch.device:
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_mesh(shape: dict[str, int], devices=None) -> Mesh:
+    """A mesh with named axes, e.g. {"ring": 4} or {"rns": 2, "data": 4}.
+
+    devices: the devices in row-major mesh order (a device may repeat);
+    by default the visible CUDA cards, round-robin.  With no card and no
+    devices it raises: the CPU serves only a caller that names it."""
+    names, dims = tuple(shape), tuple(shape.values())
+    count = int(np.prod(dims))
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device is available; name the devices "
+                               "(e.g. devices=['cpu'] * n) to build a mesh without one")
+        cards = torch.cuda.device_count()
+        devices = [torch.device("cuda", i % cards) for i in range(count)]
+    devices = [_canonical(d) for d in devices]
+    if len(devices) < count:
+        raise ValueError(f"mesh needs {count} devices, have {len(devices)}")
+    grid = np.empty(count, dtype=object)
+    grid[:] = devices[:count]
+    return Mesh(grid.reshape(dims), names)
+
+
+# ---------------------------------------------------------------------------
+# ring-axis sharding (large n)
+# ---------------------------------------------------------------------------
+
+
+def ring_shard(x: torch.Tensor, mesh: Mesh, axis: str = "ring") -> list[torch.Tensor]:
+    """An (n, B) tensor as the D ring shards of mesh axis `axis` (copies)."""
+    devices = mesh.axis_devices(axis)
+    D = len(devices)
+    if x.dim() != 2 or x.shape[0] % D:
+        raise ValueError(f"ring_shard: need (n, B) with D={D} | n, got {tuple(x.shape)}")
+    tS = x.shape[0] // D
+    return [x[d * tS:(d + 1) * tS].to(dev, copy=True, memory_format=torch.contiguous_format)
+            for d, dev in enumerate(devices)]
+
+
+def ring_unshard(shards: list[torch.Tensor]) -> torch.Tensor:
+    """The (n, B) tensor the ring shards hold, on shard 0's device."""
+    return torch.cat([s.to(shards[0].device) for s in shards])
+
+
+def ntt_ring_sharded(mesh: Mesh, shards: list[torch.Tensor], plan: NTTPlan,
+                     axis: str = "ring") -> list[torch.Tensor]:
+    """Plain torch forward negacyclic NTT of the (n, B) array held as the
+    ring shards of `axis`; returns the output's shards the same way.
+
+    The structural split of the JAX package's `ntt_ring_sharded`: in the
+    (D, n/D) view the first log2 D stages pair rows n/D apart (a length-D
+    network along the block axis); the rest stay inside each contiguous
+    block, block d at twiddle base D + d."""
+    devices = mesh.axis_devices(axis)
+    D = len(devices)
+    n, q = plan.n, plan.q
+    if n % D or D & (D - 1):
+        raise ValueError("ring sharding needs power-of-2 divisor of n")
+    tS = n // D
+    x = ring_unshard(shards).long() % q
+    if x.shape[0] != n:
+        raise ValueError(f"ntt_ring_sharded: the shards hold {x.shape[0]} rows, plan has n={n}")
+    B = x.shape[1]
+    w = plan.tables(x.device)[0].long()
+    x = dit_net_cm(x.view(D, tS * B), w, q).view(D, tS, B)
+    return [dit_net_cm(x[d], w, q, base=D + d).to(torch.int32).to(dev)
+            for d, dev in enumerate(devices)]
+
+
+# ---------------------------------------------------------------------------
+# rns x data sharding (the steady-state workhorse)
+# ---------------------------------------------------------------------------
+
+
+def _rns_data_devices(mesh: Mesh) -> np.ndarray:
+    """The (rns, data) grid of devices, at index 0 of any other axis."""
+    r, d = mesh.axis_names.index("rns"), mesh.axis_names.index("data")
+    grid = np.moveaxis(mesh.devices, (r, d), (0, 1))
+    return grid.reshape(grid.shape[0], grid.shape[1], -1)[:, :, 0]
+
+
+def shard_batch_rns(mesh: Mesh, x: torch.Tensor, batch_axis: int = 2) -> np.ndarray:
+    """Place an (nrns, n, B) stack as an (R, Dd) object array of blocks:
+    channels split over 'rns', axis `batch_axis` over 'data'; block (i, j)
+    on the mesh's device (i, j)."""
+    grid = _rns_data_devices(mesh)
+    R, Dd = grid.shape
+    if x.shape[0] % R or x.shape[batch_axis] % Dd:
+        raise ValueError(f"shard_batch_rns: {tuple(x.shape)} does not split over "
+                         f"rns={R}, data={Dd}")
+    blocks = np.empty((R, Dd), dtype=object)
+    for i, rows in enumerate(x.chunk(R, 0)):
+        for j, blk in enumerate(rows.chunk(Dd, batch_axis)):
+            blocks[i, j] = blk.to(grid[i, j], copy=True, memory_format=torch.contiguous_format)
+    return blocks
+
+
+def unshard_batch_rns(blocks: np.ndarray, batch_axis: int = 2) -> torch.Tensor:
+    """The stack the blocks of `shard_batch_rns` hold, on block (0, 0)'s
+    device."""
+    dev = blocks[0, 0].device
+    return torch.cat([torch.cat([b.to(dev) for b in row], batch_axis) for row in blocks])
+
+
+def batched_ntt_sharded(mesh: Mesh, blocks: np.ndarray, plans: list[NTTPlan],
+                        inverse: bool = False) -> np.ndarray:
+    """Forward (inverse) NTT of every channel of the (nrns, n, B) stack held
+    as `shard_batch_rns` blocks: `ntt_cm` per channel on its block's
+    device, no exchange.  Returns blocks of the same layout."""
+    R = blocks.shape[0]
+    per = len(plans) // R
+    out = np.empty(blocks.shape, dtype=object)
+    for (i, j), blk in np.ndenumerate(blocks):
+        out[i, j] = torch.stack([tk.ntt_cm(blk[k], plans[i * per + k], inverse=inverse)
+                                 for k in range(blk.shape[0])])
+    return out
+
+
+def batched_hadamard_sharded(mesh: Mesh, a: np.ndarray, b: np.ndarray,
+                             qs: tuple[int, ...]) -> np.ndarray:
+    """Channel-wise products a*b mod q of two `shard_batch_rns` stacks of
+    residues, per block on its device (plain int64 torch)."""
+    R = a.shape[0]
+    per = len(qs) // R
+    out = np.empty(a.shape, dtype=object)
+    for (i, j), x in np.ndenumerate(a):
+        y = b[i, j]
+        out[i, j] = torch.stack([zq.mul_mod(x[k], y[k], qs[i * per + k]).to(torch.int32)
+                                 for k in range(x.shape[0])])
+    return out

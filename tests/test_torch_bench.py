@@ -19,7 +19,7 @@ from jax.experimental import pallas as pl
 
 from lol_tpu.bench import mxu_ntt as jmx
 from lol_tpu_torch import numtheory as nt, sampling, she
-from lol_tpu_torch.bench import mxu_ntt as mx, roofline, steptime
+from lol_tpu_torch.bench import mxu_ntt as mx, roofline, sass_diff, steptime
 from lol_tpu_torch.she_batched import BatchedBGV
 
 torch.set_num_threads(2)
@@ -61,6 +61,39 @@ def test_roofline_work_counts(n, B):
         roofline.work("ntt_radix4", n, B)
     # one channel of the BGV step moves 448 MiB through ct_mul
     assert roofline.work("ct_mul", 16384, 1024)[1] == 448 * 2 ** 20
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+def test_roofline_ring_work_and_bound(D):
+    n, B = 16384, 1024
+    tS = n // D
+    assert roofline.work("a2a", n, B, D) == (0, 8 * n * B)
+    for op in ("ntt_fwd_gather", "ntt_inv_scatter"):  # D blocks of length tS
+        assert roofline.work(op, n, B, D) == (9 * D * (tS.bit_length() - 1) * tS // 2 * B,
+                                              8 * n * B)
+    ms, by = roofline.bound(*roofline.work("a2a", n, B, D))
+    assert by == "bytes" and ms == pytest.approx(8 * n * B / 3.35e12 * 1e3)
+    ms, by = roofline.bound(*roofline.work("ntt_fwd", n, B))
+    assert by == "operations" and ms == pytest.approx(9 * 14 * n // 2 * B / 16.7e12 * 1e3,
+                                                      rel=2e-3)
+
+
+def test_sass_diff_compares_kernels_without_the_unit_hash():
+    def dump(unit_hash, body):
+        return (f"\t\tFunction : _ZN38_GLOBAL__N__{unit_hash}_6_ntt_cu_eb13b50512ntt_fwd_passE\n"
+                f"        /*0000*/ {body} ; /* 0x00 */\n"
+                "                 /* 0x01 */\n"
+                f"\t\tFunction : _ZN38_GLOBAL__N__{unit_hash}_6_ntt_cu_eb13b5053oneE\n"
+                "        /*0000*/ EXIT ; /* 0x02 */\n")
+    old = sass_diff.kernels(dump("875e145e", "IMAD R1, R2, R3, RZ"))
+    assert list(old) == ["_ZN386_ntt_cu12ntt_fwd_passE", "_ZN386_ntt_cu3oneE"]
+    assert len(old["_ZN386_ntt_cu12ntt_fwd_passE"]) == 2
+    same = sass_diff.kernels(dump("50e3053c", "IMAD R1, R2, R3, RZ"))
+    assert dict(sass_diff.compare(old, same)) == dict.fromkeys(old, "same")
+    moved = sass_diff.kernels(dump("50e3053c", "IMAD R1, R2, R4, RZ"))
+    assert dict(sass_diff.compare(old, moved))["_ZN386_ntt_cu12ntt_fwd_passE"].startswith("differs")
+    del moved["_ZN386_ntt_cu3oneE"]
+    assert dict(sass_diff.compare(old, moved))["_ZN386_ntt_cu3oneE"] == "only in the old build"
 
 
 def test_roofline_row_from_a_measured_time():

@@ -12,7 +12,8 @@ import torch
 from lol_tpu_torch import numtheory as nt, she
 from lol_tpu_torch.bench import mxu_ntt as mx
 from lol_tpu_torch.ops import ntt
-from lol_tpu_torch.ops.cuda import ntt_kernel as tk, pointwise as pw
+from lol_tpu_torch.ops.cuda import ntt_kernel as tk, pointwise as pw, remote_ntt as rn
+from lol_tpu_torch.parallel import sharding as sh
 from lol_tpu_torch.she_batched import BatchedBGV
 
 pytestmark = pytest.mark.cuda
@@ -97,7 +98,7 @@ def test_launch_counter_counts_each_pass(cuda):
     before = dict(tk.LAUNCHES)
     tk.ntt_cm(x, plan)
     tk.ntt_cm(x, plan, inverse=True)
-    passes = len(tk._schedule(n))
+    passes = len(tk.schedule(n))
     assert tk.LAUNCHES["ntt_fwd"] - before["ntt_fwd"] == passes
     assert tk.LAUNCHES["ntt_inv"] - before["ntt_inv"] == passes
     tk.ntt_cm(x, plan, inverse=True, alg="dit")
@@ -121,3 +122,95 @@ def test_step_on_card_equals_step_on_cpu(cuda):
     e_cpu = BatchedBGV(params, "cpu").build_step(hint)(*(c.cpu() for c in cts))
     for a, b in zip(e_gpu, e_cpu):
         assert torch.equal(a.cpu(), b)
+
+
+def _words(g, dev, shape, lo, hi, plant):
+    """int32 tensor of u32 words uniform in [lo, hi), `plant` in its first
+    elements."""
+    x = torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int64)
+    x.view(-1)[:len(plant)] = torch.tensor(plant, device=dev)
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+@pytest.mark.parametrize("D,n", [(D, n) for D in (2, 4, 8) for n in (256, 4096, 16384, 65536)
+                                 if n % (D * D) == 0])
+@pytest.mark.parametrize("B", [1, 1000, 1024])
+def test_ring_kernels_match_plain(cuda, D, n, B):
+    """a2a_chunks on raw words, the gather pass on phase A's lazy words
+    (below 4q), the scatter pass on residues (its lazy [0, 2q) output
+    equal mod q), each against its plain version, 0, 1 and q - 1 planted."""
+    q = nt.ntt_primes(2 * n, 30, 1)[0]
+    plan = ntt.ntt_plan(n, q)
+    tS = n // D
+    g = torch.Generator(device=cuda).manual_seed(D * n + B)
+    ext = [0, 1, q - 1]
+    raw = [_words(g, cuda, (tS, B), 0, 1 << 32, ext) for _ in range(D)]
+    for a, b in zip(rn.a2a_chunks(raw), rn.a2a_chunks_ref(raw)):
+        assert torch.equal(a, b)
+    lazy = [_words(g, cuda, (tS, B), 0, 4 * q, ext + [4 * q - 1]) for _ in range(D)]
+    for a, b in zip(rn.ntt_fwd_gather(lazy, plan), rn.ntt_fwd_gather_ref(lazy, plan)):
+        assert torch.equal(a, b)
+    res = [_words(g, cuda, (tS, B), 0, q, ext) for _ in range(D)]
+    for a, b in zip(rn.ntt_inv_scatter(res, plan), rn.ntt_inv_scatter_ref(res, plan)):
+        assert bool((a >= 0).all()) and bool((a < 2 * q).all())
+        assert torch.equal(a % q, b)
+
+
+def _ring_vs_single_card(mesh, plan, x):
+    shards = sh.ring_shard(x, mesh)
+    want_f, want_i = tk.ntt_cm(x, plan), tk.ntt_cm(x, plan, inverse=True)
+    for overlap in (False, True):
+        fwd = rn.ntt_ring_sharded_cm(mesh, shards, plan, overlap=overlap)
+        assert torch.equal(sh.ring_unshard(fwd).to(x.device), want_f)
+        inv = rn.intt_ring_sharded_cm(mesh, shards, plan, overlap=overlap)
+        assert torch.equal(sh.ring_unshard(inv).to(x.device), want_i)
+        back = rn.intt_ring_sharded_cm(mesh, fwd, plan, overlap=overlap)
+        assert torch.equal(sh.ring_unshard(back).to(x.device), x)
+
+
+@pytest.mark.parametrize("D,n,B", [(2, 256, 3), (4, 4096, 1000), (8, 16384, 1024),
+                                   (4, 16384, 1024), (2, 65536, 64), (4, 65536, 1024)])
+def test_ring_transforms_match_single_card(cuda, D, n, B):
+    """Both routes, forward and inverse, on D shards of one card == the
+    single-card `ntt_cm` on the gathered array; round trips."""
+    q = nt.ntt_primes(2 * n, 30, 1)[0]
+    plan = ntt.ntt_plan(n, q)
+    g = torch.Generator(device=cuda).manual_seed(n + D)
+    x = torch.randint(0, q, (n, B), generator=g, device=cuda, dtype=torch.int32)
+    x[0] = q - 1
+    _ring_vs_single_card(sh.make_mesh({"ring": D}, [cuda] * D), plan, x)
+
+
+@pytest.mark.parametrize("tS", [4096, 16384])
+def test_ring_launch_counts(cuda, tS):
+    D = 4
+    n = D * tS
+    plan = ntt.ntt_plan(n, nt.ntt_primes(2 * n, 30, 1)[0])
+    mesh = sh.make_mesh({"ring": D}, [cuda] * D)
+    shards = sh.ring_shard(torch.zeros((n, 8), dtype=torch.int32, device=cuda), mesh)
+    pb = len(rn.phase_b_passes(tS, D, 0))
+    for overlap, inverse, want in [
+            (False, False, dict(a2a=2 * D, ntt_fwd=D * (1 + pb))),
+            (True, False, dict(a2a=D, ntt_fwd=D * pb, ntt_fwd_gather=D)),
+            (False, True, dict(a2a=2 * D, ntt_inv=D * (1 + pb))),
+            (True, True, dict(a2a=D, ntt_inv=D * pb, ntt_inv_scatter=D))]:
+        before = {**tk.LAUNCHES, **rn.LAUNCHES}
+        fn = rn.intt_ring_sharded_cm if inverse else rn.ntt_ring_sharded_cm
+        fn(mesh, shards, plan, overlap=overlap)
+        after = {**tk.LAUNCHES, **rn.LAUNCHES}
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == want
+
+
+def test_ring_across_two_cards():
+    """The shards on two cards (round-robin over cuda:0 and cuda:1, peer
+    access enabled by the wrappers): both routes == single-card ntt_cm."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    n, B = 16384, 1024
+    plan = ntt.ntt_plan(n, nt.ntt_primes(2 * n, 30, 1)[0])
+    g = torch.Generator(device="cuda:0").manual_seed(2)
+    x = torch.randint(0, plan.q, (n, B), generator=g, device="cuda:0", dtype=torch.int32)
+    for D in (2, 4):
+        devices = [torch.device("cuda", d % 2) for d in range(D)]
+        _ring_vs_single_card(sh.make_mesh({"ring": D}, devices), plan, x)
+    torch.cuda.synchronize("cuda:1")

@@ -151,7 +151,7 @@ def test_kernel_schedule_covers_every_stage(n):
     passes' stages add up to log2(n), every sequence tile divides evenly,
     each block's shared memory fits the H100 and twiddle indices stay in
     the n-entry table."""
-    passes = tk._schedule(n)
+    passes = tk.schedule(n)
     assert sum(p.L.bit_length() - 1 for p in passes) == n.bit_length() - 1
     for p in passes:
         assert p.nseq % p.G == 0

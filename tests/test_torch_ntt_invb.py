@@ -115,7 +115,7 @@ def test_dit_tables_fit_the_pass_geometry(n):
     per-row multipliers cover the n rows the passes address."""
     q = nt.ntt_primes(2 * n, 30, 1)[0]
     plan = ntt.ntt_plan(n, q)
-    passes = tk._schedule(n)[::-1]
+    passes = tk.schedule(n)[::-1]
     tab = plan.dit_tables(tk._dit_block_rows(n), "cpu")
     assert tab is plan.dit_tables(tk._dit_block_rows(n), "cpu")  # made once
     for p, name in zip(passes, ("blk", "cross")):

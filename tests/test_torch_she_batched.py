@@ -56,9 +56,9 @@ def _carry(state):
     h = state["hint"]
     hint = convert.hint_from_numpy(
         PARAMS, np.stack([np.asarray(c.data) for c in h.h0]),
-        np.stack([np.asarray(c.data) for c in h.h1]))
-    c0, c1 = convert.cts_from_numpy(*(np.asarray(a) for a in state["c"]))
-    d0, d1 = convert.cts_from_numpy(*(np.asarray(a) for a in state["d"]))
+        np.stack([np.asarray(c.data) for c in h.h1]), device="cpu")
+    c0, c1 = convert.cts_from_numpy(*(np.asarray(a) for a in state["c"]), device="cpu")
+    d0, d1 = convert.cts_from_numpy(*(np.asarray(a) for a in state["d"]), device="cpu")
     return sk, hint, (c0, c1, d0, d1)
 
 
@@ -171,7 +171,7 @@ def test_pack_matches_jax_pack(jax_state):
     cols = [tuple(np.asarray(c.to_crt().data) for c in ct.cs)
             for ct in jax_state["cts_a"]]
     packed = BatchedBGV(PARAMS, "cpu").pack(cols)
-    for mine, ref in zip(packed, convert.cts_from_numpy(*jax_state["c"])):
+    for mine, ref in zip(packed, convert.cts_from_numpy(*jax_state["c"], device="cpu")):
         assert mine.dtype == torch.int32 and torch.equal(mine, ref)
 
 
@@ -184,14 +184,21 @@ def test_step_module_moves_with_its_buffers(jax_state):
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter where importing jax or lol_tpu fails, the
+    """In a fresh interpreter where importing jax or lol_tpu fails, every
+    module of the port imports (the package walked with pkgutil), and the
     port still builds a pipeline and runs a step on the CPU."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["lol_tpu"] = None
         import torch
         torch.set_num_threads(1)
+        import lol_tpu_torch
+        mods = [m.name for m in pkgutil.walk_packages(lol_tpu_torch.__path__, "lol_tpu_torch.")]
+        for name in mods:
+            importlib.import_module(name)
+        assert {"lol_tpu_torch.parallel.sharding", "lol_tpu_torch.ops.cuda.remote_ntt",
+                "lol_tpu_torch.bench.roofline", "lol_tpu_torch.ops.cuda.pointwise"} <= set(mods)
         from lol_tpu_torch import numtheory as nt, she
         from lol_tpu_torch.she_batched import BatchedBGV
         params = she.SHEParams(m=32, p=17, qs=tuple(nt.ntt_primes(32, 30, 2)), var=2.0)
