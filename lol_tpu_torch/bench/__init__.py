@@ -1,8 +1,9 @@
 """Measurement instruments of the port (counterpart of `lol_tpu/bench`).
 
 `roofline` (per-kernel throughput against measured ceilings), `steptime`
-(the BGV step's time by component) and `mxu_ntt.u32_ceiling` (the integer
-ceiling) time on a CUDA card with CUDA events and refuse to run without
+(the BGV step's time by component), `mxu_ntt.u32_ceiling` (the integer
+ceiling) and `ntt_ab` (one tree's NTT kernels and step, for an A/B by
+tree) time on a CUDA card with CUDA events and refuse to run without
 one: a CPU run gives no device number.  Their work counts and their legs
 are plain functions that the CPU tests reach.
 """

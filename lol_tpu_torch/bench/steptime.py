@@ -17,7 +17,9 @@ so the parts should add up to the step: `overlap_dividend_pct` (1 -
 step / sum of parts) near 0 says the breakdown accounts for the step.
 
 Run on the card: python -m lol_tpu_torch.bench.steptime [--m 32768]
-[--rns 3] [--batch 1024].  Prints one JSON line.
+[--rns 3] [--batch 1024] [--trace DIR].  Prints one JSON line; with
+--trace, a second one: the device time by kernel over five steps under
+torch.profiler (`roofline.trace`, whose Chrome trace lands in DIR).
 """
 
 from __future__ import annotations
@@ -93,14 +95,51 @@ def breakdown(step: BGVStep, c0, c1, d0, d1, iters: int = 5, windows: int = 5) -
     return summarize(times, n, nrns, B, torch.cuda.get_device_name(c0.device))
 
 
-def run(m: int = 32768, nrns: int = 3, B: int = 1024, iters: int = 5,
-        windows: int = 5, seed: int = 0) -> dict:
+def by_kernel(step: BGVStep, c0, c1, d0, d1, trace_dir: str, steps: int = 5) -> dict:
+    """Device time by kernel name over `steps` steps under torch.profiler:
+    total, per step, each name's share (largest first) and launches."""
+    from . import roofline
+
+    step(c0, c1, d0, d1)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    with roofline.trace(trace_dir) as prof:
+        t0.record()
+        for _ in range(steps):
+            step(c0, c1, d0, d1)
+        t1.record()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0 and ev.device_type.name == "CUDA":
+            rows.append((ev.key, us / 1e3, ev.count))
+    total = sum(ms for _, ms, _ in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {
+        "device_ms_per_step": total / steps,
+        "span_ms_per_step": t0.elapsed_time(t1) / steps,
+        "kernels": [{"name": k, "ms_per_step": ms / steps, "pct": 100 * ms / total,
+                     "launches_per_step": cnt / steps} for k, ms, cnt in rows],
+    }
+
+
+def _inputs(m: int, nrns: int, B: int, seed: int):
     dev = require_cuda()
     params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
     g = torch.Generator(device=dev).manual_seed(seed)
     bb = BatchedBGV(params, dev)
     step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, g), g))
     cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), g) for _ in range(4)]
+    return step, cts
+
+
+def run(m: int = 32768, nrns: int = 3, B: int = 1024, iters: int = 5,
+        windows: int = 5, seed: int = 0) -> dict:
+    step, cts = _inputs(m, nrns, B, seed)
     return breakdown(step, *cts, iters=iters, windows=windows)
 
 
@@ -111,8 +150,12 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--windows", type=int, default=5)
+    ap.add_argument("--trace", default=None, help="also profile five steps, trace to this dir")
     args = ap.parse_args()
-    print(json.dumps(run(args.m, args.rns, args.batch, args.iters, args.windows)))
+    step, cts = _inputs(args.m, args.rns, args.batch, 0)
+    print(json.dumps(breakdown(step, *cts, iters=args.iters, windows=args.windows)))
+    if args.trace:
+        print(json.dumps(by_kernel(step, *cts, args.trace)))
 
 
 if __name__ == "__main__":

@@ -17,10 +17,15 @@ build or launch error.  For a CPU tensor, and only then, it runs the
 plain int64 torch version `ntt_cm_ref`.
 
 Bound on the H100: every pass reads and writes the (n, B) array once,
-8*n*B bytes; `schedule` keeps all stages of a pass in shared memory so
-there is one such pass for n <= 4096 and two above (see the note at the
-top of `csrc/ntt.cu`).  Route B runs the same passes in the GS inverse's
-order: block DFT + twist, then cross DFT + scale.
+8*n*B bytes; `schedule` keeps all stages of a pass on chip so there is
+one such pass for n <= 4096 and two above (see the note at the top of
+`csrc/ntt.cu`).  `ntt_cm` runs `cm_schedule`, which makes n = 8192 and
+2^14 (the BGV step's ring) one pass over a cluster of CLUSTER[n] thread
+blocks of 2048 rows each, which hold the column tile together.  The forward and GS kernels run a
+pass's stages in register rounds of at most MAX_ROUND stages (`rounds`),
+one template instance per (L, TB) in KERNEL_TILES and per cluster pass.
+Route B runs `schedule`'s passes in the GS inverse's order: block DFT +
+twist, then cross DFT + scale.
 """
 
 from __future__ import annotations
@@ -34,9 +39,9 @@ from ... import zq
 from ..ntt import NTTPlan, ntt_forward_cm, ntt_inverse_cm, ntt_inverse_dit_cm
 from . import build
 
-# Launch counts of the kernels, one per kernel launch (a transform at
-# n > SINGLE_PASS_MAX_N is two launches); route B counts its block passes
-# (`_kernel_block_invb`'s counterpart) and its cross passes
+# Launch counts of the kernels, one per kernel launch (a pass of
+# `cm_schedule` or `schedule`; a cluster pass is one launch); route B
+# counts its block passes (`_kernel_block_invb`'s counterpart) and its cross passes
 # (`_kernel_cross_invb`'s) apart.  Reset by callers that check which
 # kernels a path ran.
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_invb_block": 0, "ntt_invb_cross": 0}
@@ -50,6 +55,16 @@ MAX_TILE_ELEMS = 232448 // 4  # the H100's per-block shared memory limit
 THREADS = 1024  # measured on the H100: ~23% faster than 512 at n = 4096
 MIN_COLS = 8  # 8 u32 = one 32-byte sector per row segment
 MAX_COLS = 32
+MAX_ROUND = 4  # csrc/ntt.cu: stages per register round (16-word units)
+# n whose `ntt_cm` is one pass over a thread-block cluster: its CTAs, each
+# holding (2048, MIN_COLS) of the column tile in shared memory (measured on
+# the H100 against two passes; at n = 4096 a cluster of 2 lost to one CTA at
+# B = 1024: PERF.md)
+CLUSTER = {8192: 4, 16384: 8}
+UNIT_WORDS = 16  # words per thread per round that fix a pass's threads
+# the (L, TB) of every ntt_fwd_pass / ntt_inv_pass instance csrc/ntt.cu builds
+KERNEL_TILES = frozenset([(1 << k, 32) for k in range(1, 11)]
+                         + [(1024, 16), (2048, 16), (2048, 8), (4096, 8)])
 
 
 @dataclass(frozen=True)
@@ -64,11 +79,44 @@ class Pass:
     base_step: int
     G: int
     TB: int
+    cluster: int = 1  # CTAs that share the tile (csrc/ntt.cu's cluster pass)
 
     @property
     def threads(self) -> int:
         work = (self.L // 2) * self.G * self.TB
         return min(THREADS, max(32, -(-work // 32) * 32))
+
+
+def rounds(L: int) -> list[int]:
+    """The stages of each register round of a length-L pass of
+    ntt_fwd_pass / ntt_inv_pass, in forward order (`Rounds` in
+    csrc/ntt.cu): ceil(log2 L / MAX_ROUND) rounds as even as possible,
+    larger first."""
+    k = L.bit_length() - 1
+    N = -(-k // MAX_ROUND)
+    return [k // N + (i < k % N) for i in range(N)]
+
+
+def kernel_threads(p: Pass) -> int:
+    """Threads of each CTA of a forward / GS pass: one per UNIT_WORDS
+    words of its part of the tile, within [32, THREADS]."""
+    words = p.L * p.G * p.TB // p.cluster
+    if p.cluster > 1:  # 32 words a thread: two CTAs of the cluster share an SM
+        words //= 2
+    return min(THREADS, max(32, -(-(words // UNIT_WORDS) // 32) * 32))
+
+
+def kernel_smem_bytes(p: Pass) -> int:
+    """Dynamic shared memory of each CTA of a forward / GS pass (`Tile`
+    in csrc/ntt.cu): none for a one-round pass; else its [g][row][c] part
+    of the tile (L / cluster rows), with one padding row every 2^t rows
+    when TB < 32 (t: the last round's stages)."""
+    plan = rounds(p.L)
+    if len(plan) == 1:
+        return 0
+    rows = p.L // p.cluster
+    rows += rows >> plan[-1] if p.TB < 32 else 0
+    return 4 * p.G * rows * p.TB
 
 
 def _cols(L: int, budget: int) -> int:
@@ -87,6 +135,16 @@ def cross_pass(L: int, nseq: int, base: int) -> Pass:
     return Pass(L, nseq, nseq, 1, base, 0, G, tb)
 
 
+def cm_schedule(n: int) -> list[Pass]:
+    """The forward pass sequence of `ntt_cm` (the inverse runs it
+    reversed): one pass over a cluster of CLUSTER[n] CTAs, for the n that
+    have one, else `schedule(n)`.  Route B and the ring's phase B keep
+    `schedule` (one CTA a tile up to 4096 rows, two passes above)."""
+    if n in CLUSTER:
+        return [Pass(n, 1, 1, 0, 1, 0, 1, MIN_COLS, CLUSTER[n])]
+    return schedule(n)
+
+
 def schedule(n: int, base: int = 1) -> list[Pass]:
     """The forward pass sequence for length n (the inverse runs it
     reversed).  One pass up to SINGLE_PASS_MAX_N; above, the cross pass
@@ -103,7 +161,7 @@ def schedule(n: int, base: int = 1) -> list[Pass]:
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_uint32]
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_uint32]
     + [ctypes.c_int] + [ctypes.c_uint32] * 8 + [ctypes.c_void_p]
 )
 
@@ -229,7 +287,7 @@ def _ntt_invb_cuda(x, plan):
 
 
 def _ntt_cuda(x, plan, inverse, pre_q):
-    passes = schedule(x.shape[0])
+    passes = cm_schedule(x.shape[0])
     return run_passes(x, plan, passes[::-1] if inverse else passes, inverse,
                       pre_q=pre_q)
 
@@ -269,7 +327,8 @@ def run_passes(x: torch.Tensor, plan: NTTPlan, passes: list[Pass], inverse: bool
             err = lib.lol_ntt_pass(
                 src.data_ptr(), y.data_ptr(), tw.data_ptr(), twsh.data_ptr(),
                 B, p.L, p.nseq, p.elem_stride, p.seq_stride, p.base0,
-                p.base_step, p.G, p.TB, p.threads, int(inverse), int(fold), q,
+                p.base_step, p.G, p.TB, kernel_threads(p), p.cluster.bit_length() - 1,
+                int(inverse), int(fold), q,
                 int(has_pre and i == 0), pre_q, (pre_q + 1) // 2, pre_q % q,
                 zq.shoup(1, q), *scale_consts(plan), stream,
             )

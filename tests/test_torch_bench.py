@@ -8,7 +8,9 @@ pinned at two (n, B); the steptime legs run on the CPU at m = 64 and the
 measurement entry point refuses to run without one.
 """
 
+import sys
 from functools import partial
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,7 @@ from jax.experimental import pallas as pl
 
 from lol_tpu.bench import mxu_ntt as jmx
 from lol_tpu_torch import numtheory as nt, sampling, she
-from lol_tpu_torch.bench import mxu_ntt as mx, roofline, sass_diff, steptime
+from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, sass_diff, steptime
 from lol_tpu_torch.she_batched import BatchedBGV
 
 torch.set_num_threads(2)
@@ -110,8 +112,10 @@ def test_roofline_row_from_a_measured_time():
 
 def test_measurements_refuse_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "path", list(sys.path))  # ntt_ab puts the tree first
     for fn in (lambda: roofline.run(n=64, batch=8), lambda: mx.u32_ceiling(1, 8, 8, 1),
-               lambda: mx.ceiling_input(8, 8, 1), lambda: steptime.run(m=64, B=2)):
+               lambda: mx.ceiling_input(8, 8, 1), lambda: steptime.run(m=64, B=2),
+               lambda: ntt_ab.run(str(Path(__file__).resolve().parents[1]), "this tree")):
         with pytest.raises(RuntimeError, match="CUDA device"):
             fn()
 

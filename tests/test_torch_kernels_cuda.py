@@ -26,9 +26,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [2, 256, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("n", [1 << k for k in range(1, 17)])
 @pytest.mark.parametrize("B", [1, 1000, 1024])
 def test_kernels_match_plain(cuda, n, B):
+    """Every pass length the forward / GS kernels are built for: one pass
+    of L = n up to 4096, a cross pass of L = n/512 and the L = 512 block
+    pass above."""
     q_src, q = nt.ntt_primes(2 * n, 30, 2)
     plan = ntt.ntt_plan(n, q)
     g = torch.Generator(device=cuda).manual_seed(n + B)
@@ -43,6 +46,21 @@ def test_kernels_match_plain(cuda, n, B):
         assert torch.equal(tk.ntt_cm(xs, plan, pre_digit_q=src),
                            tk.ntt_cm_ref(xs, plan, pre_digit_q=src))
     assert torch.equal(tk.ntt_cm(tk.ntt_cm(x, plan), plan, inverse=True), x)
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_digit_prologue_at_a_small_q(cuda, n):
+    """The prologue's two kernel paths at q = 12289: a 30-bit source
+    (pre_q > 2q, reduced exactly) and sources below 2q (left lazy, below
+    4q, for the first stage to fold), each against the plain version."""
+    plan = ntt.ntt_plan(n, 12289)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    for src in (nt.ntt_primes(2 * n, 30, 1)[0], 7681, 2 * 12289 - 1):
+        for B in (1, 1000):
+            xs = torch.randint(0, src, (n, B), generator=g, device=cuda, dtype=torch.int32)
+            xs[0], xs[-1] = src - 1, (src + 1) // 2
+            assert torch.equal(tk.ntt_cm(xs, plan, pre_digit_q=src),
+                               tk.ntt_cm_ref(xs, plan, pre_digit_q=src))
 
 
 @pytest.mark.parametrize("n,B", [(n, B) for n in (2, 256, 4096, 8192, 16384)
@@ -91,19 +109,45 @@ def test_chain_matches_plain(cuda, shape, iters):
     assert torch.equal(mx.chain(x, iters), mx.chain_ref(x, iters))
 
 
-def test_launch_counter_counts_each_pass(cuda):
-    n = 16384
+@pytest.mark.parametrize("n", [4096, 8192, 16384, 65536])
+def test_launch_counter_counts_each_pass(cuda, n):
+    """ntt_cm launches one forward / GS kernel per pass of `cm_schedule`
+    (one cluster pass at n = 8192 and 16384); route B keeps `schedule`."""
     plan = ntt.ntt_plan(n, nt.ntt_primes(2 * n, 30, 1)[0])
     x = torch.zeros((n, 8), dtype=torch.int32, device=cuda)
     before = dict(tk.LAUNCHES)
     tk.ntt_cm(x, plan)
     tk.ntt_cm(x, plan, inverse=True)
-    passes = len(tk.schedule(n))
+    passes = len(tk.cm_schedule(n))
+    assert passes == (1 if n <= 4096 or n in tk.CLUSTER else 2)
     assert tk.LAUNCHES["ntt_fwd"] - before["ntt_fwd"] == passes
     assert tk.LAUNCHES["ntt_inv"] - before["ntt_inv"] == passes
     tk.ntt_cm(x, plan, inverse=True, alg="dit")
     assert tk.LAUNCHES["ntt_invb_block"] - before["ntt_invb_block"] == 1
-    assert tk.LAUNCHES["ntt_invb_cross"] - before["ntt_invb_cross"] == passes - 1
+    assert tk.LAUNCHES["ntt_invb_cross"] - before["ntt_invb_cross"] == len(tk.schedule(n)) - 1
+
+
+@pytest.mark.parametrize("n", [2, 16, 256, 2048, 4096, 8192, 16384, 65536])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_lazy_passes_match_plain_after_a_fold(cuda, n, inverse):
+    """run_passes(..., last=False) on lazy words, as ring phase A hands
+    them on (below 4q forward, 2q inverse, 0, 1 and the top planted):
+    the output stays lazy (below 4q / 2q) and equals, mod q, the plain
+    network on the words mod q (no n^-1: that is the last pass's)."""
+    q = nt.ntt_primes(2 * n, 30, 1)[0]
+    plan = ntt.ntt_plan(n, q)
+    hi = (2 if inverse else 4) * q
+    g = torch.Generator(device=cuda).manual_seed(n + inverse)
+    w = plan.tables(cuda)[2 if inverse else 0].long()
+    net = ntt.gs_net_cm if inverse else ntt.dit_net_cm
+    for B in (1, 1000, 1024):
+        x = _words(g, cuda, (n, B), 0, hi, [0, 1, hi - 1, q - 1, q])
+        want = net(rn._u32(x) % q, w, q)
+        for passes in (tk.schedule(n), tk.cm_schedule(n)):
+            got = rn._u32(tk.run_passes(x, plan, passes[::-1] if inverse else passes,
+                                        inverse, last=False))
+            assert bool((got < hi).all())
+            assert torch.equal(got % q, want)
 
 
 def test_step_on_card_equals_step_on_cpu(cuda):
@@ -128,7 +172,8 @@ def _words(g, dev, shape, lo, hi, plant):
     """int32 tensor of u32 words uniform in [lo, hi), `plant` in its first
     elements."""
     x = torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int64)
-    x.view(-1)[:len(plant)] = torch.tensor(plant, device=dev)
+    k = min(len(plant), x.numel())
+    x.view(-1)[:k] = torch.tensor(plant[:k], device=dev)
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 

@@ -17,7 +17,7 @@ from lol_tpu.ops.pallas import ntt_kernel as pk
 from lol_tpu.she_batched import decompose_cm as j_decompose_cm
 from lol_tpu_torch import numtheory as nt, zq
 from lol_tpu_torch.ops import ntt
-from lol_tpu_torch.ops.cuda import ntt_kernel as tk
+from lol_tpu_torch.ops.cuda import ntt_kernel as tk, remote_ntt as rn
 from lol_tpu_torch.she_batched import decompose_cm
 
 torch.set_num_threads(2)
@@ -146,21 +146,166 @@ def test_ntt_cm_rejects_bad_arguments():
 
 
 @pytest.mark.parametrize("n", [256, 2048, 4096, 8192, 16384, 65536])
-def test_kernel_schedule_covers_every_stage(n):
+@pytest.mark.parametrize("sched", ["schedule", "cm_schedule"])
+def test_kernel_schedule_covers_every_stage(n, sched):
     """The CUDA pass geometry, checked where the CPU can reach it: the
     passes' stages add up to log2(n), every sequence tile divides evenly,
     each block's shared memory fits the H100 and twiddle indices stay in
-    the n-entry table."""
-    passes = tk.schedule(n)
+    the n-entry table.  For the forward / GS kernels: a kernel is built
+    for each (L, TB), the round plan covers the pass's stages, each CTA's
+    shared memory fits, a cluster is portable (<= 8 CTAs, G = 1) and holds
+    the whole column tile, and the threads are whole warps."""
+    passes = getattr(tk, sched)(n)
     assert sum(p.L.bit_length() - 1 for p in passes) == n.bit_length() - 1
     for p in passes:
         assert p.nseq % p.G == 0
-        assert p.TB >= tk.MIN_COLS and p.L * p.G * p.TB <= tk.MAX_TILE_ELEMS
+        assert p.TB >= tk.MIN_COLS and p.L * p.G * p.TB <= tk.MAX_TILE_ELEMS * p.cluster
         assert p.L * p.nseq == n
         top = ((p.base0 + (p.nseq - 1) * p.base_step) << (p.L.bit_length() - 2)) \
             + (p.L // 2 - 1) if p.L > 1 else 0
         assert top < n
         assert 32 <= p.threads <= 1024 and p.threads % 32 == 0
+        if p.cluster == 1:
+            assert (p.L, p.TB) in tk.KERNEL_TILES
+        else:
+            assert tk.CLUSTER[p.L] == p.cluster <= 8 and p.G == p.nseq == 1
+            # the first round's stages reach every CTA: rows L/2 .. L/2^rs apart
+            assert tk.rounds(p.L)[0] >= p.cluster.bit_length() - 1
+        assert sum(tk.rounds(p.L)) == p.L.bit_length() - 1
+        assert max(tk.rounds(p.L)) <= tk.MAX_ROUND
+        assert len(tk.rounds(p.L)) == 1 or tk.rounds(p.L)[-1] >= 2
+        assert 0 <= tk.kernel_smem_bytes(p) <= 4 * tk.MAX_TILE_ELEMS
+        t = tk.kernel_threads(p)
+        assert 32 <= t <= 1024 and t % 32 == 0
+    assert len(getattr(tk, sched)(n)) == (1 if n <= 4096 or sched == "cm_schedule" and
+                                          n in tk.CLUSTER else 2)
+
+
+@pytest.mark.parametrize("n", [256, 4096, 16384, 65536])
+def test_route_b_and_ring_schedules_are_pinned(n):
+    """ntt_cm's own schedule (cluster passes at n = 2^13 and 2^14) leaves
+    route B's factorisation and the ring's phase B as they were: the
+    two-pass `schedule`, WINDOW-row blocks above 4096."""
+    assert tk._dit_block_rows(n) == (n if n <= 4096 else 512)
+    for D in (2, 4, 8):
+        tS = n // D
+        for d in (0, D - 1):
+            if tS <= 4096:
+                want = [tk.Pass(tS, 1, 1, 0, D + d, 0, 1, max(8, min(32, 32768 // tS)))]
+            else:
+                P = tS // 512
+                want = [tk.Pass(P, 512, 512, 1, D + d, 0, 16384 // (P * 32), 32),
+                        tk.Pass(512, P, 1, 512, (D + d) * P, 1, 1, 32)]
+            assert rn.phase_b_passes(tS, D, d) == want
+
+
+def _run_rounds(x, plan, passes, inverse):
+    """A plain int64 run of the forward / GS kernels' register rounds
+    (csrc/ntt.cu `ntt_round`), in their order: for each pass, each round
+    of `tk.rounds` (the inverse from the last), each unit of 2^rs rows
+    row0 | m << LK, and each stage's twiddle index
+    ((base0 + sq*base_step) << (A + s)) + (j << s) + grp; exact mod q."""
+    q = plan.q
+    w = plan.tables("cpu")[2 if inverse else 0].long()
+    x = x.long() % q
+    B = x.shape[1]
+    for p in passes:
+        k = p.L.bit_length() - 1
+        sq = torch.arange(p.nseq)
+        rows = (torch.arange(p.L)[None, :] * p.elem_stride + sq[:, None] * p.seq_stride)
+        y = x[rows]  # (nseq, L, B)
+        plan_r = tk.rounds(p.L)
+        starts = [sum(plan_r[:i]) for i in range(len(plan_r))]
+        order = range(len(plan_r) - 1, -1, -1) if inverse else range(len(plan_r))
+        for r in order:
+            A, rs = starts[r], plan_r[r]
+            LK = k - A - rs
+            j = torch.arange(1 << A)[:, None, None]
+            kk = torch.arange(1 << LK)[None, :, None]
+            m = torch.arange(1 << rs)[None, None, :]
+            idx = (j << (k - A)) | kk | (m << LK)  # (J, K, M)
+            v = y[:, idx]  # (nseq, J, K, M, B)
+            stages = range(rs - 1, -1, -1) if inverse else range(rs)
+            for s in stages:
+                h = (1 << rs) >> (s + 1)
+                vv = v.reshape(p.nseq, 1 << A, 1 << LK, 1 << s, 2, h, B)
+                t = (((p.base0 + sq * p.base_step)[:, None, None] << (A + s))
+                     + (torch.arange(1 << A)[None, :, None] << s)
+                     + torch.arange(1 << s)[None, None, :])
+                wt = w[t].view(p.nseq, 1 << A, 1, 1 << s, 1, 1)
+                a0, a1 = vv[:, :, :, :, 0], vv[:, :, :, :, 1]
+                if inverse:
+                    out = ((a0 + a1) % q, (a0 - a1) * wt % q)
+                else:
+                    out = ((a0 + a1 * wt) % q, (a0 - a1 * wt) % q)
+                v = torch.stack(out, dim=4).reshape(v.shape)
+            y[:, idx] = v
+        x[rows] = y
+    return x * plan.n_inv % q if inverse else x
+
+
+@pytest.mark.parametrize("n", [256, 4096, 16384])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_register_rounds_equal_the_plain_networks(n, inverse, rng):
+    """The rounds of ntt_fwd_pass / ntt_inv_pass, run plainly in their
+    order over both schedules, equal ntt_forward_cm / ntt_inverse_cm and,
+    at n <= 4096, the interpret-mode Pallas ntt_cm, bit for bit."""
+    q = nt.ntt_primes(2 * n, 30, 1)[0]
+    plan = ntt.ntt_plan(n, q)
+    B = 128 if n <= 4096 else 8
+    a = rng.integers(0, q, (n, B), dtype=np.uint64).astype(np.uint32)
+    a[0, :] = q - 1
+    x = torch.from_numpy(a.astype(np.int64))
+    want = (ntt.ntt_inverse_cm if inverse else ntt.ntt_forward_cm)(x, plan)
+    for sched in (tk.schedule(n), tk.cm_schedule(n)):
+        got = _run_rounds(x, plan, sched[::-1] if inverse else sched, inverse)
+        assert torch.equal(got, want)
+    if n <= 4096:
+        pallas = pk.ntt_cm(jnp.asarray(a), jntt.ntt_plan(n, q), inverse=inverse,
+                           interpret=True)
+        np.testing.assert_array_equal(want.numpy(), np.asarray(pallas).astype(np.int64))
+
+
+def _smem_words(p, A, rs, u, rank, m):
+    """Word offset, in the shared memory of the CTA holding it, of word m
+    of unit u (CTA `rank`) in the round of stages [A, A + rs) of pass p
+    (csrc/ntt.cu `Tile` and `ntt_round`), and that CTA."""
+    k = p.L.bit_length() - 1
+    logc = p.cluster.bit_length() - 1
+    lk, logu, logtb = k - A - rs, k - rs, p.TB.bit_length() - 1
+    plan_r = tk.rounds(p.L)
+    rows_cta = p.L >> logc
+    pad = p.TB < 32 and len(plan_r) > 1
+    row = (lambda i: i + (i >> plan_r[-1])) if pad else (lambda i: i)
+    seq_words = (rows_cta + (rows_cta >> plan_r[-1] if pad else 0)) * p.TB
+    c = u & (p.TB - 1)
+    rest = ((u >> logtb) & ((1 << (logu - logc)) - 1)) | (rank << (logu - logc))
+    g = u >> (logtb + logu - logc)
+    j = rest >> lk
+    r = (j << (k - A)) | (rest & ((1 << lk) - 1)) | (m << lk)
+    return g * seq_words + row(r & (rows_cta - 1)) * p.TB + c, r // rows_cta
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(5, 17)])
+def test_round_exchanges_are_free_of_bank_conflicts(n):
+    """Every warp's shared-memory access between two rounds (word m of 32
+    consecutive units) touches 32 distinct banks, for every pass of both
+    schedules: TB = 32 rows, and the padded TB = 8 / 16 tiles."""
+    seen = set()
+    for p in tk.schedule(n) + tk.cm_schedule(n):
+        if (p.L, p.TB, p.G, p.cluster) in seen or len(tk.rounds(p.L)) == 1:
+            continue
+        seen.add((p.L, p.TB, p.G, p.cluster))
+        plan_r = tk.rounds(p.L)
+        units_cta = p.L * p.G * p.TB // p.cluster
+        for r, rs in enumerate(plan_r):
+            A = sum(plan_r[:r])
+            for rank in range(p.cluster):
+                for w0 in range(0, units_cta >> rs, 32):
+                    for m in range(1 << rs):
+                        addr = [_smem_words(p, A, rs, u, rank, m) for u in range(w0, w0 + 32)]
+                        assert len({cta for _, cta in addr}) == 1
+                        assert len({a % 32 for a, _ in addr}) == 32, (p, r, w0, m)
 
 
 def test_decompose_cm_matches_reference(rng):
