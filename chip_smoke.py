@@ -33,7 +33,7 @@ then runs its phases and exits non-zero on the first failure:
 3b. the ring-sharded NTT at full width: D = 4 shards on the mesh that
    make_mesh builds from the visible cards (on one card, four entries of
    it), the step's ring and three primes (n = 2^14) and n = 2^16 at one
-   prime (phase B in two passes), B = 1024: forward, inverse and the round
+   prime (phase B one pass over an 8-CTA cluster), B = 1024: forward, inverse and the round
    trip by both routes, equal to the single-card ntt_cm (itself checked
    against ntt_cm_ref) on the gathered array, with each route's launches
    counted exactly;
@@ -50,7 +50,9 @@ then runs its phases and exits non-zero on the first failure:
    n = 4096; the ring-sharded transforms by route against ntt_cm at the
    same (n, B), on one card and, where phase 3b's mesh spans several
    cards, on that mesh too; the exchange's GB/s against the copy_'s, and the gather
-   and scatter passes against the unfused phase-B (B') passes they replace.
+   and scatter passes against the unfused phase-B (B') passes they replace,
+   at n = 2^14 and 2^16.  Phase 1 also fails if ptxas gave a ring kernel a
+   stack frame or spills.
 
 The last three lines of standard output are the card line, a JSON object
 with one entry per TPU kernel ported (the CUDA kernel that replaces it,
@@ -118,7 +120,7 @@ def main() -> int:
         return 2
     import_port()
     from lol_tpu_torch import numtheory as nt, she
-    from lol_tpu_torch.bench import mxu_ntt as mx, roofline, steptime, time_ms
+    from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, steptime, time_ms
     from lol_tpu_torch.ops import ntt
     from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw
     from lol_tpu_torch.ops.cuda import remote_ntt as rn
@@ -147,10 +149,15 @@ def main() -> int:
     t = time.time()
     lib = build.build()
     mark(f"kernels built in {time.time() - t:.1f}s: {lib}")
-    log = (lib.parent / "build.log").read_text()
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip(), flush=True)
+    ptxas = build.ptxas_report((lib.parent / "build.log").read_text())
+    for name, r in sorted(ptxas.items()):
+        print(f"ptxas: {r.get('registers')} registers, {r.get('stack')} B stack, "
+              f"{r.get('spill_stores')}/{r.get('spill_loads')} B spilled: {name}", flush=True)
+    ring_spills = [k for k, r in ptxas.items() if ("ntt_fwd_gather_pass" in k or
+                   "ntt_inv_scatter_pass" in k) and (r.get("stack") or r.get("spill_stores")
+                                                     or r.get("spill_loads"))]
+    if ring_spills:
+        raise AssertionError(f"ring kernels with a stack frame or spills: {ring_spills}")
 
     # -- phase 2: kernel vs plain, bit-exact ----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -454,9 +461,9 @@ def main() -> int:
     # too, each call joined back onto this card's stream so that its
     # events span every card's work.  At n = 2^14 (the step's first prime,
     # B = 1024) the exchange against a copy_ and against the one torch
-    # call that computes it, and the fused passes against the unfused
-    # phase-B (B') passes they replace, on inputs checked kernel == plain
-    # here first.
+    # call that computes it; at n = 2^14 and 2^16 the fused passes against
+    # the unfused phase-B (B') passes they replace, on inputs checked
+    # kernel == plain here first.
     one_card = sh.make_mesh({"ring": D}, [dev] * D)
     meshes = {"": one_card}
     cards = list(dict.fromkeys(mesh.axis_devices("ring")))
@@ -484,48 +491,40 @@ def main() -> int:
     shards = sh.ring_shard(xr, one_card)
     n_r = plan_r.n
     tS, C = rn.check_ring(n_r, D)
-    xa = [rn.phase_a(v, plan_r, D, False) for v in rn.a2a_chunks(shards)]  # lazy words
-    xb = rn.a2a_chunks(xa)
     stack = torch.stack(shards)
     lib_a2a = torch.empty((D, D, C * B), dtype=torch.int32, device=dev)
     lib_a2a.copy_(stack.view(D, D, -1).transpose(0, 1))
     for d, (a, b) in enumerate(zip(rn.a2a_chunks(shards), rn.a2a_chunks_ref(shards))):
         err["a2a"] = max(err["a2a"], max_err(a, b), max_err(lib_a2a[d].view(tS, B), b))
-    for a, b in zip(rn.ntt_fwd_gather(xa, plan_r), rn.ntt_fwd_gather_ref(xa, plan_r)):
-        err["ntt_fwd_gather"] = max(err["ntt_fwd_gather"], max_err(a, b))
-    for a, b in zip(rn.ntt_inv_scatter(shards, plan_r), rn.ntt_inv_scatter_ref(shards, plan_r)):
-        err["ntt_inv_scatter"] = max(err["ntt_inv_scatter"], max_err(a % plan_r.q, b))
-    if any(err.values()):
-        raise AssertionError(f"ring kernel != plain on the timed inputs: max abs err {err}")
-    passes = [rn.phase_b_passes(tS, D, d) for d in range(D)]
     copy_buf = torch.empty_like(xr)
-    ring_kern = {
-        "a2a": lambda: rn.a2a_chunks(shards),
-        "a2a_library": lambda: lib_a2a.copy_(stack.view(D, D, -1).transpose(0, 1)),
-        "ntt_fwd_gather": lambda: rn.ntt_fwd_gather(xa, plan_r),
-        "phase_b_unfused": lambda: [tk.run_passes(v, plan_r, ps, False)
-                                    for v, ps in zip(xb, passes)],
-        "ntt_inv_scatter": lambda: rn.ntt_inv_scatter(shards, plan_r),
-        "phase_b_inv_unfused": lambda: [tk.run_passes(v, plan_r, ps[::-1], True, last=False)
-                                        for v, ps in zip(shards, passes)],
-        "ring_copy": lambda: copy_buf.copy_(xr),
-    }
-    ring_plain = {
-        "a2a": lambda: rn.a2a_chunks_ref(shards),
-        "ntt_fwd_gather": lambda: rn.ntt_fwd_gather_ref(xa, plan_r),
-        "ntt_inv_scatter": lambda: rn.ntt_inv_scatter_ref(shards, plan_r),
-    }
     # on the device alone: a wrapper issues D launches per call, and at
     # ~0.07 ms of device work per exchange its host side can outlast them;
     # a2a_call_ms is the exchange as its caller sees it, host included
-    for name, fn in ring_kern.items():
+    for name, fn in {"a2a": lambda: rn.a2a_chunks(shards),
+                     "a2a_library": lambda: lib_a2a.copy_(stack.view(D, D, -1).transpose(0, 1)),
+                     "ring_copy": lambda: copy_buf.copy_(xr)}.items():
         timings[f"{name}_ms"], _ = time_ms(fn, 20, device_only=True)
-    timings["a2a_call_ms"], _ = time_ms(ring_kern["a2a"], 20)
-    for name, fn in ring_plain.items():
-        timings[f"{name}_plain_ms"], _ = time_ms(fn, 3)
+    timings["a2a_call_ms"], _ = time_ms(lambda: rn.a2a_chunks(shards), 20)
+    timings["a2a_plain_ms"], _ = time_ms(lambda: rn.a2a_chunks_ref(shards), 3)
     timings["a2a_GB_per_s"] = 8 * n_r * B / timings["a2a_ms"] / 1e6
     timings["a2a_share_of_copy"] = timings["a2a_GB_per_s"] / copy_gbps
-    del xa, xb, stack, lib_a2a, copy_buf, ring
+    del stack, lib_a2a, copy_buf
+    # the fused passes and the unfused phase-B (B') passes they replace, at
+    # n = 2^14 and 2^16, each checked == plain on its timed input first
+    # (ntt_ab.ring_phase_b); plain times at 2^14
+    names = {"gather": "ntt_fwd_gather", "phase_b": "phase_b_unfused",
+             "scatter": "ntt_inv_scatter", "phase_b_inv": "phase_b_inv_unfused"}
+    for tag, (pl_, x_) in (("", ring[0][:2]), ("_n65536", ring[-1][:2])):
+        ring_ops = ntt_ab.ring_phase_b(rn, tk, pl_, sh.ring_shard(x_, one_card))
+        for key, (fn, ref) in ring_ops.items():
+            name = names[key]
+            timings[f"{name}_ms{tag}"], _ = time_ms(fn, 20, device_only=True)
+            if not tag and name in err:
+                timings[f"{name}_plain_ms"], _ = time_ms(ref, 3)
+        del ring_ops
+    if any(err.values()):
+        raise AssertionError(f"ring kernel != plain on the timed inputs: max abs err {err}")
+    del ring
     # the roofline rows from the times above; only the plain mul_mod and
     # add_mod rows are timed here
     roof_ms = {"ntt_fwd": timings["ntt_fwd_ms"], "ntt_inv_gs": timings["ntt_inv_ms"],
@@ -630,14 +629,20 @@ def main() -> int:
          "max_abs_err": err["ntt_fwd_gather"], "shape": ring_shape + ", phase B",
          "ms": timings["ntt_fwd_gather_ms"], "plain_ms": timings["ntt_fwd_gather_plain_ms"],
          **bound("ntt_fwd_gather", n_r, B, D), "library_ms": None,
-         "copy_ms": timings["ring_copy_ms"]},
+         "copy_ms": timings["ring_copy_ms"], "unfused_ms": timings["phase_b_unfused_ms"],
+         "ms_n65536": timings["ntt_fwd_gather_ms_n65536"],
+         "unfused_ms_n65536": timings["phase_b_unfused_ms_n65536"],
+         "bound_ms_n65536": bound("ntt_fwd_gather", 65536, B, D)["bound_ms"]},
         {"name": "ntt_inv_scatter_pass", "route": "cuda", "source": ring_src,
          "replaces": "lol_tpu/ops/pallas/remote_ntt.py:283", "path": ring_path + ", overlap=True",
          "launches": ring_launches["fused"]["ntt_inv_scatter"],
          "max_abs_err": err["ntt_inv_scatter"], "shape": ring_shape + ", phase B'",
          "ms": timings["ntt_inv_scatter_ms"], "plain_ms": timings["ntt_inv_scatter_plain_ms"],
          **bound("ntt_inv_scatter", n_r, B, D), "library_ms": None,
-         "copy_ms": timings["ring_copy_ms"]},
+         "copy_ms": timings["ring_copy_ms"], "unfused_ms": timings["phase_b_inv_unfused_ms"],
+         "ms_n65536": timings["ntt_inv_scatter_ms_n65536"],
+         "unfused_ms_n65536": timings["phase_b_inv_unfused_ms_n65536"],
+         "bound_ms_n65536": bound("ntt_inv_scatter", 65536, B, D)["bound_ms"]},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,9 +19,17 @@ checks kernel == plain on every input it times, and prints one JSON line:
 - each beside `roofline.bound` of its work;
 - the step's ct-ops/s at n = 2^14 and 4096 (m = 32768 and 8192, three
   30-bit primes, B = 1024);
+- the ring-sharded NTT at n = 2^14 and 2^16, B = 1024, one prime, D = 4
+  shards on the card: phase B of all four shards, fused with the block
+  exchange (`ntt_fwd_gather`, `ntt_inv_scatter`) and unfused (the pass
+  kernels on the exchange's output: B, and B' before it), on the device
+  alone (`time_ms(device_only=True)`); and each route's forward and
+  inverse transform, as its caller sees it (host included) and on the
+  device alone (`_dev_`);
 - the card's name and power limit (nvidia-smi).
 
-Times are `bench.time_ms` medians of 5 CUDA-event windows.
+Times are `bench.time_ms` medians of 5 CUDA-event windows.  `ring_phase_b`
+builds the ring's timed phase-B calls for this script and `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -40,6 +48,69 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ring_phase_b(rn, tk, plan, shards) -> dict:
+    """Phase B of every shard of `shards` (D shards of one ring on one card),
+    fused with the block exchange and unfused, as {name: (kernel call, plain
+    call)}: `gather`, `phase_b` (the pass kernels on the exchange's output),
+    `scatter` and `phase_b_inv` (B' before it).  Every kernel call is checked
+    == its plain call first; the inverse ones' lazy words after one fold.
+    `rn` and `tk` are the remote_ntt and ntt_kernel modules of the tree
+    under test."""
+    import torch
+
+    D = len(shards)
+    xa = [rn.phase_a(v, plan, D, False) for v in rn.a2a_chunks(shards)]  # lazy words
+    xb = rn.a2a_chunks(xa)
+    passes = [rn.phase_b_passes(plan.n // D, D, d) for d in range(D)]
+    ops = {  # name: (kernel call, plain call, lazy output)
+        "gather": (lambda: rn.ntt_fwd_gather(xa, plan),
+                   lambda: rn.ntt_fwd_gather_ref(xa, plan), False),
+        "phase_b": (lambda: [tk.run_passes(v, plan, ps, False) for v, ps in zip(xb, passes)],
+                    lambda: [rn.phase_b_ref(v, plan, D, d, False) for d, v in enumerate(xb)],
+                    False),
+        "scatter": (lambda: rn.ntt_inv_scatter(shards, plan),
+                    lambda: rn.ntt_inv_scatter_ref(shards, plan), True),
+        "phase_b_inv": (lambda: [tk.run_passes(v, plan, ps[::-1], True, last=False)
+                                 for v, ps in zip(shards, passes)],
+                        lambda: [rn.phase_b_ref(v, plan, D, d, True)
+                                 for d, v in enumerate(shards)], True),
+    }
+    for name, (fn, ref, lazy) in ops.items():
+        for a, b in zip(fn(), ref()):
+            if not torch.equal(a % plan.q if lazy else a, b):
+                raise AssertionError(f"ring {name} != plain at n={plan.n}")
+    return {name: (fn, ref) for name, (fn, ref, _) in ops.items()}
+
+
+def ring(rn, tk, sh, ntt, nt, bench, dev, g, out: dict) -> None:
+    """The ring timings into out (see the module docstring)."""
+    import torch
+
+    D, B = 4, 1024
+    mesh = sh.make_mesh({"ring": D}, [dev] * D)
+    for n in (16384, 65536):
+        plan = ntt.ntt_plan(n, nt.ntt_primes(2 * n, 30, 1)[0])
+        x = torch.randint(0, plan.q, (n, B), generator=g, device=dev, dtype=torch.int32)
+        shards = sh.ring_shard(x, mesh)
+        for name, (fn, _) in ring_phase_b(rn, tk, plan, shards).items():
+            out[f"ring_{name}_ms_n{n}"] = bench.time_ms(fn, 20, device_only=True)[0]
+        want = {False: tk.ntt_cm(x, plan), True: tk.ntt_cm(x, plan, inverse=True)}
+        for overlap, route in ((False, "two_call"), (True, "fused")):
+            for inverse, key in ((False, "ntt"), (True, "intt")):
+                fn = rn.intt_ring_sharded_cm if inverse else rn.ntt_ring_sharded_cm
+                if not torch.equal(sh.ring_unshard(fn(mesh, shards, plan, overlap=overlap)),
+                                   want[inverse]):
+                    raise AssertionError(f"ring {route} {key} != ntt_cm at n={n}")
+
+                def call():
+                    return fn(mesh, shards, plan, overlap=overlap)
+                out[f"ring_{key}_ms_{route}_n{n}"] = bench.time_ms(call, 10)[0]
+                out[f"ring_{key}_dev_ms_{route}_n{n}"] = bench.time_ms(
+                    call, 10, device_only=True)[0]
+        out[f"ring_phase_b_passes_n{n}"] = len(rn.phase_b_passes(n // D, D, 0))
+        del x, shards, want
+
+
 def run(tree: str, label: str) -> dict:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
@@ -55,9 +126,12 @@ def run(tree: str, label: str) -> dict:
     bench = importlib.import_module("lol_tpu_torch.bench")
     roofline = importlib.import_module("lol_tpu_torch.bench.roofline")
     BatchedBGV = importlib.import_module("lol_tpu_torch.she_batched").BatchedBGV
+    rn = importlib.import_module("lol_tpu_torch.ops.cuda.remote_ntt")
+    sh = importlib.import_module("lol_tpu_torch.parallel.sharding")
     dev = bench.require_cuda()
     g = torch.Generator(device=dev).manual_seed(4)
     out = {"label": label, "tree": root, "card": card_line()}
+    ring(rn, tk, sh, ntt, nt, bench, dev, g, out)
 
     def bound(op, n, B):
         return roofline.bound(*roofline.work(op, n, B))[0]

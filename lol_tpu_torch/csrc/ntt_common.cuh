@@ -1,7 +1,8 @@
-// Shared device code of the NTT pass kernels (csrc/ntt.cu, csrc/remote_ntt.cu):
-// the pass arguments, the tile loads and stores, the forward and inverse stage
-// loops over a tile in shared memory, and the host-side geometry and launch.
-// The pass geometry is described at the top of csrc/ntt.cu.
+// Shared code of the NTT pass kernels: the Shoup multiply and the host-side
+// helpers that every pass uses, and the first design's pass arguments, tile
+// loads and stores, geometry and launch, which the route-B kernel
+// (csrc/ntt.cu::ntt_invb_pass) still runs.  The pass geometry is described
+// at the top of csrc/ntt.cu.
 
 #pragma once
 
@@ -19,10 +20,11 @@ struct PassArgs {
   int G, logG, TB, logTB;  // powers of two
   uint32_t q;
   int last;             // last pass: fold to [0, q) (inverse: also scale)
-  // forward prologue: centered [x]_{pre_q} re-expanded mod q
+  // the first design's prologue and folded n^-1, unused since its stage
+  // loops went: kept so that ntt_invb_pass's parameter layout, and so its
+  // code, stays as measured
   int has_pre;
-  uint32_t pre_q, pre_half, pre_qmod, pre_mu;  // pre_mu = floor(2^32 / q)
-  // inverse global stage 0 with n^-1 folded in
+  uint32_t pre_q, pre_half, pre_qmod, pre_mu;
   uint32_t ninv, ninv_sh, w0n, w0n_sh;
 };
 
@@ -34,23 +36,10 @@ __device__ __forceinline__ uint32_t mul_shoup_lazy(uint32_t a, uint32_t w,
   return a * w - __umulhi(a, wsh) * q;
 }
 
-// _redigit: x in [0, pre_q) -> the centered representative's residue mod q.
-__device__ __forceinline__ uint32_t redigit(uint32_t x, const PassArgs& a) {
-  uint32_t r = x;
-  if (a.pre_q > a.q) {  // x mod q: Shoup multiply by 1, then one fold
-    r = x - __umulhi(x, a.pre_mu) * a.q;
-    if (r >= a.q) r -= a.q;
-  }
-  if (x >= a.pre_half)  // sub_mod(r, pre_q mod q) with the borrow branch
-    r = (r >= a.pre_qmod) ? r - a.pre_qmod : r + (a.q - a.pre_qmod);
-  return r;
-}
-
 __device__ __forceinline__ size_t row_of(const PassArgs& a, int i, int sq) {
   return (size_t)i * a.elem_stride + (size_t)sq * a.seq_stride;
 }
 
-template <bool INVERSE>
 __device__ __forceinline__ void load_tile(const PassArgs& a, uint32_t* sm,
                                           int col0, int seq0) {
   const int tile = a.L * a.G * a.TB;
@@ -60,10 +49,7 @@ __device__ __forceinline__ void load_tile(const PassArgs& a, uint32_t* sm,
     const int i = e >> (a.logTB + a.logG);
     const int col = col0 + c;
     uint32_t v = 0;
-    if (col < a.B) {
-      v = a.x[row_of(a, i, seq0 + g) * a.B + col];
-      if (!INVERSE && a.has_pre) v = redigit(v, a);
-    }
+    if (col < a.B) v = a.x[row_of(a, i, seq0 + g) * a.B + col];
     sm[e] = v;
   }
   __syncthreads();
@@ -85,72 +71,6 @@ __device__ __forceinline__ void store_tile(const PassArgs& a,
       if (v >= q) v -= q;
     }
     a.y[row_of(a, i, seq0 + g) * a.B + col] = v;
-  }
-}
-
-// Every stage of one forward pass (DIT, Harvey-lazy) over the tile in sm:
-// inputs any u32 below 4q, outputs in [0, 4q).
-__device__ __forceinline__ void fwd_stages(const PassArgs& a, uint32_t* sm,
-                                           int seq0) {
-  const uint32_t q = a.q, q2 = 2u * a.q;
-  const int GT = a.G * a.TB;
-  const int nbf = (a.L >> 1) * GT;
-  for (int sp = 0; sp < a.logL; ++sp) {
-    const int lt = a.logL - sp - 1;  // t = L >> (sp + 1)
-    const int t = 1 << lt;
-    for (int e = threadIdx.x; e < nbf; e += blockDim.x) {
-      const int c = e & (a.TB - 1);
-      const int g = (e >> a.logTB) & (a.G - 1);
-      const int k = e >> (a.logTB + a.logG);
-      const int grp = k >> lt;
-      const int iu = (grp << (lt + 1)) + (k & (t - 1));
-      const int tw = ((a.base0 + (seq0 + g) * a.base_step) << sp) + grp;
-      const uint32_t w = __ldg(a.w + tw), wsh = __ldg(a.wsh + tw);
-      uint32_t* pu = sm + (iu * a.G + g) * a.TB + c;
-      uint32_t* pv = pu + t * GT;
-      uint32_t u = *pu;
-      if (u >= q2) u -= q2;
-      const uint32_t tv = mul_shoup_lazy(*pv, w, wsh, q);  // [0, 2q)
-      *pu = u + tv;        // [0, 4q)
-      *pv = u + q2 - tv;   // (0, 4q)
-    }
-    __syncthreads();
-  }
-}
-
-// Every stage of one GS inverse pass over the tile in sm: inputs and outputs
-// in [0, 2q); on the last pass local stage 0 (global stage 0) carries n^-1.
-__device__ __forceinline__ void inv_stages(const PassArgs& a, uint32_t* sm,
-                                           int seq0) {
-  const uint32_t q = a.q, q2 = 2u * a.q;
-  const int GT = a.G * a.TB;
-  const int nbf = (a.L >> 1) * GT;
-  for (int sp = a.logL - 1; sp >= 0; --sp) {
-    const int lt = a.logL - sp - 1;
-    const int t = 1 << lt;
-    const bool scale = a.last && sp == 0;  // global stage 0: n^-1 folded in
-    for (int e = threadIdx.x; e < nbf; e += blockDim.x) {
-      const int c = e & (a.TB - 1);
-      const int g = (e >> a.logTB) & (a.G - 1);
-      const int k = e >> (a.logTB + a.logG);
-      const int grp = k >> lt;
-      const int iu = (grp << (lt + 1)) + (k & (t - 1));
-      uint32_t* pu = sm + (iu * a.G + g) * a.TB + c;
-      uint32_t* pv = pu + t * GT;
-      const uint32_t u = *pu, v = *pv;  // both in [0, 2q)
-      if (scale) {
-        *pu = mul_shoup_lazy(u + v, a.ninv, a.ninv_sh, q);
-        *pv = mul_shoup_lazy(u + q2 - v, a.w0n, a.w0n_sh, q);
-      } else {
-        const int tw = ((a.base0 + (seq0 + g) * a.base_step) << sp) + grp;
-        const uint32_t w = __ldg(a.w + tw), wsh = __ldg(a.wsh + tw);
-        uint32_t s = u + v;
-        if (s >= q2) s -= q2;
-        *pu = s;
-        *pv = mul_shoup_lazy(u + q2 - v, w, wsh, q);
-      }
-    }
-    __syncthreads();
   }
 }
 

@@ -21,17 +21,27 @@
 // card and (D-1)/D * 4*tS*B bytes per card at NVLink's 450 GB/s each way
 // across cards.  It copies 16-byte vectors (a scalar tail and a scalar path
 // for misaligned chunks), one launch per shard with a grid over its D chunks.
-// The fused passes are csrc/ntt.cu's pass kernels, whose tile load (forward)
-// or store (inverse) addresses the other shards: row r = e*C + c of shard d's
-// block lives at row d*C + c of shard e.  The exchange then costs no array of
-// its own and no device-memory round trip: the pass reads and writes exactly
-// the bytes an unfused phase-B pass does, and the other resident blocks hide
-// the remote latency.  That replaces the TPU kernels' landing-zone slots, ack
-// rounds and send windows, which Mosaic's VMEM and DMA semaphores forced.
-// Above tS = 4096 phase B is two passes; the gather sits in the first
-// (forward) and the scatter in the last (inverse).
+// The fused passes are the register-round pass kernels of csrc/ntt.cu
+// (csrc/ntt_rounds.cuh) whose first round's loads (forward) or last round's
+// stores (inverse) address the other shards: row r = e*C + c of shard d's
+// block lives at row d*C + c of shard e.  Both rounds run the pass's stages
+// [0, RS), so word m of a unit is element (m << LK) | k of its sequence and
+// its row's shard is the top log2 D bits of m: a template constant of each
+// word once D is one, while RS >= log2 D, which the host checks.  A unit
+// then reads every shard's pointer from the kernel's parameters at a fixed
+// offset and adds one offset a word, as the plain pass does.  The exchange
+// costs no array of its own and no device-memory round trip: the pass reads
+// and writes exactly the bytes an unfused phase-B pass does, with its
+// threads, tile and rounds, and the other resident blocks hide the remote
+// latency.  That replaces the TPU kernels' landing-zone slots, ack rounds
+// and send windows, which Mosaic's VMEM and DMA semaphores forced.  Phase
+// B is `ntt_cm`'s schedule at base D + d: at tS = 8192 and 16384 one pass
+// over a thread-block cluster, whose first round the gather's loads feed
+// (it stores into the cluster's shared memory) and whose last round the
+// scatter's stores drain (it loads from there); above 16384 two passes, the
+// gather the first and the scatter the last.
 
-#include "ntt_common.cuh"
+#include "ntt_rounds.cuh"
 
 namespace {
 
@@ -62,69 +72,65 @@ __global__ void a2a_chunks(const __grid_constant__ A2AArgs a) {
 }
 
 struct RingArgs {
-  PassArgs p;              // the pass over shard d's (tS, B) block rows
-  uint32_t* peer[MAX_D];   // gather: the phase-A outputs; scatter: the landing buffers
-  int logC, d;
+  NttArgs a;               // the pass over shard d's (tS, B) block rows
+  uint32_t* shard[MAX_D];  // shard e's buffer offset by (d - e)*C rows (below)
 };
 
-// Where block row `row` of shard d lives: row d*C + c of shard e.
-__device__ __forceinline__ uint32_t* peer_row(const RingArgs& r, size_t row) {
-  const size_t c = row & (((size_t)1 << r.logC) - 1);
-  return r.peer[row >> r.logC] + ((((size_t)r.d << r.logC) + c) * r.p.B);
-}
+// The gather's loads (SCATTER = 0) or the scatter's stores: block row r of
+// shard d, in shard e = r >> log2 C, lives at row d*C + r - e*C of shard e,
+// shard[e] + r*B with shard[e] = peer[e] + (d - e)*C*B, the pointers the
+// host passes.  Its other words are the pass's own x (scatter) or y.
+template <int LOGD, bool SCATTER>
+struct RingIO {
+  const RingArgs& r;
 
-// load_tile<false> of ntt_common.cuh reading every shard's phase-A output
-// (lazy, below 4q: the first stage folds u once).
-__device__ __forceinline__ void load_gather(const RingArgs& r, uint32_t* sm,
-                                            int col0, int seq0) {
-  const PassArgs& a = r.p;
-  const int tile = a.L * a.G * a.TB;
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-    const int c = e & (a.TB - 1);
-    const int g = (e >> a.logTB) & (a.G - 1);
-    const int i = e >> (a.logTB + a.logG);
-    const int col = col0 + c;
-    sm[e] = col < a.B ? peer_row(r, row_of(a, i, seq0 + g))[col] : 0;
+  template <int A, int RS, int M>
+  __device__ __forceinline__ uint32_t* peer() const {
+    static_assert(A == 0 && RS >= LOGD,
+                  "a word's shard is static in a round of stages [0, RS), RS >= log2 D");
+    return r.shard[M >> (RS - LOGD)];
   }
-  __syncthreads();
-}
-
-// store_tile of ntt_common.cuh writing into every shard's landing buffer.
-__device__ __forceinline__ void store_scatter(const RingArgs& r,
-                                              const uint32_t* sm, int col0,
-                                              int seq0) {
-  const PassArgs& a = r.p;
-  const int tile = a.L * a.G * a.TB;
-  const uint32_t q = a.q;
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-    const int col = col0 + (e & (a.TB - 1));
-    if (col >= a.B) continue;
-    const int g = (e >> a.logTB) & (a.G - 1);
-    const int i = e >> (a.logTB + a.logG);
-    uint32_t v = sm[e];
-    if (a.last && v >= q) v -= q;  // inverse values are < 2q: one fold
-    peer_row(r, row_of(a, i, seq0 + g))[col] = v;
+  template <int A, int RS, int M>
+  __device__ __forceinline__ const uint32_t* src(const NttArgs& a) const {
+    if constexpr (SCATTER) return a.x;
+    else return peer<A, RS, M>();
   }
+  template <int A, int RS, int M>
+  __device__ __forceinline__ uint32_t* dst(const NttArgs& a) const {
+    if constexpr (SCATTER) return peer<A, RS, M>();
+    else return a.y;
+  }
+};
+
+template <int LOGL, int TB, int LOGC, int LOGD>
+__global__ void __launch_bounds__(1024) ntt_fwd_gather_pass(const __grid_constant__ RingArgs r) {
+  extern __shared__ uint32_t sm[];
+  if constexpr (LOGC > 0) cluster_arrive();  // waited for before the first remote store
+  ntt_rounds<LOGL, TB, LOGC, false, 0>(r.a, sm, (blockIdx.x >> LOGC) * TB,
+                                       blockIdx.y << r.a.logG, RingIO<LOGD, false>{r});
 }
 
-__global__ void ntt_fwd_gather_pass(const __grid_constant__ RingArgs r) {
+template <int LOGL, int TB, int LOGC, int LOGD>
+__global__ void __launch_bounds__(1024) ntt_inv_scatter_pass(const __grid_constant__ RingArgs r) {
   extern __shared__ uint32_t sm[];
-  const PassArgs& a = r.p;
-  const int col0 = blockIdx.x * a.TB;
-  const int seq0 = blockIdx.y * a.G;
-  load_gather(r, sm, col0, seq0);
-  fwd_stages(a, sm, seq0);
-  store_tile(a, sm, col0, seq0, 2u * a.q);
+  ntt_rounds<LOGL, TB, LOGC, true, 0>(r.a, sm, (blockIdx.x >> LOGC) * TB,
+                                      blockIdx.y << r.a.logG, RingIO<LOGD, true>{r});
+  if constexpr (LOGC > 0) cluster_sync();  // no CTA leaves while others read it
 }
 
-__global__ void ntt_inv_scatter_pass(const __grid_constant__ RingArgs r) {
-  extern __shared__ uint32_t sm[];
-  const PassArgs& a = r.p;
-  const int col0 = blockIdx.x * a.TB;
-  const int seq0 = blockIdx.y * a.G;
-  load_tile<true>(a, sm, col0, seq0);
-  inv_stages(a, sm, seq0);
-  store_scatter(r, sm, col0, seq0);
+template <int LOGD>
+int launch_ring_pass(const RingArgs& r, bool scatter, int L, int G, int nseq, int TB,
+                     int threads, int log_cluster, void* stream) {
+  return with_pass_tile(L, TB, log_cluster, [&](auto lg, auto tb, auto lc) {
+    constexpr int LOGL = decltype(lg)::value, T = decltype(tb)::value, LOGC = decltype(lc)::value;
+    if constexpr (Rounds<LOGL>::size(0) < LOGD) {
+      return (int)cudaErrorInvalidValue;  // a unit's words would not map to shards statically
+    } else {
+      void (*kernel)(RingArgs) = scatter ? ntt_inv_scatter_pass<LOGL, T, LOGC, LOGD>
+                                         : ntt_fwd_gather_pass<LOGL, T, LOGC, LOGD>;
+      return launch_rounds<LOGL, T, LOGC>(kernel, r, r.a.B, G, nseq, threads, stream);
+    }
+  });
 }
 
 }  // namespace
@@ -149,29 +155,42 @@ int lol_a2a_chunks(const void* x, void* const* out, int D, int d,
   return (int)cudaGetLastError();
 }
 
-// One fused pass of shard d over its block: scatter = 0, the forward pass
-// reading every shard's phase-A output (peers) and writing y; scatter = 1,
-// the GS inverse pass reading x and writing every shard's landing buffer
-// (peers).  C = tS/D, a power of two.
-int lol_ntt_ring_pass(int scatter, const void* x, void* y,
-                      void* const* peers, int D, int C, int d,
-                      const void* w, const void* wsh, int B, int L, int nseq,
-                      int elem_stride, int seq_stride, int base0,
-                      int base_step, int G, int TB, int threads, int last,
-                      uint32_t q, uint32_t ninv, uint32_t ninv_sh,
-                      uint32_t w0n, uint32_t w0n_sh, void* stream) {
-  RingArgs r{};
-  if (D < 1 || D > MAX_D || d < 0 || d >= D || !pow2(C) ||
-      !set_geometry(r.p, x, y, w, wsh, B, L, nseq, elem_stride, seq_stride, G,
-                    TB, threads, last, q))
+// One fused pass of shard d over its block, a pass of csrc/ntt.cu's
+// lol_ntt_pass geometry: scatter = 0, the forward pass reading every shard's
+// phase-A output (peers, lazy words below 4q are fine) and writing y, folded
+// to [0, q) if `last`; scatter = 1, the GS inverse pass reading x and
+// writing every shard's landing buffer (peers), lazy in [0, 2q).  D in {2,
+// 4, 8}, C = tS/D a power of two.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue, launching nothing, for a pass whose
+// element index is not the top of its block row (elem_stride * L = tS,
+// (nseq - 1) * seq_stride < elem_stride), whose first round has fewer than
+// log2 D stages, or that no kernel is built for.
+int lol_ntt_ring_pass(int scatter, const void* x, void* y, void* const* peers, int D, int C,
+                      int d, const void* w, const void* wsh, int B, int L, int nseq,
+                      int elem_stride, int seq_stride, int base0, int base_step, int G, int TB,
+                      int threads, int log_cluster, int last, uint32_t q, void* stream) {
+  if (!pow2(D) || D < 2 || D > MAX_D || d < 0 || d >= D || !pow2(C) || B < 1 || !pow2(L) ||
+      !pow2(G) || nseq % G || threads < 32 || threads > 1024 || threads % 32 ||
+      (scatter && last) || (long long)elem_stride * L != (long long)D * C ||
+      (long long)(nseq - 1) * seq_stride >= elem_stride)
     return (int)cudaErrorInvalidValue;
-  r.p.base0 = base0; r.p.base_step = base_step;
-  r.p.ninv = ninv; r.p.ninv_sh = ninv_sh; r.p.w0n = w0n; r.p.w0n_sh = w0n_sh;
-  for (int e = 0; e < D; ++e) r.peer[e] = static_cast<uint32_t*>(peers[e]);
-  r.logC = ilog2(C);
-  r.d = d;
-  return launch(scatter ? ntt_inv_scatter_pass : ntt_fwd_gather_pass, r, r.p,
-                threads, stream);
+  RingArgs r{};
+  NttArgs& a = r.a;
+  a.x = static_cast<const uint32_t*>(x);
+  a.y = static_cast<uint32_t*>(y);
+  a.w = static_cast<const uint32_t*>(w);
+  a.wsh = static_cast<const uint32_t*>(wsh);
+  a.B = B; a.logG = ilog2(G); a.elem_stride = elem_stride; a.seq_stride = seq_stride;
+  a.base0 = base0; a.base_step = base_step; a.q = q; a.last = last;
+  for (int e = 0; e < D; ++e)
+    r.shard[e] = reinterpret_cast<uint32_t*>(reinterpret_cast<uintptr_t>(peers[e]) +
+                                             (intptr_t)(d - e) * C * B * sizeof(uint32_t));
+  const bool s = scatter != 0;
+  switch (ilog2(D)) {
+    case 1: return launch_ring_pass<1>(r, s, L, G, nseq, TB, threads, log_cluster, stream);
+    case 2: return launch_ring_pass<2>(r, s, L, G, nseq, TB, threads, log_cluster, stream);
+    default: return launch_ring_pass<3>(r, s, L, G, nseq, TB, threads, log_cluster, stream);
+  }
 }
 
 // Lets `device` address `peer`'s memory (NVLink / PCIe peer access); 0 when

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -91,6 +92,29 @@ def load() -> ctypes.CDLL:
         lib.lol_cuda_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
     return _LIB[0]
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Each kernel's resources from a build log (`-Xptxas -v`), by mangled
+    name: registers, and the bytes of its stack frame and of its spill
+    stores and loads."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        head = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if head:
+            name = head.group(1)
+            out.setdefault(name, {})
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame and name:
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                 map(int, frame.groups())))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out[name]["registers"] = int(regs.group(1))
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -21,8 +21,9 @@ Bound on the H100: every pass reads and writes the (n, B) array once,
 one such pass for n <= 4096 and two above (see the note at the top of
 `csrc/ntt.cu`).  `ntt_cm` runs `cm_schedule`, which makes n = 8192 and
 2^14 (the BGV step's ring) one pass over a cluster of CLUSTER[n] thread
-blocks of 2048 rows each, which hold the column tile together.  The forward and GS kernels run a
-pass's stages in register rounds of at most MAX_ROUND stages (`rounds`),
+blocks of 2048 rows each, which hold the column tile together; the ring's
+phase B (`ops/cuda/remote_ntt.py`) runs it too.  The forward and GS
+kernels run a pass's stages in register rounds of at most MAX_ROUND stages (`rounds`),
 one template instance per (L, TB) in KERNEL_TILES and per cluster pass.
 Route B runs `schedule`'s passes in the GS inverse's order: block DFT +
 twist, then cross DFT + scale.
@@ -135,14 +136,15 @@ def cross_pass(L: int, nseq: int, base: int) -> Pass:
     return Pass(L, nseq, nseq, 1, base, 0, G, tb)
 
 
-def cm_schedule(n: int) -> list[Pass]:
-    """The forward pass sequence of `ntt_cm` (the inverse runs it
-    reversed): one pass over a cluster of CLUSTER[n] CTAs, for the n that
-    have one, else `schedule(n)`.  Route B and the ring's phase B keep
-    `schedule` (one CTA a tile up to 4096 rows, two passes above)."""
+def cm_schedule(n: int, base: int = 1) -> list[Pass]:
+    """The forward pass sequence of `ntt_cm` and of the ring's phase B
+    (the inverse runs it reversed): one pass over a cluster of CLUSTER[n]
+    CTAs, for the n that have one, else `schedule(n, base)`.  base: as
+    `schedule`'s.  Route B keeps `schedule` (one CTA a tile up to 4096
+    rows, two passes above)."""
     if n in CLUSTER:
-        return [Pass(n, 1, 1, 0, 1, 0, 1, MIN_COLS, CLUSTER[n])]
-    return schedule(n)
+        return [Pass(n, 1, 1, 0, base, 0, 1, MIN_COLS, CLUSTER[n])]
+    return schedule(n, base)
 
 
 def schedule(n: int, base: int = 1) -> list[Pass]:

@@ -22,6 +22,11 @@ and, per prime, as `_ring_sharded` there:
            scatter pass (after its block pass) (overlap=True)
            -> phase A' (1/n folded into global stage 0) -> a2a[class]
 
+Phase B runs `phase_b_passes`, `ntt_cm`'s schedule at base D + d, so the
+gather and scatter passes have the geometry, threads and tile of the
+unfused pass they fold the exchange into (a block pass follows only
+above tS = 16384).
+
 The chunk transpose `a2a_chunks` (out[d] chunk e = shard e's chunk d) is
 an involution and serves both exchanges.  overlap=True folds the second
 exchange into the phase-B pass: `ntt_fwd_gather` loads shard d's block
@@ -70,7 +75,7 @@ def _lib() -> ctypes.CDLL:
         lib.lol_a2a_chunks.argtypes = [_P, _PP, _I, _I, ctypes.c_longlong, _I, _P]
         lib.lol_a2a_chunks.restype = _I
         lib.lol_ntt_ring_pass.argtypes = ([_I, _P, _P, _PP, _I, _I, _I, _P, _P]
-                                          + [_I] * 11 + [_U] * 5 + [_P])
+                                          + [_I] * 12 + [_U, _P])
         lib.lol_ntt_ring_pass.restype = _I
         lib.lol_enable_peer_access.argtypes = [_I, _I]
         lib.lol_enable_peer_access.restype = _I
@@ -95,9 +100,10 @@ def phase_a_pass(D: int, C: int) -> tk.Pass:
 
 def phase_b_passes(tS: int, D: int, d: int) -> list[tk.Pass]:
     """Phase B of shard d in forward order (phase B' runs it reversed): the
-    length-tS schedule of `ntt_cm` at twiddle base D + d, one pass up to
-    tS = 4096, a cross and a block pass above."""
-    return tk.schedule(tS, base=D + d)
+    length-tS schedule of `ntt_cm` at twiddle base D + d (`cm_schedule`):
+    one pass up to tS = 4096, one pass over a thread-block cluster at 8192
+    and 16384, a cross and a block pass above."""
+    return tk.cm_schedule(tS, base=D + d)
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +271,8 @@ def a2a_chunks(shards: list[torch.Tensor]) -> list[torch.Tensor]:
 
 def _ring_pass(scatter: bool, x, y, peers: list[torch.Tensor], d: int, plan: NTTPlan,
                p: tk.Pass, last: bool, stream) -> None:
+    """Launch shard d's gather (scatter=False) or scatter pass p, with the
+    threads and tile of the unfused pass of the same geometry."""
     lib = _lib()
     D = len(peers)
     tS, B = peers[0].shape
@@ -276,8 +284,8 @@ def _ring_pass(scatter: bool, x, y, peers: list[torch.Tensor], d: int, plan: NTT
             int(scatter), None if x is None else x.data_ptr(),
             None if y is None else y.data_ptr(), _ptrs(peers), D, tS // D, d,
             tw.data_ptr(), twsh.data_ptr(), B, p.L, p.nseq, p.elem_stride,
-            p.seq_stride, p.base0, p.base_step, p.G, p.TB, p.threads, int(last),
-            plan.q, *tk.scale_consts(plan), stream.cuda_stream,
+            p.seq_stride, p.base0, p.base_step, p.G, p.TB, tk.kernel_threads(p),
+            p.cluster.bit_length() - 1, int(last), plan.q, stream.cuda_stream,
         )
     name = "ntt_inv_scatter" if scatter else "ntt_fwd_gather"
     build.check(err, f"{name} shard {d} (D={D}, tS={tS}, B={B}, L={p.L})")

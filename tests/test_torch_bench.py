@@ -22,6 +22,7 @@ from jax.experimental import pallas as pl
 from lol_tpu.bench import mxu_ntt as jmx
 from lol_tpu_torch import numtheory as nt, sampling, she
 from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, sass_diff, steptime
+from lol_tpu_torch.ops.cuda import build
 from lol_tpu_torch.she_batched import BatchedBGV
 
 torch.set_num_threads(2)
@@ -96,6 +97,23 @@ def test_sass_diff_compares_kernels_without_the_unit_hash():
     assert dict(sass_diff.compare(old, moved))["_ZN386_ntt_cu12ntt_fwd_passE"].startswith("differs")
     del moved["_ZN386_ntt_cu3oneE"]
     assert dict(sass_diff.compare(old, moved))["_ZN386_ntt_cu3oneE"] == "only in the old build"
+
+
+def test_ptxas_report_reads_registers_stack_and_spills():
+    log = ("nvcc -c -o remote_ntt.o remote_ntt.cu\n"
+           "ptxas info    : 0 bytes gmem\n"
+           "ptxas info    : Compiling entry function '_Z4ringILi12EEv8RingArgs' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z4ringILi12EEv8RingArgs\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 62 registers, used 1 barriers, 496 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z5spillv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z5spillv\n"
+           "    40 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+           "ptxas info    : Used 255 registers, 384 bytes cmem[0]\n")
+    assert build.ptxas_report(log) == {
+        "_Z4ringILi12EEv8RingArgs": {"registers": 62, "stack": 0, "spill_stores": 0,
+                                     "spill_loads": 0},
+        "_Z5spillv": {"registers": 255, "stack": 40, "spill_stores": 8, "spill_loads": 12}}
 
 
 def test_roofline_row_from_a_measured_time():

@@ -177,8 +177,8 @@ def _words(g, dev, shape, lo, hi, plant):
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-@pytest.mark.parametrize("D,n", [(D, n) for D in (2, 4, 8) for n in (256, 4096, 16384, 65536)
-                                 if n % (D * D) == 0])
+@pytest.mark.parametrize("D,n", [(D, n) for D in (2, 4, 8)
+                                 for n in (256, 4096, 16384, 32768, 65536) if n % (D * D) == 0])
 @pytest.mark.parametrize("B", [1, 1000, 1024])
 def test_ring_kernels_match_plain(cuda, D, n, B):
     """a2a_chunks on raw words, the gather pass on phase A's lazy words
@@ -199,6 +199,26 @@ def test_ring_kernels_match_plain(cuda, D, n, B):
     for a, b in zip(rn.ntt_inv_scatter(res, plan), rn.ntt_inv_scatter_ref(res, plan)):
         assert bool((a >= 0).all()) and bool((a < 2 * q).all())
         assert torch.equal(a % q, b)
+
+
+@pytest.mark.parametrize("scatter", [False, True])
+def test_ring_pass_refuses_a_first_round_narrower_than_log2_d(cuda, scatter, monkeypatch):
+    """A phase-B pass whose first round has fewer than log2 D stages (here
+    a length-4 cross pass over D = 8 shards: rounds [2]) has no static
+    shard map; the C entry refuses it, the wrapper raises and nothing
+    else is launched in its place."""
+    D, n = 8, 16384
+    plan = ntt.ntt_plan(n, nt.ntt_primes(2 * n, 30, 1)[0])
+    tS = n // D
+    monkeypatch.setattr(rn, "phase_b_passes",
+                        lambda tS_, D_, d: [tk.cross_pass(4, tS_ // 4, D_ + d)])
+    assert tk.rounds(4)[0] < 3
+    xs = [torch.zeros((tS, 8), dtype=torch.int32, device=cuda) for _ in range(D)]
+    before = {**tk.LAUNCHES, **rn.LAUNCHES}
+    fn = rn.ntt_inv_scatter if scatter else rn.ntt_fwd_gather
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fn(xs, plan)
+    assert {**tk.LAUNCHES, **rn.LAUNCHES} == before
 
 
 def _ring_vs_single_card(mesh, plan, x):

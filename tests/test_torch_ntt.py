@@ -184,14 +184,17 @@ def test_kernel_schedule_covers_every_stage(n, sched):
 @pytest.mark.parametrize("n", [256, 4096, 16384, 65536])
 def test_route_b_and_ring_schedules_are_pinned(n):
     """ntt_cm's own schedule (cluster passes at n = 2^13 and 2^14) leaves
-    route B's factorisation and the ring's phase B as they were: the
-    two-pass `schedule`, WINDOW-row blocks above 4096."""
+    route B's factorisation as it was (the two-pass `schedule`, WINDOW-row
+    blocks above 4096); the ring's phase B runs it at base D + d: one pass
+    up to 4096 rows, a cluster pass at 8192 and 16384, two passes above."""
     assert tk._dit_block_rows(n) == (n if n <= 4096 else 512)
     for D in (2, 4, 8):
         tS = n // D
         for d in (0, D - 1):
             if tS <= 4096:
                 want = [tk.Pass(tS, 1, 1, 0, D + d, 0, 1, max(8, min(32, 32768 // tS)))]
+            elif tS in tk.CLUSTER:
+                want = [tk.Pass(tS, 1, 1, 0, D + d, 0, 1, 8, tS // 2048)]
             else:
                 P = tS // 512
                 want = [tk.Pass(P, 512, 512, 1, D + d, 0, 16384 // (P * 32), 32),
@@ -199,12 +202,13 @@ def test_route_b_and_ring_schedules_are_pinned(n):
             assert rn.phase_b_passes(tS, D, d) == want
 
 
-def _run_rounds(x, plan, passes, inverse):
+def _run_rounds(x, plan, passes, inverse, scale=True):
     """A plain int64 run of the forward / GS kernels' register rounds
-    (csrc/ntt.cu `ntt_round`), in their order: for each pass, each round
-    of `tk.rounds` (the inverse from the last), each unit of 2^rs rows
-    row0 | m << LK, and each stage's twiddle index
-    ((base0 + sq*base_step) << (A + s)) + (j << s) + grp; exact mod q."""
+    (csrc/ntt_rounds.cuh `ntt_round`), in their order: for each pass, each
+    round of `tk.rounds` (the inverse from the last), each unit of 2^rs
+    rows row0 | m << LK, and each stage's twiddle index
+    ((base0 + sq*base_step) << (A + s)) + (j << s) + grp; exact mod q.
+    scale: the inverse ends with n^-1 (not so the ring's phase B')."""
     q = plan.q
     w = plan.tables("cpu")[2 if inverse else 0].long()
     x = x.long() % q
@@ -241,7 +245,7 @@ def _run_rounds(x, plan, passes, inverse):
                 v = torch.stack(out, dim=4).reshape(v.shape)
             y[:, idx] = v
         x[rows] = y
-    return x * plan.n_inv % q if inverse else x
+    return x * plan.n_inv % q if inverse and scale else x
 
 
 @pytest.mark.parametrize("n", [256, 4096, 16384])
@@ -306,6 +310,91 @@ def test_round_exchanges_are_free_of_bank_conflicts(n):
                         addr = [_smem_words(p, A, rs, u, rank, m) for u in range(w0, w0 + 32)]
                         assert len({cta for _, cta in addr}) == 1
                         assert len({a % 32 for a, _ in addr}) == 32, (p, r, w0, m)
+
+
+# the (n, D) of every ring-sharded transform chip_smoke.py runs (phases 2 and 3b)
+SMOKE_RING = [(n, D) for n in (256, 4096, 16384, 65536) for D in (2, 4, 8) if n % (D * D) == 0]
+
+
+def _ring_words(p, D, d, tS):
+    """Every word that the first round (stages [0, RS)) of shard d's ring
+    pass p reads (gather) or that the inverse's last round, the same round,
+    writes (scatter), at column 0, as csrc/ntt_rounds.cuh `ntt_round` with
+    csrc/remote_ntt.cu `RingIO` addresses it: for each sequence tile, CTA
+    of the cluster, unit u and word m, its block row r, the shard e =
+    m >> (RS - log2 D) the kernel takes statically, and the row of shard e
+    it touches, r + (d - e)*C (the host's pointer shard[e] = peer[e] +
+    (d - e)*C rows).  numpy arrays (r, e, row), one entry a word."""
+    k, logd = p.L.bit_length() - 1, D.bit_length() - 1
+    logc, logtb, logg = (v.bit_length() - 1 for v in (p.cluster, p.TB, p.G))
+    rs = tk.rounds(p.L)[0]
+    lk = logu = k - rs
+    C = tS // D
+    by = np.arange(p.nseq // p.G)[:, None, None, None]
+    rank = np.arange(p.cluster)[None, :, None, None]
+    u = np.arange(0, p.TB << (logu - logc + logg), p.TB)[None, None, :, None]  # column 0
+    m = np.arange(1 << rs)[None, None, None, :]
+    rest = ((u >> logtb) & ((1 << (logu - logc)) - 1)) | (rank << (logu - logc))
+    g = u >> (logtb + logu - logc)
+    j = rest >> lk
+    row0 = (j << k) | (rest & ((1 << lk) - 1))
+    sq = (by << logg) + g
+    r = row0 * p.elem_stride + sq * p.seq_stride + (m << lk) * p.elem_stride
+    e = np.broadcast_to(m >> (rs - logd), r.shape)
+    return r.ravel(), e.ravel(), (r + (d - e) * C).ravel()
+
+
+@pytest.mark.parametrize("n,D", SMOKE_RING)
+def test_ring_passes_map_each_word_to_its_shard_statically(n, D):
+    """For every phase-B pass that chip_smoke.py runs: the first round has
+    at least log2 D stages; the geometry passes the host's checks
+    (elem_stride * L = tS, (nseq - 1) * seq_stride < elem_stride); each
+    word's static shard m >> (RS - log2 D) is its block row's, r >> log2 C;
+    and shard d's gather reads, and its scatter writes, each of the rows
+    d*C ... (d+1)*C - 1 of every shard exactly once."""
+    tS, C = rn.check_ring(n, D)
+    for d in range(D):
+        p = rn.phase_b_passes(tS, D, d)[0]
+        assert tk.rounds(p.L)[0] >= D.bit_length() - 1
+        assert p.elem_stride * p.L == tS and (p.nseq - 1) * p.seq_stride < p.elem_stride
+        r, e, row = _ring_words(p, D, d, tS)
+        assert np.array_equal(e, r >> (C.bit_length() - 1))
+        touched = np.sort(e * tS + row)
+        want = (np.arange(D)[:, None] * tS + d * C + np.arange(C)[None, :]).ravel()
+        assert np.array_equal(touched, want)
+
+
+@pytest.mark.parametrize("n,D", [(256, 2), (256, 4), (256, 8), (4096, 8), (16384, 2),
+                                 (16384, 4), (65536, 4)])
+def test_gathered_and_scattered_rounds_equal_the_plain_ring_passes(n, D, rng):
+    """A plain int64 run of the fused kernels: each shard's block gathered
+    by `_ring_words` from every shard's lazy phase-A words (below 4q),
+    then the rounds of its phase-B passes (`_run_rounds`), equals
+    ntt_fwd_gather_ref; and the rounds of phase B' on residues, scattered
+    by the same addresses into every shard's landing buffer, equal
+    ntt_inv_scatter_ref (mod q)."""
+    q = nt.ntt_primes(2 * n, 30, 1)[0]
+    plan = ntt.ntt_plan(n, q)
+    tS, C = rn.check_ring(n, D)
+    B = 3
+    lazy = rng.integers(0, 4 * q, (D, tS, B), dtype=np.int64)
+    lazy[0, :3, 0] = [0, 1, 4 * q - 1]
+    words = torch.from_numpy(lazy)
+    want = rn.ntt_fwd_gather_ref([torch.from_numpy(v.astype(np.uint32).view(np.int32))
+                                  for v in lazy], plan)
+    res = torch.from_numpy(lazy % q)
+    lands = torch.empty_like(res)
+    for d in range(D):
+        passes = rn.phase_b_passes(tS, D, d)
+        r, e, row = (torch.from_numpy(np.ascontiguousarray(v)) for v in _ring_words(passes[0], D, d, tS))
+        block = torch.empty((tS, B), dtype=torch.int64)
+        block[r] = words[e, row]
+        assert torch.equal(_run_rounds(block, plan, passes, inverse=False), want[d].long())
+        out = _run_rounds(res[d], plan, passes[::-1], inverse=True, scale=False)
+        lands[e, row] = out[r]
+    scattered = rn.ntt_inv_scatter_ref([v.to(torch.int32) for v in res], plan)
+    for got, ref in zip(lands, scattered):
+        assert torch.equal(got % q, ref.long())
 
 
 def test_decompose_cm_matches_reference(rng):

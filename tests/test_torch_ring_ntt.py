@@ -136,7 +136,8 @@ def _stage_rows(passes):
                                  (4, 65536)])
 def test_phase_tables_match_jax(D, n):
     """The twiddles the kernels read for phase B of shard d (base D + d,
-    one pass up to tS = 4096, cross + block above) are the JAX package's
+    one pass up to tS = 4096 and over a cluster at 8192 and 16384, cross +
+    block above) are the JAX package's
     `_block_twiddles(plan, inverse, S, tS)[d]`, and phase A's (base 1)
     its `_plan_tables` wA, in both directions."""
     q = jnt.ntt_primes(2 * n, 30, 1)[0]
@@ -150,7 +151,7 @@ def test_phase_tables_match_jax(D, n):
         np.testing.assert_array_equal(np.asarray(TBj), TB)
         for d in range(D):
             passes = rn.phase_b_passes(tS, D, d)
-            assert len(passes) == (1 if tS <= tk.SINGLE_PASS_MAX_N else 2)
+            assert len(passes) == (1 if tS <= tk.SINGLE_PASS_MAX_N or tS in tk.CLUSTER else 2)
             idx, rows = _stage_rows(passes)
             assert len(set(rows.tolist())) == tS - 1  # every table row, once
             np.testing.assert_array_equal(src[idx], TB[d][rows])
