@@ -39,20 +39,25 @@ then runs its phases and exits non-zero on the first failure:
    counted exactly;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
-   the step's is checked first): NTT/s at n = 4096 over 2x30-bit primes;
+   the step's is checked first); every kernel's time (`ms` in the
+   `kernels` line and the roofline rows) on the device alone, the plain
+   versions and the end-to-end metrics as their caller sees them: NTT/s
+   at n = 4096 over 2x30-bit primes;
    the route-B against the GS inverse (its own path: its launches are
-   counted over this A/B alone), which also gives both inverses' times
-   at one step channel; the forward NTT and ct_mul kernels there, every
-   plain version, and route B's single pass at n = 4096; the u32 ceiling
-   (the chain kernel's path); a device copy's bandwidth; the roofline
-   rows from those times against both; the steptime breakdown of the
-   step, whose step leg gives the ops/s at n = 2^14; the ops/s at
-   n = 4096; the ring-sharded transforms by route against ntt_cm at the
-   same (n, B), on one card and, where phase 3b's mesh spans several
-   cards, on that mesh too; the exchange's GB/s against the copy_'s, and the gather
-   and scatter passes against the unfused phase-B (B') passes they replace,
-   at n = 2^14 and 2^16.  Phase 1 also fails if ptxas gave a ring kernel a
-   stack frame or spills.
+   counted over this A/B alone, pass by pass of `dit_schedule`), which
+   also gives both inverses' times at one step channel (route B's
+   cluster pass) and at n = 2^16 (its block and cross passes); the
+   forward NTT and ct_mul kernels there, every plain version, and route
+   B's single pass at n = 4096; the u32 ceiling (the chain kernel's
+   path); a device copy's bandwidth; the roofline rows from those times
+   against both; the steptime breakdown of the step, whose step leg
+   gives the ops/s at n = 2^14; the ops/s at n = 4096; the ring-sharded
+   transforms by route against ntt_cm at the same (n, B), on one card
+   and, where phase 3b's mesh spans several cards, on that mesh too; the
+   exchange's GB/s against the copy_'s, and the gather and scatter
+   passes against the unfused phase-B (B') passes they replace, at
+   n = 2^14 and 2^16.  Phase 1 also fails if ptxas gave a ring or
+   route-B kernel a stack frame or spills.
 
 The last three lines of standard output are the card line, a JSON object
 with one entry per TPU kernel ported (the CUDA kernel that replaces it,
@@ -153,11 +158,11 @@ def main() -> int:
     for name, r in sorted(ptxas.items()):
         print(f"ptxas: {r.get('registers')} registers, {r.get('stack')} B stack, "
               f"{r.get('spill_stores')}/{r.get('spill_loads')} B spilled: {name}", flush=True)
-    ring_spills = [k for k, r in ptxas.items() if ("ntt_fwd_gather_pass" in k or
-                   "ntt_inv_scatter_pass" in k) and (r.get("stack") or r.get("spill_stores")
-                                                     or r.get("spill_loads"))]
-    if ring_spills:
-        raise AssertionError(f"ring kernels with a stack frame or spills: {ring_spills}")
+    spills = [k for k, r in ptxas.items() if any(name in k for name in (
+        "ntt_fwd_gather_pass", "ntt_inv_scatter_pass", "ntt_invb_pass")) and (
+        r.get("stack") or r.get("spill_stores") or r.get("spill_loads"))]
+    if spills:
+        raise AssertionError(f"ring or route-B kernels with a stack frame or spills: {spills}")
 
     # -- phase 2: kernel vs plain, bit-exact ----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -378,7 +383,8 @@ def main() -> int:
     x = e0[0].contiguous()  # one channel of the step's output
     xd = (e0[1] % params.qs[1]).contiguous()  # a digit the step re-expands into q0
     ops = [t[0].contiguous() for t in (c0, c1, d0, d1)]
-    checks = check_ntt(x, plan)
+    plan65, x65 = ring[-1][:2]  # route B's two passes (n = 2^16, B = 1024)
+    checks = check_ntt(x, plan) + check_ntt(x65, plan65)
     err["ntt_fwd"] = max(err["ntt_fwd"], max_err(
         tk.ntt_cm(xd, plan, pre_digit_q=params.qs[1]),
         tk.ntt_cm_ref(xd, plan, pre_digit_q=params.qs[1])))
@@ -396,31 +402,44 @@ def main() -> int:
                                         for v, pl in zip(xs, plans4)], 20)
             timings[f"{key}_per_s_n4096_B{B4}"] = B4 / (ms / 1e3)
             timings[f"{key}_ms_windows_n4096_B{B4}"] = wins
-    # the route-B path: route B against GS in turns (GS, B, B, GS), at
-    # n = 4096 over 2x30-bit primes (B = 16384) and at one channel of the
-    # step; the latter are the GS and route-B kernel times below
+    # the route-B path: route B against GS in turns (GS, B, B, GS), on the
+    # device alone, at n = 4096 over 2x30-bit primes (B = 16384), at one
+    # channel of the step and at n = 2^16; the latter two are the GS and
+    # route-B kernel times below.  Route B launches one block pass a transform, and a
+    # cross pass where `dit_schedule` has two passes: counted exactly.
     ab = {
-        "n4096_B16384": lambda alg: [tk.ntt_cm(v, pl, inverse=True, alg=alg)
-                                     for v, pl in zip(x4[16384], plans4)],
-        "n16384_B1024": lambda alg: tk.ntt_cm(x, plan, inverse=True, alg=alg),
+        "n4096_B16384": list(zip(x4[16384], plans4)),
+        "n16384_B1024": [(x, plan)],
+        "n65536_B1024": [(x65, plan65)],
     }
+    want_invb = dict.fromkeys(("ntt_invb_block", "ntt_invb_cross"), 0)
+
+    def route(args, alg):
+        for v, pl in args:
+            tk.ntt_cm(v, pl, inverse=True, alg=alg)
+            if alg == "dit":
+                want_invb["ntt_invb_block"] += 1
+                want_invb["ntt_invb_cross"] += len(tk.dit_schedule(pl.n)) - 1
+
     reset_counts()
-    for shape, fn in ab.items():
+    for shape, args in ab.items():
         runs = {"gs": [], "dit": []}
         for alg in ("gs", "dit", "dit", "gs"):
-            runs[alg].append(time_ms(lambda: fn(alg), 20)[0])
+            runs[alg].append(time_ms(lambda: route(args, alg), 20, device_only=True)[0])
         for alg, ms in runs.items():
             timings[f"intt_{alg}_ms_{shape}"] = ms
     invb = counts()
-    for k in ("ntt_invb_block", "ntt_invb_cross"):
-        if invb[k] == 0:
-            raise AssertionError(f"the route-B path launched no {k} pass")
+    if {k: invb[k] for k in want_invb} != want_invb or not all(want_invb.values()):
+        raise AssertionError(f"route-B launches {invb}, want {want_invb}")
     timings["intt_dit_per_s_n4096_B16384"] = 16384 / (
         statistics.mean(timings["intt_dit_ms_n4096_B16384"]) / 1e3)
     timings["ntt_inv_ms"] = statistics.mean(timings["intt_gs_ms_n16384_B1024"])
     timings["ntt_invb_ms"] = statistics.mean(timings["intt_dit_ms_n16384_B1024"])
+    timings["ntt_invb_n65536_ms"] = statistics.mean(timings["intt_dit_ms_n65536_B1024"])
     # kernel and plain at the step's shapes (one channel, n = 2^14,
-    # B = 1024), and route B's single block pass at n = 4096, B = 1024
+    # B = 1024), and route B's single block pass at n = 4096, B = 1024;
+    # the kernels on the device alone: at ~0.03 ms the n = 4096 pass is
+    # shorter than the host's issue of it
     x4b = x4[1024][0]
     kern = {
         "ntt_fwd": lambda: tk.ntt_cm(xd, plan, pre_digit_q=params.qs[1]),
@@ -432,13 +451,14 @@ def main() -> int:
         "ntt_inv": lambda: tk.ntt_cm_ref(x, plan, inverse=True),
         "ntt_invb": lambda: tk.ntt_cm_ref(x, plan, inverse=True, alg="dit"),
         "ntt_invb_n4096": lambda: tk.ntt_cm_ref(x4b, plans4[0], inverse=True, alg="dit"),
+        "ntt_invb_n65536": lambda: tk.ntt_cm_ref(x65, plan65, inverse=True, alg="dit"),
         "ct_mul": lambda: pw.ct_mul_cm_ref(*ops, q0),
     }
     for name, fn in kern.items():
-        timings[f"{name}_ms"], _ = time_ms(fn, 20)
+        timings[f"{name}_ms"], _ = time_ms(fn, 20, device_only=True)
     for name, fn in plain.items():
         timings[f"{name}_plain_ms"], _ = time_ms(fn, 3)
-    del x4
+    del x4, x65
     # the u32 ceiling (the chain kernel's path; its input was checked in
     # phase 2) and a copy's bandwidth
     reset_counts()
@@ -451,7 +471,7 @@ def main() -> int:
     timings["chain_plain_ms"] = chain_plain_ms
     src_buf = torch.empty(2 ** 28, dtype=torch.int32, device=dev)  # 1 GiB
     dst_buf = torch.empty_like(src_buf)
-    copy_ms, _ = time_ms(lambda: dst_buf.copy_(src_buf), 10)
+    copy_ms, _ = time_ms(lambda: dst_buf.copy_(src_buf), 10, device_only=True)
     copy_gbps = 2 * src_buf.numel() * 4 / copy_ms / 1e6
     timings["copy_GB_per_s"] = copy_gbps
     del src_buf, dst_buf
@@ -531,7 +551,7 @@ def main() -> int:
                "ntt_inv_dit": timings["ntt_invb_ms"], "ct_mul": timings["ct_mul_ms"]}
     roof_calls = roofline.calls(*ops, plan)
     for op in ("mul_mod", "add_mod"):
-        roof_ms[op], _ = time_ms(roof_calls[op], 20)
+        roof_ms[op], _ = time_ms(roof_calls[op], 20, device_only=True)
     rows = [roofline.row(op, n, B, roof_ms[op], ceiling / 1e9, copy_gbps)
             for op in roofline.OPS]
     roofline.show(rows, f"{torch.cuda.get_device_name(0)}, n={n}, batch={B}, q={q0} "
@@ -586,22 +606,26 @@ def main() -> int:
          "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"],
          **bound("ntt_inv_gs", n, B), "library_ms": None},
         # one kernel in two geometries, as the reference's two bodies: the
-        # block pass times alone at n = 4096 (the single call), the cross
-        # pass inside the two-pass transform at n = 2^14
+        # block pass alone at one step channel (one 8-CTA cluster pass over
+        # all n rows) and at n = 4096, the cross pass inside the two-pass
+        # transform at n = 2^16
         {"name": "ntt_invb_pass[block]", "route": "cuda", "source": ntt_src,
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:421",
          "path": "route-B inverse A/B (ntt_cm alg='dit')",
          "launches": invb["ntt_invb_block"], "max_abs_err": err["ntt_invb"],
-         "shape": "n=4096, B=1024, one pass",
-         "ms": timings["ntt_invb_n4096_ms"], "plain_ms": timings["ntt_invb_n4096_plain_ms"],
-         **bound("ntt_inv_dit", 4096, 1024), "library_ms": None},
+         "shape": f"n={n}, B={B}, one cluster pass",
+         "ms": timings["ntt_invb_ms"], "plain_ms": timings["ntt_invb_plain_ms"],
+         **bound("ntt_inv_dit", n, B), "library_ms": None,
+         "ms_n4096": timings["ntt_invb_n4096_ms"],
+         "plain_ms_n4096": timings["ntt_invb_n4096_plain_ms"],
+         "bound_ms_n4096": bound("ntt_inv_dit", 4096, 1024)["bound_ms"]},
         {"name": "ntt_invb_pass[cross]", "route": "cuda", "source": ntt_src,
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:437",
          "path": "route-B inverse A/B (ntt_cm alg='dit')",
          "launches": invb["ntt_invb_cross"], "max_abs_err": err["ntt_invb"],
-         "shape": "n=16384, B=1024, block + cross passes",
-         "ms": timings["ntt_invb_ms"], "plain_ms": timings["ntt_invb_plain_ms"],
-         **bound("ntt_inv_dit", n, B), "library_ms": None},
+         "shape": f"n=65536, B={B}, block + cross passes",
+         "ms": timings["ntt_invb_n65536_ms"], "plain_ms": timings["ntt_invb_n65536_plain_ms"],
+         **bound("ntt_inv_dit", 65536, B), "library_ms": None},
         {"name": "ct_mul", "route": "cuda", "source": "lol_tpu_torch/csrc/pointwise.cu",
          "replaces": "lol_tpu/ops/pallas/pointwise.py:31",
          "launches": launches["ct_mul"], "max_abs_err": err["ct_mul"],

@@ -89,10 +89,10 @@ def u32_ceiling(iters: int = ITERS, rows: int = ROWS, lanes: int = LANES,
                 grid: int = GRID) -> float:
     """Achieved u32 (mul+add)/s of the chain kernel over
     `ceiling_input(rows, lanes, grid)`, each element chained `iters`
-    times: CUDA-event median of 5 windows.  One (mul+add) is one IMAD on
-    the card."""
+    times: CUDA-event median of 5 windows on the device alone.  One
+    (mul+add) is one IMAD on the card."""
     x = ceiling_input(rows, lanes, grid)
-    ms, _ = time_ms(lambda: chain(x, iters), 5)
+    ms, _ = time_ms(lambda: chain(x, iters), 5, device_only=True)
     return x.numel() * iters / (ms / 1e3)
 
 

@@ -1,4 +1,4 @@
-"""Time the forward / GS NTT kernels and the BGV step of one tree of the port.
+"""Time the NTT kernels and the BGV step of one tree of the port.
 
 An A/B of two trees runs this script once per tree, in turns (parent,
 change, change, parent), in one process each, on one card:
@@ -11,12 +11,15 @@ checks kernel == plain on every input it times, and prints one JSON line:
 
 - per transform at one channel of the n = 2^14, B = 1024 step (its first
   30-bit prime): the forward with the digit prologue (source: the second
-  prime), the GS inverse and the forward without the prologue; and the
-  forward and GS inverse at n = 8192, B = 1024;
+  prime), the GS inverse, the route-B inverse (`dit_`) and the forward
+  without the prologue; and the forward and both inverses at n = 8192 and
+  65536, B = 1024;
 - per transform at n = 4096, B = 16384 (the mean over the two largest
   30-bit primes) and the NTT/s there (B over the time of both primes),
-  and at n = 4096, B = 1024 (the largest prime);
-- each beside `roofline.bound` of its work;
+  and at n = 4096, B = 1024 (the largest prime), route B included;
+- the B = 1024 times both as the caller sees them and on the device alone
+  (`_dev_ms_`), where the host's issue cannot hide short kernels; bounds
+  by `roofline.bound` of the work;
 - the step's ct-ops/s at n = 2^14 and 4096 (m = 32768 and 8192, three
   30-bit primes, B = 1024);
 - the ring-sharded NTT at n = 2^14 and 2^16, B = 1024, one prime, D = 4
@@ -136,10 +139,13 @@ def run(tree: str, label: str) -> dict:
     def bound(op, n, B):
         return roofline.bound(*roofline.work(op, n, B))[0]
 
-    def checked(fn, ref):
+    def checked(key, fn, ref):
+        """out[key]: fn's time as its caller sees it; the same key with
+        `_dev_ms_` for it on the device alone, after one check == ref."""
         if not torch.equal(fn(), ref()):
             raise AssertionError(f"{label}: kernel != plain")
-        return bench.time_ms(fn, 20)[0]
+        out[key] = bench.time_ms(fn, 20)[0]
+        out[key.replace("_ms_", "_dev_ms_")] = bench.time_ms(fn, 20, device_only=True)[0]
 
     # one channel of the n = 2^14 step
     n, B = 16384, 1024
@@ -147,33 +153,35 @@ def run(tree: str, label: str) -> dict:
     plan = ntt.ntt_plan(n, q0)
     xd = torch.randint(0, q1, (n, B), generator=g, device=dev, dtype=torch.int32)
     x = torch.randint(0, q0, (n, B), generator=g, device=dev, dtype=torch.int32)
-    out["fwd_pre_ms_n16384_B1024"] = checked(
-        lambda: tk.ntt_cm(xd, plan, pre_digit_q=q1),
-        lambda: tk.ntt_cm_ref(xd, plan, pre_digit_q=q1))
-    out["inv_ms_n16384_B1024"] = checked(lambda: tk.ntt_cm(x, plan, inverse=True),
-                                         lambda: tk.ntt_cm_ref(x, plan, inverse=True))
-    out["fwd_ms_n16384_B1024"] = checked(lambda: tk.ntt_cm(x, plan),
-                                         lambda: tk.ntt_cm_ref(x, plan))
+    checked("fwd_pre_ms_n16384_B1024", lambda: tk.ntt_cm(xd, plan, pre_digit_q=q1),
+            lambda: tk.ntt_cm_ref(xd, plan, pre_digit_q=q1))
+    checked("inv_ms_n16384_B1024", lambda: tk.ntt_cm(x, plan, inverse=True),
+            lambda: tk.ntt_cm_ref(x, plan, inverse=True))
+    checked("fwd_ms_n16384_B1024", lambda: tk.ntt_cm(x, plan), lambda: tk.ntt_cm_ref(x, plan))
+    checked("dit_ms_n16384_B1024", lambda: tk.ntt_cm(x, plan, inverse=True, alg="dit"),
+            lambda: tk.ntt_cm_ref(x, plan, inverse=True, alg="dit"))
     out["bound_ms_n16384_B1024"] = bound("ntt_fwd", n, B)
+    out["dit_bound_ms_n16384_B1024"] = bound("ntt_inv_dit", n, B)
     del xd, x
-    # n = 8192, B = 1024
-    plan8 = ntt.ntt_plan(8192, nt.ntt_primes(2 * 8192, 30, 1)[0])
-    x8 = torch.randint(0, plan8.q, (8192, B), generator=g, device=dev, dtype=torch.int32)
-    for inverse, key in ((False, "fwd"), (True, "inv")):
-        out[f"{key}_ms_n8192_B1024"] = checked(
-            lambda: tk.ntt_cm(x8, plan8, inverse=inverse),
-            lambda: tk.ntt_cm_ref(x8, plan8, inverse=inverse))
-    del x8
+    # n = 8192 and 65536, B = 1024
+    for n_ in (8192, 65536):
+        plan_ = ntt.ntt_plan(n_, nt.ntt_primes(2 * n_, 30, 1)[0])
+        x_ = torch.randint(0, plan_.q, (n_, B), generator=g, device=dev, dtype=torch.int32)
+        for inverse, alg, key in ((False, "gs", "fwd"), (True, "gs", "inv"), (True, "dit", "dit")):
+            checked(f"{key}_ms_n{n_}_B1024",
+                    lambda: tk.ntt_cm(x_, plan_, inverse=inverse, alg=alg),
+                    lambda: tk.ntt_cm_ref(x_, plan_, inverse=inverse, alg=alg))
+        del x_
     # n = 4096, B = 16384, two primes
     n4, B4 = 4096, 16384
     plans = [ntt.ntt_plan(n4, q) for q in nt.ntt_primes(2 * n4, 30, 2)]
     xs = [torch.randint(0, p.q, (n4, B4), generator=g, device=dev, dtype=torch.int32)
           for p in plans]
-    for inverse, key in ((False, "fwd"), (True, "inv")):
+    for inverse, alg, key in ((False, "gs", "fwd"), (True, "gs", "inv"), (True, "dit", "dit")):
         def both():
-            return [tk.ntt_cm(v, p, inverse=inverse) for v, p in zip(xs, plans)]
+            return [tk.ntt_cm(v, p, inverse=inverse, alg=alg) for v, p in zip(xs, plans)]
         for got, v, p in zip(both(), xs, plans):
-            if not torch.equal(got, tk.ntt_cm_ref(v, p, inverse=inverse)):
+            if not torch.equal(got, tk.ntt_cm_ref(v, p, inverse=inverse, alg=alg)):
                 raise AssertionError(f"{label}: kernel != plain")
         ms = bench.time_ms(both, 20)[0]
         out[f"{key}_ms_n4096_B16384"] = ms / 2
@@ -182,10 +190,10 @@ def run(tree: str, label: str) -> dict:
     del xs
     # n = 4096 at the n = 4096 step's B = 1024, one prime
     x4 = torch.randint(0, plans[0].q, (n4, B), generator=g, device=dev, dtype=torch.int32)
-    for inverse, key in ((False, "fwd"), (True, "inv")):
-        out[f"{key}_ms_n4096_B1024"] = checked(
-            lambda: tk.ntt_cm(x4, plans[0], inverse=inverse),
-            lambda: tk.ntt_cm_ref(x4, plans[0], inverse=inverse))
+    for inverse, alg, key in ((False, "gs", "fwd"), (True, "gs", "inv"), (True, "dit", "dit")):
+        checked(f"{key}_ms_n4096_B1024",
+                lambda: tk.ntt_cm(x4, plans[0], inverse=inverse, alg=alg),
+                lambda: tk.ntt_cm_ref(x4, plans[0], inverse=inverse, alg=alg))
     del x4
     # the step at n = 2^14 and 4096
     for m in (32768, 8192):

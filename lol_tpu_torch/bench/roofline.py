@@ -1,9 +1,9 @@
 """Per-kernel roofline table and profiler hook (counterpart of
 `lol_tpu/bench/roofline.py`).
 
-One row per op at (n, B) on the card: ms (CUDA-event median), achieved
-u32 Gop/s and GB/s, the op's ops/byte, and, when ceilings are given, the
-share of each.  The ops: the three NTT kernels (forward, GS inverse,
+One row per op at (n, B) on the card: ms (CUDA-event median on the
+device alone, `time_ms(device_only=True)`), achieved u32 Gop/s and GB/s,
+the op's ops/byte, and, when ceilings are given, the share of each.  The ops: the three NTT kernels (forward, GS inverse,
 route-B inverse), the fused `ct_mul`, and the plain torch `mul_mod` and
 `add_mod` the reference also times.
 
@@ -12,7 +12,12 @@ pass schedule, and `work` is the one place that states them:
 
 - u32 ops: 9 per butterfly (k*n/2 butterflies per transform, k = log2 n)
   and 9 per modmul, as the reference counts them; 2 per modadd; ct_mul
-  is 4 modmuls and 1 modadd per element.
+  is 4 modmuls and 1 modadd per element.  Route B (`ntt_inv_dit`) also
+  multiplies every word once by its scale n^-1 psi^-j, a Shoup product
+  at 5 u32 ops as the reference counts one; GS folds its n^-1 into a
+  stage and has none.  The twist between the two passes of a factoring
+  is a cost of that factoring, not of the function (one pass over all n
+  rows has none), so it is not counted.
 - bytes: the least the op must move.  A transform reads and writes the
   int32 (n, B) array once, 8*n*B, whatever its number of passes; ct_mul
   reads four arrays and writes three, 28*n*B; modmul and modadd 12*n*B.
@@ -70,8 +75,10 @@ def work(op: str, n: int, B: int, D: int = 1) -> tuple[int, int]:
         return 0, 8 * n * B
     if op in ("ntt_fwd_gather", "ntt_inv_scatter"):
         return 9 * (k - (D.bit_length() - 1)) * (n // 2) * B, 8 * n * B
-    if op in ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit"):
+    if op in ("ntt_fwd", "ntt_inv_gs"):
         return 9 * (k * n // 2) * B, 8 * n * B
+    if op == "ntt_inv_dit":
+        return (9 * (k * n // 2) + 5 * n) * B, 8 * n * B
     if op == "ct_mul":
         return (4 * 9 + 2) * n * B, 28 * n * B
     if op == "mul_mod":
@@ -147,7 +154,7 @@ def run(n: int = 4096, batch: int = 8192, peak_gops: float | None = None,
     g = torch.Generator(device=dev).manual_seed(0)
     ops = calls(*(torch.randint(0, q, (n, batch), generator=g, device=dev,
                                 dtype=torch.int32) for _ in range(4)), ntt.ntt_plan(n, q))
-    rows = [row(op, n, batch, time_ms(ops[op], 20)[0], peak_gops, peak_gbps)
+    rows = [row(op, n, batch, time_ms(ops[op], 20, device_only=True)[0], peak_gops, peak_gbps)
             for op in OPS]
     show(rows, f"{torch.cuda.get_device_name(0)}, n={n}, batch={batch}, q={q}")
     return rows

@@ -5,7 +5,7 @@
 unit, which changes with any edit to the file, so names are compared
 without it.  Two builds of a kernel whose instructions and control words
 are equal run the same code: an edit to shared device code (such as
-`csrc/ntt_common.cuh`) that leaves a kernel's SASS as it was cannot have
+`csrc/ntt_rounds.cuh`) that leaves a kernel's SASS as it was cannot have
 changed its speed.
 
 Run where the CUDA toolkit is (cuobjdump under /usr/local/cuda/bin):

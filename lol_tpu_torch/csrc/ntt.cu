@@ -13,8 +13,9 @@
 //
 // Geometry of one pass: it runs `nseq` independent length-L transforms
 // (L = 2^logL) on every column.  Element i of sequence sq lives in row
-// i*elem_stride + sq*seq_stride.  Local stage sp, group g uses twiddle
-// w[((base0 + sq*base_step) << sp) + g]; this one formula gives the plain
+// i*elem_stride + sq*seq_stride.  In the forward and GS networks local stage
+// sp, group g uses twiddle w[((base0 + sq*base_step) << sp) + g] (route B:
+// below); this one formula gives the plain
 // prefix psi_rev[2^sp + g] for the cross pass and for a single pass
 // (base0 = 1, base_step = 0) and the per-block tables of the block pass
 // (base0 = P, base_step = 1: global group (P + b)*2^sp + g).  One pass for
@@ -23,10 +24,10 @@
 // contiguous WINDOW-row blocks); a thread block owns G sequences times TB
 // consecutive columns, and columns >= B are masked.
 //
-// What bounds ntt_fwd_pass / ntt_inv_pass on the H100: ~9 u32 ops per
-// butterfly (the Shoup multiply and the lazy folds), n/2*log2(n)*B
-// butterflies, against 8*n*B bytes per pass.  Their design spends the
-// instruction slots on those ops:
+// What bounds the pass kernels on the H100: ~9 u32 ops per butterfly (the
+// Shoup multiply and the lazy folds), n/2*log2(n)*B butterflies, and route
+// B's one Shoup multiply a word per pass, against 8*n*B bytes per pass.
+// Their design spends the instruction slots on those ops:
 //
 // - Register rounds.  The pass's log2 L stages are cut into rounds of at
 //   most MAX_ROUND stages (`Rounds`).  In a round each thread takes units of
@@ -49,7 +50,7 @@
 //   2^t apart of the last round land in distinct banks.
 // - One pass at n = 8192 and 2^14 over a thread-block cluster of 4 and 8
 //   CTAs (`ntt_cm`'s schedule, which the ring's phase B shares; route B
-//   keeps two passes).  The CTAs share an (n, 8) column tile, CTA r
+//   takes it at 2^14 only: PERF.md).  The CTAs share an (n, 8) column tile, CTA r
 //   holding rows [r, r + 1) * 2048 in its shared memory.
 //   Only the first round's stages pair rows that different CTAs hold: the
 //   forward's first round stores each word into the shared memory of the CTA
@@ -61,16 +62,15 @@
 //   at n = 4096 a cluster of 2 lost to one CTA at B = 1024: PERF.md).
 // - The digit prologue leaves its word lazy (below 4q, which the first
 //   stage folds) when pre_q <= 2q: one compare and one add a word.
-//
-// ntt_invb_pass keeps the first design: the tile in shared memory laid out
-// [i][g][c], every stage there with a barrier between stages.  Its stage
-// twiddles come from the packed per-row tables of the JAX package's
-// _stage_table_bitrev (stage s of a length-L pass at w[s*L + i] for v-row i)
-// and its per-row multiplier from an (n,) table indexed by the row of the
-// (n, B) array.  PassArgs and its tile loads and stores live in
-// ntt_common.cuh; the register-round core of ntt_fwd_pass / ntt_inv_pass
-// (NttArgs, the rounds, the launch) in ntt_rounds.cuh, which
-// csrc/remote_ntt.cu shares.
+// - Route B (ntt_invb_pass) is the same round kernel on another network
+//   (Net::INVB in csrc/ntt_rounds.cuh): GS's stage order (its stage s_b pairs
+//   rows 2^s_b apart, stride 1 first), the forward's DIT butterfly, each
+//   butterfly's twiddle read from the packed per-row stage table of the JAX
+//   package's _stage_table_bitrev (stage s_b of a length-L pass at w[s_b*L +
+//   i] for v-row i) at the index its row's low bits give, and the per-row
+//   multiplier (the twist after the block DFT, n^-1 psi^-j after the last)
+//   applied in the last round's registers before the store, from an (n,)
+//   table indexed by the row of the (n, B) array.
 
 #include "ntt_rounds.cuh"
 
@@ -78,71 +78,56 @@ namespace {
 
 // route B: the pass plus the per-row multiplier (twist or n^-1 psi^-j).
 struct InvbArgs {
-  PassArgs p;
+  NttArgs a;  // w / wsh: the pass's packed stage table
   const uint32_t* post;
   const uint32_t* post_sh;
 };
 
-__global__ void ntt_invb_pass(InvbArgs b) {
-  const PassArgs& a = b.p;
-  extern __shared__ uint32_t sm[];
-  const int col0 = blockIdx.x * a.TB;
-  const int seq0 = blockIdx.y * a.G;
-  const uint32_t q = a.q, q2 = 2u * a.q;
-  load_tile(a, sm, col0, seq0);  // [0, q) or, after the twist, [0, 2q)
-  const int GT = a.G * a.TB;
-  const int nbf = (a.L >> 1) * GT;
-  for (int s = 0; s < a.logL; ++s) {  // bit-reversed in, natural out
-    const int h = 1 << s;
-    const uint32_t* w = a.w + (size_t)s * a.L;
-    const uint32_t* wsh = a.wsh + (size_t)s * a.L;
-    for (int e = threadIdx.x; e < nbf; e += blockDim.x) {
-      const int c = e & (a.TB - 1);
-      const int g = (e >> a.logTB) & (a.G - 1);
-      const int k = e >> (a.logTB + a.logG);
-      const int l = k & (h - 1);
-      const int iu = ((k >> s) << (s + 1)) + l;
-      // the stage's table repeats with period 2h over its v-rows: every
-      // group reads group 0's entry (row h + l), so a stage touches h words
-      const uint32_t tw = __ldg(w + h + l), twsh = __ldg(wsh + h + l);
-      uint32_t* pu = sm + (iu * a.G + g) * a.TB + c;
-      uint32_t* pv = pu + h * GT;
-      uint32_t u = *pu;
-      if (u >= q2) u -= q2;
-      const uint32_t t = mul_shoup_lazy(*pv, tw, twsh, q);  // [0, 2q)
-      *pu = u + t;        // [0, 4q)
-      *pv = u + q2 - t;   // (0, 4q)
-    }
-    __syncthreads();
-  }
-  // per-row multiply, [0, 2q); each thread stores the elements it multiplied
-  const int tile = a.L * GT;
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-    const int g = (e >> a.logTB) & (a.G - 1);
-    const int i = e >> (a.logTB + a.logG);
-    const size_t row = row_of(a, i, seq0 + g);
-    sm[e] = mul_shoup_lazy(sm[e], __ldg(b.post + row), __ldg(b.post_sh + row), q);
-  }
-  store_tile(a, sm, col0, seq0, q);  // last pass: one fold to [0, q)
-}
-
-// ---------------------------------------------------------------------------
-// ntt_fwd_pass / ntt_inv_pass
-// ---------------------------------------------------------------------------
+// Route B's words: x in, y out, and the multiplier of its last round.
+struct InvbIO : PassIO {
+  const uint32_t* post;
+  const uint32_t* post_sh;
+};
 
 // Grid: see launch_rounds.
 template <int LOGL, int TB, int LOGC>
 __global__ void __launch_bounds__(1024) ntt_fwd_pass(const __grid_constant__ NttArgs a) {
   extern __shared__ uint32_t sm[];
   if constexpr (LOGC > 0) cluster_arrive();  // waited for before the first remote store
-  ntt_rounds<LOGL, TB, LOGC, false, 0>(a, sm, (blockIdx.x >> LOGC) * TB, blockIdx.y << a.logG);
+  ntt_rounds<LOGL, TB, LOGC, Net::FWD, 0>(a, sm, (blockIdx.x >> LOGC) * TB, blockIdx.y << a.logG);
 }
 
 template <int LOGL, int TB, int LOGC>
 __global__ void __launch_bounds__(1024) ntt_inv_pass(const __grid_constant__ NttArgs a) {
   extern __shared__ uint32_t sm[];
-  ntt_rounds<LOGL, TB, LOGC, true, 0>(a, sm, (blockIdx.x >> LOGC) * TB, blockIdx.y << a.logG);
+  ntt_rounds<LOGL, TB, LOGC, Net::GS, 0>(a, sm, (blockIdx.x >> LOGC) * TB, blockIdx.y << a.logG);
   if constexpr (LOGC > 0) cluster_sync();  // no CTA leaves while others read it
+}
+
+template <int LOGL, int TB, int LOGC>
+__global__ void __launch_bounds__(1024) ntt_invb_pass(const __grid_constant__ InvbArgs b) {
+  extern __shared__ uint32_t sm[];
+  ntt_rounds<LOGL, TB, LOGC, Net::INVB, 0>(b.a, sm, (blockIdx.x >> LOGC) * TB,
+                                           blockIdx.y << b.a.logG, InvbIO{{}, b.post, b.post_sh});
+  if constexpr (LOGC > 0) cluster_sync();  // no CTA leaves while others read it
+}
+
+// The checks and the fields shared by both entries; false for a geometry that
+// no kernel takes.
+bool pass_args(NttArgs& a, const void* x, void* y, const void* w, const void* wsh, int B,
+               int L, int nseq, int elem_stride, int seq_stride, int G, int threads, int last,
+               uint32_t q) {
+  if (B < 1 || !pow2(L) || L < 2 || !pow2(G) || nseq % G || threads < 32 ||
+      threads > 1024 || threads % 32)
+    return false;
+  a = NttArgs{};
+  a.x = static_cast<const uint32_t*>(x);
+  a.y = static_cast<uint32_t*>(y);
+  a.w = static_cast<const uint32_t*>(w);
+  a.wsh = static_cast<const uint32_t*>(wsh);
+  a.B = B; a.logG = ilog2(G); a.elem_stride = elem_stride; a.seq_stride = seq_stride;
+  a.q = q; a.last = last;
+  return true;
 }
 
 }  // namespace
@@ -160,16 +145,10 @@ int lol_ntt_pass(const void* x, void* y, const void* w, const void* wsh,
                  uint32_t pre_qmod, uint32_t pre_mu,
                  uint32_t ninv, uint32_t ninv_sh, uint32_t w0n,
                  uint32_t w0n_sh, void* stream) {
-  if (B < 1 || !pow2(L) || L < 2 || !pow2(G) || nseq % G || threads < 32 ||
-      threads > 1024 || threads % 32)
+  NttArgs a;
+  if (!pass_args(a, x, y, w, wsh, B, L, nseq, elem_stride, seq_stride, G, threads, last, q))
     return (int)cudaErrorInvalidValue;
-  NttArgs a{};
-  a.x = static_cast<const uint32_t*>(x);
-  a.y = static_cast<uint32_t*>(y);
-  a.w = static_cast<const uint32_t*>(w);
-  a.wsh = static_cast<const uint32_t*>(wsh);
-  a.B = B; a.logG = ilog2(G); a.elem_stride = elem_stride; a.seq_stride = seq_stride;
-  a.base0 = base0; a.base_step = base_step; a.q = q; a.last = last;
+  a.base0 = base0; a.base_step = base_step;
   a.has_pre = !has_pre ? PRE_NONE : pre_q <= 2u * q ? PRE_LAZY : PRE_EXACT;
   a.pre_q = pre_q; a.pre_half = pre_half; a.pre_qmod = pre_qmod; a.pre_mu = pre_mu;
   a.pre_add = 2u * q - pre_q;
@@ -181,20 +160,29 @@ int lol_ntt_pass(const void* x, void* y, const void* w, const void* wsh,
   });
 }
 
-// One route-B inverse pass: st/st_sh the packed per-row stage table of
-// this pass's DFT, post/post_sh the (n,) per-row multiplier.
-int lol_ntt_invb_pass(const void* x, void* y, const void* st,
-                      const void* st_sh, const void* post,
-                      const void* post_sh, int B, int L, int nseq,
-                      int elem_stride, int seq_stride, int G, int TB,
-                      int threads, int last, uint32_t q, void* stream) {
+// One route-B inverse pass, of lol_ntt_pass's geometry: st / st_sh the
+// packed per-row stage table of this pass's DFT, post / post_sh the (n,)
+// per-row multiplier; last: fold the output to [0, q) (else it stays in
+// [0, 2q)).  Returns as lol_ntt_pass; route B has no 4-CTA cluster pass
+// (it runs n = 8192 in two passes), so that geometry is refused too.
+int lol_ntt_invb_pass(const void* x, void* y, const void* st, const void* st_sh,
+                      const void* post, const void* post_sh, int B, int L, int nseq,
+                      int elem_stride, int seq_stride, int G, int TB, int threads,
+                      int log_cluster, int last, uint32_t q, void* stream) {
   InvbArgs b;
-  if (!set_geometry(b.p, x, y, st, st_sh, B, L, nseq, elem_stride, seq_stride,
-                    G, TB, threads, last, q))
+  if (!pass_args(b.a, x, y, st, st_sh, B, L, nseq, elem_stride, seq_stride, G, threads, last,
+                 q))
     return (int)cudaErrorInvalidValue;
   b.post = static_cast<const uint32_t*>(post);
   b.post_sh = static_cast<const uint32_t*>(post_sh);
-  return launch(ntt_invb_pass, b, b.p, threads, stream);
+  return with_pass_tile(L, TB, log_cluster, [&](auto lg, auto tb, auto lc) {
+    constexpr int LOGL = decltype(lg)::value, T = decltype(tb)::value, LOGC = decltype(lc)::value;
+    if constexpr (LOGC == 2)
+      return (int)cudaErrorInvalidValue;
+    else
+      return launch_rounds<LOGL, T, LOGC>(ntt_invb_pass<LOGL, T, LOGC>, b, B, G, nseq, threads,
+                                          stream);
+  });
 }
 
 const char* lol_cuda_error_string(int err) {

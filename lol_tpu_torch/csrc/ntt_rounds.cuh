@@ -1,18 +1,18 @@
-// The register-round core of the forward and GS pass kernels, shared by
-// csrc/ntt.cu (ntt_fwd_pass, ntt_inv_pass) and csrc/remote_ntt.cu (the
-// ring's gather and scatter passes): the pass arguments, the round plan, the
-// tile layout, one round and the rounds of a pass, where a pass's words come
-// from and go to, and the host-side dispatch and launch.  The design is
-// described at the top of csrc/ntt.cu.
+// The register-round core of every NTT pass kernel, shared by csrc/ntt.cu
+// (ntt_fwd_pass, ntt_inv_pass, ntt_invb_pass) and csrc/remote_ntt.cu (the
+// ring's gather and scatter passes): the pass arguments, the Shoup multiply,
+// the round plan, the tile layout, one round and the rounds of a pass, where a
+// pass's words come from and go to, and the host-side dispatch and launch.
+// The design is described at the top of csrc/ntt.cu.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 #include <utility>
-
-#include "ntt_common.cuh"
 
 namespace {
 
@@ -35,7 +35,43 @@ struct NttArgs {
 
 enum { PRE_NONE = 0, PRE_EXACT = 1, PRE_LAZY = 2 };
 
+// The network a pass runs.  FWD: the forward DIT network, stages in order,
+// Harvey-lazy in [0, 4q), the digit prologue.  GS: the Gentleman-Sande
+// inverse, stages in reverse, lazy in [0, 2q), n^-1 folded into global stage
+// 0.  INVB: route B's DIT-bitrev-input network, GS's stage order with FWD's
+// butterfly, each butterfly's twiddle taken by its row's low bits from the
+// packed per-row stage table, and a per-row multiplier before the last
+// round's stores (see ntt_round).
+enum class Net { FWD, GS, INVB };
+
 constexpr int MAX_ROUND = 4;  // stages per register round: 16-word units
+
+// (a * w) mod q up to one q, for ANY u32 a and w in [0, q): the Shoup
+// quotient estimate is floor(a*w/q) or one less, so the wrapping u32
+// difference is the true value, in [0, 2q).
+__device__ __forceinline__ uint32_t mul_shoup_lazy(uint32_t a, uint32_t w,
+                                                   uint32_t wsh, uint32_t q) {
+  return a * w - __umulhi(a, wsh) * q;
+}
+
+// The DIT butterfly (x, y) <- (x + w*y, x - w*y) on words below 4q, outputs
+// in [0, 4q).
+__device__ __forceinline__ void dit_butterfly(uint32_t& x, uint32_t& y, uint32_t w,
+                                              uint32_t wsh, uint32_t q, uint32_t q2) {
+  uint32_t u0 = x;
+  if (u0 >= q2) u0 -= q2;
+  const uint32_t tv = mul_shoup_lazy(y, w, wsh, q);  // [0, 2q)
+  x = u0 + tv;
+  y = u0 + q2 - tv;
+}
+
+bool pow2(int v) { return v >= 1 && (v & (v - 1)) == 0; }
+
+int ilog2(int v) {
+  int r = 0;
+  while ((1 << r) < v) ++r;
+  return r;
+}
 
 __host__ __device__ constexpr int clog2(int v) { return v <= 1 ? 0 : 1 + clog2(v >> 1); }
 
@@ -105,7 +141,8 @@ __device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluste
 // Where a pass's words come from (its first round's loads) and go to (its
 // last round's stores): word m of a unit of the round of stages [A, A + RS)
 // lies at src / dst<A, RS, m>(a) + gofs + m * gstep (see ntt_round).  A pass
-// of ntt_fwd_pass / ntt_inv_pass reads x and writes y.
+// of ntt_fwd_pass / ntt_inv_pass / ntt_invb_pass reads x and writes y; route
+// B's policy (csrc/ntt.cu) also gives its per-row multiplier, post / post_sh.
 struct PassIO {
   template <int A, int RS, int M>
   __device__ __forceinline__ const uint32_t* src(const NttArgs& a) const { return a.x; }
@@ -113,7 +150,7 @@ struct PassIO {
   __device__ __forceinline__ uint32_t* dst(const NttArgs& a) const { return a.y; }
 };
 
-// One round: stages [A, A + RS) of the pass (the inverse runs them in
+// One round: stages [A, A + RS) of the pass (GS and route B run them in
 // reverse), over every unit of the tile.  Unit u of sequence g, column c,
 // holds rows row0 + m*2^LK, m < 2^RS, row0 = j*2^(LOGL-A) + k, k < 2^LK:
 // stage A + s pairs m with m + 2^(RS-s-1) in group (j << s) + (m >> (RS-s)).
@@ -124,10 +161,17 @@ struct PassIO {
 // rows only; the first round's (stages 0..RS-1, RS >= LOGC) span every CTA's
 // rows, and its words go to, or come from, the CTA that holds them
 // (distributed shared memory).
-template <int LOGL, int TB, int LOGC, bool INV, int A, int RS, bool FIRST, bool LAST,
+//
+// Route B (Net::INVB): its stage s_b = LOGL-1-(A+s) pairs rows h_b = 2^s_b
+// apart, and the butterfly of u row r takes entry h_b + (r mod h_b) of the
+// stage's row of the packed (log2 L, L) table, r mod h_b = k + (m mod
+// 2^(RS-s-1)) * 2^LK: still R - 1 twiddle pairs a unit and round.  Its last
+// round multiplies word m by post[row] (Shoup, lazy), row = its (n, B) row.
+template <int LOGL, int TB, int LOGC, Net NET, int A, int RS, bool FIRST, bool LAST,
           typename IO = PassIO>
 __device__ __forceinline__ void ntt_round(const NttArgs& a, uint32_t* sm, int col0,
                                           int seq0, const IO& io = IO{}) {
+  constexpr bool INV = NET != Net::FWD;  // the stages run down
   constexpr int R = 1 << RS;
   constexpr int LOGTB = clog2(TB);
   constexpr int LOGU = LOGL - RS;  // units per (sequence, column)
@@ -157,7 +201,8 @@ __device__ __forceinline__ void ntt_round(const NttArgs& a, uint32_t* sm, int co
     const int rest = ((u >> LOGTB) & ((1 << (LOGU - LOGC)) - 1)) | (rank << (LOGU - LOGC));
     const int g = u >> (LOGTB + LOGU - LOGC);
     const int j = rest >> LK;
-    const int row0 = (j << (LOGL - A)) | (rest & ((1 << LK) - 1));
+    const int k = rest & ((1 << LK) - 1);
+    const int row0 = (j << (LOGL - A)) | k;
     const int sq = seq0 + g;
     const int col = col0 + c;
     const size_t gstep = ((size_t)a.elem_stride * a.B) << LK;
@@ -192,39 +237,57 @@ __device__ __forceinline__ void ntt_round(const NttArgs& a, uint32_t* sm, int co
     static_for<RS>([&](auto sc) {
       constexpr int s = INV ? RS - 1 - decltype(sc)::value : decltype(sc)::value;
       constexpr int h = R >> (s + 1);  // the inverse runs the stages down
-      const int tw0 = (tw << (A + s)) + (j << s);
-      static_for<(1 << s)>([&](auto gc) {
-        constexpr int g0 = decltype(gc)::value * 2 * h;
-        if (INV && A == 0 && s == 0 && a.last) {  // global stage 0, n^-1 folded in
+      if constexpr (NET == Net::INVB) {  // inputs below 4q, outputs in [0, 4q)
+        constexpr int stage_row = (LK + RS - 1 - s) << LOGL;  // s_b * L
+        static_for<h>([&](auto ic) {
+          constexpr int i0 = decltype(ic)::value;
+          const int t = stage_row + ((h + i0) << LK) + k;
+          const uint32_t w = __ldg(a.w + t), wsh = __ldg(a.wsh + t);
+          static_for<(1 << s)>([&](auto gc) {
+            constexpr int i = decltype(gc)::value * 2 * h + i0;
+            dit_butterfly(v[i], v[i + h], w, wsh, q, q2);
+          });
+        });
+      } else {
+        const int tw0 = (tw << (A + s)) + (j << s);
+        static_for<(1 << s)>([&](auto gc) {
+          constexpr int g0 = decltype(gc)::value * 2 * h;
+          if (NET == Net::GS && A == 0 && s == 0 && a.last) {  // global stage 0, n^-1 folded in
+            static_for<h>([&](auto ic) {
+              constexpr int i = g0 + decltype(ic)::value;
+              const uint32_t u0 = v[i], u1 = v[i + h];
+              v[i] = mul_shoup_lazy(u0 + u1, a.ninv, a.ninv_sh, q);
+              v[i + h] = mul_shoup_lazy(u0 + q2 - u1, a.w0n, a.w0n_sh, q);
+            });
+            return;
+          }
+          const int t = tw0 + decltype(gc)::value;
+          const uint32_t w = __ldg(a.w + t), wsh = __ldg(a.wsh + t);
           static_for<h>([&](auto ic) {
             constexpr int i = g0 + decltype(ic)::value;
-            const uint32_t u0 = v[i], u1 = v[i + h];
-            v[i] = mul_shoup_lazy(u0 + u1, a.ninv, a.ninv_sh, q);
-            v[i + h] = mul_shoup_lazy(u0 + q2 - u1, a.w0n, a.w0n_sh, q);
+            if constexpr (!INV) {  // inputs below 4q, outputs in [0, 4q)
+              dit_butterfly(v[i], v[i + h], w, wsh, q, q2);
+            } else {  // inputs and outputs in [0, 2q)
+              const uint32_t u0 = v[i], u1 = v[i + h];
+              uint32_t s0 = u0 + u1;
+              if (s0 >= q2) s0 -= q2;
+              v[i] = s0;
+              v[i + h] = mul_shoup_lazy(u0 + q2 - u1, w, wsh, q);
+            }
           });
-          return;
-        }
-        const int t = tw0 + decltype(gc)::value;
-        const uint32_t w = __ldg(a.w + t), wsh = __ldg(a.wsh + t);
-        static_for<h>([&](auto ic) {
-          constexpr int i = g0 + decltype(ic)::value;
-          if constexpr (!INV) {  // inputs below 4q, outputs in [0, 4q)
-            uint32_t u0 = v[i];
-            if (u0 >= q2) u0 -= q2;
-            const uint32_t tv = mul_shoup_lazy(v[i + h], w, wsh, q);  // [0, 2q)
-            v[i] = u0 + tv;
-            v[i + h] = u0 + q2 - tv;
-          } else {  // inputs and outputs in [0, 2q)
-            const uint32_t u0 = v[i], u1 = v[i + h];
-            uint32_t s0 = u0 + u1;
-            if (s0 >= q2) s0 -= q2;
-            v[i] = s0;
-            v[i + h] = mul_shoup_lazy(u0 + q2 - u1, w, wsh, q);
-          }
         });
-      });
+      }
     });
     if constexpr (LAST) {
+      if constexpr (NET == Net::INVB) {  // the per-row multiplier: [0, 4q) -> [0, 2q)
+        const int prow = row0 * a.elem_stride + sq * a.seq_stride;
+        const int pstep = a.elem_stride << LK;
+        static_for<R>([&](auto mc) {
+          constexpr int m = decltype(mc)::value;
+          const int r = prow + m * pstep;
+          v[m] = mul_shoup_lazy(v[m], __ldg(io.post + r), __ldg(io.post_sh + r), q);
+        });
+      }
       if (a.last)  // forward [0, 4q) or inverse [0, 2q) -> [0, q)
         static_for<R>([&](auto mc) {
           constexpr int m = decltype(mc)::value;
@@ -254,21 +317,22 @@ __device__ __forceinline__ void ntt_round(const NttArgs& a, uint32_t* sm, int co
   }
 }
 
-// Round I of the pass in execution order (the inverse runs the plan's
+// Round I of the pass in execution order (GS and route B run the plan's
 // rounds from the last), then the rest, a barrier between rounds: over the
 // cluster around the round that exchanges across it, else over the CTA.
-template <int LOGL, int TB, int LOGC, bool INV, int I, typename IO = PassIO>
+template <int LOGL, int TB, int LOGC, Net NET, int I, typename IO = PassIO>
 __device__ __forceinline__ void ntt_rounds(const NttArgs& a, uint32_t* sm, int col0,
                                            int seq0, const IO& io = IO{}) {
   using P = Rounds<LOGL>;
+  constexpr bool INV = NET != Net::FWD;
   constexpr int PR = INV ? P::N - 1 - I : I;
-  ntt_round<LOGL, TB, LOGC, INV, P::start(PR), P::size(PR), I == 0, I == P::N - 1>(
+  ntt_round<LOGL, TB, LOGC, NET, P::start(PR), P::size(PR), I == 0, I == P::N - 1>(
       a, sm, col0, seq0, io);
   if constexpr (I + 1 < P::N) {
     constexpr bool cross = LOGC > 0 && (INV ? I + 2 == P::N : I == 0);
     if constexpr (cross) cluster_sync();
     else __syncthreads();
-    ntt_rounds<LOGL, TB, LOGC, INV, I + 1>(a, sm, col0, seq0, io);
+    ntt_rounds<LOGL, TB, LOGC, NET, I + 1>(a, sm, col0, seq0, io);
   }
 }
 

@@ -106,15 +106,15 @@ template <int LOGL, int TB, int LOGC, int LOGD>
 __global__ void __launch_bounds__(1024) ntt_fwd_gather_pass(const __grid_constant__ RingArgs r) {
   extern __shared__ uint32_t sm[];
   if constexpr (LOGC > 0) cluster_arrive();  // waited for before the first remote store
-  ntt_rounds<LOGL, TB, LOGC, false, 0>(r.a, sm, (blockIdx.x >> LOGC) * TB,
-                                       blockIdx.y << r.a.logG, RingIO<LOGD, false>{r});
+  ntt_rounds<LOGL, TB, LOGC, Net::FWD, 0>(r.a, sm, (blockIdx.x >> LOGC) * TB,
+                                          blockIdx.y << r.a.logG, RingIO<LOGD, false>{r});
 }
 
 template <int LOGL, int TB, int LOGC, int LOGD>
 __global__ void __launch_bounds__(1024) ntt_inv_scatter_pass(const __grid_constant__ RingArgs r) {
   extern __shared__ uint32_t sm[];
-  ntt_rounds<LOGL, TB, LOGC, true, 0>(r.a, sm, (blockIdx.x >> LOGC) * TB,
-                                      blockIdx.y << r.a.logG, RingIO<LOGD, true>{r});
+  ntt_rounds<LOGL, TB, LOGC, Net::GS, 0>(r.a, sm, (blockIdx.x >> LOGC) * TB,
+                                         blockIdx.y << r.a.logG, RingIO<LOGD, true>{r});
   if constexpr (LOGC > 0) cluster_sync();  // no CTA leaves while others read it
 }
 

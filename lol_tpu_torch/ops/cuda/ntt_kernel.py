@@ -22,11 +22,12 @@ one such pass for n <= 4096 and two above (see the note at the top of
 `csrc/ntt.cu`).  `ntt_cm` runs `cm_schedule`, which makes n = 8192 and
 2^14 (the BGV step's ring) one pass over a cluster of CLUSTER[n] thread
 blocks of 2048 rows each, which hold the column tile together; the ring's
-phase B (`ops/cuda/remote_ntt.py`) runs it too.  The forward and GS
-kernels run a pass's stages in register rounds of at most MAX_ROUND stages (`rounds`),
-one template instance per (L, TB) in KERNEL_TILES and per cluster pass.
-Route B runs `schedule`'s passes in the GS inverse's order: block DFT +
-twist, then cross DFT + scale.
+phase B (`ops/cuda/remote_ntt.py`) runs it too, and route B at 2^14
+(`dit_schedule`).  All three kernels run a pass's stages in register rounds of at
+most MAX_ROUND stages (`rounds`), one template instance per (L, TB) in
+KERNEL_TILES and per cluster pass.  Route B runs its passes in the GS
+inverse's order: the block DFT and the twist (the scale when it is the
+only pass), then the cross DFT and the scale.
 """
 
 from __future__ import annotations
@@ -56,14 +57,14 @@ MAX_TILE_ELEMS = 232448 // 4  # the H100's per-block shared memory limit
 THREADS = 1024  # measured on the H100: ~23% faster than 512 at n = 4096
 MIN_COLS = 8  # 8 u32 = one 32-byte sector per row segment
 MAX_COLS = 32
-MAX_ROUND = 4  # csrc/ntt.cu: stages per register round (16-word units)
+MAX_ROUND = 4  # csrc/ntt_rounds.cuh: stages per register round (16-word units)
 # n whose `ntt_cm` is one pass over a thread-block cluster: its CTAs, each
 # holding (2048, MIN_COLS) of the column tile in shared memory (measured on
 # the H100 against two passes; at n = 4096 a cluster of 2 lost to one CTA at
 # B = 1024: PERF.md)
 CLUSTER = {8192: 4, 16384: 8}
 UNIT_WORDS = 16  # words per thread per round that fix a pass's threads
-# the (L, TB) of every ntt_fwd_pass / ntt_inv_pass instance csrc/ntt.cu builds
+# the (L, TB) of every one-CTA pass-kernel instance (csrc/ntt_rounds.cuh `with_pass_tile`)
 KERNEL_TILES = frozenset([(1 << k, 32) for k in range(1, 11)]
                          + [(1024, 16), (2048, 16), (2048, 8), (4096, 8)])
 
@@ -82,24 +83,18 @@ class Pass:
     TB: int
     cluster: int = 1  # CTAs that share the tile (csrc/ntt.cu's cluster pass)
 
-    @property
-    def threads(self) -> int:
-        work = (self.L // 2) * self.G * self.TB
-        return min(THREADS, max(32, -(-work // 32) * 32))
-
 
 def rounds(L: int) -> list[int]:
-    """The stages of each register round of a length-L pass of
-    ntt_fwd_pass / ntt_inv_pass, in forward order (`Rounds` in
-    csrc/ntt.cu): ceil(log2 L / MAX_ROUND) rounds as even as possible,
-    larger first."""
+    """The stages of each register round of a length-L pass of the pass
+    kernels, in forward order (`Rounds` in csrc/ntt_rounds.cuh):
+    ceil(log2 L / MAX_ROUND) rounds as even as possible, larger first."""
     k = L.bit_length() - 1
     N = -(-k // MAX_ROUND)
     return [k // N + (i < k % N) for i in range(N)]
 
 
 def kernel_threads(p: Pass) -> int:
-    """Threads of each CTA of a forward / GS pass: one per UNIT_WORDS
+    """Threads of each CTA of a pass kernel: one per UNIT_WORDS
     words of its part of the tile, within [32, THREADS]."""
     words = p.L * p.G * p.TB // p.cluster
     if p.cluster > 1:  # 32 words a thread: two CTAs of the cluster share an SM
@@ -108,10 +103,10 @@ def kernel_threads(p: Pass) -> int:
 
 
 def kernel_smem_bytes(p: Pass) -> int:
-    """Dynamic shared memory of each CTA of a forward / GS pass (`Tile`
-    in csrc/ntt.cu): none for a one-round pass; else its [g][row][c] part
-    of the tile (L / cluster rows), with one padding row every 2^t rows
-    when TB < 32 (t: the last round's stages)."""
+    """Dynamic shared memory of each CTA of a pass kernel (`Tile` in
+    csrc/ntt_rounds.cuh): none for a one-round pass; else its [g][row][c]
+    part of the tile (L / cluster rows), with one padding row every 2^t
+    rows when TB < 32 (t: the last round's stages)."""
     plan = rounds(p.L)
     if len(plan) == 1:
         return 0
@@ -140,8 +135,7 @@ def cm_schedule(n: int, base: int = 1) -> list[Pass]:
     """The forward pass sequence of `ntt_cm` and of the ring's phase B
     (the inverse runs it reversed): one pass over a cluster of CLUSTER[n]
     CTAs, for the n that have one, else `schedule(n, base)`.  base: as
-    `schedule`'s.  Route B keeps `schedule` (one CTA a tile up to 4096
-    rows, two passes above)."""
+    `schedule`'s.  Route B takes it at 2^14 only (`dit_schedule`)."""
     if n in CLUSTER:
         return [Pass(n, 1, 1, 0, base, 0, 1, MIN_COLS, CLUSTER[n])]
     return schedule(n, base)
@@ -169,7 +163,7 @@ _ARGTYPES = (
 
 
 _INVB_ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_uint32, ctypes.c_void_p]
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_uint32, ctypes.c_void_p]
 )
 
 
@@ -183,10 +177,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def dit_schedule(n: int) -> list[Pass]:
+    """Route B's pass sequence in forward order (it runs it reversed):
+    `cm_schedule` at n = 2^14 (one block DFT over all n rows, launched over
+    an 8-CTA cluster), else `schedule`.  Measured on the H100 against
+    `schedule`'s two passes, the 8-CTA pass won at 2^14 and the 4-CTA pass
+    lost at 8192 (PERF.md), so csrc/ntt.cu builds no route-B 4-CTA pass."""
+    return cm_schedule(n) if n == 16384 else schedule(n)
+
+
 def _dit_block_rows(n: int) -> int:
     """tS of the route-B split: the rows of the block pass, so the plain
     version and the kernels factor n the same way."""
-    return schedule(n)[-1].L
+    return dit_schedule(n)[-1].L
 
 
 def redigit(x: torch.Tensor, q_src: int, q: int) -> torch.Tensor:
@@ -261,31 +264,38 @@ def ntt_cm(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
 
 
 def _ntt_invb_cuda(x, plan):
-    """Route B: the block pass (DFT_tS, then the twist; at n <= 4096 the
-    only pass, then the scale), then the cross pass (DFT_P, the scale and
-    the fold), each reading its stage table and per-row multiplier."""
-    lib = _lib()
-    n, B = x.shape
-    passes = schedule(n)[::-1]
+    """Route B: the block pass (DFT_tS, then the twist; at tS = n the only
+    pass, then the scale), then the cross pass (DFT_P, the scale and the
+    fold), in place after the first."""
+    n = x.shape[0]
+    passes = dit_schedule(n)[::-1]
     tab = plan.dit_tables(_dit_block_rows(n), x.device)
-    stage = ("blk", "cross")
     y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    src = x
-    with torch.cuda.device(x.device):
-        for i, p in enumerate(passes):
-            last = i == len(passes) - 1
-            post = "scale" if last else "twist"
-            err = lib.lol_ntt_invb_pass(
-                src.data_ptr(), y.data_ptr(), tab[stage[i]].data_ptr(),
-                tab[stage[i] + "_sh"].data_ptr(), tab[post].data_ptr(),
-                tab[post + "_sh"].data_ptr(), B, p.L, p.nseq, p.elem_stride,
-                p.seq_stride, p.G, p.TB, p.threads, int(last), plan.q, stream,
-            )
-            build.check(err, f"ntt_invb pass {i} (n={n}, B={B})")
-            LAUNCHES["ntt_invb_cross" if stage[i] == "cross" else "ntt_invb_block"] += 1
-            src = y  # in place, as in _ntt_cuda
+    for i, (p, stage) in enumerate(zip(passes, ("blk", "cross"))):
+        last = i == len(passes) - 1
+        invb_pass(x if i == 0 else y, y, plan, p, tab, stage, "scale" if last else "twist", last)
     return y
+
+
+def invb_pass(x: torch.Tensor, y: torch.Tensor, plan: NTTPlan, p: Pass, tab: dict,
+              stage: str, post: str, last: bool) -> None:
+    """Launch one route-B pass p (`ntt_invb_pass`) from the contiguous
+    (n, B) CUDA tensor x into y (x itself allowed: each block owns its
+    tile): the DIT-bitrev-input DFT on the packed stage table tab[stage]
+    ("blk" or "cross" of `NTTPlan.dit_tables`), then the per-row
+    multiplier tab[post] ("twist" or "scale").  Inputs below 4q; last:
+    the output folded to [0, q), else it stays in [0, 2q)."""
+    n, B = x.shape
+    with torch.cuda.device(x.device):
+        err = _lib().lol_ntt_invb_pass(
+            x.data_ptr(), y.data_ptr(), tab[stage].data_ptr(), tab[stage + "_sh"].data_ptr(),
+            tab[post].data_ptr(), tab[post + "_sh"].data_ptr(), B, p.L, p.nseq,
+            p.elem_stride, p.seq_stride, p.G, p.TB, kernel_threads(p),
+            p.cluster.bit_length() - 1, int(last), plan.q,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(err, f"ntt_invb {stage} pass (n={n}, B={B}, L={p.L})")
+    LAUNCHES["ntt_invb_cross" if stage == "cross" else "ntt_invb_block"] += 1
 
 
 def _ntt_cuda(x, plan, inverse, pre_q):

@@ -49,12 +49,15 @@ def test_chain_rejects_bad_arguments():
         mx.chain(torch.zeros(4, dtype=torch.int32), -1)
 
 
-@pytest.mark.parametrize("n,B", [(4096, 1024), (16384, 1000)])
+@pytest.mark.parametrize("n,B", [(4096, 1024), (16384, 1000), (65536, 8)])
 def test_roofline_work_counts(n, B):
+    """Route B: GS's butterflies and one Shoup multiply (5 ops) a word for
+    its scale, at every n (no twist: it is a cost of a factoring)."""
     k = n.bit_length() - 1
     butterflies = k * n // 2 * B
-    for op in ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit"):
+    for op in ("ntt_fwd", "ntt_inv_gs"):
         assert roofline.work(op, n, B) == (9 * butterflies, 8 * n * B)
+    assert roofline.work("ntt_inv_dit", n, B) == (9 * butterflies + 5 * n * B, 8 * n * B)
     assert roofline.work("ct_mul", n, B) == (38 * n * B, 28 * n * B)
     assert roofline.work("mul_mod", n, B) == (9 * n * B, 12 * n * B)
     assert roofline.work("add_mod", n, B) == (2 * n * B, 12 * n * B)

@@ -63,9 +63,12 @@ def test_digit_prologue_at_a_small_q(cuda, n):
                                tk.ntt_cm_ref(xs, plan, pre_digit_q=src))
 
 
-@pytest.mark.parametrize("n,B", [(n, B) for n in (2, 256, 4096, 8192, 16384)
-                                  for B in (1, 1000, 1024)] + [(4096, 16384)])
+@pytest.mark.parametrize("n,B", [(1 << k, B) for k in range(1, 17) for B in (1, 1000, 1024)]
+                         + [(4096, 16384)])
 def test_route_b_inverse_matches_plain_and_gs(cuda, n, B):
+    """Route B at every n 2-65536: each pass of `dit_schedule`, one pass
+    up to 4096, a cluster pass at 16384, block and cross passes at 8192
+    and above 16384."""
     for q in nt.ntt_primes(2 * n, 30, 2):
         plan = ntt.ntt_plan(n, q)
         g = torch.Generator(device=cuda).manual_seed(n * B + q % 97)
@@ -76,6 +79,46 @@ def test_route_b_inverse_matches_plain_and_gs(cuda, n, B):
         got = tk.ntt_cm(x, plan, inverse=True, alg="dit")
         assert torch.equal(got, tk.ntt_cm_ref(x, plan, inverse=True, alg="dit"))
         assert torch.equal(got, tk.ntt_cm(x, plan, inverse=True))
+
+
+@pytest.mark.parametrize("n", [8192, 16384, 65536])
+@pytest.mark.parametrize("last", [False, True])
+def test_route_b_cross_pass_takes_lazy_words(cuda, n, last):
+    """The cross pass of the WINDOW-row factoring alone, on words in
+    [0, 2q) as the twist leaves them (0, 1, q - 1, q and 2q - 1 planted):
+    the DFT over P = n / 512 rows 512 apart and the scale, equal mod q to
+    the plain ones on the words mod q; folded to [0, q) when last, else
+    below 2q."""
+    q = nt.ntt_primes(2 * n, 30, 1)[0]
+    plan = ntt.ntt_plan(n, q)
+    cross = tk.schedule(n)[0]
+    P, tS = cross.L, n // cross.L
+    tab = plan.dit_tables(tS, cuda)
+    g = torch.Generator(device=cuda).manual_seed(n + last)
+    for B in (1, 1000, 1024):
+        x = _words(g, cuda, (n, B), 0, 2 * q, [0, 1, q - 1, q, 2 * q - 1])
+        y = torch.empty_like(x)
+        tk.invb_pass(x, y, plan, cross, tab, "cross", "scale", last)
+        v = ntt._dit_bitrev_net((rn._u32(x) % q).view(P, tS * B), tab["cross"].long(), q)
+        want = (v.view(P, tS, B) * tab["scale"].long().view(P, tS, 1) % q).view(n, B)
+        got = rn._u32(y)
+        assert bool((got < (q if last else 2 * q)).all())
+        assert torch.equal(got % q, want)
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_route_b_refuses_a_geometry_without_an_instance(cuda, cluster):
+    """A pass no ntt_invb_pass instance is built for (8192 rows in one
+    CTA, or over the 4-CTA cluster that only `ntt_cm` runs): the C entry
+    refuses it, the wrapper raises, nothing launches."""
+    n = 8192
+    plan = ntt.ntt_plan(n, nt.ntt_primes(2 * n, 30, 1)[0])
+    x = torch.zeros((n, 8), dtype=torch.int32, device=cuda)
+    before = dict(tk.LAUNCHES)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        tk.invb_pass(x, x, plan, tk.Pass(n, 1, 1, 0, 1, 0, 1, 8, cluster),
+                     plan.dit_tables(n, cuda), "blk", "scale", True)
+    assert tk.LAUNCHES == before
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (3, 5), (256, 100), (512, 1024), (4096, 1000)])
@@ -112,7 +155,9 @@ def test_chain_matches_plain(cuda, shape, iters):
 @pytest.mark.parametrize("n", [4096, 8192, 16384, 65536])
 def test_launch_counter_counts_each_pass(cuda, n):
     """ntt_cm launches one forward / GS kernel per pass of `cm_schedule`
-    (one cluster pass at n = 8192 and 16384); route B keeps `schedule`."""
+    (one cluster pass at n = 8192 and 16384), and route B one
+    ntt_invb_pass per pass of `dit_schedule`: the block pass, then a cross
+    pass except at n <= 4096 and 2^14."""
     plan = ntt.ntt_plan(n, nt.ntt_primes(2 * n, 30, 1)[0])
     x = torch.zeros((n, 8), dtype=torch.int32, device=cuda)
     before = dict(tk.LAUNCHES)
@@ -124,7 +169,9 @@ def test_launch_counter_counts_each_pass(cuda, n):
     assert tk.LAUNCHES["ntt_inv"] - before["ntt_inv"] == passes
     tk.ntt_cm(x, plan, inverse=True, alg="dit")
     assert tk.LAUNCHES["ntt_invb_block"] - before["ntt_invb_block"] == 1
-    assert tk.LAUNCHES["ntt_invb_cross"] - before["ntt_invb_cross"] == len(tk.schedule(n)) - 1
+    cross = n not in (4096, 16384)
+    assert tk.LAUNCHES["ntt_invb_cross"] - before["ntt_invb_cross"] == cross
+    assert len(tk.dit_schedule(n)) == 1 + cross
 
 
 @pytest.mark.parametrize("n", [2, 16, 256, 2048, 4096, 8192, 16384, 65536])

@@ -164,7 +164,6 @@ def test_kernel_schedule_covers_every_stage(n, sched):
         top = ((p.base0 + (p.nseq - 1) * p.base_step) << (p.L.bit_length() - 2)) \
             + (p.L // 2 - 1) if p.L > 1 else 0
         assert top < n
-        assert 32 <= p.threads <= 1024 and p.threads % 32 == 0
         if p.cluster == 1:
             assert (p.L, p.TB) in tk.KERNEL_TILES
         else:
@@ -181,13 +180,15 @@ def test_kernel_schedule_covers_every_stage(n, sched):
                                           n in tk.CLUSTER else 2)
 
 
-@pytest.mark.parametrize("n", [256, 4096, 16384, 65536])
+@pytest.mark.parametrize("n", [256, 4096, 8192, 16384, 65536])
 def test_route_b_and_ring_schedules_are_pinned(n):
-    """ntt_cm's own schedule (cluster passes at n = 2^13 and 2^14) leaves
-    route B's factorisation as it was (the two-pass `schedule`, WINDOW-row
-    blocks above 4096); the ring's phase B runs it at base D + d: one pass
-    up to 4096 rows, a cluster pass at 8192 and 16384, two passes above."""
-    assert tk._dit_block_rows(n) == (n if n <= 4096 else 512)
+    """Route B runs ntt_cm's own schedule at n = 2^14 (one cluster pass,
+    its block DFT over all n rows) and `schedule` elsewhere (one pass up
+    to 4096, WINDOW-row blocks and a cross pass above); the ring's phase B
+    runs ntt_cm's at base D + d: one pass up to 4096 rows, a cluster pass
+    at 8192 and 16384, two passes above."""
+    assert tk.dit_schedule(n) == (tk.cm_schedule if n == 16384 else tk.schedule)(n)
+    assert tk._dit_block_rows(n) == (n if n <= 4096 or n == 16384 else 512)
     for D in (2, 4, 8):
         tS = n // D
         for d in (0, D - 1):
