@@ -11,9 +11,10 @@ then runs its phases and exits non-zero on the first failure:
 
 1. the card's name and power limit (nvidia-smi), and the kernel build;
 2. every kernel against its plain torch version on the card, bit-exact, at
-   n in {256, 4096, 16384} with the largest 30-bit NTT primes and
-   B in {1000, 1024}: forward, forward with the digit prologue (source
-   modulus above and below q), the GS inverse, the route-B inverse
+   n in {256, 4096, 8192, 16384} with the largest 30-bit NTT primes and
+   B in {1, 1000, 1024}: forward, forward with the digit prologue (source
+   modulus above and below q, and q itself, which the tunnel passes as
+   no prologue), the GS inverse, the route-B inverse
    (against its plain version and against the GS kernel), the
    forward->inverse round trip, and ct_mul with the extremal residues
    0, 1 and q - 1; then the NTT kernels on phase 4's n = 4096 inputs
@@ -37,6 +38,23 @@ then runs its phases and exits non-zero on the first failure:
    trip by both routes, equal to the single-card ntt_cm (itself checked
    against ntt_cm_ref) on the gathered array, with each route's launches
    counted exactly;
+3c. the standalone builders, each GPU call between a reset and a read of
+   the launch counts, which must equal its NTT calls times the passes of
+   `cm_schedule` and its ct_mul calls: the MSD encrypt -> step -> decrypt
+   at phase 3's ring (n = 2^14), then at m = 8192 (n = 4096, 3x30-bit,
+   p = 257, B = 1024) the MSD step, the modulus switch (LSD and MSD), a
+   linear key-switch hint made on the card and the key switch, add / sub
+   at unequal scales, add_public and mul_public at (n, B) and (n, 1),
+   to_lsd / to_msd and the noise budget; every output decrypted (columns
+   0-7 against the plaintext: pt_mul, sums, the messages), the noise
+   budget finite and below log2 Q, and every output equal to the CPU's
+   over columns 0-63 (the float32 noise budget within 1e-4);
+3d. the fused ring tunnel m = 32768 -> 16384 (E = S, ys = [1, 0], the
+   reference bench's leg) at phase 3's chain, B = 1024: the hints made
+   on the card, the tunnel's launches counted exactly (2 nrns GS
+   inverses at n = 2^14, d nrns + d nrns^2 forwards at n = 8192), the
+   decryption over S of columns 0-7 against the host `eval_lin`, and the
+   output equal to the CPU's over columns 0-63;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -56,8 +74,11 @@ then runs its phases and exits non-zero on the first failure:
    and, where phase 3b's mesh spans several cards, on that mesh too; the
    exchange's GB/s against the copy_'s, and the gather and scatter
    passes against the unfused phase-B (B') passes they replace, at
-   n = 2^14 and 2^16.  Phase 1 also fails if ptxas gave a ring or
-   route-B kernel a stack frame or spills.
+   n = 2^14 and 2^16; and, as their caller sees them, the modulus
+   switch's and the linear key switch's ops/s at n = 4096 and the
+   tunnel's at m = 32768 -> 16384 (B = 1024), each printed on a
+   `metric` line beside the card line.  Phase 1 also fails if ptxas gave
+   a ring or route-B kernel a stack frame or spills.
 
 The last three lines of standard output are the card line, a JSON object
 with one entry per TPU kernel ported (the CUDA kernel that replaces it,
@@ -69,6 +90,7 @@ take for the same work, `bench.roofline.bound`), and
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -124,7 +146,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import_port()
-    from lol_tpu_torch import numtheory as nt, she
+    from lol_tpu_torch import linear, numtheory as nt, she
     from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, steptime, time_ms
     from lol_tpu_torch.ops import ntt
     from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw
@@ -211,14 +233,16 @@ def main() -> int:
             err["ntt_inv_scatter"] = max(err["ntt_inv_scatter"], max_err(a % q, b))
         return 3
 
-    for n in (256, 4096, 16384):
+    for n in (256, 4096, 8192, 16384):  # 8192: the tunnel's target ring (4-CTA cluster)
         q_src, q = nt.ntt_primes(2 * n, 30, 2)  # the largest two
         plan = ntt.ntt_plan(n, q)
-        for B in (1000, 1024):
+        for B in (1, 1000, 1024):  # B = 1: the public plaintexts' transforms
             x = torch.randint(0, q, (n, B), generator=g, device=dev, dtype=torch.int32)
             x[0] = q - 1  # extremal residues stress the lazy [0, 4q) range
             checks += check_ntt(x, plan)
-            for src in (q_src, 12289):  # source modulus above and below q
+            # source modulus above and below q, and q itself (the tunnel's
+            # digit j into channel j: no prologue)
+            for src in (q_src, 12289, q):
                 xs = torch.randint(0, src, (n, B), generator=g, device=dev,
                                    dtype=torch.int32)
                 xs[0] = src - 1
@@ -375,6 +399,176 @@ def main() -> int:
         del outs
         mark(f"phase 3b: ring route {route}: n=2^14 x 3 primes and n=2^16, B={B}, D={D}: "
              f"forward, inverse, round trip == ntt_cm; launches {got}")
+
+    # -- phase 3c: the standalone builders ------------------------------
+    # Every GPU call runs between a reset and a read of the counts, which
+    # must equal its NTT calls times the passes of `cm_schedule` (one at
+    # n = 4096, 8192 and 2^14), its ct_mul calls, and nothing else.
+    path_launches = {"3c": dict.fromkeys(counts(), 0), "3d": dict.fromkeys(counts(), 0)}
+
+    def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, n_fwd=None, n_inv=None):
+        reset_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = counts()
+        want = dict.fromkeys(got, 0)
+        want.update(ntt_fwd=fwd * len(tk.cm_schedule(n_fwd)) if fwd else 0,
+                    ntt_inv=inv * len(tk.cm_schedule(n_inv)) if inv else 0, ct_mul=ct_mul)
+        if got != want:
+            raise AssertionError(f"phase {phase} {name}: launches {got}, want {want}")
+        for k, v in got.items():
+            path_launches[phase][k] += v
+        return out
+
+    def same_on_cpu(name, out, fn, *args, atol=None):
+        """fn on the CPU over columns 0-63 of args == out's columns 0-63
+        (exactly, or within atol for the float32 noise budget)."""
+        cpu = fn(*(a[..., :cols].cpu().contiguous() for a in args))
+        outs, cpus = (out, cpu) if isinstance(out, tuple) else ((out,), (cpu,))
+        for x, y in zip(outs, cpus):
+            x = x[..., :cols].cpu()
+            ok = torch.equal(x, y) if atol is None else torch.allclose(x, y, rtol=0, atol=atol)
+            if not ok:
+                raise AssertionError(f"phase 3c/3d {name}: GPU != CPU over columns 0-63")
+
+    def decrypts_to(name, got, want):
+        """Columns 0-7 of the decryption `got` against the (n, >=8) `want`."""
+        np.testing.assert_array_equal(got[:, :8].cpu().numpy(), np.asarray(want)[:, :8],
+                                      err_msg=name)
+
+    def pt_muls(a, b, prm):
+        return np.stack([she.pt_mul(prm, a[:, k].cpu().numpy(), b[:, k].cpu().numpy())
+                         for k in range(8)], -1)
+
+    # the MSD step at the phase-3 ring, m = 32768 (n = 2^14), B = 1024
+    enc_msd = bb.build_encrypt(sk, encoding="msd")
+    cm = run("3c", "encrypt msd n16384", enc_msd, m1, g, fwd=nrns, n_fwd=n)
+    dm = run("3c", "encrypt msd n16384", enc_msd, m2, g, fwd=nrns, n_fwd=n)
+    step_msd = bb.build_step(hint, encoding="msd")
+    em = run("3c", "step msd n16384", step_msd, *cm, *dm, fwd=step_calls["ntt_fwd"],
+             inv=step_calls["ntt_inv"], ct_mul=nrns, n_fwd=n, n_inv=n)
+    dec_msd = BatchedBGV(p2, dev).build_decrypt(
+        she.SK(p2, sk.s_ints, sk.var), f=bb.step_f(1, 1, "msd"), encoding="msd")
+    decrypts_to("step msd n16384", run("3c", "decrypt msd n16384", dec_msd, *em,
+                                       inv=nrns - 1, n_inv=n), pt_muls(m1, m2, params))
+    same_on_cpu("step msd n16384", em,
+                BatchedBGV(params, "cpu").build_step(hint, encoding="msd"), *cm, *dm)
+    del cm, dm, em
+    mark("phase 3c: MSD step at n = 2^14: decrypt of columns 0-7 == pt_mul; GPU == CPU")
+    # every builder at m = 8192 (n = 4096), the reference bench's n = 4096 leg
+    m8 = 8192
+    params8 = she.SHEParams(m=m8, p=p, qs=tuple(nt.ntt_primes(m8, 30, 3)), var=2.0)
+    n8 = params8.ctx.n
+    bb8, bb8_cpu = BatchedBGV(params8, dev), BatchedBGV(params8, "cpu")
+    sk8, sk8_new = she.gen_sk(params8, g), she.gen_sk(params8, g)
+    p8d = she.SHEParams(m=m8, p=p, qs=params8.qs[:-1], var=2.0)
+    bb8d = BatchedBGV(p8d, dev)
+    sk8d = she.SK(p8d, sk8.s_ints, sk8.var)
+    a8, b8 = she.pt_random(params8, g, (B,)), she.pt_random(params8, g, (B,))
+    pub = she.pt_random(params8, g, (B,))
+    c8 = {}  # encoding -> (encryption of a8, encryption of b8)
+    for e in ("lsd", "msd"):
+        enc_e = bb8.build_encrypt(sk8, e)
+        c8[e] = tuple(run("3c", f"encrypt {e}", enc_e, x, g, fwd=nrns, n_fwd=n8)
+                      for x in (a8, b8))
+    hint8 = run("3c", "gen_ks_quad_hint", bb8.gen_ks_quad_hint, sk8, g, fwd=nrns, n_fwd=n8)
+
+    def dec(e, x, name, f=1, pipe=None, key=None):
+        fn = (pipe or bb8).build_decrypt(key or sk8, f=f, encoding=e)
+        return run("3c", f"decrypt {name}", fn, *x, inv=len((pipe or bb8).qs), n_inv=n8)
+
+    st8 = bb8.build_step(hint8, encoding="msd")
+    e8 = run("3c", "step msd", st8, *c8["msd"][0], *c8["msd"][1], fwd=step_calls["ntt_fwd"],
+             inv=step_calls["ntt_inv"], ct_mul=nrns, n_fwd=n8, n_inv=n8)
+    decrypts_to("step msd", dec("msd", e8, "step msd", bb8.step_f(1, 1, "msd"), bb8d, sk8d),
+                pt_muls(a8, b8, params8))
+    same_on_cpu("step msd", e8, bb8_cpu.build_step(hint8, encoding="msd"),
+                *c8["msd"][0], *c8["msd"][1])
+    out = dec("msd", c8["msd"][0], "msd")
+    decrypts_to("encrypt msd", out, a8.cpu())
+    same_on_cpu("decrypt msd", out, bb8_cpu.build_decrypt(sk8, encoding="msd"), *c8["msd"][0])
+    for e in ("lsd", "msd"):
+        ms = bb8.build_mod_switch(e)
+        out = run("3c", f"mod_switch {e}", ms, *c8[e][0], fwd=2 * (nrns - 1), inv=2,
+                  n_fwd=n8, n_inv=n8)
+        decrypts_to(f"mod_switch {e}", dec(e, out, f"mod_switch {e}",
+                                           bb8.mod_switch_f(1) if e == "lsd" else 1,
+                                           bb8d, sk8d), a8.cpu())
+        same_on_cpu(f"mod_switch {e}", out, bb8_cpu.build_mod_switch(e), *c8[e][0])
+    lin_hint = run("3c", "gen_ks_linear_hint", bb8.gen_ks_linear_hint, sk8_new, sk8, g,
+                   fwd=nrns, n_fwd=n8)
+    ksl = bb8.build_key_switch_linear(lin_hint)
+    out = run("3c", "key_switch_linear", ksl, *c8["lsd"][0], fwd=nrns * (nrns - 1), inv=nrns,
+              n_fwd=n8, n_inv=n8)
+    decrypts_to("key_switch_linear", dec("lsd", out, "key_switch_linear", key=sk8_new), a8.cpu())
+    same_on_cpu("key_switch_linear", out, bb8_cpu.build_key_switch_linear(lin_hint),
+                *c8["lsd"][0])
+    inv3 = nt.modinv(3, p)  # ct_b read at scale 3: its message is b8 / 3
+    for sub in (False, True):
+        out = run("3c", "add", bb8.build_add(1, 3, sub), *c8["lsd"][0], *c8["lsd"][1])
+        sign = -1 if sub else 1
+        decrypts_to(f"add sub={sub}", dec("lsd", out, "add"),
+                    ((a8.long() + sign * inv3 * b8.long()) % p).cpu())
+        same_on_cpu(f"add sub={sub}", out, bb8_cpu.build_add(1, 3, sub),
+                    *c8["lsd"][0], *c8["lsd"][1])
+    for e, pb in (("lsd", pub), ("msd", pub[:, :1])):
+        out = run("3c", f"add_public {e}", bb8.build_add_public(5, e), *c8[e][0], pb,
+                  fwd=nrns, n_fwd=n8)
+        decrypts_to(f"add_public {e}", dec(e, out, "add_public"),
+                    ((a8.long() + 5 * pb.long()) % p).cpu())
+        same_on_cpu(f"add_public {e}", out, bb8_cpu.build_add_public(5, e), *c8[e][0], pb)
+    for pb in (pub, pub[:, :1]):
+        out = run("3c", "mul_public", bb8.build_mul_public(), *c8["lsd"][0], pb,
+                  fwd=nrns, n_fwd=n8)
+        decrypts_to("mul_public", dec("lsd", out, "mul_public"),
+                    pt_muls(a8, pb.expand(n8, B), params8))
+        same_on_cpu("mul_public", out, bb8_cpu.build_mul_public(), *c8["lsd"][0], pb)
+    for e, to in (("msd", "lsd"), ("lsd", "msd")):
+        out = run("3c", f"to_{to}", getattr(bb8, f"build_to_{to}")(), *c8[e][0])
+        decrypts_to(f"to_{to}", dec(to, out, f"to_{to}", getattr(bb8, f"to_{to}_f")(1)),
+                    a8.cpu())
+        same_on_cpu(f"to_{to}", out, getattr(bb8_cpu, f"build_to_{to}")(), *c8[e][0])
+    bits = run("3c", "noise_bits", bb8.build_noise_bits(sk8), *c8["lsd"][0], inv=nrns, n_inv=n8)
+    log2_q = math.log2(math.prod(params8.qs))
+    if bits.shape != (B,) or not bool(torch.isfinite(bits).all()) or not bool(
+            ((bits >= 0) & (bits < log2_q)).all()):
+        raise AssertionError(f"noise_bits out of [0, log2 Q = {log2_q:.1f}): "
+                             f"{bits.min().item()}..{bits.max().item()}")
+    same_on_cpu("noise_bits", bits, bb8_cpu.build_noise_bits(sk8), *c8["lsd"][0], atol=1e-4)
+    same_on_cpu("error_term", run("3c", "error_term", bb8.build_error_term(sk8), *c8["lsd"][0],
+                                  inv=nrns, n_inv=n8),
+                bb8_cpu.build_error_term(sk8), *c8["lsd"][0])
+    mark(f"phase 3c: builders at n = {n8}, B = {B}: every decryption == its plaintext, "
+         f"GPU == CPU over columns 0-63; noise bits {bits.min().item():.2f}-"
+         f"{bits.max().item():.2f}; launches {path_launches['3c']}")
+
+    # -- phase 3d: the fused ring tunnel m = 32768 -> 16384 ----------------
+    # the reference bench's leg (bench.py:454-496): E = S, ys = [1, 0], the
+    # phase-3 ring, chain and key as the source
+    m_s = m // 2
+    ps = she.SHEParams(m=m_s, p=p, qs=params.qs, var=2.0)
+    n_s = ps.ctx.n
+    sk_s = she.gen_sk(ps, g)
+    S = ps.ctx
+    fmap = linear.linear_pow(S, params.ctx, S, [np.eye(1, n_s, dtype=np.int64)[0],
+                                                np.zeros(n_s, dtype=np.int64)])
+    d_rel = fmap.d
+    th = run("3d", "gen_tunnel_hint", bb.gen_tunnel_hint, fmap, sk_s, sk, g,
+             fwd=nrns, n_fwd=n_s)
+    tun = bb.build_tunnel(th)
+    mt = she.pt_random(params, g, (B,))
+    ct = run("3d", "encrypt", enc, mt, g, fwd=nrns, n_fwd=n)
+    tunnel_calls = {"ntt_fwd": d_rel * nrns + d_rel * nrns * nrns, "ntt_inv": 2 * nrns}
+    t0, t1 = run("3d", "tunnel", tun, *ct, fwd=tunnel_calls["ntt_fwd"],
+                 inv=tunnel_calls["ntt_inv"], n_fwd=n_s, n_inv=n)
+    tunnel_launches = counts()
+    got_t = run("3d", "decrypt over S", bb.target_pipeline(th).build_decrypt(sk_s), t0, t1,
+                inv=nrns, n_inv=n_s)
+    decrypts_to("tunnel", got_t, np.stack([linear.eval_lin(fmap, mt[:, k].cpu().numpy(), p)
+                                           for k in range(8)], -1))
+    same_on_cpu("tunnel", (t0, t1), BatchedBGV(params, "cpu").build_tunnel(th), *ct)
+    mark(f"phase 3d: tunnel m = {m} -> {m_s}, B = {B}: decrypt of columns 0-7 == eval_lin; "
+         f"GPU == CPU over columns 0-63; launches {tunnel_launches}")
 
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
@@ -567,10 +761,6 @@ def main() -> int:
     timings["bgv_step_ntt_share_n16384"] = ntt_ms / step_ms
     timings["bgv_step_ct_mul_share_n16384"] = nrns * timings["ct_mul_ms"] / step_ms
     del c0, c1, d0, d1, e0, e1, x, xd, x4b, ops
-    m8 = 8192
-    params8 = she.SHEParams(m=m8, p=p, qs=tuple(nt.ntt_primes(m8, 30, 3)), var=2.0)
-    bb8 = BatchedBGV(params8, dev)
-    sk8 = she.gen_sk(params8, g)
     enc8 = bb8.build_encrypt(sk8)
     step8 = bb8.build_step(bb8.gen_ks_quad_hint(sk8, g))
     cts8 = (*enc8(she.pt_random(params8, g, (B,)), g),
@@ -578,8 +768,21 @@ def main() -> int:
     step8_ms, wins8 = time_ms(lambda: step8(*cts8), 5)
     timings["bgv_ops_per_s_n4096"] = B / (step8_ms / 1e3)
     timings["bgv_step_ms_windows_n4096"] = wins8
+    # the builders' end-to-end rates, as their caller sees them, on inputs
+    # phases 3c and 3d checked: the modulus switch and the linear key switch
+    # at n = 4096 (the reference bench's extras of that leg), the tunnel
+    # m = 32768 -> 16384 (its headline), B = 1024
+    ms8 = bb8.build_mod_switch("lsd")
+    for key, fn, iters in (("mod_switch", lambda: ms8(*c8["lsd"][0]), 20),
+                           ("ks_linear", lambda: ksl(*c8["lsd"][0]), 10),
+                           ("tunnel", lambda: tun(*ct), 5)):
+        op_ms, op_wins = time_ms(fn, iters)
+        timings[f"{key}_ops_per_sec"] = B / (op_ms / 1e3)
+        timings[f"{key}_ms_windows"] = op_wins
     for k, v in timings.items():
         print(f"timing {k} = {json.dumps(v)}", flush=True)
+    for k in ("mod_switch_ops_per_sec", "ks_linear_ops_per_sec", "tunnel_ops_per_sec"):
+        print(f"metric {k} = {timings[k]} on {card}", flush=True)
     mark("phase 4: timings done")
 
     def bound(op, n_, B_, D_=1):
@@ -597,12 +800,16 @@ def main() -> int:
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:539",
          "also_replaces": "lol_tpu/ops/pallas/ntt_kernel.py:593",
          "launches": launches["ntt_fwd"], "max_abs_err": err["ntt_fwd"],
+         "launches_builders": path_launches["3c"]["ntt_fwd"],
+         "launches_tunnel": path_launches["3d"]["ntt_fwd"],
          "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"],
          **bound("ntt_fwd", n, B), "library_ms": None},
         {"name": "ntt_inv_pass", "route": "cuda", "source": ntt_src,
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:593",
          "also_replaces": "lol_tpu/ops/pallas/ntt_kernel.py:539",
          "launches": launches["ntt_inv"], "max_abs_err": err["ntt_inv"],
+         "launches_builders": path_launches["3c"]["ntt_inv"],
+         "launches_tunnel": path_launches["3d"]["ntt_inv"],
          "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"],
          **bound("ntt_inv_gs", n, B), "library_ms": None},
         # one kernel in two geometries, as the reference's two bodies: the
@@ -629,6 +836,7 @@ def main() -> int:
         {"name": "ct_mul", "route": "cuda", "source": "lol_tpu_torch/csrc/pointwise.cu",
          "replaces": "lol_tpu/ops/pallas/pointwise.py:31",
          "launches": launches["ct_mul"], "max_abs_err": err["ct_mul"],
+         "launches_builders": path_launches["3c"]["ct_mul"],
          "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"],
          **bound("ct_mul", n, B), "library_ms": None},
         {"name": "u32_chain", "route": "cuda", "source": "lol_tpu_torch/csrc/chain.cu",

@@ -20,6 +20,9 @@ Run on the card: python -m lol_tpu_torch.bench.steptime [--m 32768]
 [--rns 3] [--batch 1024] [--trace DIR].  Prints one JSON line; with
 --trace, a second one: the device time by kernel over five steps under
 torch.profiler (`roofline.trace`, whose Chrome trace lands in DIR).
+With --tunnel it times the fused ring tunnel m -> m/2 instead (E = S,
+ys = [1, 0], the reference bench's tunnel leg) as its caller sees it,
+and with --trace profiles five tunnels the same way.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ import argparse
 import json
 import statistics
 
+import numpy as np
 import torch
 
-from .. import numtheory as nt, sampling, she
+from .. import linear, numtheory as nt, sampling, she
 from ..she_batched import BatchedBGV, BGVStep
 from . import require_cuda, time_ms
 
@@ -95,19 +99,20 @@ def breakdown(step: BGVStep, c0, c1, d0, d1, iters: int = 5, windows: int = 5) -
     return summarize(times, n, nrns, B, torch.cuda.get_device_name(c0.device))
 
 
-def by_kernel(step: BGVStep, c0, c1, d0, d1, trace_dir: str, steps: int = 5) -> dict:
-    """Device time by kernel name over `steps` steps under torch.profiler:
-    total, per step, each name's share (largest first) and launches."""
+def by_kernel(fn, args, trace_dir: str, steps: int = 5) -> dict:
+    """Device time by kernel name over `steps` calls of fn(*args) (the
+    step, or the tunnel) under torch.profiler: total, per call, each
+    name's share (largest first) and launches."""
     from . import roofline
 
-    step(c0, c1, d0, d1)
+    fn(*args)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     with roofline.trace(trace_dir) as prof:
         t0.record()
         for _ in range(steps):
-            step(c0, c1, d0, d1)
+            fn(*args)
         t1.record()
         torch.cuda.synchronize()
     rows = []
@@ -137,6 +142,33 @@ def _inputs(m: int, nrns: int, B: int, seed: int):
     return step, cts
 
 
+def _tunnel_inputs(m: int, nrns: int, B: int, seed: int):
+    """The tunnel m -> m/2 (E = S, ys = [1, 0]) with hints made on the
+    card, and an encrypted (c0, c1) batch over m."""
+    dev = require_cuda()
+    params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
+    ps = she.SHEParams(m=m // 2, p=257, qs=params.qs, var=2.0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bb = BatchedBGV(params, dev)
+    sk = she.gen_sk(params, g)
+    n_s = ps.ctx.n
+    f = linear.linear_pow(ps.ctx, params.ctx, ps.ctx, [np.eye(1, n_s, dtype=np.int64)[0],
+                                                       np.zeros(n_s, dtype=np.int64)])
+    tun = bb.build_tunnel(bb.gen_tunnel_hint(f, she.gen_sk(ps, g), sk, g))
+    return tun, bb.build_encrypt(sk)(she.pt_random(params, g, (B,)), g)
+
+
+def tunnel_time(tun, c0, c1, iters: int = 5, windows: int = 5) -> dict:
+    """The JSON line of the tunnel on these inputs on the card: ms per
+    call as its caller sees it (median and windows), and ops/s."""
+    require_cuda()
+    nrns, n, B = c0.shape
+    ms, wins = time_ms(lambda: tun(c0, c1), iters, windows)
+    return {"metric": f"tunnel n={n} -> {n // 2}, {nrns}x30-bit, B={B}",
+            "device": torch.cuda.get_device_name(c0.device), "ms_per_call": ms,
+            "ms_windows": wins, "tunnel_ops_per_sec": B / (ms / 1e3)}
+
+
 def run(m: int = 32768, nrns: int = 3, B: int = 1024, iters: int = 5,
         windows: int = 5, seed: int = 0) -> dict:
     step, cts = _inputs(m, nrns, B, seed)
@@ -150,12 +182,17 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--windows", type=int, default=5)
-    ap.add_argument("--trace", default=None, help="also profile five steps, trace to this dir")
+    ap.add_argument("--trace", default=None, help="also profile five calls, trace to this dir")
+    ap.add_argument("--tunnel", action="store_true", help="the tunnel m -> m/2, not the step")
     args = ap.parse_args()
-    step, cts = _inputs(args.m, args.rns, args.batch, 0)
-    print(json.dumps(breakdown(step, *cts, iters=args.iters, windows=args.windows)))
+    if args.tunnel:
+        fn, cts = _tunnel_inputs(args.m, args.rns, args.batch, 0)
+        print(json.dumps(tunnel_time(fn, *cts, iters=args.iters, windows=args.windows)))
+    else:
+        fn, cts = _inputs(args.m, args.rns, args.batch, 0)
+        print(json.dumps(breakdown(fn, *cts, iters=args.iters, windows=args.windows)))
     if args.trace:
-        print(json.dumps(by_kernel(step, *cts, args.trace)))
+        print(json.dumps(by_kernel(fn, cts, args.trace)))
 
 
 if __name__ == "__main__":

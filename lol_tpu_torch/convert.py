@@ -7,6 +7,9 @@ objects, so both sides compute on identical state:
     hint_from_numpy(params, np.stack([np.asarray(h.data) for h in hint.h0]),
                             np.stack([np.asarray(h.data) for h in hint.h1]))
     cts_from_numpy(*bb.pack(cts))
+    lin = linear_from_numpy(qs, f.e_ctx.m, f.r_ctx.m, f.s_ctx.m,
+                            [y.lift_ints(rep=Rep.POW) for y in f.ys])
+    tunnel_hint_from_numpy(params_s, lin, h0, h1)  # h0[i, j] = th.hints[i].h0[j].data
     shards = ring_shards_from_numpy(x, mesh)          # x: (..., n), ring-sharded
     x = ring_shards_to_numpy(shards, batch=x.shape[:-1])
 
@@ -20,8 +23,10 @@ import numpy as np
 import torch
 
 from . import zq
+from .linear import Linear, linear_pow
 from .parallel import sharding
-from .she import KSHint, SHEParams, SK
+from .ring import ring_context
+from .she import KSHint, SHEParams, SK, TunnelHint
 
 
 def _residues(x, device) -> torch.Tensor:
@@ -43,6 +48,22 @@ def sk_from_numpy(params: SHEParams, s_ints) -> SK:
 def hint_from_numpy(params: SHEParams, h0, h1, device="cuda") -> KSHint:
     """Key-switch hint from (ell, nrns, n) CRT residue arrays."""
     return KSHint(params, _residues(h0, device), _residues(h1, device))
+
+
+def linear_from_numpy(qs, m_e: int, m_r: int, m_s: int, ys) -> Linear:
+    """The E-linear map R -> S (indices m_e | m_r, m_s over the chain qs)
+    from its images ys, each the (n_s,) integer coefficients over S."""
+    qs = tuple(qs)
+    return linear_pow(*(ring_context(m, qs) for m in (m_e, m_r, m_s)),
+                      [np.asarray(y).astype(np.int64) for y in ys])
+
+
+def tunnel_hint_from_numpy(params_s: SHEParams, lin: Linear, h0, h1,
+                           device="cuda") -> TunnelHint:
+    """Tunnel hint from (d, ell, nrns, n_s) CRT residue arrays: one
+    key-switch hint over S (params_s) per relative basis element."""
+    return TunnelHint(lin, tuple(hint_from_numpy(params_s, a, b, device)
+                                 for a, b in zip(h0, h1)))
 
 
 def cts_from_numpy(c0, c1, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:

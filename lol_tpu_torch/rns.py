@@ -2,9 +2,10 @@
 
 Counterpart of the parts of `lol_tpu/rns.py` the batched BGV slice uses:
 `RnsBasis.modulus`, the host-exact `lift_centered` (numpy object ints) and
-the Garner mixed-radix digits plus the centered lift reduced mod p
-(`to_mixed_radix_jnp`/`lift_mod_jnp` there), here in int64 torch with the
-residue axis first: (nrns, ...).
+the Garner mixed-radix digits, the canonical representative and the
+centered lift reduced mod p (`to_mixed_radix_jnp`/`pos_mod_jnp`/
+`lift_mod_jnp` there), here in int64 torch with the residue axis first:
+(nrns, ...).
 """
 
 from __future__ import annotations
@@ -64,6 +65,12 @@ class RnsBasis:
         for j in range(self.nrns - 2, -1, -1):
             acc = (acc * (self.qs[j] % p) + v[j] % p) % p
         return acc
+
+    def pos_mod(self, r: torch.Tensor, p: int) -> torch.Tensor:
+        """[x]_p in [0, p) as int64 for the canonical representative x in
+        [0, Q) of (nrns, ...) residues: Horner over the Garner digits, with
+        no centering (the MSD decrypt's rounding reads it)."""
+        return self._horner_mod(self.to_mixed_radix(r), p)
 
     def lift_mod(self, r: torch.Tensor, p: int) -> torch.Tensor:
         """[lift_centered(r)]_p in [0, p) as int64, for (nrns, ...)

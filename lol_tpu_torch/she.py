@@ -1,9 +1,10 @@
-"""BGV parameters, keys, plaintexts and key-switch hints.
+"""BGV parameters, keys, plaintexts, key-switch and tunnel hints.
 
-Counterpart of the pieces of `lol_tpu/she.py` that the batched slice uses
-(2-power m, LSD encoding): c(s) = c0 + c1 s satisfies
-c(s) = f*m + p*e (mod Q) with message m in R_p, small error e and a
-tracked scale factor f in Z_p^*.
+Counterpart of the pieces of `lol_tpu/she.py` that the batched pipeline
+uses (2-power m): c(s) = c0 + c1 s satisfies c(s) = f*m + p*e (mod Q)
+under the LSD encoding and c(s) = round(Q/p)*m + e (mod Q) under the MSD
+one, with message m in R_p, small error e and a tracked scale factor f
+in Z_p^*.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from . import numtheory as nt
 from . import sampling
+from .linear import Linear
 from .ops import ntt as ntt_mod
 from .ring import RingContext, ring_context
 from .rns import rns_basis
@@ -58,6 +60,16 @@ class KSHint:
     params: SHEParams
     h0: torch.Tensor
     h1: torch.Tensor
+
+
+@dataclass(frozen=True, eq=False)
+class TunnelHint:
+    """Everything that applies the E-linear map `lin` (R -> S) to a
+    ciphertext and moves it to ring S: per relative basis element b_i of
+    R/E, a KSHint over S encrypting f(b_i * s_R) under s_S."""
+
+    lin: Linear
+    hints: tuple[KSHint, ...]
 
 
 def gen_sk(params: SHEParams, generator: torch.Generator) -> SK:

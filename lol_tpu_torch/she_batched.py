@@ -1,4 +1,4 @@
-"""Batched, device-resident BGV pipeline (2-power m, LSD encoding).
+"""Batched, device-resident BGV pipeline (2-power m, LSD and MSD).
 
 Counterpart of `lol_tpu/she_batched.py`.  Ciphertext components are
 coefficient-major (nrns, n, B) int32 tensors (batch along the last axis,
@@ -8,20 +8,34 @@ the NTT kernels' native layout), and one `build_step` module performs
 
 on the device.  Every NTT goes through `ops.cuda.ntt_kernel.ntt_cm` and
 the ct-mult Hadamards through `ops.cuda.pointwise.ct_mul_cm`, one launch
-per channel, so on a CUDA device the step runs the Hopper kernels (with
-the digit re-expansion fused into the forward NTT kernel as its
-prologue), and on the CPU their plain torch versions.  The JAX step
-leaves the Hadamards to XLA, which overlaps them with its NTT calls
-(`she_batched.py:828-837` there); eager PyTorch overlaps nothing, so the
-port fuses them.  The hint inner products and the rescale arithmetic are
-plain torch elementwise ops.  The results are bit-identical to
-`lol_tpu.she_batched.BatchedBGV(params, use_pallas=False)`.
+per channel, so on a CUDA device the pipeline runs the Hopper kernels
+(with each RNS-gadget digit's re-expansion fused into the forward NTT
+kernel as its prologue), and on the CPU their plain torch versions.  The
+JAX step leaves the Hadamards to XLA, which overlaps them with its NTT
+calls (`she_batched.py:828-837` there); eager PyTorch overlaps nothing,
+so the port fuses them.  The hint inner products, the rescale and the
+arithmetic of every other `build_*` function are plain int64 torch
+elementwise ops.
 
-MSD encoding and general m are not ported yet: asking for them raises
-NotImplementedError.
+Both encodings: "lsd" keeps c(s) = f*m + p*e, "msd" c(s) = Delta*m + e
+with Delta = Q // p (encrypt, the exact scaled-rounding decrypt through
+`RnsBasis.pos_mod`, the step, the modulus switch, the public-plaintext
+add).  Beside the step: `build_mod_switch`, `build_key_switch_linear`,
+ciphertext add / sub with scale alignment, public-plaintext add and
+multiply, the encoding switches, exact division by d, the batched error
+term and noise budget, and the fused ring tunnel R -> S of a 2-power
+tower (`build_tunnel`, an `nn.Module` like the step).  Hints for T
+targets come from one device pass (`_gen_gadget_hints`).  Every result is
+bit-identical to `lol_tpu.she_batched.BatchedBGV(params, use_pallas=False)`
+(the noise budget, float32, to its rounding).
+
+General m is not ported yet: its ring contexts raise NotImplementedError.
 """
 
 from __future__ import annotations
+
+import math
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -30,25 +44,30 @@ from torch import nn
 from . import gadget as gd
 from . import numtheory as nt
 from . import sampling, zq
+from .linear import Linear
+from .ops import general as gen
 from .ops import ntt as ntt_mod
 from .ops.cuda.ntt_kernel import ntt_cm
 from .ops.cuda.pointwise import ct_mul_cm
-from .she import KSHint, SHEParams, SK
+from .ring import RingContext
+from .she import KSHint, SHEParams, SK, TunnelHint
+
+ENCODINGS = ("lsd", "msd")
 
 
-def _check_encoding(encoding: str) -> None:
-    if encoding == "msd":
-        raise NotImplementedError("MSD encoding is not ported yet")
-    if encoding != "lsd":
+def _check_encoding(encoding: str) -> str:
+    if encoding not in ENCODINGS:
         raise ValueError(f"encoding must be 'lsd' or 'msd', got {encoding!r}")
+    return encoding
 
 
-def _q_channels(qs, device) -> torch.Tensor:
-    """Per-channel moduli shaped (nrns, 1, 1) to broadcast over (nrns, n, B)."""
-    return torch.tensor(qs, dtype=torch.int64, device=device).view(-1, 1, 1)
+def _channel_consts(values, device) -> torch.Tensor:
+    """Per-channel int64 constants (the moduli qv, say) shaped (nrns, 1, 1)
+    to broadcast over (nrns, n, B)."""
+    return torch.tensor(list(values), dtype=torch.int64, device=device).view(-1, 1, 1)
 
 
-# channel-wise helpers over (nrns, n, B) stacks; qv from _q_channels; int64 out
+# channel-wise helpers over (nrns, n, B) stacks; qv = _channel_consts(qs); int64 out
 
 
 def _mulmod_ch(qv, a, b):
@@ -61,6 +80,11 @@ def _addmod_ch(qv, a, b):
 
 def _submod_ch(qv, a, b):
     return zq.sub_mod(a, b, qv)
+
+
+def _scale_ch(qv, x, c):
+    """x times the per-channel constants c mod q, int32 out."""
+    return zq.mul_mod(x, c, qv).to(torch.int32)
 
 
 def decompose_cm(qs, x: torch.Tensor) -> torch.Tensor:
@@ -80,20 +104,34 @@ def decompose_cm(qs, x: torch.Tensor) -> torch.Tensor:
     return torch.stack(digs).to(torch.int32)
 
 
-def _s_crt_np(params: SHEParams, s_ints: torch.Tensor) -> np.ndarray:
-    """(nrns, n) u32 CRT residues of small integer coefficients (host
-    numpy NTT)."""
-    s = s_ints.numpy().astype(np.int64)
+def _crt_np(plans, ints) -> np.ndarray:
+    """(nrns, n) u32 CRT residues of integer coefficients (host numpy
+    NTT, one plan per channel)."""
+    x = np.asarray(ints, dtype=np.int64)
     return np.stack([
-        ntt_mod.np_ntt_forward(np.mod(s, p.q).astype(np.uint32)[None], p)[0]
-        for p in params.ctx.ntt_plans()
+        ntt_mod.np_ntt_forward(np.mod(x, p.q).astype(np.uint32)[None], p)[0]
+        for p in plans
     ])
 
 
-class BatchedBGV:
-    """Batched BGV pipeline for one SHEParams on one device."""
+def _s_crt_np(params: SHEParams, s_ints: torch.Tensor) -> np.ndarray:
+    """(nrns, n) u32 CRT residues of small integer coefficients."""
+    return _crt_np(params.ctx.ntt_plans(), s_ints.numpy())
 
-    def __init__(self, params: SHEParams, device):
+
+def _monomial_mul_np(s: np.ndarray, k: int, n: int) -> np.ndarray:
+    """x^k * s(x) in Z[x]/(x^n + 1): a negacyclic coefficient shift."""
+    out = np.empty(n, dtype=np.int64)
+    out[k:] = s[: n - k]
+    out[:k] = -s[n - k:]
+    return out
+
+
+class BatchedBGV:
+    """Batched BGV pipeline for one SHEParams on one device (the card
+    unless the caller names another)."""
+
+    def __init__(self, params: SHEParams, device="cuda"):
         self.params = params
         self.device = torch.device(device)
         self.ctx = params.ctx  # raises NotImplementedError for non-2-power m
@@ -101,6 +139,14 @@ class BatchedBGV:
 
     def plans(self) -> list[ntt_mod.NTTPlan]:
         return self.ctx.ntt_plans()
+
+    def _over(self, ctx: RingContext) -> "BatchedBGV":
+        """The pipeline over ring ctx with this one's p, chain and device."""
+        return BatchedBGV(replace(self.params, m=ctx.m), self.device)
+
+    def _consts(self, fn) -> torch.Tensor:
+        """(nrns, 1, 1) int64 constants fn(q) on the device."""
+        return _channel_consts((fn(q) for q in self.qs), self.device)
 
     # --- layout ---------------------------------------------------------
     def pack(self, cts) -> tuple[torch.Tensor, torch.Tensor]:
@@ -112,6 +158,15 @@ class BatchedBGV:
             ).to(device=self.device, dtype=torch.int32)
             for k in range(2)
         )
+
+    def unpack(self, arrs) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Two (nrns, n, B) component tensors -> the list of B ciphertexts
+        `pack` takes, each a pair of (nrns, n) u32 CRT residue arrays (the
+        port has no ring-element object; the JAX package's unpack wraps
+        the same arrays)."""
+        comps = [a.cpu().numpy().astype(np.uint32) for a in arrs]
+        return [tuple(np.ascontiguousarray(c[..., b]) for c in comps)
+                for b in range(comps[0].shape[-1])]
 
     # --- per-channel transforms -----------------------------------------
     def _crt_one(self, x2d, ch, inverse=False, pre_digit_q=None):
@@ -137,23 +192,26 @@ class BatchedBGV:
             for j in range(len(self.qs))
         ])
 
-    def _rescale_crt(self, comp: torch.Tensor, qv: torch.Tensor) -> torch.Tensor:
+    def _rescale_crt(self, comp: torch.Tensor, qv: torch.Tensor,
+                     encoding: str = "lsd") -> torch.Tensor:
         """Exact BGV drop-last rescale of one (nrns, n, B) component in the
-        CRT domain (LSD): only the dropped channel is inverse-transformed;
-        the correction delta = p * centered [c p^-1]_{ql} is forward-
+        CRT domain: only the dropped channel is inverse-transformed; the
+        correction delta (p * centered [c p^-1]_{ql} for LSD, the plain
+        centered [c]_{ql} for MSD's round-to-nearest) is forward-
         transformed into each surviving channel.  int32 (nrns-1, n, B)."""
+        msd = _check_encoding(encoding) == "msd"
         qs = self.qs
         p = self.params.p
         ql = qs[-1]
-        last_c = self._crt_one(comp[-1], len(qs) - 1, inverse=True).long()
-        v = last_c * nt.modinv(p % ql, ql) % ql
+        v = self._crt_one(comp[-1], len(qs) - 1, inverse=True).long()
+        if not msd:
+            v = v * nt.modinv(p % ql, ql) % ql
         centered = torch.where(v >= (ql + 1) // 2, v - ql, v)
         qv_s = qv[:-1]
-        p_s = torch.tensor([p % q for q in qs[:-1]], device=qv.device).view(-1, 1, 1)
-        inv_s = torch.tensor(
-            [nt.modinv(ql % q, q) for q in qs[:-1]], device=qv.device
-        ).view(-1, 1, 1)
-        delta = (centered[None] % qv_s) * p_s % qv_s
+        inv_s = _channel_consts((nt.modinv(ql % q, q) for q in qs[:-1]), qv.device)
+        delta = centered[None] % qv_s
+        if not msd:
+            delta = delta * _channel_consts((p % q for q in qs[:-1]), qv.device) % qv_s
         nd = self._ntt(delta.to(torch.int32))
         d = _submod_ch(qv_s, comp[:-1], nd)
         return (d * inv_s % qv_s).to(torch.int32)
@@ -165,16 +223,23 @@ class BatchedBGV:
     def build_encrypt(self, sk: SK, encoding: str = "lsd"):
         """(msgs, generator) -> (c0, c1): encrypt an (n, B) batch of
         plaintext coefficients mod p.  c1 is uniform in the CRT domain and
-        c0 = NTT(m + p e) - c1 * s, e rounded Gaussian of variance var."""
-        _check_encoding(encoding)
+        c0 = NTT(m + p e) - c1 * s (LSD) or NTT(Delta [m]_p + e) - c1 * s
+        (MSD, Delta = Q // p entering as Delta mod q_i per channel), e
+        rounded Gaussian of variance var."""
+        msd = _check_encoding(encoding) == "msd"
         qs, p, var = self.qs, self.params.p, self.params.var
         s_crt = self._s_crt(sk).to(self.device)[..., None]
-        qv = _q_channels(qs, self.device)
+        qv = _channel_consts(qs, self.device)
+        delta = self._consts(lambda q: self.ctx.basis.modulus // p % q)
 
         def enc(msgs: torch.Tensor, generator: torch.Generator):
             e = sampling.gaussian_ints(tuple(msgs.shape), var, generator, self.device)
-            me = msgs.to(self.device).long() + p * e
-            me_crt = self._ntt((me[None] % qv).to(torch.int32))
+            msgs = msgs.to(self.device).long()
+            if msd:
+                me = ((msgs % p)[None] * delta + e[None]) % qv
+            else:
+                me = (msgs + p * e)[None] % qv
+            me_crt = self._ntt(me.to(torch.int32))
             c1 = sampling.uniform_residues(qs, tuple(msgs.shape), generator,
                                            self.device)
             c0 = _submod_ch(qv, me_crt, _mulmod_ch(qv, c1, s_crt))
@@ -182,79 +247,409 @@ class BatchedBGV:
 
         return enc
 
-    def build_decrypt(self, sk: SK, f: int = 1, encoding: str = "lsd"):
-        """(c0, c1) -> (n, B) int32 messages mod p: c(s) = c0 + c1 s in
-        the CRT domain, one inverse NTT per channel, then the Garner
-        centered lift reduced mod p, times f^-1."""
-        _check_encoding(encoding)
-        p = self.params.p
+    def _phase(self, sk: SK):
+        """(c0, c1) -> the int64 (nrns, n, B) coefficients of c(s) =
+        c0 + c1 s (a CRT Hadamard, one inverse NTT per channel)."""
         s_crt = self._s_crt(sk).to(self.device)[..., None]
-        qv = _q_channels(self.qs, self.device)
+        qv = _channel_consts(self.qs, self.device)
+
+        def phase(c0, c1):
+            cs = _addmod_ch(qv, c0, _mulmod_ch(qv, c1, s_crt))
+            return self._ntt(cs.to(torch.int32), inverse=True).long()
+
+        return phase
+
+    def build_decrypt(self, sk: SK, f: int = 1, encoding: str = "lsd"):
+        """(c0, c1) -> (n, B) int32 messages mod p, times f^-1.
+
+        LSD: the Garner centered lift of c(s) reduced mod p.  MSD: the
+        exact round-half-up of p x / Q for the canonical representative x
+        of c(s), without big ints: with Q odd and u = p x + (Q-1)/2,
+        round(p x / Q) = (u - [u]_Q) / Q, which mod p is
+        ([(Q-1)/2]_p - [[u]_Q]_p) Q^-1, where [u]_Q has u's channel
+        residues and `pos_mod` gives its residue mod p."""
+        msd = _check_encoding(encoding) == "msd"
+        p = self.params.p
+        basis = self.ctx.basis
+        Q = basis.modulus
+        if msd and Q % 2 == 0:
+            raise ValueError("MSD decrypt's rounding identity needs odd Q "
+                             "(every NTT-prime chain is)")
+        phase = self._phase(sk)
+        qv = _channel_consts(self.qs, self.device)
         finv = nt.modinv(f % p, p)
+        half = (Q - 1) // 2
+        p_res = self._consts(lambda q: p % q)
+        half_res = self._consts(lambda q: half % q)
+        qinv_p = nt.modinv(Q % p, p)
 
         def dec(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
-            cs = _addmod_ch(qv, c0, _mulmod_ch(qv, c1, s_crt))
-            coeff = self._ntt(cs.to(torch.int32), inverse=True)
-            lifted = self.ctx.basis.lift_mod(coeff, p)
-            return (lifted * finv % p).to(torch.int32)
+            coeff = phase(c0, c1)
+            if msd:
+                rem = basis.pos_mod((coeff * p_res + half_res) % qv, p)
+                m = (half % p - rem) % p * qinv_p % p
+            else:
+                m = basis.lift_mod(coeff, p)
+            return (m * finv % p).to(torch.int32)
 
         return dec
 
-    def step_f(self, fc: int = 1, fd: int = 1) -> int:
-        """Scale factor of build_step's output for input scales fc, fd:
-        the LSD rescale multiplies by q_last^-1 mod p."""
+    # --- batched noise --------------------------------------------------
+    def build_error_term(self, sk: SK):
+        """(c0, c1) -> (nrns, n, B) int32 residues of the LSD noise
+        e = (lift(c(s)) - centered [c(s)]_p) / p, channel by channel:
+        e_i = (d_i - [mu]_{q_i}) p^-1 mod q_i, mu the centered lift mod p."""
         p = self.params.p
+        basis = self.ctx.basis
+        phase = self._phase(sk)
+        qv = _channel_consts(self.qs, self.device)
+        pinv = self._consts(lambda q: nt.modinv(p % q, q))
+
+        def err(c0, c1):
+            d = phase(c0, c1)
+            mu = basis.lift_mod(d, p)
+            mu = torch.where(mu >= (p + 1) // 2, mu - p, mu)
+            return ((d - mu[None]) % qv * pinv % qv).to(torch.int32)
+
+        return err
+
+    def build_noise_bits(self, sk: SK):
+        """(c0, c1) -> (B,) float32 noise budgets, log2 of max |e| over a
+        ciphertext's coefficients (0 where e = 0).  |e| = min(x, Q - x)
+        for the canonical representative x of e, assembled from its Garner
+        digits as the JAX package does: the digit weights binned into
+        70-bit groups, each group summed at its own float32 scale, and
+        log2 the max over groups of log2(mag_g + mag_{g-1} 2^-70) + 70 g."""
+        qs = self.qs
+        basis = self.ctx.basis
+        qv = _channel_consts(qs, self.device)
+        err = self.build_error_term(sk)
+        GB = 70  # group span in bits: group sums stay below float32's max
+        groups: dict[int, list[tuple[int, float]]] = {}
+        W = 1
+        for j, q in enumerate(qs):
+            g = (W.bit_length() - 1) // GB
+            sh = max(0, W.bit_length() - 53)  # scale in the integers first
+            w = math.ldexp(float(W >> sh), sh - GB * g)
+            groups.setdefault(g, []).append((j, float(np.float32(w))))
+            W *= q
+        low = float(np.float32(2.0 ** -GB))
+
+        def logmag(v):  # (nrns, n, B) digits -> (n, B) float32 log2 magnitude
+            mags = {}
+            for g, entries in groups.items():
+                acc = None
+                for j, w in entries:
+                    t = v[j].to(torch.float32) * w
+                    acc = t if acc is None else acc + t
+                mags[g] = acc
+            best = torch.full(v.shape[1:], -math.inf, dtype=torch.float32, device=v.device)
+            for g in sorted(groups):
+                tot = mags[g]
+                if g - 1 in mags:
+                    tot = tot + mags[g - 1] * low
+                cand = torch.where(mags[g] > 0, torch.log2(tot) + float(GB * g),
+                                   torch.tensor(-math.inf, device=v.device))
+                best = torch.maximum(best, cand)
+            return best
+
+        def bits(c0, c1):
+            e = err(c0, c1).long()
+            m_pos = logmag(basis.to_mixed_radix(e))
+            m_neg = logmag(basis.to_mixed_radix((-e) % qv))
+            mx = torch.minimum(m_pos, m_neg).amax(dim=0)
+            return torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+
+        return bits
+
+    # --- ciphertext and public-plaintext ops ----------------------------
+    def build_add(self, f_a: int = 1, f_b: int = 1, sub: bool = False):
+        """(c0, c1, d0, d1) -> (e0, e1): ct_a +/- ct_b for scale factors
+        f_a, f_b: the second operand is scaled by the centered
+        u = f_a f_b^-1 mod p, so both carry, and the output has, scale f_a.
+        Either encoding."""
+        p = self.params.p
+        u = f_a * nt.modinv(f_b % p, p) % p
+        if u >= (p + 1) // 2:
+            u -= p
+        u_res = self._consts(lambda q: u % q)
+        qv = _channel_consts(self.qs, self.device)
+        op = _submod_ch if sub else _addmod_ch
+
+        def addf(c0, c1, d0, d1):
+            if u != 1:
+                d0, d1 = _scale_ch(qv, d0, u_res), _scale_ch(qv, d1, u_res)
+            return op(qv, c0, d0).to(torch.int32), op(qv, c1, d1).to(torch.int32)
+
+        return addf
+
+    def build_add_public(self, f: int = 1, encoding: str = "lsd"):
+        """(c0, c1, m_pub) -> (c0', c1): add a public plaintext, (n, B) or
+        (n, 1) int coefficients mod p (one value for the whole batch),
+        encoded as f m_pub (LSD) or Delta [f m_pub]_p (MSD) and added to
+        c0.  An (n, 1) plaintext is transformed at batch 1, then
+        broadcast, as the JAX package does."""
+        msd = _check_encoding(encoding) == "msd"
+        p = self.params.p
+        fc = f % p
+        delta = self._consts(lambda q: self.ctx.basis.modulus // p % q)
+        qv = _channel_consts(self.qs, self.device)
+
+        def addp(c0, c1, m_pub):
+            sc = m_pub.to(self.device).long() % p * fc % p
+            enc = (sc[None] * delta if msd else sc[None]) % qv
+            enc = self._ntt(enc.to(torch.int32))
+            return _addmod_ch(qv, c0, enc).to(torch.int32), c1
+
+        return addp
+
+    def build_mul_public(self):
+        """(c0, c1, m_pub) -> (c0', c1'): multiply by a public plaintext
+        ((n, B) or (n, 1) int coefficients mod p): both components times
+        the CRT transform of its centered lift.  Either encoding."""
+        p = self.params.p
+        qv = _channel_consts(self.qs, self.device)
+
+        def mulp(c0, c1, m_pub):
+            m = m_pub.to(self.device).long() % p
+            lifted = torch.where(m >= (p + 1) // 2, m - p, m)
+            w = self._ntt((lifted[None] % qv).to(torch.int32))
+            return (_mulmod_ch(qv, c0, w).to(torch.int32),
+                    _mulmod_ch(qv, c1, w).to(torch.int32))
+
+        return mulp
+
+    def _build_scale_components(self, c: int):
+        """(c0, c1) -> both components times the integer c mod Q."""
+        c_res = self._consts(lambda q: c % q)
+        qv = _channel_consts(self.qs, self.device)
+
+        def scale(c0, c1):
+            return _scale_ch(qv, c0, c_res), _scale_ch(qv, c1, c_res)
+
+        return scale
+
+    def build_to_lsd(self):
+        """MSD -> LSD: components scaled by p; track f with `to_lsd_f`."""
+        return self._build_scale_components(self.params.p % self.ctx.basis.modulus)
+
+    def build_to_msd(self):
+        """LSD -> MSD: components scaled by p^-1 mod Q; track f with
+        `to_msd_f`."""
+        Q = self.ctx.basis.modulus
+        return self._build_scale_components(nt.modinv(self.params.p % Q, Q))
+
+    def build_div_d(self, d: int):
+        """Exact homomorphic division by d of plaintexts divisible by d:
+        components scaled by d^-1 mod Q.  The plaintext modulus drops to
+        p/d: later builders come from a pipeline over p // d; track f with
+        `div_d_f`."""
+        if self.params.p % d:
+            raise ValueError("build_div_d: d must divide the plaintext modulus")
+        Q = self.ctx.basis.modulus
+        return self._build_scale_components(nt.modinv(d % Q, Q))
+
+    def div_d_f(self, d: int, f: int) -> int:
+        """Scale factor after `build_div_d`."""
+        return f % (self.params.p // d)
+
+    def to_lsd_f(self, f: int) -> int:
+        """Scale factor after `build_to_lsd`."""
+        p = self.params.p
+        return f * ((-self.ctx.basis.modulus) % p) % p
+
+    def to_msd_f(self, f: int) -> int:
+        """Scale factor after `build_to_msd`."""
+        p = self.params.p
+        return f * ((-nt.modinv(self.ctx.basis.modulus % p, p)) % p) % p
+
+    def step_f(self, fc: int = 1, fd: int = 1, encoding: str = "lsd") -> int:
+        """Scale factor of build_step's output for input scales fc, fd.
+        LSD: the rescale multiplies by q_last^-1 mod p.  MSD: the second
+        operand is switched to LSD inside the step (factor (-Q) mod p) and
+        the MSD rescale leaves f unchanged."""
+        p = self.params.p
+        if _check_encoding(encoding) == "msd":
+            return self.to_lsd_f(fc * fd % p)
         return fc * fd * nt.modinv(self.qs[-1] % p, p) % p
 
-    # --- keygen ---------------------------------------------------------
-    def gen_ks_quad_hint(self, sk: SK, generator: torch.Generator) -> KSHint:
-        """Relinearization hint for s^2: h0[j] = p e_j + g_j s^2 - a_j s,
-        h1[j] = a_j, with a_j uniform and e_j rounded Gaussian, computed in
-        the CRT domain on the device."""
-        if sk.params.ctx != self.ctx:
-            raise ValueError("gen_ks_quad_hint: SK params differ from the pipeline's")
-        qs, p, n = self.qs, self.params.p, self.ctx.n
-        ell = len(qs)
-        qv = _q_channels(qs, self.device)
-        s_crt = self._s_crt(sk).to(self.device)  # (nrns, n)
-        s2 = s_crt * s_crt % qv[..., 0]
-        g = torch.from_numpy(gd.gadget_rns(self.ctx.basis).astype(np.int64))
-        g = g.to(self.device)[:, :, None]  # (ell, nrns, 1)
-        pe = p * sampling.gaussian_ints((n, ell), self.params.var, generator,
-                                        self.device)
-        pe_crt = self._ntt((pe[None] % qv).to(torch.int32)).long()
-        pe_crt = pe_crt.permute(2, 0, 1)  # (ell, nrns, n)
-        a = torch.stack([
-            sampling.uniform_residues(qs, (n,), generator, self.device)
-            for _ in range(ell)
-        ])  # (ell, nrns, n)
-        q3 = qv[..., 0][None]  # (1, nrns, 1)
-        h0 = (pe_crt + g * s2[None] % q3 - a.long() * s_crt[None] % q3) % q3
-        return KSHint(self.params, h0.to(torch.int32), a)
+    # --- modulus switch -------------------------------------------------
+    def build_mod_switch(self, encoding: str = "lsd"):
+        """(c0, c1) -> (e0, e1) over the chain without its last prime: the
+        standalone exact BGV modulus switch.  Track the LSD scale with
+        `mod_switch_f` (MSD leaves f unchanged)."""
+        _check_encoding(encoding)
+        qv = _channel_consts(self.qs, self.device)
 
-    # --- the fused mul + keyswitch + rescale step ------------------------
+        def ms(c0, c1):
+            return (self._rescale_crt(c0, qv, encoding),
+                    self._rescale_crt(c1, qv, encoding))
+
+        return ms
+
+    def mod_switch_f(self, f: int) -> int:
+        """Scale factor after the LSD `build_mod_switch`."""
+        p = self.params.p
+        return f * nt.modinv(self.qs[-1] % p, p) % p
+
+    # --- keygen ---------------------------------------------------------
+    def _check_sk(self, sk: SK, what: str) -> None:
+        """Refuse an SK of another ring or chain."""
+        if sk.params.ctx != self.ctx or sk.params.qs != self.params.qs:
+            raise ValueError(
+                f"{what}: SK params (m={sk.params.m}, qs={sk.params.qs}) "
+                f"!= pipeline params (m={self.params.m}, qs={self.params.qs})")
+
+    def _gen_gadget_hints(self, sk: SK, targets: torch.Tensor,
+                          generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+        """RNS-gadget hints for T targets in one pass on the device:
+        targets is a (T, nrns, n) CRT-domain tensor, and for target t and
+        digit j, h0[t, j] = p e + g_j target_t - a s and h1[t, j] = a, with
+        a uniform and e rounded Gaussian, fresh for each (t, j).  Returns
+        two (T, ell, nrns, n) int32 tensors."""
+        self._check_sk(sk, "hint generation")
+        qs, p, n = self.qs, self.params.p, self.ctx.n
+        nrns = ell = len(qs)
+        T = targets.shape[0]
+        L = T * ell  # column l = t * ell + j
+        qv = _channel_consts(qs, self.device)
+        q2 = qv[..., 0]  # (nrns, 1)
+        s_crt = self._s_crt(sk).to(self.device)  # (nrns, n)
+        g = torch.from_numpy(gd.gadget_rns(self.ctx.basis).astype(np.int64))
+        g = g.to(self.device)[None, :, :, None]  # (1, ell, nrns, 1)
+        pe = p * sampling.gaussian_ints((n, L), self.params.var, generator, self.device)
+        pe_crt = self._ntt((pe[None] % qv).to(torch.int32)).long()  # (nrns, n, L)
+        pe_crt = pe_crt.view(nrns, n, T, ell).permute(2, 3, 0, 1)
+        a = torch.stack([
+            sampling.uniform_residues(qs, (n,), generator, self.device) for _ in range(L)
+        ]).view(T, ell, nrns, n)
+        gt = g * targets.to(self.device).long()[:, None] % q2
+        h0 = (pe_crt + gt - a.long() * s_crt % q2) % q2
+        return h0.to(torch.int32), a
+
+    def gen_ks_quad_hint(self, sk: SK, generator: torch.Generator) -> KSHint:
+        """Relinearization hint for s^2, made on the device."""
+        s_crt = self._s_crt(sk).to(self.device)
+        s2 = s_crt * s_crt % _channel_consts(self.qs, self.device)[..., 0]
+        h0, h1 = self._gen_gadget_hints(sk, s2[None], generator)
+        return KSHint(self.params, h0[0], h1[0])
+
+    def gen_ks_linear_hint(self, s_new: SK, s_old: SK,
+                           generator: torch.Generator) -> KSHint:
+        """Re-encryption hint from s_old to s_new, made on the device."""
+        self._check_sk(s_old, "gen_ks_linear_hint")
+        h0, h1 = self._gen_gadget_hints(s_new, self._s_crt(s_old)[None], generator)
+        return KSHint(self.params, h0[0], h1[0])
+
+    def _check_lin(self, lin: Linear, what: str) -> None:
+        if lin.r_ctx != self.ctx:
+            raise ValueError(f"{what}: pipeline ring m={self.ctx.m} != the map's "
+                             f"source ring m={lin.r_ctx.m}")
+        if lin.s_ctx.basis != self.ctx.basis or lin.e_ctx.basis != self.ctx.basis:
+            raise ValueError(f"{what}: the map's rings are over another chain")
+
+    def gen_tunnel_hint(self, lin: Linear, sk_s: SK, sk_r: SK,
+                        generator: torch.Generator) -> TunnelHint:
+        """The ring-tunneling hints of lin under sk_s: hint i encrypts
+        f(b_i s_R).  The targets are exact host numpy (b_i s_R is a
+        negacyclic shift of s_R's coefficients; f is gather, embed scatter,
+        numpy NTT over S and the Hadamard with ys, per channel); all d ell
+        gadget hints then come from one device pass."""
+        self._check_lin(lin, "gen_tunnel_hint")
+        self._check_sk(sk_r, "gen_tunnel_hint")
+        r_ctx, s_ctx, e_ctx = lin.r_ctx, lin.s_ctx, lin.e_ctx
+        coeff = gen.rel_coeff_table(e_ctx.m, r_ctx.m)  # (d, n_e)
+        embed = gen.embed_pow_table(e_ctx.m, s_ctx.m)  # (n_e,)
+        pos = gen.rel_pow_basis_positions(e_ctx.m, r_ctx.m)  # (d,)
+        s_plans = s_ctx.ntt_plans()
+        ys_crt = np.stack([_crt_np(s_plans, y) for y in lin.ys]).astype(np.int64)
+        s_r = sk_r.s_ints.numpy().astype(np.int64)
+        targets = np.empty((lin.d, len(self.qs), s_ctx.n), dtype=np.int64)
+        for i in range(lin.d):
+            shifted = _monomial_mul_np(s_r, int(pos[i]), r_ctx.n)  # b_i * s_R
+            emb = np.zeros((lin.d, s_ctx.n), dtype=np.int64)
+            emb[:, embed] = shifted[coeff]  # embed_S of each relative coefficient
+            for ch, plan in enumerate(s_plans):
+                q = plan.q
+                crt = ntt_mod.np_ntt_forward(np.mod(emb, q).astype(np.uint32), plan)
+                targets[i, ch] = (crt.astype(np.int64) * ys_crt[:, ch] % q).sum(0) % q
+        over_s = self._over(s_ctx)
+        h0, h1 = over_s._gen_gadget_hints(sk_s, torch.from_numpy(targets), generator)
+        return TunnelHint(lin, tuple(KSHint(over_s.params, h0[i], h1[i])
+                                     for i in range(lin.d)))
+
+    # --- the key switches, the step and the tunnel ----------------------
+    def build_key_switch_linear(self, hint: KSHint) -> "KeySwitchLinear":
+        """(c0, c1) -> (e0, e1): re-encrypt from the hint's old key to its
+        new key, e0 = c0 + sum_i d_i h0_i, e1 = sum_i d_i h1_i over the
+        RNS-gadget digits d_i of c1.  Either encoding."""
+        return KeySwitchLinear(self, hint)
+
     def build_step(self, hint: KSHint, encoding: str = "lsd") -> "BGVStep":
         """(c0, c1, d0, d1) -> (e0, e1) over the dropped-prime chain:
-        ct_mul + keySwitchQuadCirc + modSwitch.  Track the output scale
-        with `step_f`."""
-        _check_encoding(encoding)
-        return BGVStep(self, hint)
+        ct_mul + keySwitchQuadCirc + modSwitch.  MSD: the second operand
+        is switched to LSD (scaled by p) before ct_mul, so the product is
+        MSD, and the rescale is MSD's.  Track the output scale with
+        `step_f(fc, fd, encoding)`."""
+        return BGVStep(self, hint, encoding)
+
+    def build_tunnel(self, th: TunnelHint) -> "Tunnel":
+        """(c0, c1) over R -> (e0, e1) over S: the fused ring tunnel."""
+        return Tunnel(self, th)
+
+    def target_pipeline(self, th: TunnelHint) -> "BatchedBGV":
+        """The pipeline over the tunnel's target ring S."""
+        return self._over(th.lin.s_ctx)
 
 
-class BGVStep(nn.Module):
-    """The compiled BGV step; the hint and the per-channel moduli are
-    buffers, so `.to(device)` moves the whole step."""
+class KeySwitchLinear(nn.Module):
+    """The RNS-gadget key switch with a hint (`build_key_switch_linear`):
+    the hint and the per-channel moduli are buffers, so `.to(device)`
+    moves it.  `switch` is the digit path the step shares: an inverse NTT
+    per channel, each digit's re-expansion as the prologue of its forward
+    NTTs, the free diagonal, and the hint inner products."""
 
     def __init__(self, bb: BatchedBGV, hint: KSHint):
         super().__init__()
         nrns = len(bb.qs)
         if hint.h0.shape != (nrns, nrns, bb.ctx.n) or hint.h1.shape != hint.h0.shape:
-            raise ValueError(f"build_step: hint shape {tuple(hint.h0.shape)} "
+            raise ValueError(f"key switch: hint shape {tuple(hint.h0.shape)} "
                              f"!= (ell, nrns, n) = {(nrns, nrns, bb.ctx.n)}")
         self.bb = bb
-        self.register_buffer("qv", _q_channels(bb.qs, bb.device))
+        self.register_buffer("qv", _channel_consts(bb.qs, bb.device))
         self.register_buffer("h0", hint.h0.to(bb.device, torch.int64)[..., None])
         self.register_buffer("h1", hint.h1.to(bb.device, torch.int64)[..., None])
+
+    @torch.no_grad()
+    def inner_product(self, e0, e1, di, i):
+        """(e0 + di h0[i], e1 + di h1[i]) mod q for digit i's CRT stack
+        di: the key switch's hint inner products, int64 out."""
+        di = di.long()
+        return (e0 + di * self.h0[i]) % self.qv, (e1 + di * self.h1[i]) % self.qv
+
+    @torch.no_grad()
+    def switch(self, e0, e1, x):
+        """(e0, e1) plus the inner products of the digits of the
+        (nrns, n, B) CRT stack x with the hint; int64 out."""
+        bb = self.bb
+        xc = bb._ntt(x, inverse=True)
+        for i in range(len(bb.qs)):
+            e0, e1 = self.inner_product(e0, e1, bb._digit_crt(xc[i], i, x), i)
+        return e0, e1
+
+    @torch.no_grad()
+    def forward(self, c0, c1):
+        e0, e1 = self.switch(c0.long(), torch.zeros_like(c1, dtype=torch.int64), c1)
+        return e0.to(torch.int32), e1.to(torch.int32)
+
+
+class BGVStep(KeySwitchLinear):
+    """The compiled BGV step; the hint and the per-channel moduli are
+    buffers, so `.to(device)` moves the whole step."""
+
+    def __init__(self, bb: BatchedBGV, hint: KSHint, encoding: str = "lsd"):
+        super().__init__(bb, hint)
+        self.encoding = _check_encoding(encoding)
 
     @torch.no_grad()
     def ct_mul(self, c0, c1, d0, d1):
@@ -267,20 +662,76 @@ class BGVStep(nn.Module):
         return es
 
     @torch.no_grad()
-    def inner_product(self, e0, e1, di, i):
-        """(e0 + di h0[i], e1 + di h1[i]) mod q for digit i's CRT stack
-        di: the key switch's hint inner products, int64 out."""
-        di = di.long()
-        return (e0 + di * self.h0[i]) % self.qv, (e1 + di * self.h1[i]) % self.qv
-
-    @torch.no_grad()
     def forward(self, c0, c1, d0, d1):
         bb = self.bb
+        if self.encoding == "msd":  # the second operand to LSD: times p
+            p_res = bb.params.p % self.qv
+            d0, d1 = _scale_ch(self.qv, d0, p_res), _scale_ch(self.qv, d1, p_res)
         e0, e1, e2 = self.ct_mul(c0, c1, d0, d1)
-        # key switch e2: coefficient-domain digits, each re-expanded inside
-        # its channel's forward NTT, then the hint inner products
-        e2c = bb._ntt(e2, inverse=True)
-        for i in range(len(bb.qs)):
-            e0, e1 = self.inner_product(e0, e1, bb._digit_crt(e2c[i], i, e2), i)
-        return (bb._rescale_crt(e0.to(torch.int32), self.qv),
-                bb._rescale_crt(e1.to(torch.int32), self.qv))
+        e0, e1 = self.switch(e0, e1, e2)  # key switch e2
+        return (bb._rescale_crt(e0.to(torch.int32), self.qv, self.encoding),
+                bb._rescale_crt(e1.to(torch.int32), self.qv, self.encoding))
+
+
+class Tunnel(nn.Module):
+    """The fused ring tunnel R -> S (`build_tunnel`); the index tables,
+    the images ys (CRT over S) and the hints are buffers:
+
+        e0 = sum_i NTT_S(embed(a0_i)) ys_i + sum_{i,j} NTT_S(embed(digit_j(a1_i))) h0_{i,j}
+        e1 = sum_{i,j} NTT_S(embed(digit_j(a1_i))) h1_{i,j}
+
+    where a_i = gather_i(iNTT_R(c)) are the relative coefficients over E.
+    Digit j's re-expansion into channel ch runs as the prologue of ch's
+    forward NTT over S, into every channel, j included (where it is the
+    identity; the embed scatter keeps zeros, so the order commutes)."""
+
+    def __init__(self, bb: BatchedBGV, th: TunnelHint):
+        super().__init__()
+        lin = th.lin
+        bb._check_lin(lin, "build_tunnel")
+        nrns, n_s = len(bb.qs), lin.s_ctx.n
+        if len(th.hints) != lin.d or any(
+                h.h0.shape != (nrns, nrns, n_s) or h.h1.shape != h.h0.shape
+                for h in th.hints):
+            raise ValueError(f"build_tunnel: need {lin.d} hints of shape (ell, nrns, n_s) = "
+                             f"{(nrns, nrns, n_s)}")
+        self.bb = bb
+        self.s_plans = lin.s_ctx.ntt_plans()
+        dev = bb.device
+        self.register_buffer("qv", _channel_consts(bb.qs, dev))
+        self.register_buffer("coeff", torch.from_numpy(
+            gen.rel_coeff_table(lin.e_ctx.m, lin.r_ctx.m).copy()).to(dev))
+        self.register_buffer("embed", torch.from_numpy(
+            gen.embed_pow_table(lin.e_ctx.m, lin.s_ctx.m).copy()).to(dev))
+        ys = np.stack([_crt_np(self.s_plans, y) for y in lin.ys]).astype(np.int64)
+        self.register_buffer("ys", torch.from_numpy(ys).to(dev)[..., None])
+        for k in ("h0", "h1"):
+            self.register_buffer(k, torch.stack([getattr(h, k) for h in th.hints]).to(
+                dev, torch.int64)[..., None])  # (d, ell, nrns, n_s, 1)
+
+    def _embed(self, a: torch.Tensor) -> torch.Tensor:
+        """(..., n_e, B) coefficients over E -> (..., n_s, B) over S."""
+        out = a.new_zeros((*a.shape[:-2], self.s_plans[0].n, a.shape[-1]))
+        out[..., self.embed, :] = a
+        return out
+
+    def _ntt_s(self, x, ch, pre_digit_q=None):
+        return ntt_cm(x, self.s_plans[ch], pre_digit_q=pre_digit_q)
+
+    @torch.no_grad()
+    def forward(self, c0, c1):
+        bb, qv = self.bb, self.qv
+        nrns = len(bb.qs)
+        c0p, c1p = bb._ntt(c0, inverse=True), bb._ntt(c1, inverse=True)
+        e0 = e1 = 0
+        for i, rows in enumerate(self.coeff):
+            a0 = self._embed(c0p[:, rows, :])
+            t0 = torch.stack([self._ntt_s(a0[ch], ch) for ch in range(nrns)])
+            e0 = (e0 + t0.long() * self.ys[i]) % qv
+            a1 = self._embed(c1p[:, rows, :])
+            for j, qj in enumerate(bb.qs):
+                dj = torch.stack([self._ntt_s(a1[j], ch, pre_digit_q=qj)
+                                  for ch in range(nrns)]).long()
+                e0 = (e0 + dj * self.h0[i, j]) % qv
+                e1 = (e1 + dj * self.h1[i, j]) % qv
+        return e0.to(torch.int32), e1.to(torch.int32)

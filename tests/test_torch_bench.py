@@ -136,6 +136,7 @@ def test_measurements_refuse_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(sys, "path", list(sys.path))  # ntt_ab puts the tree first
     for fn in (lambda: roofline.run(n=64, batch=8), lambda: mx.u32_ceiling(1, 8, 8, 1),
                lambda: mx.ceiling_input(8, 8, 1), lambda: steptime.run(m=64, B=2),
+               lambda: steptime._tunnel_inputs(64, 3, 2, 0),
                lambda: ntt_ab.run(str(Path(__file__).resolve().parents[1]), "this tree")):
         with pytest.raises(RuntimeError, match="CUDA device"):
             fn()

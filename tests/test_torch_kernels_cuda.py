@@ -215,6 +215,81 @@ def test_step_on_card_equals_step_on_cpu(cuda):
         assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.parametrize("B", [1, 1000, 1024])
+def test_prologue_on_the_tunnel_ring(cuda, B):
+    """The forward at n = 8192 (one 4-CTA cluster pass), the target ring
+    of the tunnel m = 32768 -> 16384, with the prologue from every prime
+    of its chain into every channel: q itself included, which the tunnel
+    passes and the kernel runs as no prologue."""
+    qs = nt.ntt_primes(32768, 30, 3)
+    g = torch.Generator(device=cuda).manual_seed(B)
+    for q in qs:
+        plan = ntt.ntt_plan(8192, q)
+        for src in qs:
+            xs = torch.randint(0, src, (8192, B), generator=g, device=cuda, dtype=torch.int32)
+            xs[0], xs[-1] = src - 1, (src + 1) // 2
+            assert torch.equal(tk.ntt_cm(xs, plan, pre_digit_q=src),
+                               tk.ntt_cm_ref(xs, plan, pre_digit_q=src))
+
+
+def _pipelines(cuda, m, seed):
+    params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
+    g = torch.Generator().manual_seed(seed)
+    return params, g, BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
+
+
+def _same(gpu_out, cpu_out):
+    for a, b in zip(gpu_out, cpu_out):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("builder", ["step_msd", "mod_switch_lsd", "mod_switch_msd",
+                                     "key_switch_linear", "add_public_n1", "mul_public_n1",
+                                     "error_term"])
+def test_builders_on_card_equal_cpu(cuda, builder):
+    """Each standalone builder at m = 4096 on the card == on the CPU;
+    the public plaintexts at (n, 1) take ntt_cm at B = 1."""
+    params, g, bb, bb_cpu = _pipelines(cuda, 4096, 1)
+    sk, sk_new = she.gen_sk(params, g), she.gen_sk(params, g)
+    enc = "msd" if builder.endswith("msd") else "lsd"
+    e = bb.build_encrypt(sk, enc)
+    cts = e(she.pt_random(params, g, (40,)), g)
+    pub = she.pt_random(params, g, (1,))
+    make = {
+        "step_msd": lambda b: (lambda c0, c1: b.build_step(hint, "msd")(c0, c1, c0, c1)),
+        "mod_switch_lsd": lambda b: b.build_mod_switch("lsd"),
+        "mod_switch_msd": lambda b: b.build_mod_switch("msd"),
+        "key_switch_linear": lambda b: b.build_key_switch_linear(hint),
+        "add_public_n1": lambda b: (lambda c0, c1: b.build_add_public(3)(c0, c1, pub)),
+        "mul_public_n1": lambda b: (lambda c0, c1: b.build_mul_public()(c0, c1, pub)),
+        "error_term": lambda b: (lambda c0, c1: (b.build_error_term(sk)(c0, c1),)),
+    }[builder]
+    hint = (bb.gen_ks_linear_hint(sk_new, sk, g) if builder == "key_switch_linear"
+            else bb.gen_ks_quad_hint(sk, g))
+    _same(make(bb)(*cts), make(bb_cpu)(*(c.cpu() for c in cts)))
+
+
+def test_tunnel_on_card_equals_cpu(cuda):
+    """The tunnel m = 4096 -> 2048 (E = S, random ys), hints made on the
+    card: one GS inverse a channel and component, d nrns + d nrns^2
+    forwards, and the CPU's output."""
+    from lol_tpu_torch import linear
+
+    params, g, bb, bb_cpu = _pipelines(cuda, 4096, 2)
+    ps = she.SHEParams(m=2048, p=257, qs=params.qs, var=2.0)
+    sk, sk_s = she.gen_sk(params, g), she.gen_sk(ps, g)
+    ys = [np.random.default_rng(i).integers(-2, 3, 1024) for i in range(2)]
+    f = linear.linear_pow(ps.ctx, params.ctx, ps.ctx, ys)
+    th = bb.gen_tunnel_hint(f, sk_s, sk, g)
+    cts = bb.build_encrypt(sk)(she.pt_random(params, g, (40,)), g)
+    before = dict(tk.LAUNCHES)
+    out = bb.build_tunnel(th)(*cts)
+    nrns = len(params.qs)
+    assert tk.LAUNCHES["ntt_inv"] - before["ntt_inv"] == 2 * nrns
+    assert tk.LAUNCHES["ntt_fwd"] - before["ntt_fwd"] == 2 * nrns + 2 * nrns ** 2
+    _same(out, bb_cpu.build_tunnel(th)(*(c.cpu() for c in cts)))
+
+
 def _words(g, dev, shape, lo, hi, plant):
     """int32 tensor of u32 words uniform in [lo, hi), `plant` in its first
     elements."""

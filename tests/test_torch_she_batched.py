@@ -160,11 +160,14 @@ def test_lifts_match_reference(rng):
 
 
 def test_unported_paths_raise():
+    """General m is not ported: its ring context and its index tables
+    raise.  (MSD, which raised here before, is ported and is held against
+    the JAX package in test_torch_she_builders.py.)"""
     with pytest.raises(NotImplementedError):
         she.SHEParams(m=72, p=7, qs=(73,)).ctx
-    sk = convert.sk_from_numpy(PARAMS, np.zeros(M // 2, dtype=np.int64))
+    from lol_tpu_torch.ops import general
     with pytest.raises(NotImplementedError):
-        BatchedBGV(PARAMS, "cpu").build_decrypt(sk, encoding="msd")
+        general.rel_coeff_table(36, 72)
 
 
 def test_pack_matches_jax_pack(jax_state):
@@ -186,7 +189,7 @@ def test_step_module_moves_with_its_buffers(jax_state):
 def test_port_never_imports_jax():
     """In a fresh interpreter where importing jax or lol_tpu fails, every
     module of the port imports (the package walked with pkgutil), and the
-    port still builds a pipeline and runs a step on the CPU."""
+    port still builds a pipeline and runs a step and a tunnel on the CPU."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -198,10 +201,13 @@ def test_port_never_imports_jax():
         for name in mods:
             importlib.import_module(name)
         assert {"lol_tpu_torch.parallel.sharding", "lol_tpu_torch.ops.cuda.remote_ntt",
-                "lol_tpu_torch.bench.roofline", "lol_tpu_torch.ops.cuda.pointwise"} <= set(mods)
-        from lol_tpu_torch import numtheory as nt, she
+                "lol_tpu_torch.bench.roofline", "lol_tpu_torch.ops.cuda.pointwise",
+                "lol_tpu_torch.linear", "lol_tpu_torch.ops.general"} <= set(mods)
+        from lol_tpu_torch import linear, numtheory as nt, she
+        from lol_tpu_torch.ring import ring_context
         from lol_tpu_torch.she_batched import BatchedBGV
-        params = she.SHEParams(m=32, p=17, qs=tuple(nt.ntt_primes(32, 30, 2)), var=2.0)
+        qs = tuple(nt.ntt_primes(32, 30, 2))
+        params = she.SHEParams(m=32, p=17, qs=qs, var=2.0)
         g = torch.Generator().manual_seed(0)
         sk = she.gen_sk(params, g)
         bb = BatchedBGV(params, "cpu")
@@ -209,6 +215,16 @@ def test_port_never_imports_jax():
         m1, m2 = she.pt_random(params, g, (2,)), she.pt_random(params, g, (2,))
         e0, e1 = bb.build_step(bb.gen_ks_quad_hint(sk, g))(*enc(m1, g), *enc(m2, g))
         assert e0.shape == (1, 16, 2)
+        # a tunnel m = 32 -> 16 (E = S), decrypted against eval_lin
+        ps = she.SHEParams(m=16, p=17, qs=qs, var=2.0)
+        sk_s = she.gen_sk(ps, g)
+        S = ring_context(16, qs)
+        f = linear.linear_pow(S, params.ctx, S, [[1] + [0] * 7, [0, 2] + [0] * 6])
+        th = bb.gen_tunnel_hint(f, sk_s, sk, g)
+        t0, t1 = bb.build_tunnel(th)(*enc(m1, g))
+        got = bb.target_pipeline(th).build_decrypt(sk_s)(t0, t1)
+        for b in range(2):
+            assert (got[:, b].numpy() == linear.eval_lin(f, m1[:, b].numpy(), 17)).all()
         assert not any(k == "jax" or k.startswith(("jax.", "lol_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
