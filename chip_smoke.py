@@ -22,7 +22,10 @@ then runs its phases and exits non-zero on the first failure:
    ragged shape and on the u32 ceiling's own input and iterations, and
    the three ring kernels (the chunk all-to-all, the gather and the
    scatter pass) over D in {2, 4, 8}, n in {256, 4096, 16384, 65536}
-   (D^2 | n), B in {1, 1000, 1024}, with 0, 1 and q - 1 planted;
+   (D^2 | n), B in {1, 1000, 1024}, with 0, 1 and q - 1 planted; and the
+   HomomPRF tower's tail, n in {1, 2, 4} (n = 1: the length-1 pass, one
+   round of no stages): forward with and without the prologue and the GS
+   inverse, route B refused at n = 1;
 3. the batched BGV slice at full width (m = 32768 so n = 2^14, three
    30-bit primes, p = 257, var = 2.0, B = 1024): keygen, encrypt, the
    ct-mult + key-switch + rescale step, decrypt.  It checks the kernels'
@@ -55,6 +58,26 @@ then runs its phases and exits non-zero on the first failure:
    inverses at n = 2^14, d nrns + d nrns^2 forwards at n = 8192), the
    decryption over S of columns 0-7 against the host `eval_lin`, and the
    output equal to the CPU's over columns 0-63;
+3e. the serving layer and extended-modulus key switching, each GPU call
+   between a reset and a read of the launch counts (per n, since the
+   tower runs every n from 2^14 down to 1): (a) `bench.py`'s rounding
+   chain Z_8 -> Z_2 at m = 32768 over pt_round_mults(8) + 2 = 5 primes,
+   B = 1024 scalar plaintexts, hints from `she.pt_round_hints` on the
+   card, columns 0-7 decrypted against round-half-up(v 2 / 8) mod 2 (the
+   other coefficients zero) and the output equal to the CPU's over
+   columns 0-63; (b) HomomPRF component 0 (`she_bench.homom_prf`'s shape):
+   `prf.make_eval_hints` down the halving tower 32768 -> 2 (14 tunnels,
+   E = S, the project maps) over 7 primes, p = 8, BaseBGad(2),
+   balanced(2), bits (1, 0), one key s in all B = 1024 columns, through
+   `serving.batched_homom_prf_component`: columns 0-7 against the clear
+   `prf(fam, s, bits, 2)[0][0]`, the output equal to the CPU's over
+   columns 0-15, the peak device memory printed; (c) at m = 8192 (n =
+   4096, the three primes of phase 3c and two special primes), B = 1024:
+   `build_step_ext` and `build_key_switch_linear_ext`, LSD and MSD, on
+   hints made on the card, decrypted against `pt_mul` / the message under
+   the new key, equal to the CPU's over columns 0-63, and their noise
+   budget against the base-gadget builders' (printed, and it must be
+   lower);
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -76,9 +99,13 @@ then runs its phases and exits non-zero on the first failure:
    passes against the unfused phase-B (B') passes they replace, at
    n = 2^14 and 2^16; and, as their caller sees them, the modulus
    switch's and the linear key switch's ops/s at n = 4096 and the
-   tunnel's at m = 32768 -> 16384 (B = 1024), each printed on a
-   `metric` line beside the card line.  Phase 1 also fails if ptxas gave
-   a ring or route-B kernel a stack frame or spills.
+   tunnel's at m = 32768 -> 16384 (B = 1024), and phase 3e's
+   `pt_round_ops_per_sec`, `homom_prf_ops_per_sec` (its stages built once,
+   as the reference bench does, and checked equal to the entry point's
+   output first) and `step_ext_ops_per_sec` (LSD), each printed on a
+   `metric` line beside the card line, with `step_ext_noise_bits_delta`.
+   Phase 1 also fails if ptxas gave a ring or route-B kernel a stack
+   frame or spills.
 
 The last three lines of standard output are the card line, a JSON object
 with one entry per TPU kernel ported (the CUDA kernel that replaces it,
@@ -146,7 +173,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import_port()
-    from lol_tpu_torch import linear, numtheory as nt, she
+    from lol_tpu_torch import gadget, linear, numtheory as nt, prf, serving, she
     from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, steptime, time_ms
     from lol_tpu_torch.ops import ntt
     from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw
@@ -290,6 +317,31 @@ def main() -> int:
         for D in (2, 4, 8):
             for B in (1, 1000, 1024):
                 checks += check_ring_kernels(plan, D, B)
+    # the HomomPRF tower's tail rings m = 8, 4, 2 (n = 1: the length-1 pass)
+    for n_t in (1, 2, 4):
+        q_src, q = nt.ntt_primes(2 * n_t, 30, 2)
+        plan = ntt.ntt_plan(n_t, q)
+        for B_t in (1, 1000, 1024):
+            x = torch.randint(0, q, (n_t, B_t), generator=g, device=dev, dtype=torch.int32)
+            x.view(-1)[:3] = torch.tensor([q - 1, 0, 1], device=dev)[:B_t * n_t]
+            err["ntt_fwd"] = max(err["ntt_fwd"], max_err(tk.ntt_cm(x, plan), tk.ntt_cm_ref(x, plan)))
+            err["ntt_inv"] = max(err["ntt_inv"], max_err(tk.ntt_cm(x, plan, inverse=True),
+                                                         tk.ntt_cm_ref(x, plan, inverse=True)))
+            for src in (q_src, 12289, q):
+                xs = torch.randint(0, src, (n_t, B_t), generator=g, device=dev, dtype=torch.int32)
+                xs.view(-1)[:2] = torch.tensor([src - 1, (src + 1) // 2], device=dev)[:xs.numel()]
+                err["ntt_fwd"] = max(err["ntt_fwd"], max_err(
+                    tk.ntt_cm(xs, plan, pre_digit_q=src), tk.ntt_cm_ref(xs, plan, pre_digit_q=src)))
+            if not torch.equal(tk.ntt_cm(tk.ntt_cm(x, plan), plan, inverse=True), x):
+                raise AssertionError(f"round trip failed at n={n_t}, B={B_t}")
+            checks += 6
+        if n_t == 1:
+            try:
+                tk.ntt_cm(x, plan, inverse=True, alg="dit")
+            except NotImplementedError:
+                pass
+            else:
+                raise AssertionError("route B ran at n = 1, where it has no kernel")
     torch.cuda.synchronize()
     if any(err.values()):
         raise AssertionError(f"kernel != plain: max abs err {err}")
@@ -404,32 +456,42 @@ def main() -> int:
     # Every GPU call runs between a reset and a read of the counts, which
     # must equal its NTT calls times the passes of `cm_schedule` (one at
     # n = 4096, 8192 and 2^14), its ct_mul calls, and nothing else.
-    path_launches = {"3c": dict.fromkeys(counts(), 0), "3d": dict.fromkeys(counts(), 0)}
+    path_launches = {ph: dict.fromkeys(counts(), 0) for ph in ("3c", "3d", "3e", "3e_ext")}
 
     def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, n_fwd=None, n_inv=None):
+        return run_by_n(phase, name, fn, *args, fwd={n_fwd: fwd} if fwd else {},
+                        inv={n_inv: inv} if inv else {}, ct_mul=ct_mul)
+
+    def run_by_n(phase, name, fn, *args, fwd, inv, ct_mul=0):
+        """fn(*args) between a reset and a read of the counts, which must
+        be fwd[n] forward and inv[n] GS ntt_cm calls at each n, each
+        `cm_schedule(n)`'s passes, ct_mul ct_mul launches, and nothing else."""
         reset_counts()
         out = fn(*args)
         torch.cuda.synchronize()
         got = counts()
         want = dict.fromkeys(got, 0)
-        want.update(ntt_fwd=fwd * len(tk.cm_schedule(n_fwd)) if fwd else 0,
-                    ntt_inv=inv * len(tk.cm_schedule(n_inv)) if inv else 0, ct_mul=ct_mul)
+        want.update(ntt_fwd=sum(k * len(tk.cm_schedule(n_)) for n_, k in fwd.items()),
+                    ntt_inv=sum(k * len(tk.cm_schedule(n_)) for n_, k in inv.items()),
+                    ct_mul=ct_mul)
         if got != want:
             raise AssertionError(f"phase {phase} {name}: launches {got}, want {want}")
         for k, v in got.items():
             path_launches[phase][k] += v
         return out
 
-    def same_on_cpu(name, out, fn, *args, atol=None):
-        """fn on the CPU over columns 0-63 of args == out's columns 0-63
+    def same_on_cpu(name, out, fn, *args, atol=None, ncols=None):
+        """fn on the CPU over columns 0-63 (or 0..ncols-1) of args == out's
         (exactly, or within atol for the float32 noise budget)."""
-        cpu = fn(*(a[..., :cols].cpu().contiguous() for a in args))
+        ncols = ncols or cols
+        cpu = fn(*(a[..., :ncols].cpu().contiguous() for a in args))
         outs, cpus = (out, cpu) if isinstance(out, tuple) else ((out,), (cpu,))
         for x, y in zip(outs, cpus):
-            x = x[..., :cols].cpu()
+            x = x[..., :ncols].cpu()
             ok = torch.equal(x, y) if atol is None else torch.allclose(x, y, rtol=0, atol=atol)
             if not ok:
-                raise AssertionError(f"phase 3c/3d {name}: GPU != CPU over columns 0-63")
+                raise AssertionError(f"phase 3c-3e {name}: GPU != CPU over columns "
+                                     f"0-{ncols - 1}")
 
     def decrypts_to(name, got, want):
         """Columns 0-7 of the decryption `got` against the (n, >=8) `want`."""
@@ -473,9 +535,9 @@ def main() -> int:
                       for x in (a8, b8))
     hint8 = run("3c", "gen_ks_quad_hint", bb8.gen_ks_quad_hint, sk8, g, fwd=nrns, n_fwd=n8)
 
-    def dec(e, x, name, f=1, pipe=None, key=None):
+    def dec(e, x, name, f=1, pipe=None, key=None, phase="3c"):
         fn = (pipe or bb8).build_decrypt(key or sk8, f=f, encoding=e)
-        return run("3c", f"decrypt {name}", fn, *x, inv=len((pipe or bb8).qs), n_inv=n8)
+        return run(phase, f"decrypt {name}", fn, *x, inv=len((pipe or bb8).qs), n_inv=n8)
 
     st8 = bb8.build_step(hint8, encoding="msd")
     e8 = run("3c", "step msd", st8, *c8["msd"][0], *c8["msd"][1], fwd=step_calls["ntt_fwd"],
@@ -569,6 +631,150 @@ def main() -> int:
     same_on_cpu("tunnel", (t0, t1), BatchedBGV(params, "cpu").build_tunnel(th), *ct)
     mark(f"phase 3d: tunnel m = {m} -> {m_s}, B = {B}: decrypt of columns 0-7 == eval_lin; "
          f"GPU == CPU over columns 0-63; launches {tunnel_launches}")
+
+    # -- phase 3e: the serving layer and extended-modulus key switching --
+    # Launches, per n: a step at L primes runs L(L-1) + 2(L-1) forwards
+    # (the digits, the rescale's corrections), L + 2 GS inverses and L
+    # ct_mul; a modulus switch 2(L-1) and 2; an add / mul_public L forwards.
+    def step_fi(L):
+        return L * (L - 1) + 2 * (L - 1), L + 2
+
+    def add_by_n(acc, n_, k):
+        acc[n_] = acc.get(n_, 0) + k
+
+    # (a) the rounding chain Z_8 -> Z_2, bench.py's leg (bench.py:393-450)
+    pr_p = 8
+    params_pr = she.SHEParams(m=m, p=pr_p, qs=tuple(nt.ntt_primes(m, 30, she.pt_round_mults(pr_p) + 2)),
+                              var=2.0)
+    L_pr = len(params_pr.qs)
+    sk_pr = she.gen_sk(params_pr, g)
+    rh = run_by_n("3e", "pt_round_hints", she.pt_round_hints, sk_pr, g, dev,
+                  fwd={n: sum(L_pr - i for i in range(she.pt_round_mults(pr_p)))}, inv={})
+    bb_pr = BatchedBGV(params_pr, dev)
+    vals = torch.randint(0, pr_p, (B,), generator=g, device=dev, dtype=torch.int32)
+    msgs = torch.zeros((n, B), dtype=torch.int32, device=dev)
+    msgs[0] = vals
+    ct_pr = run("3e", "encrypt p=8", bb_pr.build_encrypt(sk_pr), msgs, g, fwd=L_pr, n_fwd=n)
+    run_pr, bb_pr_out, f_pr = serving.build_pt_round(bb_pr, rh)
+
+    def pt_round_calls(L, n_):
+        """serving.build_pt_round at p = 8 = 2^3 over L primes: the 2^{k-2}
+        pre-add, two squarings (at L, L - 1), y switched down twice, one
+        squaring at L - 2, y switched once more: {n: calls} and ct_mul."""
+        steps = switches = (L, L - 1, L - 2)
+        fwd = L + sum(step_fi(Ls)[0] for Ls in steps) + sum(2 * (Ls - 1) for Ls in switches)
+        inv = sum(step_fi(Ls)[1] for Ls in steps) + 2 * len(switches)
+        return {n_: fwd}, {n_: inv}, sum(steps)
+
+    fw, iv, cm_ = pt_round_calls(L_pr, n)
+    y_pr = run_by_n("3e", "pt_round", run_pr, *ct_pr, fwd=fw, inv=iv, ct_mul=cm_)
+    got = run("3e", "decrypt pt_round", bb_pr_out.build_decrypt(
+        she.SK(bb_pr_out.params, sk_pr.s_ints, sk_pr.var), f=f_pr), *y_pr,
+        inv=len(bb_pr_out.qs), n_inv=n)
+    want = (2 * vals[:8].long() * 2 + pr_p) // (2 * pr_p) % 2
+    if bb_pr_out.params.p != 2 or not torch.equal(got[0, :8].long(), want) or bool(
+            got[1:, :8].any()):
+        raise AssertionError(f"pt_round: decrypt {got[0, :8].tolist()}, want {want.tolist()}")
+    same_on_cpu("pt_round", y_pr, serving.build_pt_round(BatchedBGV(params_pr, "cpu"), rh)[0],
+                *ct_pr)
+    mark(f"phase 3e: pt_round m = {m}, p = 8, {L_pr} primes, B = {B}: decrypt of columns 0-7 "
+         f"== round-half-up(v / 4); GPU == CPU over columns 0-63; launches {path_launches['3e']}")
+    # (b) HomomPRF component 0 down the tower 32768 -> 2 (she_bench.py:100-219)
+    qs_prf = tuple(nt.ntt_primes(m, 30, she.pt_round_mults(pr_p) + 4))
+    L_prf, bits = len(qs_prf), (1, 0)
+    rings = [m >> k for k in range(m.bit_length() - 1)]
+    ns = [r // 2 for r in rings]  # 16384 .. 1
+    sks = [she.gen_sk(she.SHEParams(m=r, p=pr_p, qs=qs_prf, var=2.0), g) for r in rings]
+    fam = prf.PRFFamily.random(m, pr_p, gadget.BaseBGad(2), prf.balanced(2), g)
+    hint_fwd = {}
+    for n_s in ns[1:]:  # one hint pass over each target ring: L forwards
+        add_by_n(hint_fwd, n_s, L_prf)
+    add_by_n(hint_fwd, 1, sum(L_prf - i for i in range(she.pt_round_mults(pr_p))))
+    hints, sk_out = run_by_n("3e", "make_eval_hints", lambda: prf.make_eval_hints(
+        fam, sks, rings, rings[1:], g, homomorphic_round=True, maps="project", device=dev),
+        fwd=hint_fwd, inv={})
+    bb_top = BatchedBGV(sks[0].params, dev)
+    s_key = torch.randint(0, pr_p, (n, 1), generator=g, device=dev, dtype=torch.int32)
+    ct_prf = run("3e", "encrypt key", bb_top.build_encrypt(sks[0]), s_key.expand(n, B), g,
+                 fwd=L_prf, n_fwd=n)
+    fw, iv, cm_ = pt_round_calls(L_prf, 1)
+    add_by_n(fw, n, L_prf)  # mul_public
+    for n_r, n_s in zip(ns, ns[1:]):  # each hop: d = 2 relative coefficients
+        add_by_n(fw, n_s, 2 * L_prf + 2 * L_prf ** 2)
+        add_by_n(iv, n_r, 2 * L_prf)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bb_prf_out, f_prf, y_prf = run_by_n("3e", "homom_prf", lambda: serving.batched_homom_prf_component(
+        fam, hints, bb_top, *ct_prf, bits, 0), fwd=fw, inv=iv, ct_mul=cm_)
+    prf_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    got = run("3e", "decrypt homom_prf", bb_prf_out.build_decrypt(
+        she.SK(bb_prf_out.params, sk_out.s_ints, sk_out.var), f=f_prf), *y_prf,
+        inv=len(bb_prf_out.qs), n_inv=1)
+    want = int(prf.prf(fam, s_key[:, 0].cpu().numpy(), bits, 2)[0][0])
+    if (bb_prf_out.params.m, bb_prf_out.params.p) != (2, 2) or got[0, :8].tolist() != [want] * 8:
+        raise AssertionError(f"homom_prf: decrypt {got[0, :8].tolist()}, want {want} x 8")
+    same_on_cpu("homom_prf", y_prf, lambda c0_, c1_: serving.batched_homom_prf_component(
+        fam, hints, BatchedBGV(bb_top.params, "cpu"), c0_, c1_, bits, 0)[2], *ct_prf, ncols=16)
+    print(f"homom_prf peak device memory {prf_peak_gib:.3f} GiB "
+          f"({torch.cuda.max_memory_allocated()} B)", flush=True)
+    mark(f"phase 3e: HomomPRF m = {m} -> 2 ({len(hints.tunnels)} tunnels), {L_prf} primes, "
+         f"B = {B}: decrypt of columns 0-7 == prf = {want}; GPU == CPU over columns 0-15; "
+         f"peak {prf_peak_gib:.2f} GiB")
+    # (c) the extended-modulus step and linear key switch at n = 4096 with
+    # two special primes (bench.py:312-324)
+    all5 = tuple(nt.ntt_primes(m8, 30, 5))
+    if all5[:3] != params8.qs:
+        raise AssertionError("the extended chain does not extend phase 3c's")
+    special = all5[3:]
+    Lb, Lx = len(params8.qs), len(all5)
+    quad_ext = run("3e_ext", "gen_ks_quad_hint_ext", bb8.gen_ks_quad_hint_ext, sk8, special, g,
+                   fwd=Lx, n_fwd=n8)
+    lin_ext = run("3e_ext", "gen_ks_linear_hint_ext", bb8.gen_ks_linear_hint_ext, sk8_new, sk8,
+                  special, g, fwd=Lx, n_fwd=n8)
+    # the digits into every extended channel but their own, then one
+    # rescale pair per special prime; the step adds its own rescale
+    ks_fwd = Lb * (Lx - 1) + sum(2 * (Lb + k - 1) for k in range(1, len(special) + 1))
+    ks_inv = Lb + 2 * len(special)
+    ext, ksl_ext = {}, {}
+    for e in ("lsd", "msd"):
+        ext[e] = run("3e_ext", f"step_ext {e}", bb8.build_step_ext(quad_ext, e), *c8[e][0],
+                     *c8[e][1], fwd=ks_fwd + 2 * (Lb - 1), inv=ks_inv + 2, ct_mul=Lb,
+                     n_fwd=n8, n_inv=n8)
+        decrypts_to(f"step_ext {e}", dec(e, ext[e], f"step_ext {e}", bb8.step_f(1, 1, e), bb8d,
+                                         sk8d, phase="3e_ext"), pt_muls(a8, b8, params8))
+        same_on_cpu(f"step_ext {e}", ext[e], bb8_cpu.build_step_ext(quad_ext, e),
+                    *c8[e][0], *c8[e][1])
+        ksl_ext[e] = run("3e_ext", f"key_switch_linear_ext {e}",
+                         bb8.build_key_switch_linear_ext(lin_ext), *c8[e][0], fwd=ks_fwd,
+                         inv=ks_inv, n_fwd=n8, n_inv=n8)
+        decrypts_to(f"key_switch_linear_ext {e}", dec(e, ksl_ext[e], "ksl_ext", key=sk8_new,
+                                                      phase="3e_ext"), a8.cpu())
+        same_on_cpu(f"key_switch_linear_ext {e}", ksl_ext[e],
+                    bb8_cpu.build_key_switch_linear_ext(lin_ext), *c8[e][0])
+    # noise budgets, LSD, on the same inputs: the base-gadget builders
+    # (counted with this phase) against the ext ones
+    base = {"step": run("3e_ext", "step lsd (noise baseline)", bb8.build_step(hint8),
+                        *c8["lsd"][0], *c8["lsd"][1], fwd=step_calls["ntt_fwd"],
+                        inv=step_calls["ntt_inv"], ct_mul=nrns, n_fwd=n8, n_inv=n8),
+            "ks_linear": run("3e_ext", "key_switch_linear (noise baseline)", ksl, *c8["lsd"][0],
+                             fwd=nrns * (nrns - 1), inv=nrns, n_fwd=n8, n_inv=n8)}
+    noise = {}
+    for key, pipe, sk_, x in (("step", bb8d, sk8d, base["step"]),
+                              ("step_ext", bb8d, sk8d, ext["lsd"]),
+                              ("ks_linear", bb8, sk8_new, base["ks_linear"]),
+                              ("ks_linear_ext", bb8, sk8_new, ksl_ext["lsd"])):
+        noise[key] = run("3e_ext", f"noise_bits {key}", pipe.build_noise_bits(sk_), *x,
+                         inv=len(pipe.qs), n_inv=n8).mean().item()
+    del base
+    step_ext_delta = noise["step"] - noise["step_ext"]
+    print(f"step_ext noise bits (mean over B = {B}): base step {noise['step']}, ext step "
+          f"{noise['step_ext']}; linear key switch {noise['ks_linear']}, ext "
+          f"{noise['ks_linear_ext']}", flush=True)
+    if not (noise["step_ext"] < noise["step"] and noise["ks_linear_ext"] < noise["ks_linear"]):
+        raise AssertionError(f"extended-modulus key switching did not lower the noise: {noise}")
+    mark(f"phase 3e: ext step and linear key switch at n = {n8}, {Lb} + {len(special)} primes, "
+         f"B = {B}: decrypts == pt_mul / the message; GPU == CPU over columns 0-63; noise "
+         f"-{step_ext_delta:.2f} bits; launches {path_launches['3e_ext']}")
 
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
@@ -773,15 +979,30 @@ def main() -> int:
     # at n = 4096 (the reference bench's extras of that leg), the tunnel
     # m = 32768 -> 16384 (its headline), B = 1024
     ms8 = bb8.build_mod_switch("lsd")
+    # phase 3e's paths: the rounding chain, HomomPRF with its stages built
+    # once as the reference bench does (checked against the entry point's
+    # output first), the LSD ext step
+    prf_run = steptime.homom_prf_run(fam, hints, bb_top, bits, 0)[0]
+    if not all(torch.equal(a, b) for a, b in zip(prf_run(*ct_prf), y_prf)):
+        raise AssertionError("the built-once HomomPRF program != batched_homom_prf_component")
+    step_ext = bb8.build_step_ext(quad_ext)
     for key, fn, iters in (("mod_switch", lambda: ms8(*c8["lsd"][0]), 20),
                            ("ks_linear", lambda: ksl(*c8["lsd"][0]), 10),
-                           ("tunnel", lambda: tun(*ct), 5)):
+                           ("tunnel", lambda: tun(*ct), 5),
+                           ("pt_round", lambda: run_pr(*ct_pr), 2),
+                           ("homom_prf", lambda: prf_run(*ct_prf), 2),
+                           ("step_ext", lambda: step_ext(*c8["lsd"][0], *c8["lsd"][1]), 10)):
         op_ms, op_wins = time_ms(fn, iters)
         timings[f"{key}_ops_per_sec"] = B / (op_ms / 1e3)
         timings[f"{key}_ms_windows"] = op_wins
+    timings["step_ext_noise_bits_delta"] = step_ext_delta
+    timings["step_ext_noise_bits"] = noise
+    timings["homom_prf_peak_GiB"] = prf_peak_gib
     for k, v in timings.items():
         print(f"timing {k} = {json.dumps(v)}", flush=True)
-    for k in ("mod_switch_ops_per_sec", "ks_linear_ops_per_sec", "tunnel_ops_per_sec"):
+    for k in ("mod_switch_ops_per_sec", "ks_linear_ops_per_sec", "tunnel_ops_per_sec",
+              "pt_round_ops_per_sec", "homom_prf_ops_per_sec", "step_ext_ops_per_sec",
+              "step_ext_noise_bits_delta"):
         print(f"metric {k} = {timings[k]} on {card}", flush=True)
     mark("phase 4: timings done")
 
@@ -802,6 +1023,8 @@ def main() -> int:
          "launches": launches["ntt_fwd"], "max_abs_err": err["ntt_fwd"],
          "launches_builders": path_launches["3c"]["ntt_fwd"],
          "launches_tunnel": path_launches["3d"]["ntt_fwd"],
+         "launches_serving": path_launches["3e"]["ntt_fwd"],
+         "launches_ext": path_launches["3e_ext"]["ntt_fwd"],
          "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"],
          **bound("ntt_fwd", n, B), "library_ms": None},
         {"name": "ntt_inv_pass", "route": "cuda", "source": ntt_src,
@@ -810,6 +1033,8 @@ def main() -> int:
          "launches": launches["ntt_inv"], "max_abs_err": err["ntt_inv"],
          "launches_builders": path_launches["3c"]["ntt_inv"],
          "launches_tunnel": path_launches["3d"]["ntt_inv"],
+         "launches_serving": path_launches["3e"]["ntt_inv"],
+         "launches_ext": path_launches["3e_ext"]["ntt_inv"],
          "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"],
          **bound("ntt_inv_gs", n, B), "library_ms": None},
         # one kernel in two geometries, as the reference's two bodies: the
@@ -837,6 +1062,8 @@ def main() -> int:
          "replaces": "lol_tpu/ops/pallas/pointwise.py:31",
          "launches": launches["ct_mul"], "max_abs_err": err["ct_mul"],
          "launches_builders": path_launches["3c"]["ct_mul"],
+         "launches_serving": path_launches["3e"]["ct_mul"],
+         "launches_ext": path_launches["3e_ext"]["ct_mul"],
          "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"],
          **bound("ct_mul", n, B), "library_ms": None},
         {"name": "u32_chain", "route": "cuda", "source": "lol_tpu_torch/csrc/chain.cu",

@@ -22,7 +22,13 @@ Run on the card: python -m lol_tpu_torch.bench.steptime [--m 32768]
 torch.profiler (`roofline.trace`, whose Chrome trace lands in DIR).
 With --tunnel it times the fused ring tunnel m -> m/2 instead (E = S,
 ys = [1, 0], the reference bench's tunnel leg) as its caller sees it,
-and with --trace profiles five tunnels the same way.
+and with --trace profiles five tunnels the same way.  --pt-round times
+the homomorphic rounding chain Z_p -> Z_2 at m (p = 8, pt_round_mults(p)
++ 2 primes, scalar plaintexts: `bench.py`'s leg), --homom-prf component
+0 of HomomPRF down the halving tower m -> 2 (project maps, p = 8,
+pt_round_mults(p) + 4 primes, BaseBGad(2), balanced(2), bits (1, 0):
+`lol_tpu/bench/she_bench.py`'s leg), each built once and timed as its
+caller sees it; --trace profiles five calls.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import statistics
 import numpy as np
 import torch
 
-from .. import linear, numtheory as nt, sampling, she
+from .. import gadget, linear, numtheory as nt, prf, sampling, serving, she
 from ..she_batched import BatchedBGV, BGVStep
 from . import require_cuda, time_ms
 
@@ -158,15 +164,72 @@ def _tunnel_inputs(m: int, nrns: int, B: int, seed: int):
     return tun, bb.build_encrypt(sk)(she.pt_random(params, g, (B,)), g)
 
 
-def tunnel_time(tun, c0, c1, iters: int = 5, windows: int = 5) -> dict:
-    """The JSON line of the tunnel on these inputs on the card: ms per
-    call as its caller sees it (median and windows), and ops/s."""
+def pt_round_inputs(m: int, p: int, B: int, seed: int, device="cuda"):
+    """The rounding chain Z_p -> Z_pr at m over pt_round_mults(p) + 2
+    primes (hints made on the device), and an encrypted batch of scalar
+    plaintexts: (run, bb_out, f_out, sk, vals, (c0, c1))."""
+    qs = tuple(nt.ntt_primes(m, 30, she.pt_round_mults(p) + 2))
+    params = she.SHEParams(m=m, p=p, qs=qs, var=2.0)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sk = she.gen_sk(params, g)
+    bb = BatchedBGV(params, device)
+    run, bb_out, f_out = serving.build_pt_round(bb, she.pt_round_hints(sk, g, device))
+    vals = torch.randint(0, p, (B,), generator=g, device=device, dtype=torch.int32)
+    msgs = torch.zeros((params.ctx.n, B), dtype=torch.int32, device=device)
+    msgs[0] = vals
+    return run, bb_out, f_out, sk, vals, bb.build_encrypt(sk)(msgs, g)
+
+
+def homom_prf_run(fam: prf.PRFFamily, hints: prf.EvalHints, bb: BatchedBGV, bits, i: int):
+    """`serving.batched_homom_prf_component`'s stages built once, as the
+    reference bench builds its serving program: (run, bb_out, f_out),
+    run: (c0, c1) -> (c0', c1')."""
+    a = fam.a_t(bits)[i]
+    a = np.where(a >= (fam.p + 1) // 2, a - fam.p, a) % bb.params.p
+    a_pt = torch.from_numpy(a.astype(np.int32)[:, None]).to(bb.device)
+    mulp = bb.build_mul_public()
+    tuns, cur = [], bb
+    for th in hints.tunnels:
+        tuns.append(cur.build_tunnel(th))
+        cur = cur.target_pipeline(th)
+    rnd, bb_out, f_out = serving.build_pt_round(cur, hints.rounds)
+
+    def run(c0, c1):
+        c0, c1 = mulp(c0, c1, a_pt)
+        for tun in tuns:
+            c0, c1 = tun(c0, c1)
+        return rnd(c0, c1)
+
+    return run, bb_out, f_out
+
+
+def homom_prf_inputs(m_top: int, p: int, B: int, seed: int, device="cuda"):
+    """HomomPRF's tower m_top -> m_top/2 -> ... -> 2 (E = S, the project
+    maps) over pt_round_mults(p) + 4 primes, with hints made on the device,
+    the family (BaseBGad(2), balanced(2)) and B encryptions of one key s
+    over m_top: (fam, hints, bb, sk_out, s, (c0, c1))."""
+    qs = tuple(nt.ntt_primes(m_top, 30, she.pt_round_mults(p) + 4))
+    rings = [m_top >> k for k in range(m_top.bit_length() - 1)]
+    g = torch.Generator(device=device).manual_seed(seed)
+    sks = [she.gen_sk(she.SHEParams(m=m, p=p, qs=qs, var=2.0), g) for m in rings]
+    fam = prf.PRFFamily.random(m_top, p, gadget.BaseBGad(2), prf.balanced(2), g)
+    hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], g, homomorphic_round=True,
+                                        maps="project", device=device)
+    bb = BatchedBGV(sks[0].params, device)
+    s = torch.randint(0, p, (bb.ctx.n, 1), generator=g, device=device, dtype=torch.int32)
+    return fam, hints, bb, sk_out, s, bb.build_encrypt(sks[0])(s.expand(-1, B), g)
+
+
+def call_time(fn, c0, c1, what: str, key: str, iters: int = 5, windows: int = 5) -> dict:
+    """The JSON line of fn(c0, c1) on the card: ms per call as its caller
+    sees it (median and windows), and ops/s under `key`."""
     require_cuda()
     nrns, n, B = c0.shape
-    ms, wins = time_ms(lambda: tun(c0, c1), iters, windows)
-    return {"metric": f"tunnel n={n} -> {n // 2}, {nrns}x30-bit, B={B}",
+    ms, wins = time_ms(lambda: fn(c0, c1), iters, windows)
+    return {"metric": f"{what}, n={n}, {nrns}x30-bit, B={B}",
             "device": torch.cuda.get_device_name(c0.device), "ms_per_call": ms,
-            "ms_windows": wins, "tunnel_ops_per_sec": B / (ms / 1e3)}
+            "ms_windows": wins, key: B / (ms / 1e3)}
+
 
 
 def run(m: int = 32768, nrns: int = 3, B: int = 1024, iters: int = 5,
@@ -184,10 +247,26 @@ def main() -> None:
     ap.add_argument("--windows", type=int, default=5)
     ap.add_argument("--trace", default=None, help="also profile five calls, trace to this dir")
     ap.add_argument("--tunnel", action="store_true", help="the tunnel m -> m/2, not the step")
+    ap.add_argument("--pt-round", action="store_true",
+                    help="the rounding chain Z_8 -> Z_2 at m, not the step")
+    ap.add_argument("--homom-prf", action="store_true",
+                    help="HomomPRF component 0 down the tower m -> 2, not the step")
     args = ap.parse_args()
     if args.tunnel:
         fn, cts = _tunnel_inputs(args.m, args.rns, args.batch, 0)
-        print(json.dumps(tunnel_time(fn, *cts, iters=args.iters, windows=args.windows)))
+        print(json.dumps(call_time(fn, *cts, "tunnel to n/2", "tunnel_ops_per_sec",
+                                   args.iters, args.windows)))
+    elif args.pt_round:
+        require_cuda()
+        fn, *_, cts = pt_round_inputs(args.m, 8, args.batch, 0)
+        print(json.dumps(call_time(fn, *cts, "pt_round Z_8 -> Z_2", "pt_round_ops_per_sec",
+                                   args.iters, args.windows)))
+    elif args.homom_prf:
+        require_cuda()
+        fam, hints, bb, _, _, cts = homom_prf_inputs(args.m, 8, args.batch, 0)
+        fn = homom_prf_run(fam, hints, bb, (1, 0), 0)[0]
+        print(json.dumps(call_time(fn, *cts, f"HomomPRF component, tower m={args.m} -> 2",
+                                   "homom_prf_ops_per_sec", args.iters, args.windows)))
     else:
         fn, cts = _inputs(args.m, args.rns, args.batch, 0)
         print(json.dumps(breakdown(fn, *cts, iters=args.iters, windows=args.windows)))

@@ -12,6 +12,12 @@ objects, so both sides compute on identical state:
     tunnel_hint_from_numpy(params_s, lin, h0, h1)  # h0[i, j] = th.hints[i].h0[j].data
     shards = ring_shards_from_numpy(x, mesh)          # x: (..., n), ring-sharded
     x = ring_shards_to_numpy(shards, batch=x.shape[:-1])
+    ext = hint_ext_from_numpy(params, ext_qs, n_special, h0, h1)  # a KSHintExt
+    fam = prf_family_from_numpy(m, p, b, tree, [a.lift_ints(rep=Rep.POW) for a in jfam.a0],
+                                [a.lift_ints(rep=Rep.POW) for a in jfam.a1])
+    rh = pt_round_hints_from_numpy(params, [(h0_i, h1_i), ...])  # hint i at qs[:L0 - i]
+    hints = eval_hints_from_numpy(params, [(m_e, m_r, m_s, ys, h0, h1), ...], p_final,
+                                  rounds=[(h0_i, h1_i), ...])
 
 Like the port's other entry points they place their tensors on the card
 unless the caller names another device.
@@ -19,14 +25,18 @@ unless the caller names another device.
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
 import torch
 
 from . import zq
+from .gadget import BaseBGad
 from .linear import Linear, linear_pow
 from .parallel import sharding
+from .prf import EvalHints, PRFFamily, Tree
 from .ring import ring_context
-from .she import KSHint, SHEParams, SK, TunnelHint
+from .she import KSHint, KSHintExt, PTRoundHints, SHEParams, SK, TunnelHint
 
 
 def _residues(x, device) -> torch.Tensor:
@@ -64,6 +74,46 @@ def tunnel_hint_from_numpy(params_s: SHEParams, lin: Linear, h0, h1,
     key-switch hint over S (params_s) per relative basis element."""
     return TunnelHint(lin, tuple(hint_from_numpy(params_s, a, b, device)
                                  for a, b in zip(h0, h1)))
+
+
+def hint_ext_from_numpy(params: SHEParams, ext_qs, n_special: int, h0, h1,
+                        device="cuda") -> KSHintExt:
+    """Extended-modulus hint from (ell, nrns_ext, n) CRT residue arrays over
+    the chain ext_qs (params.qs followed by n_special special primes)."""
+    return KSHintExt(params, tuple(ext_qs), n_special, _residues(h0, device),
+                     _residues(h1, device))
+
+
+def prf_family_from_numpy(m: int, p: int, b: int, tree: Tree, a0, a1) -> PRFFamily:
+    """The KH-PRF family over R_p (index m) with the base-b gadget, from its
+    public vectors' (ell, n) integer coefficients (any lift)."""
+    return PRFFamily(m, p, BaseBGad(b), tree, *(np.asarray(a, dtype=np.int64) % p
+                                                 for a in (a0, a1)))
+
+
+def pt_round_hints_from_numpy(params: SHEParams, hints, device="cuda") -> PTRoundHints:
+    """Rounding hints from [(h0, h1), ...] CRT residue arrays: hint i lives
+    at chain prefix qs[:L0 - i], shape (L0 - i, L0 - i, n)."""
+    L0 = len(params.qs)
+    return PTRoundHints(tuple(
+        hint_from_numpy(replace(params, qs=params.qs[: L0 - i]), h0, h1, device)
+        for i, (h0, h1) in enumerate(hints)))
+
+
+def eval_hints_from_numpy(params: SHEParams, tunnels, p_final: int, rounds=None,
+                          device="cuda") -> EvalHints:
+    """HomomPRF hints: tunnels is [(m_e, m_r, m_s, ys, h0, h1), ...] down
+    the tower (each as `linear_from_numpy` and `tunnel_hint_from_numpy`
+    take them, over params' chain, p and var); rounds, if given, the
+    rounding hints' arrays over the last ring (`pt_round_hints_from_numpy`)."""
+    ths, m_last = [], params.m
+    for m_e, m_r, m_s, ys, h0, h1 in tunnels:
+        lin = linear_from_numpy(params.qs, m_e, m_r, m_s, ys)
+        ths.append(tunnel_hint_from_numpy(replace(params, m=m_s), lin, h0, h1, device))
+        m_last = m_s
+    rh = None if rounds is None else pt_round_hints_from_numpy(
+        replace(params, m=m_last), rounds, device)
+    return EvalHints(tuple(ths), p_final, rh)
 
 
 def cts_from_numpy(c0, c1, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:

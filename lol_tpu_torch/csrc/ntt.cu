@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(1024) ntt_invb_pass(const __grid_constant__ In
 bool pass_args(NttArgs& a, const void* x, void* y, const void* w, const void* wsh, int B,
                int L, int nseq, int elem_stride, int seq_stride, int G, int threads, int last,
                uint32_t q) {
-  if (B < 1 || !pow2(L) || L < 2 || !pow2(G) || nseq % G || threads < 32 ||
+  if (B < 1 || !pow2(L) || !pow2(G) || nseq % G || threads < 32 ||
       threads > 1024 || threads % 32)
     return false;
   a = NttArgs{};
@@ -164,7 +164,8 @@ int lol_ntt_pass(const void* x, void* y, const void* w, const void* wsh,
 // packed per-row stage table of this pass's DFT, post / post_sh the (n,)
 // per-row multiplier; last: fold the output to [0, q) (else it stays in
 // [0, 2q)).  Returns as lol_ntt_pass; route B has no 4-CTA cluster pass
-// (it runs n = 8192 in two passes), so that geometry is refused too.
+// (it runs n = 8192 in two passes) and no length-1 pass, so those
+// geometries are refused too.
 int lol_ntt_invb_pass(const void* x, void* y, const void* st, const void* st_sh,
                       const void* post, const void* post_sh, int B, int L, int nseq,
                       int elem_stride, int seq_stride, int G, int TB, int threads,
@@ -177,7 +178,7 @@ int lol_ntt_invb_pass(const void* x, void* y, const void* st, const void* st_sh,
   b.post_sh = static_cast<const uint32_t*>(post_sh);
   return with_pass_tile(L, TB, log_cluster, [&](auto lg, auto tb, auto lc) {
     constexpr int LOGL = decltype(lg)::value, T = decltype(tb)::value, LOGC = decltype(lc)::value;
-    if constexpr (LOGC == 2)
+    if constexpr (LOGC == 2 || LOGL == 0)
       return (int)cudaErrorInvalidValue;
     else
       return launch_rounds<LOGL, T, LOGC>(ntt_invb_pass<LOGL, T, LOGC>, b, B, G, nseq, threads,

@@ -77,10 +77,12 @@ __host__ __device__ constexpr int clog2(int v) { return v <= 1 ? 0 : 1 + clog2(v
 
 // The round plan of a length-2^LOGL pass in forward order: N rounds of
 // `size` stages from `start`, as even as possible, larger first (so the
-// last round has at least 2 stages when LOGL >= 2).
+// last round has at least 2 stages when LOGL >= 2).  A length-1 pass (LOGL =
+// 0, the m = 2 ring) is one round of no stages: its loads, the digit
+// prologue, the inverse's n^-1 and the fold.
 template <int LOGL>
 struct Rounds {
-  static constexpr int N = (LOGL + MAX_ROUND - 1) / MAX_ROUND;
+  static constexpr int N = LOGL == 0 ? 1 : (LOGL + MAX_ROUND - 1) / MAX_ROUND;
   __host__ __device__ static constexpr int size(int i) { return LOGL / N + (i < LOGL % N ? 1 : 0); }
   __host__ __device__ static constexpr int start(int i) { return i == 0 ? 0 : start(i - 1) + size(i - 1); }
 };
@@ -279,6 +281,9 @@ __device__ __forceinline__ void ntt_round(const NttArgs& a, uint32_t* sm, int co
       }
     });
     if constexpr (LAST) {
+      if constexpr (NET == Net::GS && RS == 0) {  // no stage 0 to fold n^-1 into
+        if (a.last) v[0] = mul_shoup_lazy(v[0], a.ninv, a.ninv_sh, q);
+      }
       if constexpr (NET == Net::INVB) {  // the per-row multiplier: [0, 4q) -> [0, 2q)
         const int prow = row0 * a.elem_stride + sq * a.seq_stride;
         const int pstep = a.elem_stride << LK;
@@ -337,7 +342,7 @@ __device__ __forceinline__ void ntt_rounds(const NttArgs& a, uint32_t* sm, int c
 }
 
 // Calls f(LOGL, TB, LOGC), each a std::integral_constant, for a pass that
-// the round kernels are built for: (L, TB) in {2..1024} x {32}, {1024,
+// the round kernels are built for: (L, TB) in {1..1024} x {32}, {1024,
 // 2048} x {16}, {2048, 4096} x {8}, and (L, 8) over a cluster of
 // 2^log_cluster = L / 2048 CTAs, L in {8192, 16384}; returns what f returns,
 // or cudaErrorInvalidValue for any other geometry.
@@ -352,6 +357,7 @@ int with_pass_tile(int L, int TB, int log_cluster, F&& f) {
   switch (TB) {
     case 32:
       switch (ilog2(L)) {
+        case 0: LOL_TILE(0, 32, 0);
         case 1: LOL_TILE(1, 32, 0);
         case 2: LOL_TILE(2, 32, 0);
         case 3: LOL_TILE(3, 32, 0);

@@ -64,8 +64,9 @@ MAX_ROUND = 4  # csrc/ntt_rounds.cuh: stages per register round (16-word units)
 # B = 1024: PERF.md)
 CLUSTER = {8192: 4, 16384: 8}
 UNIT_WORDS = 16  # words per thread per round that fix a pass's threads
-# the (L, TB) of every one-CTA pass-kernel instance (csrc/ntt_rounds.cuh `with_pass_tile`)
-KERNEL_TILES = frozenset([(1 << k, 32) for k in range(1, 11)]
+# the (L, TB) of every one-CTA pass-kernel instance (csrc/ntt_rounds.cuh
+# `with_pass_tile`); L = 1 is the m = 2 ring's transform (no stages)
+KERNEL_TILES = frozenset([(1 << k, 32) for k in range(0, 11)]
                          + [(1024, 16), (2048, 16), (2048, 8), (4096, 8)])
 
 
@@ -87,9 +88,11 @@ class Pass:
 def rounds(L: int) -> list[int]:
     """The stages of each register round of a length-L pass of the pass
     kernels, in forward order (`Rounds` in csrc/ntt_rounds.cuh):
-    ceil(log2 L / MAX_ROUND) rounds as even as possible, larger first."""
+    ceil(log2 L / MAX_ROUND) rounds as even as possible, larger first; a
+    length-1 pass is one round of no stages (its loads, the prologue, the
+    inverse's n^-1 and the fold)."""
     k = L.bit_length() - 1
-    N = -(-k // MAX_ROUND)
+    N = max(1, -(-k // MAX_ROUND))
     return [k // N + (i < k % N) for i in range(N)]
 
 
@@ -268,6 +271,9 @@ def _ntt_invb_cuda(x, plan):
     pass, then the scale), then the cross pass (DFT_P, the scale and the
     fold), in place after the first."""
     n = x.shape[0]
+    if n == 1:
+        raise NotImplementedError("ntt_cm: route B (alg='dit') has no CUDA kernel for n = 1; "
+                                  "use the GS inverse (alg='gs')")
     passes = dit_schedule(n)[::-1]
     tab = plan.dit_tables(_dit_block_rows(n), x.device)
     y = torch.empty_like(x)

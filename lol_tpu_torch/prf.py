@@ -1,0 +1,231 @@
+"""The key-homomorphic PRF (BP14, ring version): its public family, the
+clear PRF, and the hints of its homomorphic evaluation.
+
+Counterpart of `lol_tpu/prf.py`'s public family and EvalHints (the
+object-path `homom_prf` is the reference's; the port serves the batched
+form, `serving.batched_homom_prf_component`).  Public parameters are two
+gadget-dimension vectors a0, a1 in R_p^ell (p the PRF modulus, ell the
+digits of the base-b gadget over Z_p); a full binary tree T over the
+input bits defines
+
+    A_T(x) = a_x                           (leaf)
+    A_T(x) = A_l(x_l) * G^{-1}(A_r(x_r))   (internal)
+
+with G^{-1} the balanced base-b decomposition applied entrywise, and the
+PRF is F_s(x) = round_{p -> p_out}(s * A_T(x)).  At 2-power m the
+decoding basis is the power basis, so a ring element here is its (n,)
+int64 coefficient vector in [0, p).  p = 2^k is no NTT modulus, so every
+product is exact over the integers (`she.ring_mul_sum`); this is host
+set-up, once per PRF input.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from . import gadget as gd
+from . import linear as lin
+from . import she
+from .ring import ring_context
+from .she_batched import BatchedBGV
+
+
+# ---------------------------------------------------------------------------
+# full binary trees (Lol FullBinTree)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Tree:
+    """Full binary tree with `size` leaves (input bits)."""
+
+    left: "Tree | None" = None
+    right: "Tree | None" = None
+
+    @property
+    def is_leaf(self) -> bool:
+        return self.left is None
+
+    @property
+    def size(self) -> int:
+        if self.is_leaf:
+            return 1
+        return self.left.size + self.right.size
+
+
+def leaf() -> Tree:
+    return Tree()
+
+
+def left_spine(n: int) -> Tree:
+    """((((x1 x2) x3) x4) ...): Lol leftSpineTree."""
+    t = leaf()
+    for _ in range(n - 1):
+        t = Tree(t, leaf())
+    return t
+
+
+def right_spine(n: int) -> Tree:
+    t = leaf()
+    for _ in range(n - 1):
+        t = Tree(leaf(), t)
+    return t
+
+
+def balanced(n: int) -> Tree:
+    if n == 1:
+        return leaf()
+    h = n // 2
+    return Tree(balanced(n - h), balanced(h))
+
+
+# ---------------------------------------------------------------------------
+# PRF family
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PRFFamily:
+    """Public params + tree + per-assignment node cache (Lol PRFState):
+    ring index m (2-power), PRF modulus p, the base-b gadget, and a0 / a1
+    as (ell, n) int64 coefficient arrays mod p."""
+
+    m: int
+    p: int
+    spec: gd.BaseBGad
+    tree: Tree
+    a0: np.ndarray
+    a1: np.ndarray
+    _cache: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        shape = (gd.num_digits(self.spec, self.p), self.m // 2)
+        for a in (self.a0, self.a1):
+            if a.shape != shape:
+                raise ValueError(f"PRFFamily: public vector of shape {a.shape} != (ell, n) = "
+                                 f"{shape}")
+
+    @property
+    def n(self) -> int:
+        return self.m // 2
+
+    @staticmethod
+    def random(m: int, p: int, spec: gd.BaseBGad, tree: Tree,
+               generator: torch.Generator) -> "PRFFamily":
+        """a0, a1 uniform in R_p^ell."""
+        ell = gd.num_digits(spec, p)
+        a = torch.randint(0, p, (2, ell, m // 2), generator=generator,
+                          device=generator.device).cpu().numpy().astype(np.int64)
+        return PRFFamily(m, p, spec, tree, a[0], a[1])
+
+    # -- A_T(x) with per-node caching --------------------------------------
+    def _eval_node(self, tree: Tree, bits: tuple[int, ...]) -> np.ndarray:
+        key = (id(tree), bits)
+        hit = self._cache.get(key)
+        if hit is not None:
+            return hit
+        if tree.is_leaf:
+            out = self.a1 if bits[0] else self.a0
+        else:
+            nl = tree.left.size
+            al = self._eval_node(tree.left, bits[:nl])
+            ar = self._eval_node(tree.right, bits[nl:])
+            out = self._mul_ginv(al, ar)
+        self._cache[key] = out
+        return out
+
+    def _mul_ginv(self, al: np.ndarray, ar: np.ndarray) -> np.ndarray:
+        """al * G^{-1}(ar): column i = sum_j al[j] * digit_j(ar[i]),
+        exact in R_p."""
+        digits = gd.decompose(self.spec, self.p, ar)  # (ell_digit, ell, n)
+        return np.stack([
+            she.ring_mul_sum([(al[j], digits[j, i]) for j in range(len(al))], self.p)
+            for i in range(len(ar))
+        ])
+
+    def a_t(self, bits) -> np.ndarray:
+        """A_T(x): (ell, n) int64 coefficients mod p."""
+        bits = tuple(int(b) & 1 for b in bits)
+        if len(bits) != self.tree.size:
+            raise ValueError(f"PRF input needs {self.tree.size} bits")
+        return self._eval_node(self.tree, bits)
+
+
+def prf_pre_round(fam: PRFFamily, s, bits) -> np.ndarray:
+    """s * A_T(x) over R_p, the value before rounding: (ell, n) int64 mod
+    p; s is the key's (n,) integer coefficients."""
+    return np.stack([she.ring_mul_sum([(s, a)], fam.p) for a in fam.a_t(bits)])
+
+
+def prf(fam: PRFFamily, s, bits, p_out: int) -> np.ndarray:
+    """F_s(x): round each coefficient's centered lift c from p to p_out,
+    round-half-UP (floor(c p_out / p + 1/2), matching the homomorphic
+    pt_round chain).  (ell, n) int64 out, mod p_out."""
+    q = fam.p
+    v = prf_pre_round(fam, s, bits)
+    c = np.where(v >= (q + 1) // 2, v - q, v)
+    return (2 * c * p_out + q) // (2 * q) % p_out
+
+
+# ---------------------------------------------------------------------------
+# homomorphic PRF evaluation hints (Lol EvalHints)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class EvalHints:
+    """Lol EvalHints: the chain of tunnel hints walking down a cyclotomic
+    tower, the rounding hints (relinearization hints of the homomorphic
+    pt_round chain, present when the PRF modulus is 2^k and true
+    homomorphic rounding is requested), and the final plaintext modulus."""
+
+    tunnels: tuple[she.TunnelHint, ...]
+    p_final: int
+    rounds: "she.PTRoundHints | None" = None
+
+
+MAPS = ("auto", "project", "slots")
+
+
+def make_eval_hints(fam: PRFFamily, sks: list[she.SK], rings: list[int],
+                    e_rings: list[int], generator: torch.Generator,
+                    p_final: int = 2, homomorphic_round: bool = False,
+                    maps: str = "auto", device="cuda") -> tuple[EvalHints, she.SK]:
+    """The tunnel chain down `rings` (sks[i] lives in rings[i]; e_rings[i]
+    is the common subring of rings[i] and rings[i+1]), made on the device
+    by `BatchedBGV.gen_tunnel_hint`, and with homomorphic_round (p = 2^k,
+    p_final = 2) the rounding hints of the last key (`she.pt_round_hints`).
+
+    maps: "project" takes the coefficient projection (b_0 -> 1, the rest
+    -> 0) at every hop.  The reference's CRT-set slot projections, which
+    "slots" and "auto" take where e_rings[i] == rings[i+1], are not ported
+    yet: there "slots" raises NotImplementedError, and so does "auto"
+    unless the plaintext modulus is even, where the reference's slot map
+    (it needs p coprime to the 2-power ring indices) fails and "auto"
+    falls back to "project" too.  Elsewhere both take "project", as the
+    reference does."""
+    if maps not in MAPS:
+        raise ValueError(f"make_eval_hints: maps must be one of {MAPS}, got {maps!r}")
+    qs = sks[0].params.qs  # the ciphertext chain, not the PRF modulus
+    p = sks[0].params.p
+    tunnels = []
+    for i in range(len(rings) - 1):
+        if e_rings[i] == rings[i + 1] and (maps == "slots" or maps == "auto" and p % 2):
+            raise NotImplementedError(
+                "make_eval_hints: the slot maps (crtset, linear.slot_projection) are not "
+                "ported yet (ROADMAP queue A, with general m); use maps='project'")
+        r_ctx, s_ctx, e_ctx = (ring_context(m, qs) for m in (rings[i], rings[i + 1], e_rings[i]))
+        ys = [np.zeros(s_ctx.n, dtype=np.int64) for _ in range(r_ctx.n // e_ctx.n)]
+        ys[0][0] = 1
+        f = lin.linear_pow(e_ctx, r_ctx, s_ctx, ys)
+        bb = BatchedBGV(sks[i].params, device)
+        tunnels.append(bb.gen_tunnel_hint(f, sks[i + 1], sks[i], generator))
+    rounds = None
+    if homomorphic_round:
+        if p_final != 2:
+            raise ValueError("homomorphic rounding targets Z_2")
+        rounds = she.pt_round_hints(sks[-1], generator, device)
+    return EvalHints(tuple(tunnels), p_final, rounds), sks[-1]

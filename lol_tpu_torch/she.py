@@ -1,16 +1,20 @@
-"""BGV parameters, keys, plaintexts, key-switch and tunnel hints.
+"""BGV parameters, keys, plaintexts, key-switch and tunnel hints, and the
+homomorphic rounding's schedule.
 
 Counterpart of the pieces of `lol_tpu/she.py` that the batched pipeline
-uses (2-power m): c(s) = c0 + c1 s satisfies c(s) = f*m + p*e (mod Q)
-under the LSD encoding and c(s) = round(Q/p)*m + e (mod Q) under the MSD
-one, with message m in R_p, small error e and a tracked scale factor f
-in Z_p^*.
+and the serving layer use (2-power m): c(s) = c0 + c1 s satisfies
+c(s) = f*m + p*e (mod Q) under the LSD encoding and c(s) = round(Q/p)*m
++ e (mod Q) under the MSD one, with message m in R_p, small error e and
+a tracked scale factor f in Z_p^*.  Beside them: the extended-modulus
+(hybrid) key-switch hint `KSHintExt`, and the rounding's pieces
+(`PTRoundHints`, `pt_round_mults`, `pt_round_hints`) that
+`serving.build_pt_round` runs.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -63,6 +67,21 @@ class KSHint:
 
 
 @dataclass(frozen=True, eq=False)
+class KSHintExt:
+    """Extended-modulus (hybrid) key-switch hint: gadget encryptions of
+    P * target over the chain ext_qs = Q * P (P the product of the last
+    n_special primes), with the BASE chain's RNS gadget, so ell = the base
+    chain's length.  h0 / h1 are (ell, nrns_ext, n) int32 CRT tensors;
+    params is the base chain's."""
+
+    params: SHEParams
+    ext_qs: tuple[int, ...]
+    n_special: int
+    h0: torch.Tensor
+    h1: torch.Tensor
+
+
+@dataclass(frozen=True, eq=False)
 class TunnelHint:
     """Everything that applies the E-linear map `lin` (R -> S) to a
     ciphertext and moves it to ring S: per relative basis element b_i of
@@ -87,20 +106,32 @@ def pt_random(params: SHEParams, generator: torch.Generator,
 
 
 def pt_mul(params: SHEParams, a, b) -> np.ndarray:
-    """Plaintext ring product in R_p (exact, host): a numpy negacyclic NTT
-    product over an auxiliary chain sized to the integer bound
-    n*(p-1)^2, centered-lifted and reduced mod p.  int64 (n,) out."""
-    n = params.ctx.n
-    p = params.p
-    a = np.asarray(a, dtype=np.int64) % p
-    b = np.asarray(b, dtype=np.int64) % p
-    aux_qs = _aux_chain(2 * n, 2 * n * (p - 1) ** 2)
+    """Plaintext ring product in R_p (exact, host; `ring_mul_sum`).
+    int64 (n,) out."""
+    return ring_mul_sum([(a, b)], params.p)
+
+
+def ring_mul_sum(pairs, p: int) -> np.ndarray:
+    """sum_k a_k * b_k in Z_p[x]/(x^n + 1), exact on the host, for any p
+    (p = 2^k is no NTT modulus): the operands' centered lifts, a numpy
+    negacyclic NTT product over an auxiliary chain sized to the integer
+    bound n * sum_k max|a_k| max|b_k|, the centered CRT lift, then mod p.
+    pairs: (a_k, b_k), integer (n,) arrays; int64 (n,) out in [0, p)."""
+    def centered(x):
+        x = np.asarray(x, dtype=np.int64) % p
+        return np.where(x >= (p + 1) // 2, x - p, x)
+
+    a = np.stack([centered(x) for x, _ in pairs])
+    b = np.stack([centered(y) for _, y in pairs])
+    n = a.shape[-1]
+    bound = n * sum(int(np.abs(x).max()) * int(np.abs(y).max()) for x, y in zip(a, b))
+    aux_qs = _aux_chain(2 * n, 2 * bound)
     res = []
     for q in aux_qs:
         plan = ntt_mod.ntt_plan(n, q)
-        fa = ntt_mod.np_ntt_forward(np.mod(a, q).astype(np.uint32)[None], plan)
-        fb = ntt_mod.np_ntt_forward(np.mod(b, q).astype(np.uint32)[None], plan)
-        prod = fa[0].astype(np.int64) * fb[0].astype(np.int64) % q
+        fa = ntt_mod.np_ntt_forward(np.mod(a, q).astype(np.uint32), plan).astype(np.int64)
+        fb = ntt_mod.np_ntt_forward(np.mod(b, q).astype(np.uint32), plan).astype(np.int64)
+        prod = (fa * fb % q).sum(0) % q
         res.append(ntt_mod.np_ntt_inverse(prod[None].astype(np.uint32), plan)[0])
     lifted = rns_basis(aux_qs).lift_centered(np.stack(res))
     return (lifted % p).astype(np.int64)
@@ -116,3 +147,85 @@ def _aux_chain(m_mult: int, bound: int) -> tuple[int, ...]:
         if math.prod(qs) > bound:
             return tuple(qs)
         k += 1
+
+
+# --- homomorphic plaintext rounding (serving.build_pt_round's schedule) ---
+
+
+@dataclass(frozen=True, eq=False)
+class PTRoundHints:
+    """One relinearization hint per pt_round multiplication, generated at
+    the modulus chain that multiplication runs on (the reference's
+    rounding hints inside HomomPRF's EvalHints)."""
+
+    hints: tuple[KSHint, ...]
+
+
+def _lsb_squarings(j: int) -> int:
+    """Squarings to compute lsb over Z_{2^j} as y^(2^t): 2^t must be a
+    multiple of the exponent 2^{j-2} of (Z/2^j)* (odd y -> 1) and have
+    2^t >= j (even y -> 0)."""
+    if j == 2:
+        return 1
+    if j == 3:
+        return 2
+    return j - 2
+
+
+def _pt_round_base(p: int) -> tuple[int, int]:
+    """p = pr^k with pr in {2, 3}: the bases pt_round supports.
+
+    Why exactly these: for any prime pr and x in Z_{pr^j}, the map
+    x -> x^(pr^{j-1}) depends only on x mod pr (binomial lift:
+    (y + pr t)^(pr^{j-1}) = y^(pr^{j-1}) mod pr^j, and pr | x gives 0
+    since pr^{j-1} >= j), i.e. it computes the TEICHMUELLER digit, the
+    multiplicative lift omega(x mod pr).  Digit stripping
+    y <- (y - omega(y)) / pr therefore works for every pr; but the
+    stripped expansion x = sum_i omega(d_i) pr^i rounds the standard
+    representative only when the Teichmueller reps are centered
+    integers.  omega(d) is a (pr-1)-th root of unity mod pr^j, so the
+    reps are {0, +-1, other roots}: for pr = 2 they are {0, 1} (the
+    standard binary digits; a pre-add of pr^{k-2} turns truncation into
+    rounding), for pr = 3 they are {0, 1, -1} (BALANCED ternary:
+    truncation is already round-to-nearest, ties impossible), and for
+    pr >= 5 they are non-central roots of unity (e.g. omega(2) mod 25 =
+    7), so the technique stops computing a rounding of the integer digit
+    expansion.  2 and 3 are exactly the primes whose units are {+-1}."""
+    for pr in (2, 3):
+        v, k = p, 0
+        while v % pr == 0:
+            v //= pr
+            k += 1
+        if v == 1 and k >= 1:
+            return pr, k
+    raise ValueError(f"pt_round: plaintext modulus {p} is not 2^k or 3^k")
+
+
+def pt_round_mults(p: int) -> int:
+    """Total ciphertext multiplications pt_round performs: at modulus
+    2^j, `_lsb_squarings(j)` squarings (y^(2^t) is lsb(y)); at modulus
+    3^j, j - 1 relinearized cubings of 2 multiplications each
+    (y^(3^(j-1)) is the balanced ternary digit)."""
+    pr, k = _pt_round_base(p)
+    if pr == 2:
+        return sum(_lsb_squarings(j) for j in range(2, k + 1))
+    return sum(2 * (j - 1) for j in range(2, k + 1))
+
+
+def pt_round_hints(sk: SK, generator: torch.Generator, device="cuda") -> PTRoundHints:
+    """Quad hints for pt_round (RNS gadget), made on the device: hint i
+    lives at chain prefix qs[:L0-i], because every multiplication is
+    followed by one modulus switch, and is made there by that prefix's
+    `BatchedBGV.gen_ks_quad_hint`."""
+    from .she_batched import BatchedBGV
+
+    M = pt_round_mults(sk.params.p)
+    L0 = len(sk.params.qs)
+    if L0 < M + 1:
+        raise ValueError(f"pt_round needs >= {M + 1} RNS primes, have {L0}")
+    hints = []
+    for i in range(M):
+        params_i = replace(sk.params, qs=sk.params.qs[: L0 - i])
+        hints.append(BatchedBGV(params_i, device).gen_ks_quad_hint(
+            SK(params_i, sk.s_ints, sk.var), generator))
+    return PTRoundHints(tuple(hints))

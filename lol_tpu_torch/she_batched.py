@@ -23,9 +23,13 @@ with Delta = Q // p (encrypt, the exact scaled-rounding decrypt through
 add).  Beside the step: `build_mod_switch`, `build_key_switch_linear`,
 ciphertext add / sub with scale alignment, public-plaintext add and
 multiply, the encoding switches, exact division by d, the batched error
-term and noise budget, and the fused ring tunnel R -> S of a 2-power
-tower (`build_tunnel`, an `nn.Module` like the step).  Hints for T
-targets come from one device pass (`_gen_gadget_hints`).  Every result is
+term and noise budget, the fused ring tunnel R -> S of a 2-power tower
+(`build_tunnel`, an `nn.Module` like the step), and extended-modulus
+(hybrid) key switching (`build_step_ext`, `build_key_switch_linear_ext`:
+the digits' inner products run over Q*P with hints made over that chain,
+and the special primes P are dropped by exact rescales, which divides the
+key-switch noise by P).  Hints for T targets come from one device pass
+(`_gen_gadget_hints`).  Every result is
 bit-identical to `lol_tpu.she_batched.BatchedBGV(params, use_pallas=False)`
 (the noise budget, float32, to its rounding).
 
@@ -50,7 +54,7 @@ from .ops import ntt as ntt_mod
 from .ops.cuda.ntt_kernel import ntt_cm
 from .ops.cuda.pointwise import ct_mul_cm
 from .ring import RingContext
-from .she import KSHint, SHEParams, SK, TunnelHint
+from .she import KSHint, KSHintExt, SHEParams, SK, TunnelHint
 
 ENCODINGS = ("lsd", "msd")
 
@@ -85,6 +89,23 @@ def _submod_ch(qv, a, b):
 def _scale_ch(qv, x, c):
     """x times the per-channel constants c mod q, int32 out."""
     return zq.mul_mod(x, c, qv).to(torch.int32)
+
+
+def _ct_mul(qs, c0, c1, d0, d1):
+    """(c0 + c1 s)(d0 + d1 s) as CRT Hadamards: (e0, e1, e2), each an
+    (nrns, n, B) int32 stack, one `ct_mul_cm` per channel."""
+    c0, c1, d0, d1 = (t.contiguous() for t in (c0, c1, d0, d1))
+    es = tuple(torch.empty_like(c0) for _ in range(3))
+    for i, q in enumerate(qs):
+        ct_mul_cm(c0[i], c1[i], d0[i], d1[i], q, out=tuple(e[i] for e in es))
+    return es
+
+
+def _lsd_operand(qv, p, d0, d1):
+    """An MSD step's second operand switched to LSD: both components times
+    p, int32 out."""
+    p_res = p % qv
+    return _scale_ch(qv, d0, p_res), _scale_ch(qv, d1, p_res)
 
 
 def decompose_cm(qs, x: torch.Tensor) -> torch.Tensor:
@@ -501,22 +522,26 @@ class BatchedBGV:
                 f"!= pipeline params (m={self.params.m}, qs={self.params.qs})")
 
     def _gen_gadget_hints(self, sk: SK, targets: torch.Tensor,
-                          generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
-        """RNS-gadget hints for T targets in one pass on the device:
-        targets is a (T, nrns, n) CRT-domain tensor, and for target t and
-        digit j, h0[t, j] = p e + g_j target_t - a s and h1[t, j] = a, with
-        a uniform and e rounded Gaussian, fresh for each (t, j).  Returns
-        two (T, ell, nrns, n) int32 tensors."""
+                          generator: torch.Generator,
+                          gadget=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Gadget hints for T targets in one pass on the device: targets is
+        a (T, nrns, n) CRT-domain tensor, and for target t and digit j,
+        h0[t, j] = p e + g_j target_t - a s and h1[t, j] = a, with a
+        uniform and e rounded Gaussian, fresh for each (t, j).  gadget: the
+        g_j as integers, by default this chain's RNS gadget (the
+        extended-modulus hints pass P times the base chain's).  Returns two
+        (T, ell, nrns, n) int32 tensors."""
         self._check_sk(sk, "hint generation")
         qs, p, n = self.qs, self.params.p, self.ctx.n
-        nrns = ell = len(qs)
+        g_ints = gd.gadget_ints(self.ctx.basis) if gadget is None else list(gadget)
+        nrns, ell = len(qs), len(g_ints)
         T = targets.shape[0]
         L = T * ell  # column l = t * ell + j
         qv = _channel_consts(qs, self.device)
         q2 = qv[..., 0]  # (nrns, 1)
         s_crt = self._s_crt(sk).to(self.device)  # (nrns, n)
-        g = torch.from_numpy(gd.gadget_rns(self.ctx.basis).astype(np.int64))
-        g = g.to(self.device)[None, :, :, None]  # (1, ell, nrns, 1)
+        g = torch.tensor([[gi % q for q in qs] for gi in g_ints], dtype=torch.int64,
+                         device=self.device)[None, :, :, None]  # (1, ell, nrns, 1)
         pe = p * sampling.gaussian_ints((n, L), self.params.var, generator, self.device)
         pe_crt = self._ntt((pe[None] % qv).to(torch.int32)).long()  # (nrns, n, L)
         pe_crt = pe_crt.view(nrns, n, T, ell).permute(2, 3, 0, 1)
@@ -540,6 +565,69 @@ class BatchedBGV:
         self._check_sk(s_old, "gen_ks_linear_hint")
         h0, h1 = self._gen_gadget_hints(s_new, self._s_crt(s_old)[None], generator)
         return KSHint(self.params, h0[0], h1[0])
+
+    # --- extended-modulus (hybrid) hints --------------------------------
+    def _gen_hint_ext(self, sk_enc: SK, tgt_crt_ext: torch.Tensor,
+                      special_qs: tuple[int, ...], generator: torch.Generator) -> KSHintExt:
+        """Gadget encryptions of P * target over Q*P under sk_enc, with the
+        BASE chain's RNS gadget: `_gen_gadget_hints` of the pipeline over
+        the extended chain, its gadget P g_j.  P*t mod Q*P depends on t mod
+        Q alone (P*t = 0 mod every special prime), so the targets need only
+        their (nrns_ext, n) residues over the extended chain."""
+        ext_qs = self.qs + tuple(special_qs)
+        params_ext = replace(self.params, qs=ext_qs)
+        P = math.prod(special_qs)
+        h0, h1 = BatchedBGV(params_ext, self.device)._gen_gadget_hints(
+            SK(params_ext, sk_enc.s_ints, sk_enc.var), tgt_crt_ext[None], generator,
+            gadget=[P * g for g in gd.gadget_ints(self.ctx.basis)])
+        return KSHintExt(self.params, ext_qs, len(special_qs), h0[0], h1[0])
+
+    def _s_crt_ext(self, sk: SK, special_qs) -> torch.Tensor:
+        """(nrns_ext, n) int64 CRT residues of sk over the extended chain."""
+        params_ext = replace(self.params, qs=self.qs + tuple(special_qs))
+        return torch.from_numpy(_s_crt_np(params_ext, sk.s_ints).astype(np.int64))
+
+    def gen_ks_quad_hint_ext(self, sk: SK, special_qs: tuple[int, ...],
+                             generator: torch.Generator) -> KSHintExt:
+        """Extended-modulus relinearization hint, made on the device: gadget
+        encryptions of P * s^2 over the chain Q*P (P = prod special_qs)
+        with the base chain's RNS gadget; the digit inner product then runs
+        over Q*P and the P-drop divides the key-switch noise by P."""
+        self._check_sk(sk, "gen_ks_quad_hint_ext")
+        s = self._s_crt_ext(sk, special_qs)
+        qv = _channel_consts(self.qs + tuple(special_qs), "cpu")[..., 0]
+        return self._gen_hint_ext(sk, s * s % qv, special_qs, generator)
+
+    def gen_ks_linear_hint_ext(self, s_new: SK, s_old: SK, special_qs: tuple[int, ...],
+                               generator: torch.Generator) -> KSHintExt:
+        """Extended-modulus re-encryption hint, made on the device: gadget
+        encryptions of P * s_old over Q*P under s_new, with the base
+        chain's RNS gadget."""
+        self._check_sk(s_new, "gen_ks_linear_hint_ext")
+        self._check_sk(s_old, "gen_ks_linear_hint_ext")
+        return self._gen_hint_ext(s_new, self._s_crt_ext(s_old, special_qs), special_qs,
+                                  generator)
+
+    def _ext_hint_setup(self, hint: KSHintExt) -> tuple["BatchedBGV", list["BatchedBGV"]]:
+        """Checks that the hint's chain extends this one, and returns the
+        pipeline over the extended chain (the digits' transforms) and the
+        pipelines of the special-prime drops, over the extended prefixes
+        from the longest down (each an exact LSD rescale)."""
+        qs, nrns = self.qs, len(self.qs)
+        ext_qs = hint.ext_qs
+        if ext_qs[:nrns] != qs or nrns + hint.n_special != len(ext_qs) or hint.n_special < 1:
+            raise ValueError("extended-modulus hint's chain does not extend the "
+                             f"pipeline chain (ext={ext_qs}, base={qs})")
+        if hint.params.m != self.params.m or hint.params.p != self.params.p:
+            raise ValueError("extended-modulus hint of another ring or plaintext modulus")
+        shape = (nrns, len(ext_qs), self.ctx.n)
+        if hint.h0.shape != shape or hint.h1.shape != shape:
+            raise ValueError(f"extended-modulus hint of shape {tuple(hint.h0.shape)} != "
+                             f"(ell, nrns_ext, n) = {shape}")
+        ext = BatchedBGV(replace(self.params, qs=ext_qs), self.device)
+        drops = [BatchedBGV(replace(self.params, qs=ext_qs[: nrns + k]), self.device)
+                 for k in range(hint.n_special, 0, -1)]
+        return ext, drops
 
     def _check_lin(self, lin: Linear, what: str) -> None:
         if lin.r_ctx != self.ctx:
@@ -592,6 +680,22 @@ class BatchedBGV:
         MSD, and the rescale is MSD's.  Track the output scale with
         `step_f(fc, fd, encoding)`."""
         return BGVStep(self, hint, encoding)
+
+    def build_key_switch_linear_ext(self, hint: KSHintExt) -> "KeySwitchLinearExt":
+        """(c0, c1) -> (e0, e1): re-encryption with an extended-modulus
+        hint: c1's base-chain digits inner-product with the hint over Q*P,
+        the special primes are dropped by exact rescales, and the result
+        rejoins c0 over Q.  Either encoding."""
+        return KeySwitchLinearExt(self, hint)
+
+    def build_step_ext(self, hint: KSHintExt, encoding: str = "lsd") -> "BGVStepExt":
+        """(c0, c1, d0, d1) -> (e0, e1) over the dropped-prime chain: ct_mul,
+        the extended-modulus key switch of e2 (its special primes dropped by
+        exact LSD rescales in both encodings: the hint term is a
+        p-multiple plus the message either way), then the encoding-aware
+        rescale of the base chain's last prime.  Track the output scale
+        with `step_f`, as for `build_step`."""
+        return BGVStepExt(self, hint, encoding)
 
     def build_tunnel(self, th: TunnelHint) -> "Tunnel":
         """(c0, c1) over R -> (e0, e1) over S: the fused ring tunnel."""
@@ -653,24 +757,79 @@ class BGVStep(KeySwitchLinear):
 
     @torch.no_grad()
     def ct_mul(self, c0, c1, d0, d1):
-        """(c0 + c1 s)(d0 + d1 s) as CRT Hadamards: (e0, e1, e2), each an
-        (nrns, n, B) int32 stack, one `ct_mul_cm` per channel."""
-        c0, c1, d0, d1 = (t.contiguous() for t in (c0, c1, d0, d1))
-        es = tuple(torch.empty_like(c0) for _ in range(3))
-        for i, q in enumerate(self.bb.qs):
-            ct_mul_cm(c0[i], c1[i], d0[i], d1[i], q, out=tuple(e[i] for e in es))
-        return es
+        """(c0 + c1 s)(d0 + d1 s) as CRT Hadamards (`_ct_mul`)."""
+        return _ct_mul(self.bb.qs, c0, c1, d0, d1)
 
     @torch.no_grad()
     def forward(self, c0, c1, d0, d1):
         bb = self.bb
         if self.encoding == "msd":  # the second operand to LSD: times p
-            p_res = bb.params.p % self.qv
-            d0, d1 = _scale_ch(self.qv, d0, p_res), _scale_ch(self.qv, d1, p_res)
+            d0, d1 = _lsd_operand(self.qv, bb.params.p, d0, d1)
         e0, e1, e2 = self.ct_mul(c0, c1, d0, d1)
         e0, e1 = self.switch(e0, e1, e2)  # key switch e2
         return (bb._rescale_crt(e0.to(torch.int32), self.qv, self.encoding),
                 bb._rescale_crt(e1.to(torch.int32), self.qv, self.encoding))
+
+
+class KeySwitchLinearExt(nn.Module):
+    """The extended-modulus key switch (`build_key_switch_linear_ext`):
+    the hint over Q*P and both chains' moduli are buffers.  `switch` is
+    the digit path the ext step shares: an inverse NTT per base channel,
+    each digit re-expanded into every channel of the extended chain as the
+    prologue of its forward NTT (the free diagonal in base channel i), the
+    hint inner products over Q*P, then the special primes dropped."""
+
+    def __init__(self, bb: BatchedBGV, hint: KSHintExt):
+        super().__init__()
+        self.bb = bb
+        self.ext, self.drops = bb._ext_hint_setup(hint)
+        self.register_buffer("qv", _channel_consts(bb.qs, bb.device))
+        self.register_buffer("qv_ext", _channel_consts(hint.ext_qs, bb.device))
+        self.register_buffer("h0", hint.h0.to(bb.device, torch.int64)[..., None])
+        self.register_buffer("h1", hint.h1.to(bb.device, torch.int64)[..., None])
+
+    @torch.no_grad()
+    def switch(self, x):
+        """The inner products of the base-chain digits of the (nrns, n, B)
+        CRT stack x with the hint over Q*P, the special primes dropped:
+        int32 (a0, a1) over Q."""
+        bb, ext = self.bb, self.ext
+        xc = bb._ntt(x, inverse=True)
+        a0 = a1 = 0
+        for i in range(len(bb.qs)):
+            di = ext._digit_crt(xc[i], i, x).long()
+            a0 = (a0 + di * self.h0[i]) % self.qv_ext
+            a1 = (a1 + di * self.h1[i]) % self.qv_ext
+        a0, a1 = a0.to(torch.int32), a1.to(torch.int32)
+        for drop in self.drops:
+            qv = self.qv_ext[: len(drop.qs)]
+            a0, a1 = drop._rescale_crt(a0, qv), drop._rescale_crt(a1, qv)
+        return a0, a1
+
+    @torch.no_grad()
+    def forward(self, c0, c1):
+        a0, a1 = self.switch(c1)
+        return _addmod_ch(self.qv, c0, a0).to(torch.int32), a1
+
+
+class BGVStepExt(KeySwitchLinearExt):
+    """The BGV step with the extended-modulus key switch
+    (`build_step_ext`); `.to(device)` moves it, as the step."""
+
+    def __init__(self, bb: BatchedBGV, hint: KSHintExt, encoding: str = "lsd"):
+        super().__init__(bb, hint)
+        self.encoding = _check_encoding(encoding)
+
+    @torch.no_grad()
+    def forward(self, c0, c1, d0, d1):
+        bb, qv = self.bb, self.qv
+        if self.encoding == "msd":  # the second operand to LSD: times p
+            d0, d1 = _lsd_operand(qv, bb.params.p, d0, d1)
+        e0, e1, e2 = _ct_mul(bb.qs, c0, c1, d0, d1)
+        a0, a1 = self.switch(e2)
+        e0, e1 = _addmod_ch(qv, e0, a0), _addmod_ch(qv, e1, a1)
+        return (bb._rescale_crt(e0.to(torch.int32), qv, self.encoding),
+                bb._rescale_crt(e1.to(torch.int32), qv, self.encoding))
 
 
 class Tunnel(nn.Module):

@@ -4,7 +4,9 @@ can reach them.
 The chain kernel's plain version must equal the JAX `_chain_kernel` run
 through `pl.pallas_call` in interpret mode; the roofline's work counts are
 pinned at two (n, B); the steptime legs run on the CPU at m = 64 and the
-`step` leg gives the step's own output.  Timing needs a card: every
+`step` leg gives the step's own output; its pt_round and HomomPRF inputs
+run on the CPU at m = 16 and decrypt right, and its built-once HomomPRF
+program equals the serving entry point.  Timing needs a card: every
 measurement entry point refuses to run without one.
 """
 
@@ -20,7 +22,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from lol_tpu.bench import mxu_ntt as jmx
-from lol_tpu_torch import numtheory as nt, sampling, she
+from lol_tpu_torch import numtheory as nt, prf, sampling, serving, she
 from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, sass_diff, steptime
 from lol_tpu_torch.ops.cuda import build
 from lol_tpu_torch.she_batched import BatchedBGV
@@ -137,9 +139,34 @@ def test_measurements_refuse_to_run_without_a_card(monkeypatch):
     for fn in (lambda: roofline.run(n=64, batch=8), lambda: mx.u32_ceiling(1, 8, 8, 1),
                lambda: mx.ceiling_input(8, 8, 1), lambda: steptime.run(m=64, B=2),
                lambda: steptime._tunnel_inputs(64, 3, 2, 0),
+               lambda: steptime.call_time(None, *[torch.zeros(1, 2, 3)] * 2, "", ""),
                lambda: ntt_ab.run(str(Path(__file__).resolve().parents[1]), "this tree")):
         with pytest.raises(RuntimeError, match="CUDA device"):
             fn()
+    for leg in ("--pt-round", "--homom-prf"):
+        monkeypatch.setattr(sys, "argv", ["steptime", leg, "--m", "16", "--batch", "2"])
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            steptime.main()
+
+
+def test_steptime_serving_inputs_on_cpu():
+    """pt_round and HomomPRF legs' inputs at m = 16 on the CPU: the
+    rounding chain decrypts to round-half-up(v / 4) mod 2, and the
+    built-once HomomPRF program equals batched_homom_prf_component and
+    decrypts to coefficient 0 of the clear PRF of the one key."""
+    run, bb_out, f_out, sk, vals, cts = steptime.pt_round_inputs(16, 8, 5, 1, "cpu")
+    got = bb_out.build_decrypt(she.SK(bb_out.params, sk.s_ints, 2.0), f=f_out)(*run(*cts))
+    assert got[0].tolist() == ((2 * vals * 2 + 8) // 16 % 2).tolist() and not got[1:].any()
+    fam, hints, bb, sk_out, s, cts = steptime.homom_prf_inputs(16, 8, 3, 2, "cpu")
+    assert len(hints.tunnels) == 3 and bb.params.qs == tuple(nt.ntt_primes(16, 30, 7))
+    run, bb_out, f_out = steptime.homom_prf_run(fam, hints, bb, (1, 0), 0)
+    out = run(*cts)
+    ref_bb, ref_f, ref = serving.batched_homom_prf_component(fam, hints, bb, *cts, (1, 0), 0)
+    assert bb_out.params == ref_bb.params and f_out == ref_f
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    got = bb_out.build_decrypt(she.SK(bb_out.params, sk_out.s_ints, 2.0), f=f_out)(*out)
+    want = prf.prf(fam, s[:, 0].numpy(), (1, 0), 2)[0][0]
+    assert got.tolist() == [[want] * 3]
 
 
 def test_steptime_legs_on_cpu_and_step_leg_equals_the_step():

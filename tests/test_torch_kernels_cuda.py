@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from lol_tpu_torch import numtheory as nt, she
-from lol_tpu_torch.bench import mxu_ntt as mx
+from lol_tpu_torch import numtheory as nt, prf, serving, she
+from lol_tpu_torch.bench import mxu_ntt as mx, steptime
 from lol_tpu_torch.ops import ntt
 from lol_tpu_torch.ops.cuda import ntt_kernel as tk, pointwise as pw, remote_ntt as rn
 from lol_tpu_torch.parallel import sharding as sh
@@ -26,13 +26,13 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1 << k for k in range(1, 17)])
+@pytest.mark.parametrize("n", [1 << k for k in range(0, 17)])
 @pytest.mark.parametrize("B", [1, 1000, 1024])
 def test_kernels_match_plain(cuda, n, B):
     """Every pass length the forward / GS kernels are built for: one pass
-    of L = n up to 4096, a cross pass of L = n/512 and the L = 512 block
-    pass above."""
-    q_src, q = nt.ntt_primes(2 * n, 30, 2)
+    of L = n up to 4096 (L = 1, the m = 2 ring, a round of no stages), a
+    cross pass of L = n/512 and the L = 512 block pass above."""
+    q_src, q = nt.ntt_primes(max(2 * n, 4), 30, 2)
     plan = ntt.ntt_plan(n, q)
     g = torch.Generator(device=cuda).manual_seed(n + B)
     x = torch.randint(0, q, (n, B), generator=g, device=cuda, dtype=torch.int32)
@@ -195,6 +195,27 @@ def test_lazy_passes_match_plain_after_a_fold(cuda, n, inverse):
                                         inverse, last=False))
             assert bool((got < hi).all())
             assert torch.equal(got % q, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_tower_tail_transforms_launch_once(cuda, n):
+    """The HomomPRF tower's last rings (m = 8, 4, 2): forward with and
+    without the digit prologue and the GS inverse, kernel == plain bit for
+    bit, one launch each; route B has no length-1 kernel and says so."""
+    q_src, q = nt.ntt_primes(8, 30, 2)
+    plan = ntt.ntt_plan(n, q)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(0, q, (n, 1024), generator=g, device=cuda, dtype=torch.int32)
+    x[0, :3] = torch.tensor([q - 1, 0, 1], device=cuda)
+    for kw in ({}, {"pre_digit_q": q_src}, {"inverse": True}):
+        before = dict(tk.LAUNCHES)
+        got = tk.ntt_cm(x, plan, **kw)
+        name = "ntt_inv" if kw.get("inverse") else "ntt_fwd"
+        assert {k: tk.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 0) | {name: 1}
+        assert torch.equal(got, tk.ntt_cm_ref(x, plan, **kw))
+    if n == 1:
+        with pytest.raises(NotImplementedError, match="n = 1"):
+            tk.ntt_cm(x, plan, inverse=True, alg="dit")
 
 
 def test_step_on_card_equals_step_on_cpu(cuda):
@@ -401,3 +422,58 @@ def test_ring_across_two_cards():
         devices = [torch.device("cuda", d % 2) for d in range(D)]
         _ring_vs_single_card(sh.make_mesh({"ring": D}, devices), plan, x)
     torch.cuda.synchronize("cuda:1")
+
+
+def test_pt_round_on_card_equals_cpu(cuda):
+    """build_pt_round Z_8 -> Z_2 at m = 512 over five primes, hints made on
+    the card: the CPU's output bit for bit, and the rounded scalars."""
+    params = she.SHEParams(m=512, p=8, qs=tuple(nt.ntt_primes(512, 30, 5)), var=2.0)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    sk = she.gen_sk(params, g)
+    rh = she.pt_round_hints(sk, g, cuda)
+    bb = BatchedBGV(params, cuda)
+    vals = torch.randint(0, 8, (40,), generator=g, device=cuda, dtype=torch.int32)
+    msgs = torch.zeros((256, 40), dtype=torch.int32, device=cuda)
+    msgs[0] = vals
+    cts = bb.build_encrypt(sk)(msgs, g)
+    run, bb_out, f_out = serving.build_pt_round(bb, rh)
+    out = run(*cts)
+    run_cpu = serving.build_pt_round(BatchedBGV(params, "cpu"), rh)[0]  # hints move with it
+    _same(out, run_cpu(*(c.cpu() for c in cts)))
+    got = bb_out.build_decrypt(she.SK(bb_out.params, sk.s_ints, 2.0), f=f_out)(*out)
+    assert got[0].tolist() == ((2 * vals * 2 + 8) // 16 % 2).tolist() and not got[1:].any()
+
+
+def test_homom_prf_tower_on_card_equals_cpu(cuda):
+    """HomomPRF component 0 down the halving tower m = 64 -> 2 (hints made
+    on the card; the tail runs n = 4, 2, 1): the CPU's output bit for bit,
+    and the clear PRF."""
+    fam, hints, bb, sk_out, s, cts = steptime.homom_prf_inputs(64, 8, 40, 4, cuda)
+    before = dict(tk.LAUNCHES)
+    bb_out, f_out, out = serving.batched_homom_prf_component(fam, hints, bb, *cts, (1, 0), 0)
+    assert tk.LAUNCHES["ntt_fwd"] > before["ntt_fwd"] and tk.LAUNCHES["ntt_inv"] > before["ntt_inv"]
+    _, _, ref = serving.batched_homom_prf_component(fam, hints, BatchedBGV(bb.params, "cpu"),
+                                                    *(c.cpu() for c in cts), (1, 0), 0)
+    _same(out, ref)
+    got = bb_out.build_decrypt(she.SK(bb_out.params, sk_out.s_ints, 2.0), f=f_out)(*out)
+    assert got.cpu().tolist() == [[prf.prf(fam, s[:, 0].cpu().numpy(), (1, 0), 2)[0][0]] * 40]
+
+
+@pytest.mark.parametrize("encoding", ["lsd", "msd"])
+def test_ext_builders_on_card_equal_cpu(cuda, encoding):
+    """build_step_ext and build_key_switch_linear_ext at m = 4096 with two
+    special primes, hints made on the card: the CPU's outputs."""
+    all5 = tuple(nt.ntt_primes(4096, 30, 5))
+    params = she.SHEParams(m=4096, p=257, qs=all5[:3], var=2.0)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    bb, bb_cpu = BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
+    sk, sk_new = she.gen_sk(params, g), she.gen_sk(params, g)
+    quad = bb.gen_ks_quad_hint_ext(sk, all5[3:], g)
+    lin = bb.gen_ks_linear_hint_ext(sk_new, sk, all5[3:], g)
+    e = bb.build_encrypt(sk, encoding)
+    a = e(she.pt_random(params, g, (40,)), g)
+    b = e(she.pt_random(params, g, (40,)), g)
+    _same(bb.build_step_ext(quad, encoding)(*a, *b),
+          bb_cpu.build_step_ext(quad, encoding)(*(c.cpu() for c in (*a, *b))))
+    _same(bb.build_key_switch_linear_ext(lin)(*a),
+          bb_cpu.build_key_switch_linear_ext(lin)(*(c.cpu() for c in a)))

@@ -145,7 +145,7 @@ def test_ntt_cm_rejects_bad_arguments():
         ntt.ntt_plan(48, 97)
 
 
-@pytest.mark.parametrize("n", [256, 2048, 4096, 8192, 16384, 65536])
+@pytest.mark.parametrize("n", [1, 2, 256, 2048, 4096, 8192, 16384, 65536])
 @pytest.mark.parametrize("sched", ["schedule", "cm_schedule"])
 def test_kernel_schedule_covers_every_stage(n, sched):
     """The CUDA pass geometry, checked where the CPU can reach it: the
@@ -249,12 +249,13 @@ def _run_rounds(x, plan, passes, inverse, scale=True):
     return x * plan.n_inv % q if inverse and scale else x
 
 
-@pytest.mark.parametrize("n", [256, 4096, 16384])
+@pytest.mark.parametrize("n", [1, 2, 256, 4096, 16384])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_register_rounds_equal_the_plain_networks(n, inverse, rng):
     """The rounds of ntt_fwd_pass / ntt_inv_pass, run plainly in their
     order over both schedules, equal ntt_forward_cm / ntt_inverse_cm and,
-    at n <= 4096, the interpret-mode Pallas ntt_cm, bit for bit."""
+    at n <= 4096, the interpret-mode Pallas ntt_cm, bit for bit; n = 1
+    (the m = 2 ring) is one round of no stages."""
     q = nt.ntt_primes(2 * n, 30, 1)[0]
     plan = ntt.ntt_plan(n, q)
     B = 128 if n <= 4096 else 8

@@ -189,7 +189,8 @@ def test_step_module_moves_with_its_buffers(jax_state):
 def test_port_never_imports_jax():
     """In a fresh interpreter where importing jax or lol_tpu fails, every
     module of the port imports (the package walked with pkgutil), and the
-    port still builds a pipeline and runs a step and a tunnel on the CPU."""
+    port still builds a pipeline and runs a step, a tunnel and a pt_round
+    on the CPU."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -202,8 +203,9 @@ def test_port_never_imports_jax():
             importlib.import_module(name)
         assert {"lol_tpu_torch.parallel.sharding", "lol_tpu_torch.ops.cuda.remote_ntt",
                 "lol_tpu_torch.bench.roofline", "lol_tpu_torch.ops.cuda.pointwise",
-                "lol_tpu_torch.linear", "lol_tpu_torch.ops.general"} <= set(mods)
-        from lol_tpu_torch import linear, numtheory as nt, she
+                "lol_tpu_torch.linear", "lol_tpu_torch.ops.general",
+                "lol_tpu_torch.serving", "lol_tpu_torch.prf"} <= set(mods)
+        from lol_tpu_torch import linear, numtheory as nt, serving, she
         from lol_tpu_torch.ring import ring_context
         from lol_tpu_torch.she_batched import BatchedBGV
         qs = tuple(nt.ntt_primes(32, 30, 2))
@@ -225,6 +227,16 @@ def test_port_never_imports_jax():
         got = bb.target_pipeline(th).build_decrypt(sk_s)(t0, t1)
         for b in range(2):
             assert (got[:, b].numpy() == linear.eval_lin(f, m1[:, b].numpy(), 17)).all()
+        # a pt_round Z_4 -> Z_2 (one squaring) on its own hints
+        p4 = she.SHEParams(m=16, p=4, qs=tuple(nt.ntt_primes(32, 30, 3)), var=2.0)
+        sk4 = she.gen_sk(p4, g)
+        bb4 = BatchedBGV(p4, "cpu")
+        run, bb_out, f_out = serving.build_pt_round(bb4, she.pt_round_hints(sk4, g, "cpu"))
+        msgs = torch.zeros((8, 4), dtype=torch.int32)
+        msgs[0] = torch.arange(4)
+        r = bb_out.build_decrypt(she.SK(bb_out.params, sk4.s_ints, 2.0), f=f_out)(
+            *run(*bb4.build_encrypt(sk4)(msgs, g)))
+        assert r[0].tolist() == [0, 1, 1, 0] and not r[1:].any()  # round-half-up(v / 2) mod 2
         assert not any(k == "jax" or k.startswith(("jax.", "lol_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
