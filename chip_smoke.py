@@ -25,7 +25,9 @@ then runs its phases and exits non-zero on the first failure:
    (D^2 | n), B in {1, 1000, 1024}, with 0, 1 and q - 1 planted; and the
    HomomPRF tower's tail, n in {1, 2, 4} (n = 1: the length-1 pass, one
    round of no stages): forward with and without the prologue and the GS
-   inverse, route B refused at n = 1;
+   inverse, route B refused at n = 1; and the 2-power axes of phase 3f's
+   general rings (n2 = 1024 and 512, the plans `axis_plan` gives them)
+   over B' = 6144 columns: forward with and without the prologue, GS;
 3. the batched BGV slice at full width (m = 32768 so n = 2^14, three
    30-bit primes, p = 257, var = 2.0, B = 1024): keygen, encrypt, the
    ct-mult + key-switch + rescale step, decrypt.  It checks the kernels'
@@ -78,6 +80,19 @@ then runs its phases and exits non-zero on the first failure:
    the new key, equal to the CPU's over columns 0-63, and their noise
    budget against the base-gadget builders' (printed, and it must be
    lower);
+3f. general m and the Galois automorphisms, launches counted as in 3e
+   (per n; a general-m transform is one `ntt_cm` over its 2-power axis):
+   (a) `bench.py`'s config-3 step, m = 18432 = 2^11 3^2 (n = 6144), p = 7,
+   3 primes, B = 1024, LSD and MSD, keys and the quad hint made on the
+   card: columns 0-7 decrypted against the general-m `pt_mul`, the output
+   equal to the CPU's over columns 0-15; (b) the tunnel 18432 -> 9216
+   (E = S, ys = [1, 0]), hints from `gen_tunnel_hint`'s general branch:
+   columns 0-7 against `eval_lin` (L and L^-1 mod p around it), GPU ==
+   CPU over columns 0-15; (c) `bench.py`'s galois leg at phase 3's ring,
+   k in {3, 5, 9}, hints from `gen_galois_hint`: `build_galois_many` ==
+   `build_galois` over all columns, columns 0-7 against the host
+   `she.galois_ints`, GPU == CPU over columns 0-15, and one rotation at
+   m = 18432 (k = 5) held the same way;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -102,8 +117,13 @@ then runs its phases and exits non-zero on the first failure:
    tunnel's at m = 32768 -> 16384 (B = 1024), and phase 3e's
    `pt_round_ops_per_sec`, `homom_prf_ops_per_sec` (its stages built once,
    as the reference bench does, and checked equal to the entry point's
-   output first) and `step_ext_ops_per_sec` (LSD), each printed on a
-   `metric` line beside the card line, with `step_ext_noise_bits_delta`.
+   output first) and `step_ext_ops_per_sec` (LSD), with
+   `step_ext_noise_bits_delta`; phase 3f's `bgv_general_m_ops_per_sec`
+   and `tunnel_general_m_ops_per_sec`, and the rotations hoisted against
+   separate in interleaved windows (`steptime.galois_ab`):
+   `galois_hoisted_rot_per_sec`, `galois_separate_rot_per_sec`,
+   `galois_hoisted_speedup`; each printed on a `metric` line beside the
+   card line.
    Phase 1 also fails if ptxas gave a ring or route-B kernel a stack
    frame or spills.
 
@@ -175,7 +195,7 @@ def main() -> int:
     import_port()
     from lol_tpu_torch import gadget, linear, numtheory as nt, prf, serving, she
     from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, steptime, time_ms
-    from lol_tpu_torch.ops import ntt
+    from lol_tpu_torch.ops import general as gen, ntt
     from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw
     from lol_tpu_torch.ops.cuda import remote_ntt as rn
     from lol_tpu_torch.parallel import sharding as sh
@@ -342,6 +362,22 @@ def main() -> int:
                 pass
             else:
                 raise AssertionError("route B ran at n = 1, where it has no kernel")
+    # the 2-power axes of phase 3f's general rings, m = 18432 and 9216
+    # (n2 = 1024, 512, the plans `axis_plan` gives them), over B' = 6 * 1024
+    # columns: forward with and without the prologue, and the GS inverse
+    for m_g in (18432, 9216):
+        q_g = nt.ntt_primes(18432, 30, 3)[0]
+        pl_g = gen.general_plan(m_g, q_g).axes[0].ntt2
+        x = torch.randint(0, q_g, (pl_g.n, 6 * 1024), generator=g, device=dev,
+                          dtype=torch.int32)
+        x.view(-1)[:3] = torch.tensor([0, 1, q_g - 1], device=dev)
+        err["ntt_fwd"] = max(err["ntt_fwd"], max_err(tk.ntt_cm(x, pl_g), tk.ntt_cm_ref(x, pl_g)))
+        err["ntt_inv"] = max(err["ntt_inv"], max_err(tk.ntt_cm(x, pl_g, inverse=True),
+                                                     tk.ntt_cm_ref(x, pl_g, inverse=True)))
+        xs = torch.randint(0, 12289, x.shape, generator=g, device=dev, dtype=torch.int32)
+        err["ntt_fwd"] = max(err["ntt_fwd"], max_err(tk.ntt_cm(xs, pl_g, pre_digit_q=12289),
+                                                     tk.ntt_cm_ref(xs, pl_g, pre_digit_q=12289)))
+        checks += 3
     torch.cuda.synchronize()
     if any(err.values()):
         raise AssertionError(f"kernel != plain: max abs err {err}")
@@ -456,7 +492,8 @@ def main() -> int:
     # Every GPU call runs between a reset and a read of the counts, which
     # must equal its NTT calls times the passes of `cm_schedule` (one at
     # n = 4096, 8192 and 2^14), its ct_mul calls, and nothing else.
-    path_launches = {ph: dict.fromkeys(counts(), 0) for ph in ("3c", "3d", "3e", "3e_ext")}
+    path_launches = {ph: dict.fromkeys(counts(), 0)
+                     for ph in ("3c", "3d", "3e", "3e_ext", "3f", "3f_galois")}
 
     def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, n_fwd=None, n_inv=None):
         return run_by_n(phase, name, fn, *args, fwd={n_fwd: fwd} if fwd else {},
@@ -776,6 +813,107 @@ def main() -> int:
          f"B = {B}: decrypts == pt_mul / the message; GPU == CPU over columns 0-63; noise "
          f"-{step_ext_delta:.2f} bits; launches {path_launches['3e_ext']}")
 
+    # -- phase 3f: general m and the Galois automorphisms ----------------
+    # (a) bench.py's config-3 step (bench.py:543-547): m = 18432 = 2^11 3^2
+    # (n = 6144, phi_shape (1024, 6)), p = 7, three primes, B = 1024.  Each
+    # CRT transform is one ntt_cm over the 2-power axis (n2 = 1024, B' =
+    # 6 B), so the 2-power step's counts hold at n2, and the 3^2 axis is
+    # plain torch.
+    m_g, p_g, cols_g = 18432, 7, 16
+    params_g = she.SHEParams(m=m_g, p=p_g, qs=tuple(nt.ntt_primes(m_g, 30, 3)), var=2.0)
+    n_g, n2_g = params_g.ctx.n, params_g.ctx.fm.phi_shape[0]
+    bb_g, bb_g_cpu = BatchedBGV(params_g, dev), BatchedBGV(params_g, "cpu")
+    sk_g = she.gen_sk(params_g, g)
+    pg_d = she.SHEParams(m=m_g, p=p_g, qs=params_g.qs[:-1], var=2.0)
+    bb_gd = BatchedBGV(pg_d, dev)
+    sk_gd = she.SK(pg_d, sk_g.s_ints, sk_g.var)
+    hint_g = run("3f", "gen_ks_quad_hint m=18432", bb_g.gen_ks_quad_hint, sk_g, g,
+                 fwd=nrns, n_fwd=n2_g)
+    a_g, b_g = she.pt_random(params_g, g, (B,)), she.pt_random(params_g, g, (B,))
+    ct_g, step_g = {}, {}
+    for e in ("lsd", "msd"):
+        enc_g = bb_g.build_encrypt(sk_g, e)
+        ct_g[e] = [run("3f", f"encrypt {e} m=18432", enc_g, x, g, fwd=nrns, n_fwd=n2_g)
+                   for x in (a_g, b_g)]
+        step_g[e] = bb_g.build_step(hint_g, encoding=e)
+        out = run("3f", f"step {e} m=18432", step_g[e], *ct_g[e][0], *ct_g[e][1],
+                  fwd=step_calls["ntt_fwd"], inv=step_calls["ntt_inv"], ct_mul=nrns,
+                  n_fwd=n2_g, n_inv=n2_g)
+        got = run("3f", f"decrypt {e} m=18432", bb_gd.build_decrypt(
+            sk_gd, f=bb_g.step_f(1, 1, e), encoding=e), *out, inv=nrns - 1, n_inv=n2_g)
+        decrypts_to(f"step {e} m=18432", got, pt_muls(a_g, b_g, params_g))
+        same_on_cpu(f"step {e} m=18432", out, bb_g_cpu.build_step(hint_g, encoding=e),
+                    *ct_g[e][0], *ct_g[e][1], ncols=cols_g)
+    mark(f"phase 3f: step LSD and MSD at m = {m_g} (n = {n_g}), p = {p_g}, B = {B}: decrypt of "
+         f"columns 0-7 == pt_mul; GPU == CPU over columns 0-{cols_g - 1}")
+    # (b) the tunnel 18432 -> 9216 (bench.py:454-496 at m_gt): E = S,
+    # ys = [1, 0]: 2 nrns inverses at n2 = 1024, d nrns + d nrns^2 forwards
+    # at n2 = 512
+    ps_g = she.SHEParams(m=m_g // 2, p=p_g, qs=params_g.qs, var=2.0)
+    n_gs, n2_gs = ps_g.ctx.n, ps_g.ctx.fm.phi_shape[0]
+    sk_gs = she.gen_sk(ps_g, g)
+    fmap_g = linear.linear_pow(ps_g.ctx, params_g.ctx, ps_g.ctx,
+                               [np.eye(1, n_gs, dtype=np.int64)[0], np.zeros(n_gs, dtype=np.int64)])
+    th_g = run("3f", "gen_tunnel_hint m=18432", bb_g.gen_tunnel_hint, fmap_g, sk_gs, sk_g, g,
+               fwd=nrns, n_fwd=n2_gs)
+    tun_g = bb_g.build_tunnel(th_g)
+    mt_g = she.pt_random(params_g, g, (B,))
+    ctt_g = run("3f", "encrypt m=18432", bb_g.build_encrypt(sk_g), mt_g, g, fwd=nrns, n_fwd=n2_g)
+    tg = run_by_n("3f", "tunnel m=18432", tun_g, *ctt_g,
+                  fwd={n2_gs: fmap_g.d * nrns * (1 + nrns)}, inv={n2_g: 2 * nrns})
+    got = run("3f", "decrypt over S m=9216", bb_g.target_pipeline(th_g).build_decrypt(sk_gs), *tg,
+              inv=nrns, n_inv=n2_gs)
+    # decrypt gives decoding-basis coefficients, eval_lin takes and gives
+    # powerful-basis ones: L and L^-1 mod p on either side
+    decrypts_to("tunnel m=18432", got, np.stack([gen.l_host(m_g // 2, linear.eval_lin(
+        fmap_g, gen.l_host(m_g, mt_g[:, k].cpu().numpy(), p_g), p_g), p_g, inverse=True)
+        for k in range(8)], -1))
+    same_on_cpu("tunnel m=18432", tg, BatchedBGV(params_g, "cpu").build_tunnel(th_g), *ctt_g,
+                ncols=cols_g)
+    mark(f"phase 3f: tunnel m = {m_g} -> {m_g // 2}, B = {B}: decrypt of columns 0-7 == "
+         f"eval_lin; GPU == CPU over columns 0-{cols_g - 1}; launches {path_launches['3f']}")
+    # (c) bench.py's galois leg (bench.py:330-387): m = 32768, the phase-3
+    # chain, p = 257, k in {3, 5, 9}: a rotation is nrns inverses and
+    # nrns (nrns - 1) digit forwards at n = 2^14; the hoisted module runs
+    # them once for all k
+    ks = (3, 5, 9)
+    ghints = {k: run("3f_galois", f"gen_galois_hint k={k}", bb.gen_galois_hint, k, sk, g,
+                     fwd=nrns, n_fwd=n) for k in ks}
+    gal_many = bb.build_galois_many(ghints)
+    gal_one = {k: bb.build_galois(ghints[k], k) for k in ks}
+    mg = she.pt_random(params, g, (B,))
+    ct_gal = run("3f_galois", "encrypt", enc, mg, g, fwd=nrns, n_fwd=n)
+    rot_fwd, rot_inv = nrns * (nrns - 1), nrns
+    outs_many = run("3f_galois", "galois_many", gal_many, *ct_gal, fwd=rot_fwd, inv=rot_inv,
+                    n_fwd=n, n_inv=n)
+    dec_gal = bb.build_decrypt(sk)
+    for k in ks:
+        out = run("3f_galois", f"galois k={k}", gal_one[k], *ct_gal, fwd=rot_fwd, inv=rot_inv,
+                  n_fwd=n, n_inv=n)
+        if not all(torch.equal(a, b) for a, b in zip(out, outs_many[k])):
+            raise AssertionError(f"galois_many != build_galois at k={k} over all {B} columns")
+        decrypts_to(f"galois k={k}", run("3f_galois", f"decrypt galois k={k}", dec_gal, *out,
+                                         inv=nrns, n_inv=n),
+                    np.stack([she.galois_ints(m, mg[:, c].cpu().numpy(), k, p) for c in range(8)], -1))
+        same_on_cpu(f"galois k={k}", out, BatchedBGV(params, "cpu").build_galois(ghints[k], k),
+                    *ct_gal, ncols=cols_g)
+    # one rotation at the general ring, m = 18432, k = 5
+    gh_g = run("3f_galois", "gen_galois_hint m=18432", bb_g.gen_galois_hint, 5, sk_g, g,
+               fwd=nrns, n_fwd=n2_g)
+    gal_g = bb_g.build_galois(gh_g, 5)
+    out = run("3f_galois", "galois k=5 m=18432", gal_g, *ct_g["lsd"][0], fwd=rot_fwd,
+              inv=rot_inv, n_fwd=n2_g, n_inv=n2_g)
+    decrypts_to("galois k=5 m=18432", run("3f_galois", "decrypt galois m=18432",
+                                          bb_g.build_decrypt(sk_g), *out, inv=nrns, n_inv=n2_g),
+                np.stack([she.galois_ints(m_g, a_g[:, c].cpu().numpy(), 5, p_g)
+                          for c in range(8)], -1))
+    same_on_cpu("galois k=5 m=18432", out, bb_g_cpu.build_galois(gh_g, 5), *ct_g["lsd"][0],
+                ncols=cols_g)
+    mark(f"phase 3f: galois k = {ks} at m = {m}, B = {B}: hoisted == separate over every "
+         f"column, decrypt of columns 0-7 == sigma_k; k = 5 at m = {m_g}; GPU == CPU over "
+         f"columns 0-{cols_g - 1}; launches {path_launches['3f_galois']}")
+    del outs_many, out
+
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
     # n = 4096 ones in phase 2, one channel of the step's here.
@@ -995,6 +1133,17 @@ def main() -> int:
         op_ms, op_wins = time_ms(fn, iters)
         timings[f"{key}_ops_per_sec"] = B / (op_ms / 1e3)
         timings[f"{key}_ms_windows"] = op_wins
+    # phase 3f's paths, as their caller sees them, on the inputs checked
+    # there; the rotations hoisted against separate in interleaved windows
+    for key, fn, iters in (("bgv_general_m", lambda: step_g["lsd"](*ct_g["lsd"][0], *ct_g["lsd"][1]), 5),
+                           ("tunnel_general_m", lambda: tun_g(*ctt_g), 5)):
+        op_ms, op_wins = time_ms(fn, iters)
+        timings[f"{key}_ops_per_sec"] = B / (op_ms / 1e3)
+        timings[f"{key}_ms_windows"] = op_wins
+    gal = steptime.galois_ab(gal_many, gal_one, *ct_gal, iters=3)
+    for key in ("galois_hoisted_rot_per_sec", "galois_separate_rot_per_sec",
+                "galois_hoisted_speedup", "ms_windows"):
+        timings[key if key != "ms_windows" else "galois_ms_windows"] = gal[key]
     timings["step_ext_noise_bits_delta"] = step_ext_delta
     timings["step_ext_noise_bits"] = noise
     timings["homom_prf_peak_GiB"] = prf_peak_gib
@@ -1002,7 +1151,9 @@ def main() -> int:
         print(f"timing {k} = {json.dumps(v)}", flush=True)
     for k in ("mod_switch_ops_per_sec", "ks_linear_ops_per_sec", "tunnel_ops_per_sec",
               "pt_round_ops_per_sec", "homom_prf_ops_per_sec", "step_ext_ops_per_sec",
-              "step_ext_noise_bits_delta"):
+              "step_ext_noise_bits_delta", "bgv_general_m_ops_per_sec",
+              "tunnel_general_m_ops_per_sec", "galois_hoisted_rot_per_sec",
+              "galois_separate_rot_per_sec", "galois_hoisted_speedup"):
         print(f"metric {k} = {timings[k]} on {card}", flush=True)
     mark("phase 4: timings done")
 
@@ -1025,6 +1176,8 @@ def main() -> int:
          "launches_tunnel": path_launches["3d"]["ntt_fwd"],
          "launches_serving": path_launches["3e"]["ntt_fwd"],
          "launches_ext": path_launches["3e_ext"]["ntt_fwd"],
+         "launches_general": path_launches["3f"]["ntt_fwd"],
+         "launches_galois": path_launches["3f_galois"]["ntt_fwd"],
          "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"],
          **bound("ntt_fwd", n, B), "library_ms": None},
         {"name": "ntt_inv_pass", "route": "cuda", "source": ntt_src,
@@ -1035,6 +1188,8 @@ def main() -> int:
          "launches_tunnel": path_launches["3d"]["ntt_inv"],
          "launches_serving": path_launches["3e"]["ntt_inv"],
          "launches_ext": path_launches["3e_ext"]["ntt_inv"],
+         "launches_general": path_launches["3f"]["ntt_inv"],
+         "launches_galois": path_launches["3f_galois"]["ntt_inv"],
          "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"],
          **bound("ntt_inv_gs", n, B), "library_ms": None},
         # one kernel in two geometries, as the reference's two bodies: the
@@ -1064,6 +1219,8 @@ def main() -> int:
          "launches_builders": path_launches["3c"]["ct_mul"],
          "launches_serving": path_launches["3e"]["ct_mul"],
          "launches_ext": path_launches["3e_ext"]["ct_mul"],
+         "launches_general": path_launches["3f"]["ct_mul"],
+         "launches_galois": path_launches["3f_galois"]["ct_mul"],
          "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"],
          **bound("ct_mul", n, B), "library_ms": None},
         {"name": "u32_chain", "route": "cuda", "source": "lol_tpu_torch/csrc/chain.cu",

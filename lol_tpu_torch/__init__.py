@@ -1,9 +1,9 @@
 """lol_tpu_torch: the PyTorch + CUDA (H100) port of lol_tpu.
 
 The JAX package `lol_tpu` is the reference; module names here mirror its
-own (`numtheory`, `zq`, `ops/ntt`, `ops/cuda/ntt_kernel` for
-`ops/pallas/ntt_kernel`, `ops/general`, `rns`, `gadget`, `ring`,
-`sampling`, `linear`, `she`, `she_batched`), and every result is
+own (`numtheory`, `zq`, `factored`, `zmstar`, `ops/ntt`,
+`ops/cuda/ntt_kernel` for `ops/pallas/ntt_kernel`, `ops/general`, `rns`,
+`gadget`, `ring`, `sampling`, `linear`, `she`, `she_batched`), and every result is
 bit-identical to it.  This package imports torch and numpy, never jax
 and never lol_tpu.
 

@@ -28,7 +28,15 @@ the homomorphic rounding chain Z_p -> Z_2 at m (p = 8, pt_round_mults(p)
 0 of HomomPRF down the halving tower m -> 2 (project maps, p = 8,
 pt_round_mults(p) + 4 primes, BaseBGad(2), balanced(2), bits (1, 0):
 `lol_tpu/bench/she_bench.py`'s leg), each built once and timed as its
-caller sees it; --trace profiles five calls.
+caller sees it; --trace profiles five calls.  The general-m legs
+(`bench.py`'s config 3): --general-m breaks the step down as above at
+m = 18432 = 2^11 3^2 (n = 6144, p = 7), --tunnel-general times the tunnel
+18432 -> 9216 (p = 7); --galois times hoisted rotations (`build_galois_many`)
+against separate ones (`build_galois` per k) at m = 32768, k in {3, 5, 9},
+in interleaved windows (`galois_ab`), and --trace profiles five calls of
+each arm.  The two general legs also print the odd axes' share
+(`odd_axis`): `matvec_mod`'s device time inside the call, and alone on
+one channel.  --m overrides each leg's ring.
 """
 
 from __future__ import annotations
@@ -41,8 +49,10 @@ import numpy as np
 import torch
 
 from .. import gadget, linear, numtheory as nt, prf, sampling, serving, she
+from ..ops import general as gen
+from ..ops.cuda.ntt_kernel import ntt_cm
 from ..she_batched import BatchedBGV, BGVStep
-from . import require_cuda, time_ms
+from . import SPIN_CYCLES, require_cuda, time_ms
 
 PARTS = ("intt", "digits", "hadamard", "rescale")
 
@@ -138,9 +148,70 @@ def by_kernel(fn, args, trace_dir: str, steps: int = 5) -> dict:
     }
 
 
-def _inputs(m: int, nrns: int, B: int, seed: int):
+def odd_axis(fn, args, plan: gen.GeneralPlan, calls: int = 5, iters: int = 5,
+             windows: int = 5) -> dict:
+    """The general-m transforms' odd axes on the card, device time only.
+    In the call: a CUDA-event pair around each `ops.general.matvec_mod`
+    over `calls` calls of fn(*args), each queued behind a device spin (so
+    the pairs and the call's span hold no host gap); their sum against the
+    spans.  Alone, on one (n, B) channel of `plan`'s ring: the forward
+    `crt_cm`, its 2-power axis (`ntt_cm` on the (n2, rest B) reshape) and
+    its odd axes (`matvec_mod` and the int32 cast)."""
     dev = require_cuda()
-    params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
+    inner, pairs, spans = gen.matvec_mod, [], []
+
+    def bracketed(*a, **k):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = inner(*a, **k)
+        t1.record()
+        pairs.append((t0, t1))
+        return out
+
+    fn(*args)
+    torch.cuda.synchronize()
+    gen.matvec_mod = bracketed
+    try:
+        for _ in range(calls):
+            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            s0.record()
+            fn(*args)
+            s1.record()
+            spans.append((s0, s1))
+        torch.cuda.synchronize()
+    finally:
+        gen.matvec_mod = inner
+    odd = sum(a.elapsed_time(b) for a, b in pairs) / calls
+    span = sum(a.elapsed_time(b) for a, b in spans) / calls
+    shape, B = plan.phi_shape, args[0].shape[-1]
+    n, n2 = plan.fm.phi, shape[0]
+    x = sampling.uniform_residues((plan.q,), (n, B),
+                                  torch.Generator(device=dev).manual_seed(0))[0]
+    odd_axes = [i for i, ax in enumerate(plan.axes) if ax.ntt2 is None and ax.phi > 1]
+
+    def odd_alone():
+        y = x
+        for i in odd_axes:
+            y = inner(plan.dense(i, False, dev), y.reshape(*shape, B), plan.q,
+                      axis=i).view(n, B).to(torch.int32)
+        return y
+
+    alone = {"crt_cm": lambda: gen.crt_cm(plan, x),
+             "axis2": lambda: ntt_cm(x.reshape(n2, (n // n2) * B).contiguous(),
+                                     plan.axes[0].ntt2),
+             "odd_axes": odd_alone}
+    return {"metric": f"odd axes of m={plan.fm.m}, phi_shape={shape}, B={B}",
+            "matvec_mod_calls_per_call": len(pairs) / calls,
+            "matvec_mod_device_ms_per_call": odd, "span_device_ms_per_call": span,
+            "matvec_mod_pct_of_span": 100 * odd / span,
+            "alone_device_ms": {k: time_ms(f, iters, windows, device_only=True)[0]
+                                for k, f in alone.items()}}
+
+
+def _inputs(m: int, nrns: int, B: int, seed: int, p: int = 257):
+    dev = require_cuda()
+    params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
     g = torch.Generator(device=dev).manual_seed(seed)
     bb = BatchedBGV(params, dev)
     step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, g), g))
@@ -148,12 +219,12 @@ def _inputs(m: int, nrns: int, B: int, seed: int):
     return step, cts
 
 
-def _tunnel_inputs(m: int, nrns: int, B: int, seed: int):
+def _tunnel_inputs(m: int, nrns: int, B: int, seed: int, p: int = 257):
     """The tunnel m -> m/2 (E = S, ys = [1, 0]) with hints made on the
     card, and an encrypted (c0, c1) batch over m."""
     dev = require_cuda()
-    params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
-    ps = she.SHEParams(m=m // 2, p=257, qs=params.qs, var=2.0)
+    params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
+    ps = she.SHEParams(m=m // 2, p=p, qs=params.qs, var=2.0)
     g = torch.Generator(device=dev).manual_seed(seed)
     bb = BatchedBGV(params, dev)
     sk = she.gen_sk(params, g)
@@ -220,6 +291,46 @@ def homom_prf_inputs(m_top: int, p: int, B: int, seed: int, device="cuda"):
     return fam, hints, bb, sk_out, s, bb.build_encrypt(sks[0])(s.expand(-1, B), g)
 
 
+GALOIS_KS = (3, 5, 9)
+
+
+def galois_inputs(m: int, nrns: int, B: int, seed: int, ks=GALOIS_KS, device="cuda"):
+    """The rotations of `bench.py`'s galois leg: sigma_k hints made on the
+    device (p = 257), the hoisted module over all ks, one `build_galois`
+    per k, and uniform (c0, c1): (many, singles, sk, (c0, c1))."""
+    params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sk = she.gen_sk(params, g)
+    bb = BatchedBGV(params, device)
+    hints = {k: bb.gen_galois_hint(k, sk, g) for k in ks}
+    cts = tuple(sampling.uniform_residues(params.qs, (params.ctx.n, B), g) for _ in range(2))
+    return (bb.build_galois_many(hints), {k: bb.build_galois(hints[k], k) for k in ks},
+            sk, cts)
+
+
+def galois_ab(many, singles: dict, c0, c1, iters: int = 5, windows: int = 5) -> dict:
+    """Hoisted against separate rotations on the card, as their caller
+    sees them, in interleaved windows (hoisted, separate, hoisted, ...):
+    the rotations per second of each and the speedup (the ratio of the
+    median windows), with every window."""
+    require_cuda()
+    nrns, n, B = c0.shape
+    arms = {"hoisted": lambda: many(c0, c1),
+            "separate": lambda: [fn(c0, c1) for fn in singles.values()]}
+    wins = {k: [] for k in arms}
+    for _ in range(windows):
+        for k, fn in arms.items():
+            wins[k].append(time_ms(fn, iters, windows=1)[0])
+    med = {k: statistics.median(v) for k, v in wins.items()}
+    rot = len(singles) * B
+    return {"metric": f"Galois rotations k={sorted(singles)}, n={n}, {nrns}x30-bit, B={B}",
+            "device": torch.cuda.get_device_name(c0.device), "ms_per_call": med,
+            "ms_windows": wins,
+            "galois_hoisted_rot_per_sec": rot / (med["hoisted"] / 1e3),
+            "galois_separate_rot_per_sec": rot / (med["separate"] / 1e3),
+            "galois_hoisted_speedup": med["separate"] / med["hoisted"]}
+
+
 def call_time(fn, c0, c1, what: str, key: str, iters: int = 5, windows: int = 5) -> dict:
     """The JSON line of fn(c0, c1) on the card: ms per call as its caller
     sees it (median and windows), and ops/s under `key`."""
@@ -240,7 +351,8 @@ def run(m: int = 32768, nrns: int = 3, B: int = 1024, iters: int = 5,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--m", type=int, default=32768)
+    ap.add_argument("--m", type=int, default=None,
+                    help="the ring (default 32768; 18432 for the general-m legs)")
     ap.add_argument("--rns", type=int, default=3)
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=5)
@@ -251,10 +363,25 @@ def main() -> None:
                     help="the rounding chain Z_8 -> Z_2 at m, not the step")
     ap.add_argument("--homom-prf", action="store_true",
                     help="HomomPRF component 0 down the tower m -> 2, not the step")
+    ap.add_argument("--general-m", action="store_true",
+                    help="the step at the general m = 18432, p = 7")
+    ap.add_argument("--tunnel-general", action="store_true",
+                    help="the tunnel 18432 -> 9216, p = 7, not the step")
+    ap.add_argument("--galois", action="store_true",
+                    help="hoisted against separate rotations k = 3, 5, 9, not the step")
     args = ap.parse_args()
-    if args.tunnel:
-        fn, cts = _tunnel_inputs(args.m, args.rns, args.batch, 0)
-        print(json.dumps(call_time(fn, *cts, "tunnel to n/2", "tunnel_ops_per_sec",
+    general = args.general_m or args.tunnel_general
+    if args.m is None:
+        args.m = 18432 if general else 32768
+    p = 7 if general else 257
+    if args.galois:
+        require_cuda()
+        fn, singles, _, cts = galois_inputs(args.m, args.rns, args.batch, 0)
+        print(json.dumps(galois_ab(fn, singles, *cts, args.iters, args.windows)))
+    elif args.tunnel or args.tunnel_general:
+        fn, cts = _tunnel_inputs(args.m, args.rns, args.batch, 0, p)
+        key = "tunnel_general_m_ops_per_sec" if general else "tunnel_ops_per_sec"
+        print(json.dumps(call_time(fn, *cts, f"tunnel m={args.m} -> {args.m // 2}", key,
                                    args.iters, args.windows)))
     elif args.pt_round:
         require_cuda()
@@ -268,9 +395,17 @@ def main() -> None:
         print(json.dumps(call_time(fn, *cts, f"HomomPRF component, tower m={args.m} -> 2",
                                    "homom_prf_ops_per_sec", args.iters, args.windows)))
     else:
-        fn, cts = _inputs(args.m, args.rns, args.batch, 0)
+        fn, cts = _inputs(args.m, args.rns, args.batch, 0, p)
         print(json.dumps(breakdown(fn, *cts, iters=args.iters, windows=args.windows)))
-    if args.trace:
+    if general:
+        qs = nt.ntt_primes(args.m, 30, args.rns)
+        print(json.dumps(odd_axis(fn, cts, gen.general_plan(args.m, qs[0]),
+                                  iters=args.iters, windows=args.windows)))
+    if args.trace and args.galois:
+        for arm, f in (("hoisted", fn), ("separate",
+                                         lambda c0, c1: [g(c0, c1) for g in singles.values()])):
+            print(json.dumps({"arm": arm, **by_kernel(f, cts, f"{args.trace}/{arm}")}))
+    elif args.trace:
         print(json.dumps(by_kernel(fn, cts, args.trace)))
 
 

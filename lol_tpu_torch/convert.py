@@ -19,8 +19,10 @@ objects, so both sides compute on identical state:
     hints = eval_hints_from_numpy(params, [(m_e, m_r, m_s, ys, h0, h1), ...], p_final,
                                   rounds=[(h0_i, h1_i), ...])
 
-Like the port's other entry points they place their tensors on the card
-unless the caller names another device.
+They work at any m (a general-m `Linear`'s ys are powerful-basis
+coefficients, as `lift_ints(rep=Rep.POW)` gives them).  Like the port's
+other entry points they place their tensors on the card unless the
+caller names another device.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 Counterpart of `lol_tpu/ops/ntt.py` for 2-power cyclotomics: for
 m = 2^(k+1), R_q = Z_q[x]/(x^n + 1) with n = 2^k, and the CRT basis
-transform is the psi-twisted (negacyclic) NTT.
+transform is the psi-twisted (negacyclic) NTT; a general-m ring runs the
+same plan on its 2-power axis (`ops/general.py`).
 
 The forward transform is decimation-in-time (natural order in,
 bit-reversed out) and the inverse is Gentleman-Sande (bit-reversed in,

@@ -216,7 +216,7 @@ def make_eval_hints(fam: PRFFamily, sks: list[she.SK], rings: list[int],
         if e_rings[i] == rings[i + 1] and (maps == "slots" or maps == "auto" and p % 2):
             raise NotImplementedError(
                 "make_eval_hints: the slot maps (crtset, linear.slot_projection) are not "
-                "ported yet (ROADMAP queue A, with general m); use maps='project'")
+                "ported yet (ROADMAP queue A, with the CRT sets); use maps='project'")
         r_ctx, s_ctx, e_ctx = (ring_context(m, qs) for m in (rings[i], rings[i + 1], e_rings[i]))
         ys = [np.zeros(s_ctx.n, dtype=np.int64) for _ in range(r_ctx.n // e_ctx.n)]
         ys[0][0] = 1

@@ -2,13 +2,16 @@
 homomorphic rounding's schedule.
 
 Counterpart of the pieces of `lol_tpu/she.py` that the batched pipeline
-and the serving layer use (2-power m): c(s) = c0 + c1 s satisfies
+and the serving layer use, at any m: c(s) = c0 + c1 s satisfies
 c(s) = f*m + p*e (mod Q) under the LSD encoding and c(s) = round(Q/p)*m
 + e (mod Q) under the MSD one, with message m in R_p, small error e and
 a tracked scale factor f in Z_p^*.  Beside them: the extended-modulus
-(hybrid) key-switch hint `KSHintExt`, and the rounding's pieces
+(hybrid) key-switch hint `KSHintExt`, the rounding's pieces
 (`PTRoundHints`, `pt_round_mults`, `pt_round_hints`) that
-`serving.build_pt_round` runs.
+`serving.build_pt_round` runs, and the host plaintext oracles: exact
+products in R_p (`pt_mul`, `ring_mul_sum`) and the automorphisms
+(`galois_ints`).  Messages are decoding-basis coefficients (at 2-power m
+the powerful and decoding bases coincide).
 """
 
 from __future__ import annotations
@@ -21,16 +24,17 @@ import torch
 
 from . import numtheory as nt
 from . import sampling
+from .factored import fact
 from .linear import Linear
-from .ops import ntt as ntt_mod
+from .ops import general as gen
 from .ring import RingContext, ring_context
 from .rns import rns_basis
 
 
 @dataclass(frozen=True)
 class SHEParams:
-    """Cyclotomic index m (2-power), plaintext modulus p, ciphertext chain
-    qs (NTT primes for m), and the error variance."""
+    """Cyclotomic index m, plaintext modulus p, ciphertext chain qs (NTT
+    primes for m), and the error variance."""
 
     m: int
     p: int
@@ -92,8 +96,9 @@ class TunnelHint:
 
 
 def gen_sk(params: SHEParams, generator: torch.Generator) -> SK:
-    """Sample s as rounded Gaussian coefficients of variance params.var."""
-    s = sampling.gaussian_ints((params.ctx.n,), params.var, generator, "cpu")
+    """Sample s from the rounded decoding-basis Gaussian of variance
+    params.var (`sampling.gaussian_dec_ints`)."""
+    s = sampling.gaussian_dec_ints(params.ctx, params.var, generator, device="cpu")
     return SK(params, s, params.var)
 
 
@@ -106,17 +111,23 @@ def pt_random(params: SHEParams, generator: torch.Generator,
 
 
 def pt_mul(params: SHEParams, a, b) -> np.ndarray:
-    """Plaintext ring product in R_p (exact, host; `ring_mul_sum`).
-    int64 (n,) out."""
-    return ring_mul_sum([(a, b)], params.p)
+    """Plaintext ring product in R_p of decoding-basis coefficient vectors
+    (exact, host; `ring_mul_sum`).  int64 (n,) out."""
+    return ring_mul_sum([(a, b)], params.p, params.m)
 
 
-def ring_mul_sum(pairs, p: int) -> np.ndarray:
-    """sum_k a_k * b_k in Z_p[x]/(x^n + 1), exact on the host, for any p
-    (p = 2^k is no NTT modulus): the operands' centered lifts, a numpy
-    negacyclic NTT product over an auxiliary chain sized to the integer
-    bound n * sum_k max|a_k| max|b_k|, the centered CRT lift, then mod p.
-    pairs: (a_k, b_k), integer (n,) arrays; int64 (n,) out in [0, p)."""
+def ring_mul_sum(pairs, p: int, m: int | None = None, basis: str = "dec") -> np.ndarray:
+    """sum_k a_k * b_k in R_p = Z_p[zeta_m], exact on the host, for any p
+    (p = 2^k is no NTT modulus): the operands' centered lifts, a numpy CRT
+    product over an auxiliary chain sized to the integer bound, the
+    centered CRT lift, then mod p.  pairs: (a_k, b_k), integer (n,)
+    coefficient arrays; int64 (n,) out in [0, p).  m: the index, by
+    default the 2-power one of n = len(a) (Z_p[x]/(x^n + 1), where the
+    bases coincide).  `basis` says whether the coefficients are
+    decoding-basis ("dec", messages) or powerful-basis ("pow"); at 2-power
+    m, where L is the identity, the two agree.  The chain covers
+    n max|a| max|b| 2^(omega + 1), omega the number of odd primes of m (the
+    reference's general-m bound)."""
     def centered(x):
         x = np.asarray(x, dtype=np.int64) % p
         return np.where(x >= (p + 1) // 2, x - p, x)
@@ -125,20 +136,71 @@ def ring_mul_sum(pairs, p: int) -> np.ndarray:
     b = np.stack([centered(y) for _, y in pairs])
     n = a.shape[-1]
     bound = n * sum(int(np.abs(x).max()) * int(np.abs(y).max()) for x, y in zip(a, b))
-    aux_qs = _aux_chain(2 * n, 2 * bound)
+    fm = fact(2 * n if m is None else m)
+    if fm.phi != n:
+        raise ValueError(f"ring_mul_sum: coefficients of length {n}, phi({fm.m}) = {fm.phi}")
+    if basis not in ("dec", "pow"):
+        raise ValueError(f"ring_mul_sum: basis must be 'dec' or 'pow', got {basis!r}")
+    omega = sum(1 for pp in fm.pps if pp.p != 2)
+    aux_qs = _aux_chain(fm.m, 2 * (bound << (omega + 1)))
+    plans = [gen.general_plan(fm.m, q) for q in aux_qs]
+    dec = basis == "dec"
+
+    def fwd(x, gp):
+        return gen.np_crt(gp, gen.np_l(gp, x) if dec else x)
+
+    def inv(x, gp):
+        y = gen.np_crt(gp, x, inverse=True)
+        return gen.np_l(gp, y, inverse=True) if dec else y
+
     res = []
-    for q in aux_qs:
-        plan = ntt_mod.ntt_plan(n, q)
-        fa = ntt_mod.np_ntt_forward(np.mod(a, q).astype(np.uint32), plan).astype(np.int64)
-        fb = ntt_mod.np_ntt_forward(np.mod(b, q).astype(np.uint32), plan).astype(np.int64)
+    for plan in plans:
+        q = plan.q
+        fa = fwd(np.mod(a, q).astype(np.uint32), plan).astype(np.int64)
+        fb = fwd(np.mod(b, q).astype(np.uint32), plan).astype(np.int64)
         prod = (fa * fb % q).sum(0) % q
-        res.append(ntt_mod.np_ntt_inverse(prod[None].astype(np.uint32), plan)[0])
+        res.append(inv(prod[None].astype(np.uint32), plan)[0])
     lifted = rns_basis(aux_qs).lift_centered(np.stack(res))
     return (lifted % p).astype(np.int64)
 
 
+def galois_ints(m: int, x, k: int, p: int) -> np.ndarray:
+    """The plaintext automorphism sigma_k (zeta -> zeta^k, gcd(k, m) = 1)
+    of x in R_p given by its decoding-basis coefficients; int64 (n,) out
+    in [0, p) (the host counterpart of the reference's `Cyc.galois`).  At
+    2-power m the signed permutation x^i -> x^(ik mod 2n); at general m
+    the CRT slot permutation of `zmstar.automorphism_slot_perm` on the
+    centered lift over an auxiliary chain sized to n^2 max|x| 4^omega (L,
+    sigma_k on the powerful basis and L^-1 each grow the coefficients by at
+    most n, p - 1 and 2 per odd axis)."""
+    from . import zmstar
+
+    fm = fact(m)
+    x = np.asarray(x, dtype=np.int64) % p
+    x = np.where(x >= (p + 1) // 2, x - p, x)
+    n = fm.phi
+    if x.shape != (n,):
+        raise ValueError(f"galois_ints: x of shape {x.shape}, phi({m}) = {n}")
+    if math.gcd(k, m) != 1:
+        raise ValueError(f"galois_ints: k={k} not a unit mod m={m}")
+    if fm.is_pow2():
+        e = np.arange(n, dtype=np.int64) * k % (2 * n)
+        out = np.zeros(n, dtype=np.int64)
+        out[e % n] = np.where(e < n, x, -x)
+        return out % p
+    omega = sum(1 for pp in fm.pps if pp.p != 2)
+    aux_qs = _aux_chain(m, 2 * (n * n * max(1, int(np.abs(x).max())) << (2 * omega)))
+    res = []
+    for q in aux_qs:
+        gp = gen.general_plan(m, q)
+        slots = gen.np_crt(gp, gen.np_l(gp, np.mod(x, q).astype(np.uint32)))
+        moved = slots[zmstar.automorphism_slot_perm(m, q, k)]
+        res.append(gen.np_l(gp, gen.np_crt(gp, moved, inverse=True), inverse=True))
+    return (rns_basis(aux_qs).lift_centered(np.stack(res)) % p).astype(np.int64)
+
+
 def _aux_chain(m_mult: int, bound: int) -> tuple[int, ...]:
-    """Smallest chain of 29-bit primes = 1 mod m_mult whose product
+    """The smallest chain of 29-bit primes = 1 mod m_mult whose product
     exceeds `bound`, so centered lifts of values in [-bound/2, bound/2]
     are exact."""
     k = 1

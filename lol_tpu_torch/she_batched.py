@@ -1,4 +1,4 @@
-"""Batched, device-resident BGV pipeline (2-power m, LSD and MSD).
+"""Batched, device-resident BGV pipeline (any m, LSD and MSD).
 
 Counterpart of `lol_tpu/she_batched.py`.  Ciphertext components are
 coefficient-major (nrns, n, B) int32 tensors (batch along the last axis,
@@ -6,14 +6,20 @@ the NTT kernels' native layout), and one `build_step` module performs
 
     ct_mul (CRT Hadamards) -> RNS-gadget key switch -> exact BGV rescale
 
-on the device.  Every NTT goes through `ops.cuda.ntt_kernel.ntt_cm` and
-the ct-mult Hadamards through `ops.cuda.pointwise.ct_mul_cm`, one launch
-per channel, so on a CUDA device the pipeline runs the Hopper kernels
-(with each RNS-gadget digit's re-expansion fused into the forward NTT
-kernel as its prologue), and on the CPU their plain torch versions.  The
-JAX step leaves the Hadamards to XLA, which overlaps them with its NTT
-calls (`she_batched.py:828-837` there); eager PyTorch overlaps nothing,
-so the port fuses them.  The hint inner products, the rescale and the
+on the device.  Every CRT transform of a 2-power ring goes through
+`ops.cuda.ntt_kernel.ntt_cm`, and at general m through
+`ops.general.crt_cm`, whose 2-power axis is the same `ntt_cm` on a free
+reshape and whose odd axes are plain int64 torch matrix products (the
+reference runs them on XLA, not Pallas); messages, errors and
+decryptions are decoding-basis coefficients there, turned into the
+powerful basis by `ops.general.l_cm` (`_l`).  The ct-mult Hadamards go
+through `ops.cuda.pointwise.ct_mul_cm`, one launch per channel, so on a
+CUDA device the pipeline runs the Hopper kernels (with each RNS-gadget
+digit's re-expansion fused into the forward NTT kernel as its
+prologue), and on the CPU their plain torch versions.  The JAX step
+leaves the Hadamards to XLA, which overlaps them with its NTT calls
+(`she_batched.py:828-837` there); eager PyTorch overlaps nothing, so
+the port fuses them.  The hint inner products, the rescale and the
 arithmetic of every other `build_*` function are plain int64 torch
 elementwise ops.
 
@@ -23,17 +29,17 @@ with Delta = Q // p (encrypt, the exact scaled-rounding decrypt through
 add).  Beside the step: `build_mod_switch`, `build_key_switch_linear`,
 ciphertext add / sub with scale alignment, public-plaintext add and
 multiply, the encoding switches, exact division by d, the batched error
-term and noise budget, the fused ring tunnel R -> S of a 2-power tower
-(`build_tunnel`, an `nn.Module` like the step), and extended-modulus
-(hybrid) key switching (`build_step_ext`, `build_key_switch_linear_ext`:
-the digits' inner products run over Q*P with hints made over that chain,
-and the special primes P are dropped by exact rescales, which divides the
-key-switch noise by P).  Hints for T targets come from one device pass
+term and noise budget, the fused ring tunnel R -> S of a tower
+(`build_tunnel`, an `nn.Module` like the step), the batched Galois
+automorphisms (`build_galois`, and `build_galois_many`, which shares one
+inverse transform and one digit stack among its rotations), and
+extended-modulus (hybrid) key switching (`build_step_ext`,
+`build_key_switch_linear_ext`: the digits' inner products run over Q*P
+with hints made over that chain, and the special primes P are dropped by
+exact rescales, which divides the key-switch noise by P).  Hints for T targets come from one device pass
 (`_gen_gadget_hints`).  Every result is
 bit-identical to `lol_tpu.she_batched.BatchedBGV(params, use_pallas=False)`
 (the noise budget, float32, to its rounding).
-
-General m is not ported yet: its ring contexts raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from torch import nn
 
 from . import gadget as gd
 from . import numtheory as nt
-from . import sampling, zq
+from . import sampling, zmstar, zq
 from .linear import Linear
 from .ops import general as gen
 from .ops import ntt as ntt_mod
@@ -125,27 +131,18 @@ def decompose_cm(qs, x: torch.Tensor) -> torch.Tensor:
     return torch.stack(digs).to(torch.int32)
 
 
-def _crt_np(plans, ints) -> np.ndarray:
-    """(nrns, n) u32 CRT residues of integer coefficients (host numpy
-    NTT, one plan per channel)."""
+def _crt_np(ctx: RingContext, ints) -> np.ndarray:
+    """(nrns, n) u32 CRT residues of (n,) integer powerful-basis
+    coefficients over ctx (host numpy, `ops.general.np_crt`: at 2-power m
+    the NTT)."""
     x = np.asarray(ints, dtype=np.int64)
-    return np.stack([
-        ntt_mod.np_ntt_forward(np.mod(x, p.q).astype(np.uint32)[None], p)[0]
-        for p in plans
-    ])
+    return np.stack([gen.np_crt(gp, np.mod(x, gp.q).astype(np.uint32)[None])[0]
+                     for gp in ctx.general_plans()])
 
 
 def _s_crt_np(params: SHEParams, s_ints: torch.Tensor) -> np.ndarray:
     """(nrns, n) u32 CRT residues of small integer coefficients."""
-    return _crt_np(params.ctx.ntt_plans(), s_ints.numpy())
-
-
-def _monomial_mul_np(s: np.ndarray, k: int, n: int) -> np.ndarray:
-    """x^k * s(x) in Z[x]/(x^n + 1): a negacyclic coefficient shift."""
-    out = np.empty(n, dtype=np.int64)
-    out[k:] = s[: n - k]
-    out[:k] = -s[n - k:]
-    return out
+    return _crt_np(params.ctx, s_ints.numpy())
 
 
 class BatchedBGV:
@@ -155,10 +152,11 @@ class BatchedBGV:
     def __init__(self, params: SHEParams, device="cuda"):
         self.params = params
         self.device = torch.device(device)
-        self.ctx = params.ctx  # raises NotImplementedError for non-2-power m
+        self.ctx = params.ctx
         self.qs = params.qs
 
     def plans(self) -> list[ntt_mod.NTTPlan]:
+        """The NTT plans of a 2-power ring (raises at general m)."""
         return self.ctx.ntt_plans()
 
     def _over(self, ctx: RingContext) -> "BatchedBGV":
@@ -190,17 +188,30 @@ class BatchedBGV:
                 for b in range(comps[0].shape[-1])]
 
     # --- per-channel transforms -----------------------------------------
-    def _crt_one(self, x2d, ch, inverse=False, pre_digit_q=None):
-        """(n, B) single-channel CRT transform; pre_digit_q fuses the
-        digit re-expansion into the forward kernel."""
-        return ntt_cm(x2d, self.plans()[ch], inverse=inverse,
-                      pre_digit_q=pre_digit_q)
+    def _crt_one(self, x2d, ch, inverse=False, ctx=None, pre_digit_q=None):
+        """(n, B) single-channel CRT transform of ring ctx (this one's by
+        default): `ntt_cm` at 2-power m, `ops.general.crt_cm` otherwise;
+        pre_digit_q fuses the digit re-expansion into the forward kernel."""
+        ctx = self.ctx if ctx is None else ctx
+        if not ctx.fm.is_pow2():
+            return gen.crt_cm(ctx.general_plans()[ch], x2d, inverse=inverse,
+                              pre_digit_q=pre_digit_q)
+        return ntt_cm(x2d, ctx.ntt_plans()[ch], inverse=inverse, pre_digit_q=pre_digit_q)
 
-    def _ntt(self, x, inverse=False):
-        """(nrns, n, B) per-channel transform."""
+    def _ntt(self, x, inverse=False, ctx=None):
+        """(nrns, n, B) per-channel CRT transform (named for the 2-power
+        pipeline; it dispatches per ring)."""
         return torch.stack(
-            [self._crt_one(x[i], i, inverse) for i in range(x.shape[0])]
+            [self._crt_one(x[i], i, inverse, ctx=ctx) for i in range(x.shape[0])]
         )
+
+    def _l(self, x, inverse=False):
+        """(nrns, n, B) per-channel L / L^-1 (decoding <-> powerful basis),
+        int32; the identity at 2-power m, where the bases coincide."""
+        if self.ctx.fm.is_pow2():
+            return x
+        gps = self.ctx.general_plans()
+        return torch.stack([gen.l_cm(gps[i], x[i], inverse) for i in range(x.shape[0])])
 
     def _digit_crt(self, src_i, i, known_crt):
         """Digit i's CRT stack from the coefficient-domain channel src_i =
@@ -243,8 +254,9 @@ class BatchedBGV:
 
     def build_encrypt(self, sk: SK, encoding: str = "lsd"):
         """(msgs, generator) -> (c0, c1): encrypt an (n, B) batch of
-        plaintext coefficients mod p.  c1 is uniform in the CRT domain and
-        c0 = NTT(m + p e) - c1 * s (LSD) or NTT(Delta [m]_p + e) - c1 * s
+        decoding-basis plaintext coefficients mod p.  c1 is uniform in the
+        CRT domain and c0 = CRT(L(m + p e)) - c1 * s (LSD) or
+        CRT(L(Delta [m]_p + e)) - c1 * s
         (MSD, Delta = Q // p entering as Delta mod q_i per channel), e
         rounded Gaussian of variance var."""
         msd = _check_encoding(encoding) == "msd"
@@ -260,7 +272,7 @@ class BatchedBGV:
                 me = ((msgs % p)[None] * delta + e[None]) % qv
             else:
                 me = (msgs + p * e)[None] % qv
-            me_crt = self._ntt(me.to(torch.int32))
+            me_crt = self._ntt(self._l(me.to(torch.int32)))
             c1 = sampling.uniform_residues(qs, tuple(msgs.shape), generator,
                                            self.device)
             c0 = _submod_ch(qv, me_crt, _mulmod_ch(qv, c1, s_crt))
@@ -269,14 +281,15 @@ class BatchedBGV:
         return enc
 
     def _phase(self, sk: SK):
-        """(c0, c1) -> the int64 (nrns, n, B) coefficients of c(s) =
-        c0 + c1 s (a CRT Hadamard, one inverse NTT per channel)."""
+        """(c0, c1) -> the int64 (nrns, n, B) decoding-basis coefficients of
+        c(s) = c0 + c1 s (a CRT Hadamard, one inverse transform per channel,
+        then L^-1)."""
         s_crt = self._s_crt(sk).to(self.device)[..., None]
         qv = _channel_consts(self.qs, self.device)
 
         def phase(c0, c1):
             cs = _addmod_ch(qv, c0, _mulmod_ch(qv, c1, s_crt))
-            return self._ntt(cs.to(torch.int32), inverse=True).long()
+            return self._l(self._ntt(cs.to(torch.int32), inverse=True), inverse=True).long()
 
         return phase
 
@@ -419,7 +432,7 @@ class BatchedBGV:
         def addp(c0, c1, m_pub):
             sc = m_pub.to(self.device).long() % p * fc % p
             enc = (sc[None] * delta if msd else sc[None]) % qv
-            enc = self._ntt(enc.to(torch.int32))
+            enc = self._ntt(self._l(enc.to(torch.int32)))
             return _addmod_ch(qv, c0, enc).to(torch.int32), c1
 
         return addp
@@ -434,7 +447,7 @@ class BatchedBGV:
         def mulp(c0, c1, m_pub):
             m = m_pub.to(self.device).long() % p
             lifted = torch.where(m >= (p + 1) // 2, m - p, m)
-            w = self._ntt((lifted[None] % qv).to(torch.int32))
+            w = self._ntt(self._l((lifted[None] % qv).to(torch.int32)))
             return (_mulmod_ch(qv, c0, w).to(torch.int32),
                     _mulmod_ch(qv, c1, w).to(torch.int32))
 
@@ -639,32 +652,45 @@ class BatchedBGV:
     def gen_tunnel_hint(self, lin: Linear, sk_s: SK, sk_r: SK,
                         generator: torch.Generator) -> TunnelHint:
         """The ring-tunneling hints of lin under sk_s: hint i encrypts
-        f(b_i s_R).  The targets are exact host numpy (b_i s_R is a
-        negacyclic shift of s_R's coefficients; f is gather, embed scatter,
-        numpy NTT over S and the Hadamard with ys, per channel); all d ell
-        gadget hints then come from one device pass."""
+        f(b_i s_R).  The targets are exact host numpy, per channel: b_i s_R
+        (a CRT Hadamard with the monomial's CRT over R, back to the
+        powerful basis), then f (gather, embed scatter, CRT over S and the
+        Hadamard with ys); all d ell gadget hints then come from one device
+        pass."""
         self._check_lin(lin, "gen_tunnel_hint")
         self._check_sk(sk_r, "gen_tunnel_hint")
         r_ctx, s_ctx, e_ctx = lin.r_ctx, lin.s_ctx, lin.e_ctx
         coeff = gen.rel_coeff_table(e_ctx.m, r_ctx.m)  # (d, n_e)
         embed = gen.embed_pow_table(e_ctx.m, s_ctx.m)  # (n_e,)
         pos = gen.rel_pow_basis_positions(e_ctx.m, r_ctx.m)  # (d,)
-        s_plans = s_ctx.ntt_plans()
-        ys_crt = np.stack([_crt_np(s_plans, y) for y in lin.ys]).astype(np.int64)
+        d, nrns, n_r, n_s = lin.d, len(self.qs), r_ctx.n, s_ctx.n
+        ys_crt = np.stack([_crt_np(s_ctx, y) for y in lin.ys]).astype(np.int64)  # (d, nrns, n_s)
         s_r = sk_r.s_ints.numpy().astype(np.int64)
-        targets = np.empty((lin.d, len(self.qs), s_ctx.n), dtype=np.int64)
-        for i in range(lin.d):
-            shifted = _monomial_mul_np(s_r, int(pos[i]), r_ctx.n)  # b_i * s_R
-            emb = np.zeros((lin.d, s_ctx.n), dtype=np.int64)
-            emb[:, embed] = shifted[coeff]  # embed_S of each relative coefficient
-            for ch, plan in enumerate(s_plans):
-                q = plan.q
-                crt = ntt_mod.np_ntt_forward(np.mod(emb, q).astype(np.uint32), plan)
-                targets[i, ch] = (crt.astype(np.int64) * ys_crt[:, ch] % q).sum(0) % q
+        targets = np.empty((d, nrns, n_s), dtype=np.int64)
+        s_crt = _crt_np(r_ctx, s_r).astype(np.int64)  # (nrns, n_r)
+        mono = np.zeros((d, n_r), dtype=np.uint32)
+        mono[np.arange(d), pos] = 1
+        for ch, (r_gp, s_gp) in enumerate(zip(r_ctx.general_plans(), s_ctx.general_plans())):
+            q = r_gp.q
+            prod = gen.np_crt(r_gp, mono).astype(np.int64) * s_crt[ch] % q
+            prods = gen.np_crt(r_gp, prod.astype(np.uint32), inverse=True)  # b_i s_R, pow
+            emb = np.zeros((d, d, n_s), dtype=np.uint32)
+            emb[..., embed] = prods[:, coeff]
+            crt = gen.np_crt(s_gp, emb.reshape(d * d, n_s)).reshape(d, d, n_s)
+            targets[:, ch] = (crt.astype(np.int64) * ys_crt[None, :, ch] % q).sum(1) % q
         over_s = self._over(s_ctx)
         h0, h1 = over_s._gen_gadget_hints(sk_s, torch.from_numpy(targets), generator)
         return TunnelHint(lin, tuple(KSHint(over_s.params, h0[i], h1[i])
                                      for i in range(lin.d)))
+
+    def gen_galois_hint(self, k: int, sk: SK, generator: torch.Generator) -> KSHint:
+        """The sigma_k hint, made on the device: gadget encryptions under s
+        of sigma_k(s), whose CRT residues are s's, slot-permuted."""
+        self._check_sk(sk, "gen_galois_hint")
+        perm = zmstar.automorphism_slot_perm(self.ctx.m, self.qs[0], k)
+        target = torch.from_numpy(_s_crt_np(self.params, sk.s_ints)[:, perm].astype(np.int64))
+        h0, h1 = self._gen_gadget_hints(sk, target[None], generator)
+        return KSHint(self.params, h0[0], h1[0])
 
     # --- the key switches, the step and the tunnel ----------------------
     def build_key_switch_linear(self, hint: KSHint) -> "KeySwitchLinear":
@@ -700,6 +726,23 @@ class BatchedBGV:
     def build_tunnel(self, th: TunnelHint) -> "Tunnel":
         """(c0, c1) over R -> (e0, e1) over S: the fused ring tunnel."""
         return Tunnel(self, th)
+
+    def build_galois(self, hint: KSHint, k: int) -> "Galois":
+        """(c0, c1) -> (e0, e1): sigma_k of both components (a CRT slot
+        permutation), then the key switch of the permuted c1 back to s
+        with the sigma_k(s) hint (`gen_galois_hint`)."""
+        return Galois(self, hint, k)
+
+    def build_galois_many(self, hints: dict) -> "GaloisMany":
+        """(c0, c1) -> {k: (e0_k, e1_k)}, sorted by k: hoisted rotations,
+        hints {k: sigma_k(s) hint}.  One inverse transform and one digit
+        stack of c1 serve every k; each rotation then costs its hint
+        Hadamards and one slot gather per output component.  At 2-power m
+        the outputs equal `build_galois`'s bit for bit (sigma_k commutes with
+        the centered digits there); at general m the digits of sigma_k(c1)
+        differ from sigma_k of c1's, so the outputs differ by keygen-grade
+        randomness and decrypt the same."""
+        return GaloisMany(self, hints)
 
     def target_pipeline(self, th: TunnelHint) -> "BatchedBGV":
         """The pipeline over the tunnel's target ring S."""
@@ -839,10 +882,12 @@ class Tunnel(nn.Module):
         e0 = sum_i NTT_S(embed(a0_i)) ys_i + sum_{i,j} NTT_S(embed(digit_j(a1_i))) h0_{i,j}
         e1 = sum_{i,j} NTT_S(embed(digit_j(a1_i))) h1_{i,j}
 
-    where a_i = gather_i(iNTT_R(c)) are the relative coefficients over E.
-    Digit j's re-expansion into channel ch runs as the prologue of ch's
-    forward NTT over S, into every channel, j included (where it is the
-    identity; the embed scatter keeps zeros, so the order commutes)."""
+    where a_i = gather_i(iNTT_R(c)) are the relative (powerful-basis)
+    coefficients over E, and NTT_S is S's CRT transform (per-ring dispatch,
+    `BatchedBGV._crt_one`).  Digit j's re-expansion into channel ch runs as
+    the prologue of ch's forward transform over S, into every channel, j
+    included (where it is the identity; the embed scatter keeps zeros, so
+    the order commutes)."""
 
     def __init__(self, bb: BatchedBGV, th: TunnelHint):
         super().__init__()
@@ -855,14 +900,14 @@ class Tunnel(nn.Module):
             raise ValueError(f"build_tunnel: need {lin.d} hints of shape (ell, nrns, n_s) = "
                              f"{(nrns, nrns, n_s)}")
         self.bb = bb
-        self.s_plans = lin.s_ctx.ntt_plans()
+        self.s_ctx = lin.s_ctx
         dev = bb.device
         self.register_buffer("qv", _channel_consts(bb.qs, dev))
         self.register_buffer("coeff", torch.from_numpy(
             gen.rel_coeff_table(lin.e_ctx.m, lin.r_ctx.m).copy()).to(dev))
         self.register_buffer("embed", torch.from_numpy(
             gen.embed_pow_table(lin.e_ctx.m, lin.s_ctx.m).copy()).to(dev))
-        ys = np.stack([_crt_np(self.s_plans, y) for y in lin.ys]).astype(np.int64)
+        ys = np.stack([_crt_np(lin.s_ctx, y) for y in lin.ys]).astype(np.int64)
         self.register_buffer("ys", torch.from_numpy(ys).to(dev)[..., None])
         for k in ("h0", "h1"):
             self.register_buffer(k, torch.stack([getattr(h, k) for h in th.hints]).to(
@@ -870,12 +915,12 @@ class Tunnel(nn.Module):
 
     def _embed(self, a: torch.Tensor) -> torch.Tensor:
         """(..., n_e, B) coefficients over E -> (..., n_s, B) over S."""
-        out = a.new_zeros((*a.shape[:-2], self.s_plans[0].n, a.shape[-1]))
+        out = a.new_zeros((*a.shape[:-2], self.s_ctx.n, a.shape[-1]))
         out[..., self.embed, :] = a
         return out
 
     def _ntt_s(self, x, ch, pre_digit_q=None):
-        return ntt_cm(x, self.s_plans[ch], pre_digit_q=pre_digit_q)
+        return self.bb._crt_one(x, ch, ctx=self.s_ctx, pre_digit_q=pre_digit_q)
 
     @torch.no_grad()
     def forward(self, c0, c1):
@@ -894,3 +939,62 @@ class Tunnel(nn.Module):
                 e0 = (e0 + dj * self.h0[i, j]) % qv
                 e1 = (e1 + dj * self.h1[i, j]) % qv
         return e0.to(torch.int32), e1.to(torch.int32)
+
+
+class Galois(KeySwitchLinear):
+    """The batched Galois automorphism sigma_k (`build_galois`): the
+    hint, the moduli and the slot permutation are buffers.  Both
+    components are gathered by the permutation, and the key switch of
+    `KeySwitchLinear` takes the permuted c1 back to s."""
+
+    def __init__(self, bb: BatchedBGV, hint: KSHint, k: int):
+        super().__init__(bb, hint)
+        self.register_buffer("perm", torch.from_numpy(
+            zmstar.automorphism_slot_perm(bb.ctx.m, bb.qs[0], k)).to(bb.device))
+
+    @torch.no_grad()
+    def forward(self, c0, c1):
+        return super().forward(c0.index_select(1, self.perm), c1.index_select(1, self.perm))
+
+
+class GaloisMany(nn.Module):
+    """Hoisted Galois automorphisms (`build_galois_many`): per k, the hint
+    tables pre-permuted by sigma_k^-1 on the host and the slot permutation
+    are buffers, so e_k = sigma_k(c + sum_i d_i sigma_k^-1(h_i)) runs on
+    the digits d_i of c1, made once for all k (slot permutations commute
+    with the pointwise products)."""
+
+    def __init__(self, bb: BatchedBGV, hints: dict):
+        super().__init__()
+        nrns = len(bb.qs)
+        self.bb = bb
+        self.ks = tuple(sorted(hints))
+        self.register_buffer("qv", _channel_consts(bb.qs, bb.device))
+        for k in self.ks:
+            h = hints[k]
+            if h.h0.shape != (nrns, nrns, bb.ctx.n) or h.h1.shape != h.h0.shape:
+                raise ValueError(f"galois: hint {k} of shape {tuple(h.h0.shape)} "
+                                 f"!= (ell, nrns, n) = {(nrns, nrns, bb.ctx.n)}")
+            perm = zmstar.automorphism_slot_perm(bb.ctx.m, bb.qs[0], k)
+            inv = torch.from_numpy(np.argsort(perm))
+            self.register_buffer(f"perm_{k}", torch.from_numpy(perm).to(bb.device))
+            for name in ("h0", "h1"):
+                self.register_buffer(f"{name}_{k}", getattr(h, name).to(torch.int64)[
+                    :, :, inv].to(bb.device)[..., None])  # (ell, nrns, n, 1)
+
+    @torch.no_grad()
+    def forward(self, c0, c1):
+        bb, qv = self.bb, self.qv
+        xc = bb._ntt(c1, inverse=True)
+        digits = [bb._digit_crt(xc[i], i, c1).long() for i in range(len(bb.qs))]
+        outs = {}
+        for k in self.ks:
+            h0, h1 = getattr(self, f"h0_{k}"), getattr(self, f"h1_{k}")
+            e0, e1 = c0.long(), 0
+            for i, di in enumerate(digits):
+                e0 = (e0 + di * h0[i]) % qv
+                e1 = (e1 + di * h1[i]) % qv
+            perm = getattr(self, f"perm_{k}")
+            outs[k] = (e0.to(torch.int32).index_select(1, perm),
+                       e1.to(torch.int32).index_select(1, perm))
+        return outs

@@ -140,10 +140,12 @@ def test_measurements_refuse_to_run_without_a_card(monkeypatch):
                lambda: mx.ceiling_input(8, 8, 1), lambda: steptime.run(m=64, B=2),
                lambda: steptime._tunnel_inputs(64, 3, 2, 0),
                lambda: steptime.call_time(None, *[torch.zeros(1, 2, 3)] * 2, "", ""),
+               lambda: steptime.galois_ab(None, {}, *[torch.zeros(1, 2, 3)] * 2),
+               lambda: steptime.odd_axis(None, (), None),
                lambda: ntt_ab.run(str(Path(__file__).resolve().parents[1]), "this tree")):
         with pytest.raises(RuntimeError, match="CUDA device"):
             fn()
-    for leg in ("--pt-round", "--homom-prf"):
+    for leg in ("--pt-round", "--homom-prf", "--general-m", "--tunnel-general", "--galois"):
         monkeypatch.setattr(sys, "argv", ["steptime", leg, "--m", "16", "--batch", "2"])
         with pytest.raises(RuntimeError, match="CUDA device"):
             steptime.main()
@@ -167,6 +169,16 @@ def test_steptime_serving_inputs_on_cpu():
     got = bb_out.build_decrypt(she.SK(bb_out.params, sk_out.s_ints, 2.0), f=f_out)(*out)
     want = prf.prf(fam, s[:, 0].numpy(), (1, 0), 2)[0][0]
     assert got.tolist() == [[want] * 3]
+
+
+def test_steptime_galois_inputs_on_cpu():
+    """The galois leg's inputs at m = 32 on the CPU: the hoisted module
+    covers k = 3, 5, 9 and equals each separate rotation bit for bit."""
+    many, singles, sk, cts = steptime.galois_inputs(32, 3, 4, 5, device="cpu")
+    assert list(singles) == list(steptime.GALOIS_KS) and many.ks == steptime.GALOIS_KS
+    outs = many(*cts)
+    for k, fn in singles.items():
+        assert all(torch.equal(a, b) for a, b in zip(outs[k], fn(*cts)))
 
 
 def test_steptime_legs_on_cpu_and_step_leg_equals_the_step():

@@ -477,3 +477,72 @@ def test_ext_builders_on_card_equal_cpu(cuda, encoding):
           bb_cpu.build_step_ext(quad, encoding)(*(c.cpu() for c in (*a, *b))))
     _same(bb.build_key_switch_linear_ext(lin)(*a),
           bb_cpu.build_key_switch_linear_ext(lin)(*(c.cpu() for c in a)))
+
+
+@pytest.mark.parametrize("m", [18432, 9216])
+def test_general_axis_plans_match_plain(cuda, m):
+    """ntt_cm on the 2-power axis of a general ring (n2 = 1024 and 512,
+    the plan `axis_plan` gives it) over B' = 6 * 1024 columns: forward with
+    and without the prologue and the GS inverse, one launch each."""
+    from lol_tpu_torch.ops import general as gen
+
+    q = nt.ntt_primes(18432, 30, 1)[0]
+    plan = gen.general_plan(m, q).axes[0].ntt2
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randint(0, q, (plan.n, 6 * 1024), generator=g, device=cuda, dtype=torch.int32)
+    xs = torch.randint(0, 12289, x.shape, generator=g, device=cuda, dtype=torch.int32)
+    before = dict(tk.LAUNCHES)
+    got = [tk.ntt_cm(x, plan), tk.ntt_cm(x, plan, inverse=True),
+           tk.ntt_cm(xs, plan, pre_digit_q=12289)]
+    assert tk.LAUNCHES["ntt_fwd"] - before["ntt_fwd"] == 2
+    assert tk.LAUNCHES["ntt_inv"] - before["ntt_inv"] == 1
+    want = [tk.ntt_cm_ref(x, plan), tk.ntt_cm_ref(x, plan, inverse=True),
+            tk.ntt_cm_ref(xs, plan, pre_digit_q=12289)]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("encoding", ["lsd", "msd"])
+def test_general_m_step_and_tunnel_on_card_equal_cpu(cuda, encoding):
+    """At m = 2304 = 2^8 3^2 (n2 = 128), p = 7, hints made on the card: the
+    step (one ct_mul a channel, every transform one launch) and the tunnel
+    2304 -> 1152 equal the CPU's."""
+    from lol_tpu_torch import linear
+
+    params = she.SHEParams(m=2304, p=7, qs=tuple(nt.ntt_primes(2304, 30, 3)), var=2.0)
+    ps = she.SHEParams(m=1152, p=7, qs=params.qs, var=2.0)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    bb, bb_cpu = BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
+    sk, sk_s = she.gen_sk(params, g), she.gen_sk(ps, g)
+    hint = bb.gen_ks_quad_hint(sk, g)
+    e = bb.build_encrypt(sk, encoding)
+    a, b = (e(she.pt_random(params, g, (40,)), g) for _ in range(2))
+    before = dict(tk.LAUNCHES, **pw.LAUNCHES)
+    out = bb.build_step(hint, encoding)(*a, *b)
+    assert pw.LAUNCHES["ct_mul"] - before["ct_mul"] == 3
+    assert tk.LAUNCHES["ntt_inv"] - before["ntt_inv"] == 5
+    _same(out, bb_cpu.build_step(hint, encoding)(*(c.cpu() for c in (*a, *b))))
+    f = linear.linear_pow(ps.ctx, params.ctx, ps.ctx,
+                          [np.random.default_rng(i).integers(-2, 3, ps.ctx.n) for i in range(2)])
+    th = bb.gen_tunnel_hint(f, sk_s, sk, g)
+    _same(bb.build_tunnel(th)(*a), bb_cpu.build_tunnel(th)(*(c.cpu() for c in a)))
+
+
+@pytest.mark.parametrize("m", [4096, 2304])
+def test_galois_on_card_equals_cpu(cuda, m):
+    """build_galois and build_galois_many (k = 5, 7) on the card == on the
+    CPU; at the 2-power m the hoisted outputs equal the separate ones."""
+    params = she.SHEParams(m=m, p=7, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    bb, bb_cpu = BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
+    sk = she.gen_sk(params, g)
+    hints = {k: bb.gen_galois_hint(k, sk, g) for k in (5, 7)}
+    cts = bb.build_encrypt(sk)(she.pt_random(params, g, (40,)), g)
+    many = bb.build_galois_many(hints)(*cts)
+    ref = bb_cpu.build_galois_many(hints)(*(c.cpu() for c in cts))
+    for k in hints:
+        one = bb.build_galois(hints[k], k)(*cts)
+        _same(one, bb_cpu.build_galois(hints[k], k)(*(c.cpu() for c in cts)))
+        _same(many[k], ref[k])
+        if m == 4096:
+            _same(many[k], tuple(t.cpu() for t in one))

@@ -160,14 +160,17 @@ def test_lifts_match_reference(rng):
 
 
 def test_unported_paths_raise():
-    """General m is not ported: its ring context and its index tables
-    raise.  (MSD, which raised here before, is ported and is held against
-    the JAX package in test_torch_she_builders.py.)"""
-    with pytest.raises(NotImplementedError):
-        she.SHEParams(m=72, p=7, qs=(73,)).ctx
-    from lol_tpu_torch.ops import general
-    with pytest.raises(NotImplementedError):
-        general.rel_coeff_table(36, 72)
+    """The CRT-set slot maps are not ported: `prf.make_eval_hints` with
+    maps="slots" raises before it makes any hint.  (General m and MSD,
+    which raised here before, are ported and held against the JAX package
+    in test_torch_general.py and test_torch_she_builders.py.)"""
+    from lol_tpu_torch import gadget, prf
+    qs = tuple(nt.ntt_primes(16, 30, 2))
+    g = torch.Generator().manual_seed(0)
+    sks = [she.gen_sk(she.SHEParams(m=m, p=8, qs=qs, var=2.0), g) for m in (16, 8)]
+    fam = prf.PRFFamily.random(16, 8, gadget.BaseBGad(2), prf.balanced(2), g)
+    with pytest.raises(NotImplementedError, match="slot maps"):
+        prf.make_eval_hints(fam, sks, [16, 8], [8], g, maps="slots", device="cpu")
 
 
 def test_pack_matches_jax_pack(jax_state):
@@ -204,7 +207,8 @@ def test_port_never_imports_jax():
         assert {"lol_tpu_torch.parallel.sharding", "lol_tpu_torch.ops.cuda.remote_ntt",
                 "lol_tpu_torch.bench.roofline", "lol_tpu_torch.ops.cuda.pointwise",
                 "lol_tpu_torch.linear", "lol_tpu_torch.ops.general",
-                "lol_tpu_torch.serving", "lol_tpu_torch.prf"} <= set(mods)
+                "lol_tpu_torch.serving", "lol_tpu_torch.prf",
+                "lol_tpu_torch.factored", "lol_tpu_torch.zmstar"} <= set(mods)
         from lol_tpu_torch import linear, numtheory as nt, serving, she
         from lol_tpu_torch.ring import ring_context
         from lol_tpu_torch.she_batched import BatchedBGV
@@ -237,6 +241,21 @@ def test_port_never_imports_jax():
         r = bb_out.build_decrypt(she.SK(bb_out.params, sk4.s_ints, 2.0), f=f_out)(
             *run(*bb4.build_encrypt(sk4)(msgs, g)))
         assert r[0].tolist() == [0, 1, 1, 0] and not r[1:].any()  # round-half-up(v / 2) mod 2
+        # a general-m step (m = 36 = 2^2 3^2) and a Galois rotation there
+        q36 = tuple(nt.ntt_primes(36, 30, 3))
+        p36 = she.SHEParams(m=36, p=5, qs=q36, var=2.0)
+        sk36 = she.gen_sk(p36, g)
+        bb36 = BatchedBGV(p36, "cpu")
+        a, b = she.pt_random(p36, g, (2,)), she.pt_random(p36, g, (2,))
+        enc36 = bb36.build_encrypt(sk36)
+        y = bb36.build_step(bb36.gen_ks_quad_hint(sk36, g))(*enc36(a, g), *enc36(b, g))
+        p36d = she.SHEParams(m=36, p=5, qs=q36[:2], var=2.0)
+        got = BatchedBGV(p36d, "cpu").build_decrypt(she.SK(p36d, sk36.s_ints, 2.0),
+                                                     f=bb36.step_f())(*y)
+        assert (got[:, 0].numpy() == she.pt_mul(p36, a[:, 0].numpy(), b[:, 0].numpy())).all()
+        rot = bb36.build_galois(bb36.gen_galois_hint(5, sk36, g), 5)(*enc36(a, g))
+        got = bb36.build_decrypt(sk36)(*rot)
+        assert (got[:, 1].numpy() == she.galois_ints(36, a[:, 1].numpy(), 5, 5)).all()
         assert not any(k == "jax" or k.startswith(("jax.", "lol_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")

@@ -165,11 +165,20 @@ def test_tunnel_refuses_mismatched_rings(keys):
 
 
 def test_general_m_tower_raises():
+    """A general-m ring has no single NTT plan (its transforms take
+    `general_plans`), as in the JAX package, and a map whose E divides
+    neither ring is refused; the general tower's index tables (ported
+    since this test first held that they raise) equal the JAX package's."""
     qs = tuple(nt.ntt_primes(72, 30, 2))
-    with pytest.raises(NotImplementedError):
-        gen.rel_coeff_table(36, 72)
-    with pytest.raises(NotImplementedError):
-        gen.embed_pow_table(4, 12)
-    with pytest.raises(NotImplementedError):
-        linear.linear_pow(ring_context(36, qs), ring_context(72, qs), ring_context(36, qs),
+    with pytest.raises(NotImplementedError, match="general_plans"):
+        ring_context(72, qs).ntt_plans()
+    with pytest.raises(ValueError, match="must divide"):
+        linear.linear_pow(ring_context(24, qs), ring_context(72, qs), ring_context(36, qs),
                           [np.zeros(12)] * 2)
+    for m_sub, m_sup in ((36, 72), (4, 12)):
+        for name in ("embed_pow_table", "rel_coeff_table"):
+            np.testing.assert_array_equal(getattr(gen, name)(m_sub, m_sup),
+                                          getattr(jgen, name)(m_sub, m_sup))
+    f = linear.linear_pow(ring_context(36, qs), ring_context(72, qs), ring_context(36, qs),
+                          [np.zeros(12)] * 2)
+    assert f.d == 2
