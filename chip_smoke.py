@@ -93,6 +93,22 @@ then runs its phases and exits non-zero on the first failure:
    `build_galois` over all columns, columns 0-7 against the host
    `she.galois_ints`, GPU == CPU over columns 0-15, and one rotation at
    m = 18432 (k = 5) held the same way;
+3g. the mesh-aware builders over make_mesh({"rns": 3, "data": 4}) (the
+   visible cards round-robin; on one card, twelve entries of it): the
+   step LSD and MSD at phase 3's ring, the modulus switch, the linear and
+   ext key switches and the ext step at n = 4096, the hoisted rotations
+   k = 3, 5, 9, the tunnel 32768 -> 16384 over the mesh's data-only view,
+   the general-m step LSD and MSD at m = 18432, the rounding chain and
+   HomomPRF 32768 -> 2 with mesh= passed through, each on phases 3-3f's
+   inputs: unsharded, equal to the unsharded builder's output over all
+   B = 1024 columns, columns 0-7 decrypted against the same plaintexts,
+   launches exactly Dd = 4 times the unsharded call's at each n; then the
+   CRT-set slot maps: HomomPRF at p = 257 down 256 -> 128 with
+   maps="slots" (the slot map solved on the host, its time printed),
+   BaseBGad(16), balanced(2), B different keys, each of the 3
+   components decrypted (columns 0-7) against the slot map applied to
+   the clear s * A_T(x) and equal to the CPU's over columns 0-15,
+   launches counted exactly;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -122,8 +138,11 @@ then runs its phases and exits non-zero on the first failure:
    and `tunnel_general_m_ops_per_sec`, and the rotations hoisted against
    separate in interleaved windows (`steptime.galois_ab`):
    `galois_hoisted_rot_per_sec`, `galois_separate_rot_per_sec`,
-   `galois_hoisted_speedup`; each printed on a `metric` line beside the
-   card line.
+   `galois_hoisted_speedup`; phase 3g's `mesh_step_ops_per_sec` and
+   `mesh_tunnel_ops_per_sec` beside the unsharded step's and tunnel's
+   rates in the same interleaved windows (`steptime.mesh_ab`), with the
+   mesh calls' layout copies timed on the device (`steptime.copies`);
+   each printed on a `metric` line beside the card line.
    Phase 1 also fails if ptxas gave a ring or route-B kernel a stack
    frame or spills.
 
@@ -493,7 +512,7 @@ def main() -> int:
     # must equal its NTT calls times the passes of `cm_schedule` (one at
     # n = 4096, 8192 and 2^14), its ct_mul calls, and nothing else.
     path_launches = {ph: dict.fromkeys(counts(), 0)
-                     for ph in ("3c", "3d", "3e", "3e_ext", "3f", "3f_galois")}
+                     for ph in ("3c", "3d", "3e", "3e_ext", "3f", "3f_galois", "3g", "3g_slots")}
 
     def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, n_fwd=None, n_inv=None):
         return run_by_n(phase, name, fn, *args, fwd={n_fwd: fwd} if fwd else {},
@@ -739,6 +758,7 @@ def main() -> int:
     for n_r, n_s in zip(ns, ns[1:]):  # each hop: d = 2 relative coefficients
         add_by_n(fw, n_s, 2 * L_prf + 2 * L_prf ** 2)
         add_by_n(iv, n_r, 2 * L_prf)
+    prf_calls = (dict(fw), dict(iv), cm_)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bb_prf_out, f_prf, y_prf = run_by_n("3e", "homom_prf", lambda: serving.batched_homom_prf_component(
@@ -913,6 +933,157 @@ def main() -> int:
          f"column, decrypt of columns 0-7 == sigma_k; k = 5 at m = {m_g}; GPU == CPU over "
          f"columns 0-{cols_g - 1}; launches {path_launches['3f_galois']}")
     del outs_many, out
+
+    # -- phase 3g: the mesh-aware builders and the CRT-set slot maps -----
+    # (a) every mesh builder over make_mesh({"rns": 3, "data": 4}), the
+    # visible cards round-robin (on one card, twelve entries of it), on
+    # the inputs of phases 3-3f: its output unsharded == the unsharded
+    # builder's over all B columns, columns 0-7 decrypted as there, and
+    # its launches exact: Dd times the unsharded call's at each n, since
+    # every transform and ct_mul of an unsharded call runs once for each
+    # data column, on the block that holds its channel.
+    rd_mesh = sh.make_mesh({"rns": 3, "data": 4})
+    d_mesh = sh.data_mesh(rd_mesh)
+    Dd = rd_mesh.shape["data"]
+    print("rns x data mesh:", rd_mesh.shape, "devices:",
+          sorted({str(d_) for d_ in rd_mesh.devices.flat}), flush=True)
+
+    def shard(*ts, on=rd_mesh):
+        return [sh.shard_batch_rns(on, t) for t in ts]
+
+    def unshard(out):
+        if isinstance(out, dict):
+            return {k: unshard(v) for k, v in out.items()}
+        return tuple(sh.unshard_batch_rns(b_) for b_ in out)
+
+    def equal(a_, b_):
+        if isinstance(a_, dict):
+            return sorted(a_) == sorted(b_) and all(equal(a_[k], b_[k]) for k in a_)
+        return all(torch.equal(x_, y_) for x_, y_ in zip(a_, b_))
+
+    def run_mesh(name, fn, args, want, fwd, inv, ct_mul=0):
+        """fn(*args) on the mesh between a reset and a read of the counts,
+        which must be Dd times the unsharded call's ({n: calls}); its
+        output unsharded == want over every column."""
+        got = unshard(run_by_n("3g", name, fn, *args, fwd={k: Dd * v for k, v in fwd.items()},
+                               inv={k: Dd * v for k, v in inv.items()}, ct_mul=Dd * ct_mul))
+        if not equal(got, want):
+            raise AssertionError(f"phase 3g {name}: mesh != unsharded over all {B} columns")
+        return got
+
+    sf, si = step_calls["ntt_fwd"], step_calls["ntt_inv"]
+    step_mesh = bb.build_step(hint, mesh=rd_mesh)
+    step_blocks = shard(c0, c1, d0, d1)
+    out = run_mesh("step lsd n16384", step_mesh, step_blocks, (e0, e1), {n: sf}, {n: si}, nrns)
+    decrypts_to("mesh step lsd", BatchedBGV(p2, dev).build_decrypt(
+        she.SK(p2, sk.s_ints, sk.var), f=bb.step_f())(*out), pt_muls(m1, m2, params))
+    cm, dm = enc_msd(m1, g), enc_msd(m2, g)
+    out = run_mesh("step msd n16384", bb.build_step(hint, "msd", rd_mesh), shard(*cm, *dm),
+                   step_msd(*cm, *dm), {n: sf}, {n: si}, nrns)
+    decrypts_to("mesh step msd", dec_msd(*out), pt_muls(m1, m2, params))
+    del cm, dm
+    for e in ("lsd", "msd"):
+        out = run_mesh(f"mod_switch {e}", bb8.build_mod_switch(e, rd_mesh), shard(*c8[e][0]),
+                       bb8.build_mod_switch(e)(*c8[e][0]), {n8: 2 * (nrns - 1)}, {n8: 2})
+        decrypts_to(f"mesh mod_switch {e}", bb8d.build_decrypt(
+            sk8d, f=bb8.mod_switch_f(1) if e == "lsd" else 1, encoding=e)(*out), a8.cpu())
+        out = run_mesh(f"step_ext {e}", bb8.build_step_ext(quad_ext, e, rd_mesh),
+                       shard(*c8[e][0], *c8[e][1]), ext[e], {n8: ks_fwd + 2 * (Lb - 1)},
+                       {n8: ks_inv + 2}, Lb)
+        decrypts_to(f"mesh step_ext {e}", bb8d.build_decrypt(
+            sk8d, f=bb8.step_f(1, 1, e), encoding=e)(*out), pt_muls(a8, b8, params8))
+        out = run_mesh(f"key_switch_linear_ext {e}", bb8.build_key_switch_linear_ext(
+            lin_ext, rd_mesh), shard(*c8[e][0]), ksl_ext[e], {n8: ks_fwd}, {n8: ks_inv})
+        decrypts_to(f"mesh key_switch_linear_ext {e}",
+                    bb8.build_decrypt(sk8_new, encoding=e)(*out), a8.cpu())
+    out = run_mesh("key_switch_linear", bb8.build_key_switch_linear(lin_hint, rd_mesh),
+                   shard(*c8["lsd"][0]), ksl(*c8["lsd"][0]), {n8: nrns * (nrns - 1)},
+                   {n8: nrns})
+    decrypts_to("mesh key_switch_linear", bb8.build_decrypt(sk8_new)(*out), a8.cpu())
+    outs_mesh = run_mesh("galois_many", bb.build_galois_many(ghints, rd_mesh), shard(*ct_gal),
+                         gal_many(*ct_gal), {n: rot_fwd}, {n: rot_inv})
+    for k in ks:
+        decrypts_to(f"mesh galois k={k}", dec_gal(*outs_mesh[k]),
+                    np.stack([she.galois_ints(m, mg[:, c].cpu().numpy(), k, p)
+                              for c in range(8)], -1))
+    del outs_mesh
+    # the tunnel over the mesh's data-only view, as the reference shards it
+    tun_mesh = bb.build_tunnel(th, d_mesh)
+    tun_blocks = shard(*ct, on=d_mesh)
+    out = run_mesh("tunnel (data-only)", tun_mesh, tun_blocks, (t0, t1),
+                   {m // 4: tunnel_calls["ntt_fwd"]}, {n: tunnel_calls["ntt_inv"]})
+    decrypts_to("mesh tunnel", bb.target_pipeline(th).build_decrypt(sk_s)(*out),
+                np.stack([linear.eval_lin(fmap, mt[:, k].cpu().numpy(), p) for k in range(8)], -1))
+    for e in ("lsd", "msd"):
+        out = run_mesh(f"step {e} m=18432", bb_g.build_step(hint_g, e, rd_mesh),
+                       shard(*ct_g[e][0], *ct_g[e][1]), step_g[e](*ct_g[e][0], *ct_g[e][1]),
+                       {n2_g: sf}, {n2_g: si}, nrns)
+        decrypts_to(f"mesh step {e} m=18432", bb_gd.build_decrypt(
+            sk_gd, f=bb_g.step_f(1, 1, e), encoding=e)(*out), pt_muls(a_g, b_g, params_g))
+    fw, iv, cm_ = pt_round_calls(L_pr, n)
+    out = run_mesh("pt_round", serving.build_pt_round(bb_pr, rh, mesh=rd_mesh)[0], shard(*ct_pr),
+                   y_pr, fw, iv, cm_)
+    got = bb_pr_out.build_decrypt(she.SK(bb_pr_out.params, sk_pr.s_ints, sk_pr.var), f=f_pr)(*out)
+    if not torch.equal(got[0, :8].long(), (2 * vals[:8].long() * 2 + pr_p) // (2 * pr_p) % 2):
+        raise AssertionError(f"mesh pt_round: decrypt {got[0, :8].tolist()}")
+    out = run_mesh("homom_prf", lambda *c_: serving.batched_homom_prf_component(
+        fam, hints, bb_top, *c_, bits, 0, mesh=rd_mesh)[2], shard(*ct_prf), y_prf, *prf_calls)
+    got = bb_prf_out.build_decrypt(she.SK(bb_prf_out.params, sk_out.s_ints, sk_out.var),
+                                   f=f_prf)(*out)
+    if got[0, :8].tolist() != [int(prf.prf(fam, s_key[:, 0].cpu().numpy(), bits, 2)[0][0])] * 8:
+        raise AssertionError(f"mesh homom_prf: decrypt {got[0, :8].tolist()}")
+    mark(f"phase 3g: every mesh builder over {rd_mesh.shape} == its unsharded run over all {B} "
+         f"columns, decrypts == the plaintexts; launches {path_launches['3g']}")
+    # the rates, in interleaved windows: the step and the tunnel over the
+    # mesh and unsharded, on the inputs checked above; and the device time
+    # of the mesh calls' layout copies
+    mesh_rates = steptime.mesh_ab(step, step_mesh, [c0, c1, d0, d1], step_blocks, tun, tun_mesh,
+                                  list(ct), tun_blocks)
+    mesh_copies = {arm: steptime.copies(fn_, a_) for arm, fn_, a_ in (
+        ("mesh_step", step_mesh, step_blocks), ("mesh_tunnel", tun_mesh, tun_blocks))}
+    del step_blocks, tun_blocks, out
+    # (b) the CRT-set slot maps: HomomPRF at p = 257 down 256 -> 128 with
+    # maps="slots" (the slot map built on the host), BaseBGad(16),
+    # balanced(2), B different keys; each of the ell components decrypts
+    # to the slot map applied to the clear s * A_T(x), columns 0-7, and
+    # equals the CPU's over columns 0-15.  Launches per component: the
+    # public product's L forwards at n = 128 (an (n, 1) plaintext), the
+    # tunnel's 2 L inverses at 128 and d L + d L^2 forwards at 64.
+    m_sl, p_sl, bits_sl = 256, 257, (0, 1)
+    qs_sl = tuple(nt.ntt_primes(m_sl, 30, 3))
+    L_sl, n_sl = len(qs_sl), m_sl // 2
+    rings_sl = [m_sl, m_sl // 2]
+    sks_sl = [she.gen_sk(she.SHEParams(m=r, p=p_sl, qs=qs_sl, var=2.0), g) for r in rings_sl]
+    fam_sl = prf.PRFFamily.random(m_sl, p_sl, gadget.BaseBGad(16), prf.balanced(2), g)
+    t_host = time.time()
+    hints_sl, sk_sl = run_by_n("3g_slots", "make_eval_hints slots", lambda: prf.make_eval_hints(
+        fam_sl, sks_sl, rings_sl, rings_sl[1:], g, p_final=p_sl, maps="slots", device=dev),
+        fwd={n_sl // 2: L_sl}, inv={})
+    t_host = time.time() - t_host
+    lin_sl = hints_sl.tunnels[0].lin
+    print(f"slot map {m_sl} -> {m_sl // 2} at p = {p_sl}: hints (the slot map on the host, "
+          f"{lin_sl.d} images) in {t_host:.2f} s", flush=True)
+    keys_sl = torch.randint(0, p_sl, (n_sl, B), generator=g, device=dev, dtype=torch.int32)
+    bb_sl = BatchedBGV(sks_sl[0].params, dev)
+    ct_sl = bb_sl.build_encrypt(sks_sl[0])(keys_sl, g)
+    ell_sl = gadget.num_digits(fam_sl.spec, p_sl)
+    for i in range(ell_sl):
+        bb_o, f_o, y_sl = run_by_n(
+            "3g_slots", f"homom_prf slots component {i}",
+            lambda: serving.batched_homom_prf_component(fam_sl, hints_sl, bb_sl, *ct_sl,
+                                                        bits_sl, i),
+            fwd={n_sl: L_sl, n_sl // 2: lin_sl.d * (L_sl + L_sl ** 2)}, inv={n_sl: 2 * L_sl})
+        got = bb_o.build_decrypt(sk_sl, f=f_o)(*y_sl)
+        decrypts_to(f"homom_prf slots component {i}", got, np.stack([linear.eval_lin(
+            lin_sl, prf.prf_pre_round(fam_sl, keys_sl[:, k].cpu().numpy(), bits_sl)[i], p_sl)
+            for k in range(8)], -1))
+        same_on_cpu(f"homom_prf slots component {i}", y_sl,
+                    lambda c0_, c1_, i=i: serving.batched_homom_prf_component(
+                        fam_sl, hints_sl, BatchedBGV(bb_sl.params, "cpu"), c0_, c1_, bits_sl,
+                        i)[2], *ct_sl, ncols=16)
+    mark(f"phase 3g: HomomPRF {m_sl} -> {m_sl // 2}, p = {p_sl}, maps=slots, {ell_sl} "
+         f"components, B = {B}: decrypts == the slot map of the clear s * A_T(x); GPU == CPU "
+         f"over columns 0-15; launches {path_launches['3g_slots']}")
 
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
@@ -1144,6 +1315,11 @@ def main() -> int:
     for key in ("galois_hoisted_rot_per_sec", "galois_separate_rot_per_sec",
                 "galois_hoisted_speedup", "ms_windows"):
         timings[key if key != "ms_windows" else "galois_ms_windows"] = gal[key]
+    for arm in ("mesh_step", "mesh_tunnel"):
+        timings[f"{arm}_ops_per_sec"] = mesh_rates[f"{arm}_ops_per_sec"]
+        timings[f"{arm}_unsharded_ops_per_sec"] = mesh_rates[f"{arm[5:]}_ops_per_sec"]
+        timings[f"{arm}_copies"] = mesh_copies[arm]
+    timings["mesh_ms_windows"] = mesh_rates["ms_windows"]
     timings["step_ext_noise_bits_delta"] = step_ext_delta
     timings["step_ext_noise_bits"] = noise
     timings["homom_prf_peak_GiB"] = prf_peak_gib
@@ -1153,7 +1329,9 @@ def main() -> int:
               "pt_round_ops_per_sec", "homom_prf_ops_per_sec", "step_ext_ops_per_sec",
               "step_ext_noise_bits_delta", "bgv_general_m_ops_per_sec",
               "tunnel_general_m_ops_per_sec", "galois_hoisted_rot_per_sec",
-              "galois_separate_rot_per_sec", "galois_hoisted_speedup"):
+              "galois_separate_rot_per_sec", "galois_hoisted_speedup",
+              "mesh_step_ops_per_sec", "mesh_step_unsharded_ops_per_sec",
+              "mesh_tunnel_ops_per_sec", "mesh_tunnel_unsharded_ops_per_sec"):
         print(f"metric {k} = {timings[k]} on {card}", flush=True)
     mark("phase 4: timings done")
 
@@ -1178,6 +1356,8 @@ def main() -> int:
          "launches_ext": path_launches["3e_ext"]["ntt_fwd"],
          "launches_general": path_launches["3f"]["ntt_fwd"],
          "launches_galois": path_launches["3f_galois"]["ntt_fwd"],
+         "launches_mesh": path_launches["3g"]["ntt_fwd"],
+         "launches_slots": path_launches["3g_slots"]["ntt_fwd"],
          "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"],
          **bound("ntt_fwd", n, B), "library_ms": None},
         {"name": "ntt_inv_pass", "route": "cuda", "source": ntt_src,
@@ -1190,6 +1370,8 @@ def main() -> int:
          "launches_ext": path_launches["3e_ext"]["ntt_inv"],
          "launches_general": path_launches["3f"]["ntt_inv"],
          "launches_galois": path_launches["3f_galois"]["ntt_inv"],
+         "launches_mesh": path_launches["3g"]["ntt_inv"],
+         "launches_slots": path_launches["3g_slots"]["ntt_inv"],
          "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"],
          **bound("ntt_inv_gs", n, B), "library_ms": None},
         # one kernel in two geometries, as the reference's two bodies: the
@@ -1221,6 +1403,8 @@ def main() -> int:
          "launches_ext": path_launches["3e_ext"]["ct_mul"],
          "launches_general": path_launches["3f"]["ct_mul"],
          "launches_galois": path_launches["3f_galois"]["ct_mul"],
+         "launches_mesh": path_launches["3g"]["ct_mul"],
+         "launches_slots": path_launches["3g_slots"]["ct_mul"],
          "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"],
          **bound("ct_mul", n, B), "library_ms": None},
         {"name": "u32_chain", "route": "cuda", "source": "lol_tpu_torch/csrc/chain.cu",

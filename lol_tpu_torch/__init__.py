@@ -3,8 +3,9 @@
 The JAX package `lol_tpu` is the reference; module names here mirror its
 own (`numtheory`, `zq`, `factored`, `zmstar`, `ops/ntt`,
 `ops/cuda/ntt_kernel` for `ops/pallas/ntt_kernel`, `ops/general`, `rns`,
-`gadget`, `ring`, `sampling`, `linear`, `she`, `she_batched`), and every result is
-bit-identical to it.  This package imports torch and numpy, never jax
+`gadget`, `ring`, `sampling`, `gf`, `crtset`, `linear`, `she`, `she_batched`,
+`prf`, `serving`, `parallel/sharding`), and every result is bit-identical
+to it.  This package imports torch and numpy, never jax
 and never lol_tpu.
 
 Residues are `torch.int32` tensors holding values in [0, q) with q < 2^30,

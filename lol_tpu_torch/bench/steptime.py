@@ -36,7 +36,13 @@ against separate ones (`build_galois` per k) at m = 32768, k in {3, 5, 9},
 in interleaved windows (`galois_ab`), and --trace profiles five calls of
 each arm.  The two general legs also print the odd axes' share
 (`odd_axis`): `matvec_mod`'s device time inside the call, and alone on
-one channel.  --m overrides each leg's ring.
+one channel.  --mesh times the step at m and the tunnel m -> m/2 over
+`make_mesh({"rns": 3, "data": 4})` (the cards round-robin; on one card,
+twelve entries of it; the tunnel on the mesh's data-only view) against
+their unsharded runs on the same inputs, in interleaved windows
+(`ab`), with the device time of the layout copies (`copies`: the
+gathers and the rescale's relayout); with --trace it profiles five calls
+of each of the four arms.  --m overrides each leg's ring.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import torch
 from .. import gadget, linear, numtheory as nt, prf, sampling, serving, she
 from ..ops import general as gen
 from ..ops.cuda.ntt_kernel import ntt_cm
+from ..parallel import sharding as sh
 from ..she_batched import BatchedBGV, BGVStep
 from . import SPIN_CYCLES, require_cuda, time_ms
 
@@ -75,8 +82,8 @@ def build_legs(step: BGVStep, c0, c1, d0, d1) -> dict:
         "intt": lambda: bb._ntt(c1, inverse=True),
         "digits": lambda: [bb._digit_crt(c1c[i], i, c1) for i in range(nrns)],
         "hadamard": hadamard,
-        "rescale": lambda: (bb._rescale_crt(he0, step.qv),
-                            bb._rescale_crt(he1, step.qv)),
+        "rescale": lambda: (bb._rescale_crt(he0, step.encoding),
+                            bb._rescale_crt(he1, step.encoding)),
         "step": lambda: step(c0, c1, d0, d1),
     }
 
@@ -219,6 +226,13 @@ def _inputs(m: int, nrns: int, B: int, seed: int, p: int = 257):
     return step, cts
 
 
+def _halving_map(params: she.SHEParams, ps: she.SHEParams) -> linear.Linear:
+    """The reference bench's tunnel map R -> S = E: ys = [1, 0]."""
+    n_s = ps.ctx.n
+    return linear.linear_pow(ps.ctx, params.ctx, ps.ctx, [np.eye(1, n_s, dtype=np.int64)[0],
+                                                          np.zeros(n_s, dtype=np.int64)])
+
+
 def _tunnel_inputs(m: int, nrns: int, B: int, seed: int, p: int = 257):
     """The tunnel m -> m/2 (E = S, ys = [1, 0]) with hints made on the
     card, and an encrypted (c0, c1) batch over m."""
@@ -228,10 +242,7 @@ def _tunnel_inputs(m: int, nrns: int, B: int, seed: int, p: int = 257):
     g = torch.Generator(device=dev).manual_seed(seed)
     bb = BatchedBGV(params, dev)
     sk = she.gen_sk(params, g)
-    n_s = ps.ctx.n
-    f = linear.linear_pow(ps.ctx, params.ctx, ps.ctx, [np.eye(1, n_s, dtype=np.int64)[0],
-                                                       np.zeros(n_s, dtype=np.int64)])
-    tun = bb.build_tunnel(bb.gen_tunnel_hint(f, she.gen_sk(ps, g), sk, g))
+    tun = bb.build_tunnel(bb.gen_tunnel_hint(_halving_map(params, ps), she.gen_sk(ps, g), sk, g))
     return tun, bb.build_encrypt(sk)(she.pt_random(params, g, (B,)), g)
 
 
@@ -308,20 +319,27 @@ def galois_inputs(m: int, nrns: int, B: int, seed: int, ks=GALOIS_KS, device="cu
             sk, cts)
 
 
-def galois_ab(many, singles: dict, c0, c1, iters: int = 5, windows: int = 5) -> dict:
-    """Hoisted against separate rotations on the card, as their caller
-    sees them, in interleaved windows (hoisted, separate, hoisted, ...):
-    the rotations per second of each and the speedup (the ratio of the
-    median windows), with every window."""
+def ab(arms: dict, iters: int = 5, windows: int = 5) -> tuple[dict, dict]:
+    """The arms (zero-argument callables) on the card as their caller sees
+    them, in interleaved windows (one window of each arm a round): the
+    median ms per call of each, and every window."""
     require_cuda()
-    nrns, n, B = c0.shape
-    arms = {"hoisted": lambda: many(c0, c1),
-            "separate": lambda: [fn(c0, c1) for fn in singles.values()]}
     wins = {k: [] for k in arms}
     for _ in range(windows):
         for k, fn in arms.items():
             wins[k].append(time_ms(fn, iters, windows=1)[0])
-    med = {k: statistics.median(v) for k, v in wins.items()}
+    return {k: statistics.median(v) for k, v in wins.items()}, wins
+
+
+def galois_ab(many, singles: dict, c0, c1, iters: int = 5, windows: int = 5) -> dict:
+    """Hoisted against separate rotations on the card, as their caller
+    sees them, in interleaved windows (`ab`): the rotations per second of
+    each and the speedup (the ratio of the median windows), with every
+    window."""
+    nrns, n, B = c0.shape
+    med, wins = ab({"hoisted": lambda: many(c0, c1),
+                    "separate": lambda: [fn(c0, c1) for fn in singles.values()]},
+                   iters, windows)
     rot = len(singles) * B
     return {"metric": f"Galois rotations k={sorted(singles)}, n={n}, {nrns}x30-bit, B={B}",
             "device": torch.cuda.get_device_name(c0.device), "ms_per_call": med,
@@ -329,6 +347,86 @@ def galois_ab(many, singles: dict, c0, c1, iters: int = 5, windows: int = 5) -> 
             "galois_hoisted_rot_per_sec": rot / (med["hoisted"] / 1e3),
             "galois_separate_rot_per_sec": rot / (med["separate"] / 1e3),
             "galois_hoisted_speedup": med["separate"] / med["hoisted"]}
+
+
+MESH_SHAPE = {"rns": 3, "data": 4}
+
+
+def mesh_inputs(m: int, nrns: int, B: int, seed: int, p: int = 257) -> dict:
+    """The step at m and the tunnel m -> m/2 (E = S, ys = [1, 0]) with
+    hints made on the card, each unsharded and over `make_mesh(MESH_SHAPE)`
+    (the tunnel over its data-only view), with uniform step inputs and an
+    encrypted tunnel batch, unsharded and as the meshes' blocks."""
+    dev = require_cuda()
+    mesh = sh.make_mesh(MESH_SHAPE)
+    dmesh = sh.data_mesh(mesh)
+    params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bb = BatchedBGV(params, dev)
+    sk = she.gen_sk(params, g)
+    hint = bb.gen_ks_quad_hint(sk, g)
+    cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), g) for _ in range(4)]
+    ps = she.SHEParams(m=m // 2, p=p, qs=params.qs, var=2.0)
+    th = bb.gen_tunnel_hint(_halving_map(params, ps), she.gen_sk(ps, g), sk, g)
+    tcts = bb.build_encrypt(sk)(she.pt_random(params, g, (B,)), g)
+    return dict(mesh=mesh, step=bb.build_step(hint), step_mesh=bb.build_step(hint, mesh=mesh),
+                cts=cts, blocks=[sh.shard_batch_rns(mesh, c) for c in cts],
+                tun=bb.build_tunnel(th), tun_mesh=bb.build_tunnel(th, dmesh), tcts=tcts,
+                tblocks=[sh.shard_batch_rns(dmesh, c) for c in tcts])
+
+
+def mesh_ab(step, step_mesh, cts, blocks, tun, tun_mesh, tcts, tblocks,
+            iters: int = 5, windows: int = 5) -> dict:
+    """The step and the tunnel unsharded and over the mesh, on the same
+    inputs, as their caller sees them, in interleaved windows (`ab`): the
+    ops/s of each (B / median ms) and every window."""
+    med, wins = ab({"step": lambda: step(*cts), "mesh_step": lambda: step_mesh(*blocks),
+                    "tunnel": lambda: tun(*tcts), "mesh_tunnel": lambda: tun_mesh(*tblocks)},
+                   iters, windows)
+    B = cts[0].shape[-1]
+    return {"metric": f"step and tunnel over the mesh {MESH_SHAPE} vs unsharded, B={B}",
+            "device": torch.cuda.get_device_name(cts[0].device), "ms_per_call": med,
+            "ms_windows": wins,
+            **{f"{k}_ops_per_sec": B / (v / 1e3) for k, v in med.items()}}
+
+
+def copies(fn, args, calls: int = 5) -> dict:
+    """The device time and bytes of a mesh call's layout copies
+    (`sharding.rns_gather` / `rns_relayout`, each piece an `_assemble`):
+    a CUDA-event pair around every `_assemble` over `calls` calls of
+    fn(*args), each call queued behind a device spin; their sum against
+    the calls' spans."""
+    require_cuda()
+    inner, pairs, spans, nbytes = sh._assemble, [], [], []
+
+    def timed(pieces, device):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = inner(pieces, device)
+        t1.record()
+        pairs.append((t0, t1))
+        nbytes.append(out.numel() * out.element_size())
+        return out
+
+    fn(*args)
+    torch.cuda.synchronize()
+    sh._assemble = timed
+    try:
+        for _ in range(calls):
+            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            s0.record()
+            fn(*args)
+            s1.record()
+            spans.append((s0, s1))
+        torch.cuda.synchronize()
+    finally:
+        sh._assemble = inner
+    ms = sum(a.elapsed_time(b) for a, b in pairs) / calls
+    span = sum(a.elapsed_time(b) for a, b in spans) / calls
+    return {"copies_per_call": len(pairs) / calls, "copy_bytes_per_call": sum(nbytes) / calls,
+            "copy_device_ms_per_call": ms, "span_device_ms_per_call": span,
+            "copy_pct_of_span": 100 * ms / span}
 
 
 def call_time(fn, c0, c1, what: str, key: str, iters: int = 5, windows: int = 5) -> dict:
@@ -369,11 +467,29 @@ def main() -> None:
                     help="the tunnel 18432 -> 9216, p = 7, not the step")
     ap.add_argument("--galois", action="store_true",
                     help="hoisted against separate rotations k = 3, 5, 9, not the step")
+    ap.add_argument("--mesh", action="store_true",
+                    help="the step and the tunnel over an rns 3 x data 4 mesh vs unsharded")
     args = ap.parse_args()
     general = args.general_m or args.tunnel_general
     if args.m is None:
         args.m = 18432 if general else 32768
     p = 7 if general else 257
+    if args.mesh:
+        require_cuda()
+        x = mesh_inputs(args.m, args.rns, args.batch, 0)
+        print(json.dumps(mesh_ab(*(x[k] for k in ("step", "step_mesh", "cts", "blocks", "tun",
+                                                 "tun_mesh", "tcts", "tblocks")),
+                                 args.iters, args.windows)))
+        for arm, fn, a in (("mesh_step", x["step_mesh"], x["blocks"]),
+                           ("mesh_tunnel", x["tun_mesh"], x["tblocks"])):
+            print(json.dumps({"arm": arm, **copies(fn, a)}))
+        if args.trace:
+            for arm, fn, a in (("step", x["step"], x["cts"]),
+                               ("mesh_step", x["step_mesh"], x["blocks"]),
+                               ("tunnel", x["tun"], x["tcts"]),
+                               ("mesh_tunnel", x["tun_mesh"], x["tblocks"])):
+                print(json.dumps({"arm": arm, **by_kernel(fn, a, f"{args.trace}/{arm}")}))
+        return
     if args.galois:
         require_cuda()
         fn, singles, _, cts = galois_inputs(args.m, args.rns, args.batch, 0)

@@ -105,3 +105,22 @@ def ntt_primes(m: int, nbits: int, count: int, below: int | None = None) -> list
     if len(out) < count:
         raise ValueError(f"ntt_primes: only found {len(out)} primes = 1 mod {m} under 2^{nbits}")
     return out
+
+
+def euler_phi(n: int) -> int:
+    """Euler's totient of n."""
+    phi = 1
+    for p, e in factorize(n):
+        phi *= (p - 1) * p ** (e - 1)
+    return phi
+
+
+def multiplicative_order(a: int, q: int) -> int:
+    """The order of a in (Z/qZ)^*; q need not be prime, a must be a unit."""
+    if math.gcd(a, q) != 1:
+        raise ValueError("multiplicative_order: a not a unit")
+    order = euler_phi(q)
+    for p, _ in factorize(order):
+        while order % p == 0 and pow(a, order // p, q) == 1:
+            order //= p
+    return order

@@ -15,6 +15,16 @@ Layouts (coefficient-major, as the port's `ntt_cm`):
   axis's d-th device (`ring_shard`, `ring_unshard`);
 - rns x data: an (nrns, n, B) stack is an (R, Dd) grid of blocks, the
   channels split over 'rns' and the batch over 'data' (`shard_batch_rns`).
+  Where R does not divide the channel count (the rescale leaves nrns - 1
+  channels; the extended chain has nrns + k) the stack is data-only
+  blocks, (1, Dd), on rns row 0's devices: `rns_rows` states the rule,
+  and the mesh-aware builders of `she_batched` take and give this layout.
+  Their cross-channel reads are explicit copies: `rns_gather` replicates
+  each data column's full channel stack onto every device of its column
+  (the all-gather the JAX package asks of XLA), `rns_scatter` is its
+  inverse, and `rns_relayout` moves a stack whose rows hold uneven
+  channel runs (after a rescale) into the rule's layout.  On a one-card
+  mesh these are copies inside that card's memory.
 
 `ntt_ring_sharded` is the plain torch version of the whole ring-sharded
 forward transform (phase A along the block axis, then each block's
@@ -134,25 +144,39 @@ def ntt_ring_sharded(mesh: Mesh, shards: list[torch.Tensor], plan: NTTPlan,
 # ---------------------------------------------------------------------------
 
 
-def _rns_data_devices(mesh: Mesh) -> np.ndarray:
+def rns_data_grid(mesh: Mesh) -> np.ndarray:
     """The (rns, data) grid of devices, at index 0 of any other axis."""
     r, d = mesh.axis_names.index("rns"), mesh.axis_names.index("data")
     grid = np.moveaxis(mesh.devices, (r, d), (0, 1))
     return grid.reshape(grid.shape[0], grid.shape[1], -1)[:, :, 0]
 
 
+def data_mesh(mesh: Mesh) -> Mesh:
+    """The data-only view of an rns x data mesh: rns row 0's devices as a
+    {"rns": 1, "data": Dd} mesh (every stack on it is data-only blocks)."""
+    grid = rns_data_grid(mesh)
+    return Mesh(grid[:1].copy(), ("rns", "data"))
+
+
+def rns_rows(mesh: Mesh, nrns: int) -> int:
+    """The block rows of an nrns-channel stack on the mesh: R = the 'rns'
+    axis' size where R divides nrns, else 1 (data-only)."""
+    R = rns_data_grid(mesh).shape[0]
+    return R if nrns % R == 0 else 1
+
+
 def shard_batch_rns(mesh: Mesh, x: torch.Tensor, batch_axis: int = 2) -> np.ndarray:
-    """Place an (nrns, n, B) stack as an (R, Dd) object array of blocks:
-    channels split over 'rns', axis `batch_axis` over 'data'; block (i, j)
-    on the mesh's device (i, j)."""
-    grid = _rns_data_devices(mesh)
-    R, Dd = grid.shape
-    if x.shape[0] % R or x.shape[batch_axis] % Dd:
-        raise ValueError(f"shard_batch_rns: {tuple(x.shape)} does not split over "
-                         f"rns={R}, data={Dd}")
-    blocks = np.empty((R, Dd), dtype=object)
-    for i, rows in enumerate(x.chunk(R, 0)):
-        for j, blk in enumerate(rows.chunk(Dd, batch_axis)):
+    """Place an (nrns, n, B) stack as an object array of blocks: (R, Dd)
+    with the channels split over 'rns' where R divides nrns, else (1, Dd)
+    data-only (`rns_rows`); axis `batch_axis` split over 'data'; block
+    (i, j) on the mesh's device (i, j)."""
+    grid = rns_data_grid(mesh)
+    rows, Dd = rns_rows(mesh, x.shape[0]), grid.shape[1]
+    if x.shape[batch_axis] % Dd:
+        raise ValueError(f"shard_batch_rns: {tuple(x.shape)} does not split over data={Dd}")
+    blocks = np.empty((rows, Dd), dtype=object)
+    for i, chans in enumerate(x.chunk(rows, 0)):
+        for j, blk in enumerate(chans.chunk(Dd, batch_axis)):
             blocks[i, j] = blk.to(grid[i, j], copy=True, memory_format=torch.contiguous_format)
     return blocks
 
@@ -162,6 +186,67 @@ def unshard_batch_rns(blocks: np.ndarray, batch_axis: int = 2) -> torch.Tensor:
     device."""
     dev = blocks[0, 0].device
     return torch.cat([torch.cat([b.to(dev) for b in row], batch_axis) for row in blocks])
+
+
+def _assemble(pieces: list[torch.Tensor], device) -> torch.Tensor:
+    """The pieces stacked along axis 0 into a new tensor on `device`, each
+    copied once (across devices, straight from its own)."""
+    out = torch.empty((sum(t.shape[0] for t in pieces), *pieces[0].shape[1:]),
+                      dtype=pieces[0].dtype, device=device)
+    lo = 0
+    for t in pieces:
+        out[lo:lo + t.shape[0]].copy_(t)
+        lo += t.shape[0]
+    return out
+
+
+def rns_gather(mesh: Mesh, blocks: np.ndarray) -> np.ndarray:
+    """(R, Dd) object array whose entry (i, j) is data column j's full
+    channel stack (its blocks' rows concatenated, any number of rows) on
+    the mesh's device (i, j): a copy on each device."""
+    grid = rns_data_grid(mesh)
+    out = np.empty(grid.shape, dtype=object)
+    for j in range(grid.shape[1]):
+        col = [blocks[r, j] for r in range(blocks.shape[0]) if blocks[r, j].shape[0]]
+        for i in range(grid.shape[0]):
+            out[i, j] = _assemble(col, grid[i, j])
+    return out
+
+
+def rns_scatter(mesh: Mesh, full: np.ndarray) -> np.ndarray:
+    """The inverse of `rns_gather`: from each data column's replicated
+    full stack, every device keeps its own rows of `shard_batch_rns`'s
+    layout (a copy of its slice; rns row 0's copy for data-only blocks)."""
+    rows = rns_rows(mesh, full[0, 0].shape[0])
+    per = full[0, 0].shape[0] // rows
+    out = np.empty((rows, full.shape[1]), dtype=object)
+    for (i, j), _ in np.ndenumerate(out):
+        out[i, j] = full[i, j][i * per:(i + 1) * per].clone()
+    return out
+
+
+def rns_relayout(mesh: Mesh, parts: np.ndarray) -> np.ndarray:
+    """Blocks whose rows hold consecutive channel runs of any lengths
+    (part (r, j) on device (r, j); a rescale leaves the last row one
+    channel short) in `shard_batch_rns`'s layout for their channel count:
+    each block gathers its channels from the parts that hold them.
+    Blocks already in that layout come back as they are."""
+    grid = rns_data_grid(mesh)
+    counts = [parts[r, 0].shape[0] for r in range(parts.shape[0])]
+    rows = rns_rows(mesh, sum(counts))
+    per = sum(counts) // rows
+    if counts == [per] * rows:
+        return parts
+    out = np.empty((rows, grid.shape[1]), dtype=object)
+    for (i, j), _ in np.ndenumerate(out):
+        pieces, lo = [], 0
+        for r, c in enumerate(counts):
+            a, b = max(lo, i * per), min(lo + c, (i + 1) * per)
+            if a < b:
+                pieces.append(parts[r, j][a - lo:b - lo])
+            lo += c
+        out[i, j] = _assemble(pieces, grid[i, j])
+    return out
 
 
 def batched_ntt_sharded(mesh: Mesh, blocks: np.ndarray, plans: list[NTTPlan],

@@ -200,27 +200,30 @@ def make_eval_hints(fam: PRFFamily, sks: list[she.SK], rings: list[int],
     p_final = 2) the rounding hints of the last key (`she.pt_round_hints`).
 
     maps: "project" takes the coefficient projection (b_0 -> 1, the rest
-    -> 0) at every hop.  The reference's CRT-set slot projections, which
-    "slots" and "auto" take where e_rings[i] == rings[i+1], are not ported
-    yet: there "slots" raises NotImplementedError, and so does "auto"
-    unless the plaintext modulus is even, where the reference's slot map
-    (it needs p coprime to the 2-power ring indices) fails and "auto"
-    falls back to "project" too.  Elsewhere both take "project", as the
-    reference does."""
+    -> 0) at every hop; "slots" the CRT-set slot projection
+    (`linear.slot_projection`, mode "select": the plaintext slots survive
+    the descent), which needs e_rings[i] == rings[i+1] and the plaintext
+    modulus a prime power coprime to the ring indices, and raises where
+    it cannot be built; "auto" takes the slot map where it builds and the
+    projection elsewhere, hop by hop, as the reference does."""
     if maps not in MAPS:
         raise ValueError(f"make_eval_hints: maps must be one of {MAPS}, got {maps!r}")
     qs = sks[0].params.qs  # the ciphertext chain, not the PRF modulus
     p = sks[0].params.p
     tunnels = []
     for i in range(len(rings) - 1):
-        if e_rings[i] == rings[i + 1] and (maps == "slots" or maps == "auto" and p % 2):
-            raise NotImplementedError(
-                "make_eval_hints: the slot maps (crtset, linear.slot_projection) are not "
-                "ported yet (ROADMAP queue A, with the CRT sets); use maps='project'")
         r_ctx, s_ctx, e_ctx = (ring_context(m, qs) for m in (rings[i], rings[i + 1], e_rings[i]))
-        ys = [np.zeros(s_ctx.n, dtype=np.int64) for _ in range(r_ctx.n // e_ctx.n)]
-        ys[0][0] = 1
-        f = lin.linear_pow(e_ctx, r_ctx, s_ctx, ys)
+        f = None
+        if maps in ("slots", "auto") and e_rings[i] == rings[i + 1]:
+            try:
+                f = lin.slot_projection(r_ctx, s_ctx, p, mode="select")
+            except (ValueError, ZeroDivisionError):
+                if maps == "slots":
+                    raise
+        if f is None:
+            ys = [np.zeros(s_ctx.n, dtype=np.int64) for _ in range(r_ctx.n // e_ctx.n)]
+            ys[0][0] = 1
+            f = lin.linear_pow(e_ctx, r_ctx, s_ctx, ys)
         bb = BatchedBGV(sks[i].params, device)
         tunnels.append(bb.gen_tunnel_hint(f, sks[i + 1], sks[i], generator))
     rounds = None

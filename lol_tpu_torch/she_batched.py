@@ -36,10 +36,28 @@ inverse transform and one digit stack among its rotations), and
 extended-modulus (hybrid) key switching (`build_step_ext`,
 `build_key_switch_linear_ext`: the digits' inner products run over Q*P
 with hints made over that chain, and the special primes P are dropped by
-exact rescales, which divides the key-switch noise by P).  Hints for T targets come from one device pass
-(`_gen_gadget_hints`).  Every result is
+exact rescales, which divides the key-switch noise by P).  Hints for T
+targets come from one device pass (`_gen_gadget_hints`).  Every result is
 bit-identical to `lol_tpu.she_batched.BatchedBGV(params, use_pallas=False)`
 (the noise budget, float32, to its rounding).
+
+Meshes: every builder that computes on ciphertexts takes `mesh=`, a
+`parallel.sharding.Mesh` with axes 'rns' and 'data'.  Its inputs and
+outputs are then `sharding.shard_batch_rns` blocks (np object arrays):
+the channels over 'rns' where R divides the chain's length, else
+data-only blocks (`sharding.rns_rows`).  A mesh module keeps one part per
+block, the builder's own module over a pipeline view of the block's
+channels (`BatchedBGV(..., chans=)`) on the block's device, with its
+constants on that device from build time.  The parts run the same
+arithmetic as the unsharded module, with the reference's placement of
+the cross-channel reads: the inverse-transformed component is gathered
+(`sharding.rns_gather`) before the digit re-expansion, each digit's
+forward transforms and hint products run on the channel's own block, and
+the rescale's dropped channel is gathered before the other channels read
+it; the output is moved into the rule's layout (`rns_relayout`).  The
+extended chain's special primes ride with the last rns row.  So
+`unshard_batch_rns` of a mesh output equals the unsharded output bit for
+bit.
 """
 
 from __future__ import annotations
@@ -59,6 +77,7 @@ from .ops import general as gen
 from .ops import ntt as ntt_mod
 from .ops.cuda.ntt_kernel import ntt_cm
 from .ops.cuda.pointwise import ct_mul_cm
+from .parallel import sharding as sh
 from .ring import RingContext
 from .she import KSHint, KSHintExt, SHEParams, SK, TunnelHint
 
@@ -147,13 +166,22 @@ def _s_crt_np(params: SHEParams, s_ints: torch.Tensor) -> np.ndarray:
 
 class BatchedBGV:
     """Batched BGV pipeline for one SHEParams on one device (the card
-    unless the caller names another)."""
+    unless the caller names another).  chans: the channels this pipeline
+    holds, a range of the chain (all by default); a mesh block's view
+    holds its block's, and its stacks have len(chans) channels."""
 
-    def __init__(self, params: SHEParams, device="cuda"):
+    def __init__(self, params: SHEParams, device="cuda", chans: range | None = None):
         self.params = params
         self.device = torch.device(device)
         self.ctx = params.ctx
         self.qs = params.qs
+        self.chans = range(len(self.qs)) if chans is None else chans
+        self.cqs = tuple(self.qs[c] for c in self.chans)
+        self._rescale_k = {}  # device -> the rescale's constants
+
+    def _view(self, chans: range, device) -> "BatchedBGV":
+        """This pipeline over the channels chans on device."""
+        return BatchedBGV(self.params, device, chans)
 
     def plans(self) -> list[ntt_mod.NTTPlan]:
         """The NTT plans of a 2-power ring (raises at general m)."""
@@ -164,8 +192,9 @@ class BatchedBGV:
         return BatchedBGV(replace(self.params, m=ctx.m), self.device)
 
     def _consts(self, fn) -> torch.Tensor:
-        """(nrns, 1, 1) int64 constants fn(q) on the device."""
-        return _channel_consts((fn(q) for q in self.qs), self.device)
+        """(len(chans), 1, 1) int64 constants fn(q) of this pipeline's
+        channels on the device."""
+        return _channel_consts((fn(q) for q in self.cqs), self.device)
 
     # --- layout ---------------------------------------------------------
     def pack(self, cts) -> tuple[torch.Tensor, torch.Tensor]:
@@ -199,54 +228,86 @@ class BatchedBGV:
         return ntt_cm(x2d, ctx.ntt_plans()[ch], inverse=inverse, pre_digit_q=pre_digit_q)
 
     def _ntt(self, x, inverse=False, ctx=None):
-        """(nrns, n, B) per-channel CRT transform (named for the 2-power
-        pipeline; it dispatches per ring)."""
+        """(len(chans), n, B) per-channel CRT transform (named for the
+        2-power pipeline; it dispatches per ring)."""
         return torch.stack(
-            [self._crt_one(x[i], i, inverse, ctx=ctx) for i in range(x.shape[0])]
+            [self._crt_one(x[k], self.chans[k], inverse, ctx=ctx) for k in range(x.shape[0])]
         )
 
     def _l(self, x, inverse=False):
-        """(nrns, n, B) per-channel L / L^-1 (decoding <-> powerful basis),
-        int32; the identity at 2-power m, where the bases coincide."""
+        """(len(chans), n, B) per-channel L / L^-1 (decoding <-> powerful
+        basis), int32; the identity at 2-power m, where the bases coincide."""
         if self.ctx.fm.is_pow2():
             return x
         gps = self.ctx.general_plans()
-        return torch.stack([gen.l_cm(gps[i], x[i], inverse) for i in range(x.shape[0])])
+        return torch.stack([gen.l_cm(gps[self.chans[k]], x[k], inverse)
+                            for k in range(x.shape[0])])
 
     def _digit_crt(self, src_i, i, known_crt):
-        """Digit i's CRT stack from the coefficient-domain channel src_i =
-        iNTT(x)[i]: channel j's re-expansion runs as the prologue of its
-        forward NTT.  Channel i itself is known_crt[i] (the free diagonal:
-        iNTT then NTT round-trips exactly)."""
+        """Digit i's CRT stack over this pipeline's channels, from the
+        coefficient-domain channel src_i = iNTT(x)[i]: channel j's
+        re-expansion runs as the prologue of its forward NTT.  Channel i
+        itself, where this pipeline holds it, is known_crt's (the free
+        diagonal: iNTT then NTT round-trips exactly)."""
         return torch.stack([
-            known_crt[j] if j == i
+            known_crt[k] if j == i
             else self._crt_one(src_i, j, pre_digit_q=self.qs[i])
-            for j in range(len(self.qs))
+            for k, j in enumerate(self.chans)
         ])
 
-    def _rescale_crt(self, comp: torch.Tensor, qv: torch.Tensor,
-                     encoding: str = "lsd") -> torch.Tensor:
-        """Exact BGV drop-last rescale of one (nrns, n, B) component in the
-        CRT domain: only the dropped channel is inverse-transformed; the
-        correction delta (p * centered [c p^-1]_{ql} for LSD, the plain
-        centered [c]_{ql} for MSD's round-to-nearest) is forward-
-        transformed into each surviving channel.  int32 (nrns-1, n, B)."""
+    def _rescale_consts(self, device):
+        """The rescale's per-channel constants over this pipeline's
+        surviving channels, on device, made once: the moduli, ql^-1 and p
+        (for LSD), each (k, 1, 1) int64."""
+        key = torch.device(device)
+        if key not in self._rescale_k:
+            ql = self.qs[-1]
+            surv = [q for c, q in zip(self.chans, self.cqs) if c < len(self.qs) - 1]
+            self._rescale_k[key] = tuple(
+                _channel_consts(vals, key) for vals in (
+                    surv, [nt.modinv(ql % q, q) for q in surv],
+                    [self.params.p % q for q in surv]))
+        return self._rescale_k[key]
+
+    def _rescale_v(self, last: torch.Tensor, encoding: str = "lsd") -> torch.Tensor:
+        """The rescale's read of the dropped channel: its (n, B) CRT
+        residues inverse-transformed, times p^-1 mod ql for LSD; int32 in
+        [0, ql).  On a mesh it is gathered to every block of its column."""
+        ql = self.qs[-1]
+        v = self._crt_one(last, len(self.qs) - 1, inverse=True)
+        if _check_encoding(encoding) == "msd":
+            return v
+        return (v.long() * nt.modinv(self.params.p % ql, ql) % ql).to(torch.int32)
+
+    def _rescale_apply(self, comp: torch.Tensor, v: torch.Tensor,
+                       encoding: str = "lsd") -> torch.Tensor:
+        """The rescale of this pipeline's channels of comp but the dropped
+        one, given the dropped channel's read v (`_rescale_v`): the
+        correction delta (p * centered v for LSD, centered v for MSD's
+        round-to-nearest) is forward-transformed into each surviving
+        channel, subtracted, and the difference times ql^-1.  int32."""
         msd = _check_encoding(encoding) == "msd"
-        qs = self.qs
-        p = self.params.p
-        ql = qs[-1]
-        v = self._crt_one(comp[-1], len(qs) - 1, inverse=True).long()
-        if not msd:
-            v = v * nt.modinv(p % ql, ql) % ql
+        qv_s, inv_s, p_s = self._rescale_consts(comp.device)
+        k = qv_s.shape[0]
+        if k == 0:
+            return comp[:0].clone()
+        ql = self.qs[-1]
+        v = v.long()
         centered = torch.where(v >= (ql + 1) // 2, v - ql, v)
-        qv_s = qv[:-1]
-        inv_s = _channel_consts((nt.modinv(ql % q, q) for q in qs[:-1]), qv.device)
         delta = centered[None] % qv_s
         if not msd:
-            delta = delta * _channel_consts((p % q for q in qs[:-1]), qv.device) % qv_s
-        nd = self._ntt(delta.to(torch.int32))
-        d = _submod_ch(qv_s, comp[:-1], nd)
+            delta = delta * p_s % qv_s
+        delta = delta.to(torch.int32)
+        nd = torch.stack([self._crt_one(delta[t], self.chans[t]) for t in range(k)])
+        d = _submod_ch(qv_s, comp[:k], nd)
         return (d * inv_s % qv_s).to(torch.int32)
+
+    def _rescale_crt(self, comp: torch.Tensor, encoding: str = "lsd") -> torch.Tensor:
+        """Exact BGV drop-last rescale of one (nrns, n, B) component in the
+        CRT domain: only the dropped channel is inverse-transformed; the
+        correction is forward-transformed into each surviving channel.
+        int32 (nrns-1, n, B)."""
+        return self._rescale_apply(comp, self._rescale_v(comp[-1], encoding), encoding)
 
     # --- batched encryption / decryption --------------------------------
     def _s_crt(self, sk: SK) -> torch.Tensor:
@@ -397,17 +458,19 @@ class BatchedBGV:
         return bits
 
     # --- ciphertext and public-plaintext ops ----------------------------
-    def build_add(self, f_a: int = 1, f_b: int = 1, sub: bool = False):
+    def build_add(self, f_a: int = 1, f_b: int = 1, sub: bool = False, mesh=None):
         """(c0, c1, d0, d1) -> (e0, e1): ct_a +/- ct_b for scale factors
         f_a, f_b: the second operand is scaled by the centered
         u = f_a f_b^-1 mod p, so both carry, and the output has, scale f_a.
-        Either encoding."""
+        Either encoding.  mesh: per block (module docstring)."""
+        if mesh is not None:
+            return _Blocks(mesh, self).blockwise(lambda v: v.build_add(f_a, f_b, sub))
         p = self.params.p
         u = f_a * nt.modinv(f_b % p, p) % p
         if u >= (p + 1) // 2:
             u -= p
         u_res = self._consts(lambda q: u % q)
-        qv = _channel_consts(self.qs, self.device)
+        qv = self._consts(lambda q: q)
         op = _submod_ch if sub else _addmod_ch
 
         def addf(c0, c1, d0, d1):
@@ -417,17 +480,20 @@ class BatchedBGV:
 
         return addf
 
-    def build_add_public(self, f: int = 1, encoding: str = "lsd"):
+    def build_add_public(self, f: int = 1, encoding: str = "lsd", mesh=None):
         """(c0, c1, m_pub) -> (c0', c1): add a public plaintext, (n, B) or
         (n, 1) int coefficients mod p (one value for the whole batch),
         encoded as f m_pub (LSD) or Delta [f m_pub]_p (MSD) and added to
         c0.  An (n, 1) plaintext is transformed at batch 1, then
-        broadcast, as the JAX package does."""
+        broadcast, as the JAX package does.  mesh: per block, an (n, B)
+        plaintext split as the batch."""
+        if mesh is not None:
+            return _Blocks(mesh, self).blockwise(lambda v: v.build_add_public(f, encoding))
         msd = _check_encoding(encoding) == "msd"
         p = self.params.p
         fc = f % p
         delta = self._consts(lambda q: self.ctx.basis.modulus // p % q)
-        qv = _channel_consts(self.qs, self.device)
+        qv = self._consts(lambda q: q)
 
         def addp(c0, c1, m_pub):
             sc = m_pub.to(self.device).long() % p * fc % p
@@ -437,12 +503,15 @@ class BatchedBGV:
 
         return addp
 
-    def build_mul_public(self):
+    def build_mul_public(self, mesh=None):
         """(c0, c1, m_pub) -> (c0', c1'): multiply by a public plaintext
         ((n, B) or (n, 1) int coefficients mod p): both components times
-        the CRT transform of its centered lift.  Either encoding."""
+        the CRT transform of its centered lift.  Either encoding.  mesh: as
+        `build_add_public`."""
+        if mesh is not None:
+            return _Blocks(mesh, self).blockwise(lambda v: v.build_mul_public())
         p = self.params.p
-        qv = _channel_consts(self.qs, self.device)
+        qv = self._consts(lambda q: q)
 
         def mulp(c0, c1, m_pub):
             m = m_pub.to(self.device).long() % p
@@ -453,27 +522,29 @@ class BatchedBGV:
 
         return mulp
 
-    def _build_scale_components(self, c: int):
+    def _build_scale_components(self, c: int, mesh=None):
         """(c0, c1) -> both components times the integer c mod Q."""
+        if mesh is not None:
+            return _Blocks(mesh, self).blockwise(lambda v: v._build_scale_components(c))
         c_res = self._consts(lambda q: c % q)
-        qv = _channel_consts(self.qs, self.device)
+        qv = self._consts(lambda q: q)
 
         def scale(c0, c1):
             return _scale_ch(qv, c0, c_res), _scale_ch(qv, c1, c_res)
 
         return scale
 
-    def build_to_lsd(self):
+    def build_to_lsd(self, mesh=None):
         """MSD -> LSD: components scaled by p; track f with `to_lsd_f`."""
-        return self._build_scale_components(self.params.p % self.ctx.basis.modulus)
+        return self._build_scale_components(self.params.p % self.ctx.basis.modulus, mesh)
 
-    def build_to_msd(self):
+    def build_to_msd(self, mesh=None):
         """LSD -> MSD: components scaled by p^-1 mod Q; track f with
         `to_msd_f`."""
         Q = self.ctx.basis.modulus
-        return self._build_scale_components(nt.modinv(self.params.p % Q, Q))
+        return self._build_scale_components(nt.modinv(self.params.p % Q, Q), mesh)
 
-    def build_div_d(self, d: int):
+    def build_div_d(self, d: int, mesh=None):
         """Exact homomorphic division by d of plaintexts divisible by d:
         components scaled by d^-1 mod Q.  The plaintext modulus drops to
         p/d: later builders come from a pipeline over p // d; track f with
@@ -481,7 +552,7 @@ class BatchedBGV:
         if self.params.p % d:
             raise ValueError("build_div_d: d must divide the plaintext modulus")
         Q = self.ctx.basis.modulus
-        return self._build_scale_components(nt.modinv(d % Q, Q))
+        return self._build_scale_components(nt.modinv(d % Q, Q), mesh)
 
     def div_d_f(self, d: int, f: int) -> int:
         """Scale factor after `build_div_d`."""
@@ -508,16 +579,27 @@ class BatchedBGV:
         return fc * fd * nt.modinv(self.qs[-1] % p, p) % p
 
     # --- modulus switch -------------------------------------------------
-    def build_mod_switch(self, encoding: str = "lsd"):
+    def build_mod_switch(self, encoding: str = "lsd", mesh=None):
         """(c0, c1) -> (e0, e1) over the chain without its last prime: the
         standalone exact BGV modulus switch.  Track the LSD scale with
-        `mod_switch_f` (MSD leaves f unchanged)."""
+        `mod_switch_f` (MSD leaves f unchanged).  mesh: the dropped
+        channel gathered, the output in the shorter chain's layout."""
         _check_encoding(encoding)
-        qv = _channel_consts(self.qs, self.device)
+        if mesh is not None:
+            blocks = _Blocks(mesh, self)
+            views = blocks.build(lambda view: view)
+            for view in views.flat:
+                view._rescale_consts(view.device)
+
+            def ms_mesh(c0, c1):
+                blocks.check(c0, c1)
+                return blocks.rescale(views, c0, encoding), blocks.rescale(views, c1, encoding)
+
+            return ms_mesh
+        self._rescale_consts(self.device)
 
         def ms(c0, c1):
-            return (self._rescale_crt(c0, qv, encoding),
-                    self._rescale_crt(c1, qv, encoding))
+            return self._rescale_crt(c0, encoding), self._rescale_crt(c1, encoding)
 
         return ms
 
@@ -625,7 +707,9 @@ class BatchedBGV:
         """Checks that the hint's chain extends this one, and returns the
         pipeline over the extended chain (the digits' transforms) and the
         pipelines of the special-prime drops, over the extended prefixes
-        from the longest down (each an exact LSD rescale)."""
+        from the longest down (each an exact LSD rescale).  A view that
+        holds the chain's last channel also holds the special primes (on a
+        mesh they ride with the last rns row); the others hold their own."""
         qs, nrns = self.qs, len(self.qs)
         ext_qs = hint.ext_qs
         if ext_qs[:nrns] != qs or nrns + hint.n_special != len(ext_qs) or hint.n_special < 1:
@@ -637,8 +721,11 @@ class BatchedBGV:
         if hint.h0.shape != shape or hint.h1.shape != shape:
             raise ValueError(f"extended-modulus hint of shape {tuple(hint.h0.shape)} != "
                              f"(ell, nrns_ext, n) = {shape}")
-        ext = BatchedBGV(replace(self.params, qs=ext_qs), self.device)
-        drops = [BatchedBGV(replace(self.params, qs=ext_qs[: nrns + k]), self.device)
+        lo, hi = self.chans.start, self.chans.stop
+        hi_ext = hi + hint.n_special if hi == nrns else hi
+        ext = BatchedBGV(replace(self.params, qs=ext_qs), self.device, range(lo, hi_ext))
+        drops = [BatchedBGV(replace(self.params, qs=ext_qs[: nrns + k]), self.device,
+                            range(lo, min(hi_ext, nrns + k)))
                  for k in range(hint.n_special, 0, -1)]
         return ext, drops
 
@@ -692,48 +779,63 @@ class BatchedBGV:
         h0, h1 = self._gen_gadget_hints(sk, target[None], generator)
         return KSHint(self.params, h0[0], h1[0])
 
+
     # --- the key switches, the step and the tunnel ----------------------
-    def build_key_switch_linear(self, hint: KSHint) -> "KeySwitchLinear":
+    def _module(self, cls, mesh, *args) -> nn.Module:
+        """cls(self, *args), or over a mesh a `Sharded` module of one cls
+        part per block."""
+        if mesh is None:
+            return cls(self, *args)
+        blocks = _Blocks(mesh, self)
+        return Sharded(blocks, blocks.build(lambda view: cls(view, *args)))
+
+    def build_key_switch_linear(self, hint: KSHint, mesh=None) -> nn.Module:
         """(c0, c1) -> (e0, e1): re-encrypt from the hint's old key to its
         new key, e0 = c0 + sum_i d_i h0_i, e1 = sum_i d_i h1_i over the
-        RNS-gadget digits d_i of c1.  Either encoding."""
-        return KeySwitchLinear(self, hint)
+        RNS-gadget digits d_i of c1.  Either encoding.  mesh: a `Sharded`
+        module over `shard_batch_rns` blocks (module docstring)."""
+        return self._module(KeySwitchLinear, mesh, hint)
 
-    def build_step(self, hint: KSHint, encoding: str = "lsd") -> "BGVStep":
+    def build_step(self, hint: KSHint, encoding: str = "lsd", mesh=None) -> nn.Module:
         """(c0, c1, d0, d1) -> (e0, e1) over the dropped-prime chain:
         ct_mul + keySwitchQuadCirc + modSwitch.  MSD: the second operand
         is switched to LSD (scaled by p) before ct_mul, so the product is
         MSD, and the rescale is MSD's.  Track the output scale with
-        `step_f(fc, fd, encoding)`."""
-        return BGVStep(self, hint, encoding)
+        `step_f(fc, fd, encoding)`.  mesh: as `build_key_switch_linear`;
+        the output in the shorter chain's layout."""
+        return self._module(BGVStep, mesh, hint, encoding)
 
-    def build_key_switch_linear_ext(self, hint: KSHintExt) -> "KeySwitchLinearExt":
+    def build_key_switch_linear_ext(self, hint: KSHintExt, mesh=None) -> nn.Module:
         """(c0, c1) -> (e0, e1): re-encryption with an extended-modulus
         hint: c1's base-chain digits inner-product with the hint over Q*P,
         the special primes are dropped by exact rescales, and the result
-        rejoins c0 over Q.  Either encoding."""
-        return KeySwitchLinearExt(self, hint)
+        rejoins c0 over Q.  Either encoding.  mesh: as
+        `build_key_switch_linear`; the special primes with the last rns row."""
+        return self._module(KeySwitchLinearExt, mesh, hint)
 
-    def build_step_ext(self, hint: KSHintExt, encoding: str = "lsd") -> "BGVStepExt":
+    def build_step_ext(self, hint: KSHintExt, encoding: str = "lsd", mesh=None) -> nn.Module:
         """(c0, c1, d0, d1) -> (e0, e1) over the dropped-prime chain: ct_mul,
         the extended-modulus key switch of e2 (its special primes dropped by
         exact LSD rescales in both encodings: the hint term is a
         p-multiple plus the message either way), then the encoding-aware
         rescale of the base chain's last prime.  Track the output scale
-        with `step_f`, as for `build_step`."""
-        return BGVStepExt(self, hint, encoding)
+        with `step_f`, as for `build_step`.  mesh: as `build_step`."""
+        return self._module(BGVStepExt, mesh, hint, encoding)
 
-    def build_tunnel(self, th: TunnelHint) -> "Tunnel":
-        """(c0, c1) over R -> (e0, e1) over S: the fused ring tunnel."""
-        return Tunnel(self, th)
+    def build_tunnel(self, th: TunnelHint, mesh=None) -> nn.Module:
+        """(c0, c1) over R -> (e0, e1) over S: the fused ring tunnel.  mesh:
+        as `build_key_switch_linear` (S has the same chain, so the same
+        layout)."""
+        return self._module(Tunnel, mesh, th)
 
-    def build_galois(self, hint: KSHint, k: int) -> "Galois":
+    def build_galois(self, hint: KSHint, k: int, mesh=None) -> nn.Module:
         """(c0, c1) -> (e0, e1): sigma_k of both components (a CRT slot
         permutation), then the key switch of the permuted c1 back to s
-        with the sigma_k(s) hint (`gen_galois_hint`)."""
-        return Galois(self, hint, k)
+        with the sigma_k(s) hint (`gen_galois_hint`).  mesh: as
+        `build_key_switch_linear`."""
+        return self._module(Galois, mesh, hint, k)
 
-    def build_galois_many(self, hints: dict) -> "GaloisMany":
+    def build_galois_many(self, hints: dict, mesh=None) -> nn.Module:
         """(c0, c1) -> {k: (e0_k, e1_k)}, sorted by k: hoisted rotations,
         hints {k: sigma_k(s) hint}.  One inverse transform and one digit
         stack of c1 serve every k; each rotation then costs its hint
@@ -741,20 +843,149 @@ class BatchedBGV:
         the outputs equal `build_galois`'s bit for bit (sigma_k commutes with
         the centered digits there); at general m the digits of sigma_k(c1)
         differ from sigma_k of c1's, so the outputs differ by keygen-grade
-        randomness and decrypt the same."""
-        return GaloisMany(self, hints)
+        randomness and decrypt the same.  mesh: as
+        `build_key_switch_linear`, each output a pair of block arrays."""
+        return self._module(GaloisMany, mesh, hints)
 
     def target_pipeline(self, th: TunnelHint) -> "BatchedBGV":
         """The pipeline over the tunnel's target ring S."""
         return self._over(th.lin.s_ctx)
 
 
+def _i32(*ts) -> tuple[torch.Tensor, ...]:
+    return tuple(t.to(torch.int32) for t in ts)
+
+
+class _Blocks:
+    """The blocks of a pipeline's stacks on an rns x data mesh, in
+    `sharding.shard_batch_rns`'s layout: each block's device and channel
+    range, and the steps a mesh module runs between its parts' stages
+    (the gathers, the rescale)."""
+
+    def __init__(self, mesh: sh.Mesh, bb: BatchedBGV):
+        if bb.chans != range(len(bb.qs)):
+            raise ValueError("a mesh builder takes the pipeline of the whole chain")
+        self.mesh, self.bb = mesh, bb
+        rows = sh.rns_rows(mesh, len(bb.qs))
+        self.devices = sh.rns_data_grid(mesh)[:rows]
+        per = len(bb.qs) // rows
+        self.chans = [range(i * per, (i + 1) * per) for i in range(rows)]
+
+    @property
+    def rows(self) -> int:
+        return self.devices.shape[0]
+
+    def build(self, make) -> np.ndarray:
+        """make(view) for each block's view of the pipeline (its channels,
+        on its device)."""
+        out = np.empty(self.devices.shape, dtype=object)
+        for (i, j), dev in np.ndenumerate(self.devices):
+            out[i, j] = make(self.bb._view(self.chans[i], dev))
+        return out
+
+    def check(self, *arrays) -> None:
+        """Refuse inputs that are not blocks of this layout."""
+        for a in arrays:
+            if not isinstance(a, np.ndarray) or a.shape != self.devices.shape:
+                raise ValueError(
+                    f"mesh input: need a {self.devices.shape} object array of blocks "
+                    f"(sharding.shard_batch_rns), got {type(a).__name__} "
+                    f"{getattr(a, 'shape', '')}")
+            for (i, j), t in np.ndenumerate(a):
+                if t.device != self.devices[i, j] or t.shape[0] != len(self.chans[i]):
+                    raise ValueError(
+                        f"mesh input block ({i}, {j}): {t.shape[0]} channels on {t.device}, "
+                        f"want {len(self.chans[i])} on {self.devices[i, j]}")
+
+    def map(self, fn, *arrays):
+        """fn over the blocks, out[i, j] = fn(*(a[i, j] for a in arrays));
+        a tuple result gives a tuple of block arrays."""
+        out = None
+        for (i, j), _ in np.ndenumerate(self.devices):
+            r = fn(*(a[i, j] for a in arrays))
+            rs = r if isinstance(r, tuple) else (r,)
+            if out is None:
+                out = [np.empty(self.devices.shape, dtype=object) for _ in rs]
+            for o, x in zip(out, rs):
+                o[i, j] = x
+        return tuple(out) if isinstance(r, tuple) else out[0]
+
+    def gather(self, blocks: np.ndarray) -> np.ndarray:
+        """Each data column's full channel stack on every block of the
+        column (`sharding.rns_gather`); data-only blocks hold theirs."""
+        return blocks if self.rows == 1 else sh.rns_gather(self.mesh, blocks)
+
+    def rescale(self, views: np.ndarray, comps: np.ndarray, encoding: str,
+                relayout: bool = True) -> np.ndarray:
+        """The drop-last rescale of a component held as blocks, by the
+        blocks' pipeline views: the dropped channel's read (`_rescale_v`)
+        on the last row's block, gathered to every block of its column,
+        then each block's surviving channels (`_rescale_apply`); the result
+        in the shorter chain's layout (`sharding.rns_relayout`), or as it
+        falls (the special-prime drops, whose rows keep their channels)."""
+        last = self.rows - 1
+        v = np.empty((1, self.devices.shape[1]), dtype=object)
+        for j in range(v.shape[1]):
+            v[0, j] = views[last, j]._rescale_v(comps[last, j][-1], encoding)[None]
+        v = self.gather(v)
+        out = self.map(lambda bb, c, w: bb._rescale_apply(c, w[0], encoding), views, comps, v)
+        return sh.rns_relayout(self.mesh, out) if relayout else out
+
+    def blockwise(self, make):
+        """An elementwise builder made per block (make(view)): its inputs
+        are blocks, or public plaintexts as (n, B) tensors (split as the
+        batch) or (n, 1) ones (every block's); its outputs are blocks."""
+        fns = self.build(make)
+
+        def run(*args):
+            blocks = [a for a in args if isinstance(a, np.ndarray)]
+            self.check(*blocks)
+            offs = np.cumsum([0] + [b.shape[-1] for b in blocks[0][0]])
+
+            def as_blocks(a):
+                if isinstance(a, np.ndarray):
+                    return a
+                if a.shape[-1] not in (1, offs[-1]):
+                    raise ValueError(f"mesh: a plaintext of {a.shape[-1]} columns, the "
+                                     f"blocks hold {offs[-1]}")
+                out = np.empty(self.devices.shape, dtype=object)
+                for (i, j), _ in np.ndenumerate(out):
+                    out[i, j] = a if a.shape[-1] == 1 else a[..., offs[j]:offs[j + 1]]
+                return out
+
+            return self.map(lambda fn, *xs: fn(*xs), fns, *(as_blocks(a) for a in args))
+
+        return run
+
+
+class Sharded(nn.Module):
+    """A builder's module over an rns x data mesh: one part per block (the
+    builder's module over the block's pipeline view, its buffers on the
+    block's device, made at build time) in `grid`; forward takes and gives
+    `sharding.shard_batch_rns` blocks, run by the part class's `sharded`
+    between the gathers.  Its parts stay on their devices: do not `.to()`
+    it."""
+
+    def __init__(self, blocks: _Blocks, parts: np.ndarray):
+        super().__init__()
+        self.blocks = blocks
+        self.grid = parts
+        self.parts = nn.ModuleList(list(parts.flat))
+
+    @torch.no_grad()
+    def forward(self, *args):
+        self.blocks.check(*args)
+        return type(self.grid[0, 0]).sharded(self.blocks, self.grid, *args)
+
+
 class KeySwitchLinear(nn.Module):
     """The RNS-gadget key switch with a hint (`build_key_switch_linear`):
-    the hint and the per-channel moduli are buffers, so `.to(device)`
-    moves it.  `switch` is the digit path the step shares: an inverse NTT
-    per channel, each digit's re-expansion as the prologue of its forward
-    NTTs, the free diagonal, and the hint inner products."""
+    the hint and the per-channel moduli of the pipeline's channels are
+    buffers, so `.to(device)` moves it.  Its digit path, which the step
+    and the rotations share: an inverse NTT per channel, then `digits`
+    (on a mesh, on the gathered inverse): each digit's re-expansion as
+    the prologue of its forward NTTs, the free diagonal, and the hint
+    inner products."""
 
     def __init__(self, bb: BatchedBGV, hint: KSHint):
         super().__init__()
@@ -763,9 +994,10 @@ class KeySwitchLinear(nn.Module):
             raise ValueError(f"key switch: hint shape {tuple(hint.h0.shape)} "
                              f"!= (ell, nrns, n) = {(nrns, nrns, bb.ctx.n)}")
         self.bb = bb
-        self.register_buffer("qv", _channel_consts(bb.qs, bb.device))
-        self.register_buffer("h0", hint.h0.to(bb.device, torch.int64)[..., None])
-        self.register_buffer("h1", hint.h1.to(bb.device, torch.int64)[..., None])
+        lo, hi = bb.chans.start, bb.chans.stop
+        self.register_buffer("qv", bb._consts(lambda q: q))
+        self.register_buffer("h0", hint.h0[:, lo:hi].to(bb.device, torch.int64)[..., None])
+        self.register_buffer("h1", hint.h1[:, lo:hi].to(bb.device, torch.int64)[..., None])
 
     @torch.no_grad()
     def inner_product(self, e0, e1, di, i):
@@ -775,19 +1007,25 @@ class KeySwitchLinear(nn.Module):
         return (e0 + di * self.h0[i]) % self.qv, (e1 + di * self.h1[i]) % self.qv
 
     @torch.no_grad()
-    def switch(self, e0, e1, x):
-        """(e0, e1) plus the inner products of the digits of the
-        (nrns, n, B) CRT stack x with the hint; int64 out."""
-        bb = self.bb
-        xc = bb._ntt(x, inverse=True)
-        for i in range(len(bb.qs)):
-            e0, e1 = self.inner_product(e0, e1, bb._digit_crt(xc[i], i, x), i)
+    def digits(self, e0, e1, xc, x):
+        """(e0, e1) plus the inner products of x's digits with the hint:
+        xc is iNTT(x) over every channel of the chain (on a mesh, the
+        gathered stack), x the pipeline's channels of the CRT stack; int64
+        out."""
+        for i in range(len(self.bb.qs)):
+            e0, e1 = self.inner_product(e0, e1, self.bb._digit_crt(xc[i], i, x), i)
         return e0, e1
 
     @torch.no_grad()
     def forward(self, c0, c1):
-        e0, e1 = self.switch(c0.long(), torch.zeros_like(c1, dtype=torch.int64), c1)
-        return e0.to(torch.int32), e1.to(torch.int32)
+        return _i32(*self.digits(c0.long(), torch.zeros_like(c1, dtype=torch.int64),
+                                 self.bb._ntt(c1, inverse=True), c1))
+
+    @staticmethod
+    def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1):
+        xc = blocks.gather(blocks.map(lambda k, c: k.bb._ntt(c, inverse=True), parts, c1))
+        return blocks.map(lambda k, a, b, f: _i32(*k.digits(
+            a.long(), torch.zeros_like(b, dtype=torch.int64), f, b)), parts, c0, c1, xc)
 
 
 class BGVStep(KeySwitchLinear):
@@ -797,62 +1035,104 @@ class BGVStep(KeySwitchLinear):
     def __init__(self, bb: BatchedBGV, hint: KSHint, encoding: str = "lsd"):
         super().__init__(bb, hint)
         self.encoding = _check_encoding(encoding)
+        bb._rescale_consts(bb.device)
 
     @torch.no_grad()
     def ct_mul(self, c0, c1, d0, d1):
         """(c0 + c1 s)(d0 + d1 s) as CRT Hadamards (`_ct_mul`)."""
-        return _ct_mul(self.bb.qs, c0, c1, d0, d1)
+        return _ct_mul(self.bb.cqs, c0, c1, d0, d1)
+
+    @torch.no_grad()
+    def front(self, c0, c1, d0, d1):
+        """The step up to the key switch's digits: (e0, e1, e2, iNTT(e2)).
+        MSD: the second operand to LSD (times p) first."""
+        if self.encoding == "msd":
+            d0, d1 = _lsd_operand(self.qv, self.bb.params.p, d0, d1)
+        e0, e1, e2 = self.ct_mul(c0, c1, d0, d1)
+        return e0, e1, e2, self.bb._ntt(e2, inverse=True)
 
     @torch.no_grad()
     def forward(self, c0, c1, d0, d1):
         bb = self.bb
-        if self.encoding == "msd":  # the second operand to LSD: times p
-            d0, d1 = _lsd_operand(self.qv, bb.params.p, d0, d1)
-        e0, e1, e2 = self.ct_mul(c0, c1, d0, d1)
-        e0, e1 = self.switch(e0, e1, e2)  # key switch e2
-        return (bb._rescale_crt(e0.to(torch.int32), self.qv, self.encoding),
-                bb._rescale_crt(e1.to(torch.int32), self.qv, self.encoding))
+        e0, e1, e2, xc = self.front(c0, c1, d0, d1)
+        e0, e1 = self.digits(e0, e1, xc, e2)  # key switch e2
+        return (bb._rescale_crt(e0.to(torch.int32), self.encoding),
+                bb._rescale_crt(e1.to(torch.int32), self.encoding))
+
+    @staticmethod
+    def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1, d0, d1):
+        e0, e1, e2, xc = blocks.map(lambda k, *a: k.front(*a), parts, c0, c1, d0, d1)
+        e0, e1 = blocks.map(lambda k, a, b, f, x: _i32(*k.digits(a, b, f, x)),
+                            parts, e0, e1, blocks.gather(xc), e2)
+        views, enc = blocks.map(lambda k: k.bb, parts), parts[0, 0].encoding
+        return blocks.rescale(views, e0, enc), blocks.rescale(views, e1, enc)
 
 
 class KeySwitchLinearExt(nn.Module):
     """The extended-modulus key switch (`build_key_switch_linear_ext`):
-    the hint over Q*P and both chains' moduli are buffers.  `switch` is
-    the digit path the ext step shares: an inverse NTT per base channel,
-    each digit re-expanded into every channel of the extended chain as the
-    prologue of its forward NTT (the free diagonal in base channel i), the
-    hint inner products over Q*P, then the special primes dropped."""
+    the hint over Q*P and both chains' moduli are buffers.  Its digit path,
+    which the ext step shares: an inverse NTT per base channel, each digit
+    re-expanded into every channel of the extended chain as the prologue
+    of its forward NTT (the free diagonal in base channel i), the hint
+    inner products over Q*P (`digits`), then the special primes dropped
+    (`drop_specials`)."""
 
     def __init__(self, bb: BatchedBGV, hint: KSHintExt):
         super().__init__()
         self.bb = bb
         self.ext, self.drops = bb._ext_hint_setup(hint)
-        self.register_buffer("qv", _channel_consts(bb.qs, bb.device))
-        self.register_buffer("qv_ext", _channel_consts(hint.ext_qs, bb.device))
-        self.register_buffer("h0", hint.h0.to(bb.device, torch.int64)[..., None])
-        self.register_buffer("h1", hint.h1.to(bb.device, torch.int64)[..., None])
+        lo, hi = self.ext.chans.start, self.ext.chans.stop
+        self.register_buffer("qv", bb._consts(lambda q: q))
+        self.register_buffer("qv_ext", self.ext._consts(lambda q: q))
+        self.register_buffer("h0", hint.h0[:, lo:hi].to(bb.device, torch.int64)[..., None])
+        self.register_buffer("h1", hint.h1[:, lo:hi].to(bb.device, torch.int64)[..., None])
+        for drop in self.drops:
+            drop._rescale_consts(bb.device)
 
     @torch.no_grad()
-    def switch(self, x):
-        """The inner products of the base-chain digits of the (nrns, n, B)
-        CRT stack x with the hint over Q*P, the special primes dropped:
-        int32 (a0, a1) over Q."""
-        bb, ext = self.bb, self.ext
-        xc = bb._ntt(x, inverse=True)
+    def digits(self, xc, x):
+        """The inner products over Q*P of the base-chain digits of x with
+        the hint, over the extended pipeline's channels: xc is iNTT(x) over
+        every base channel (on a mesh, gathered), x the pipeline's channels
+        of the CRT stack; int32 (a0, a1)."""
+        ext = self.ext
         a0 = a1 = 0
-        for i in range(len(bb.qs)):
+        for i in range(len(self.bb.qs)):
             di = ext._digit_crt(xc[i], i, x).long()
             a0 = (a0 + di * self.h0[i]) % self.qv_ext
             a1 = (a1 + di * self.h1[i]) % self.qv_ext
-        a0, a1 = a0.to(torch.int32), a1.to(torch.int32)
+        return a0.to(torch.int32), a1.to(torch.int32)
+
+    @torch.no_grad()
+    def drop_specials(self, a0, a1):
+        """The special primes dropped by exact LSD rescales: int32 over Q."""
         for drop in self.drops:
-            qv = self.qv_ext[: len(drop.qs)]
-            a0, a1 = drop._rescale_crt(a0, qv), drop._rescale_crt(a1, qv)
+            a0, a1 = drop._rescale_crt(a0), drop._rescale_crt(a1)
         return a0, a1
 
     @torch.no_grad()
     def forward(self, c0, c1):
-        a0, a1 = self.switch(c1)
+        a0, a1 = self.drop_specials(*self.digits(self.bb._ntt(c1, inverse=True), c1))
         return _addmod_ch(self.qv, c0, a0).to(torch.int32), a1
+
+    @staticmethod
+    def _sharded_switch(blocks: _Blocks, parts: np.ndarray, xc, x):
+        """The digit path over a mesh, from the blocks' inverse xc: the
+        digits on the gathered inverse, then each drop's rescale over the
+        blocks (the special primes are on the last row)."""
+        a0, a1 = blocks.map(lambda k, f, y: k.digits(f, y), parts, blocks.gather(xc), x)
+        for t in range(len(parts[0, 0].drops)):
+            drops = blocks.map(lambda k: k.drops[t], parts)
+            a0 = blocks.rescale(drops, a0, "lsd", relayout=False)
+            a1 = blocks.rescale(drops, a1, "lsd", relayout=False)
+        return a0, a1
+
+    @staticmethod
+    def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1):
+        xc = blocks.map(lambda k, c: k.bb._ntt(c, inverse=True), parts, c1)
+        a0, a1 = KeySwitchLinearExt._sharded_switch(blocks, parts, xc, c1)
+        return blocks.map(lambda k, c, a, b: (_addmod_ch(k.qv, c, a).to(torch.int32), b),
+                          parts, c0, a0, a1)
 
 
 class BGVStepExt(KeySwitchLinearExt):
@@ -862,22 +1142,40 @@ class BGVStepExt(KeySwitchLinearExt):
     def __init__(self, bb: BatchedBGV, hint: KSHintExt, encoding: str = "lsd"):
         super().__init__(bb, hint)
         self.encoding = _check_encoding(encoding)
+        bb._rescale_consts(bb.device)
+
+    @torch.no_grad()
+    def front(self, c0, c1, d0, d1):
+        """(e0, e1, e2, iNTT(e2)), as `BGVStep.front`."""
+        if self.encoding == "msd":  # the second operand to LSD: times p
+            d0, d1 = _lsd_operand(self.qv, self.bb.params.p, d0, d1)
+        e0, e1, e2 = _ct_mul(self.bb.cqs, c0, c1, d0, d1)
+        return e0, e1, e2, self.bb._ntt(e2, inverse=True)
 
     @torch.no_grad()
     def forward(self, c0, c1, d0, d1):
         bb, qv = self.bb, self.qv
-        if self.encoding == "msd":  # the second operand to LSD: times p
-            d0, d1 = _lsd_operand(qv, bb.params.p, d0, d1)
-        e0, e1, e2 = _ct_mul(bb.qs, c0, c1, d0, d1)
-        a0, a1 = self.switch(e2)
+        e0, e1, e2, xc = self.front(c0, c1, d0, d1)
+        a0, a1 = self.drop_specials(*self.digits(xc, e2))
         e0, e1 = _addmod_ch(qv, e0, a0), _addmod_ch(qv, e1, a1)
-        return (bb._rescale_crt(e0.to(torch.int32), qv, self.encoding),
-                bb._rescale_crt(e1.to(torch.int32), qv, self.encoding))
+        return (bb._rescale_crt(e0.to(torch.int32), self.encoding),
+                bb._rescale_crt(e1.to(torch.int32), self.encoding))
+
+    @staticmethod
+    def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1, d0, d1):
+        e0, e1, e2, xc = blocks.map(lambda k, *a: k.front(*a), parts, c0, c1, d0, d1)
+        a0, a1 = KeySwitchLinearExt._sharded_switch(blocks, parts, xc, e2)
+        e0, e1 = blocks.map(lambda k, a, b, x, y: _i32(_addmod_ch(k.qv, a, x),
+                                                        _addmod_ch(k.qv, b, y)),
+                            parts, e0, e1, a0, a1)
+        views, enc = blocks.map(lambda k: k.bb, parts), parts[0, 0].encoding
+        return blocks.rescale(views, e0, enc), blocks.rescale(views, e1, enc)
 
 
 class Tunnel(nn.Module):
     """The fused ring tunnel R -> S (`build_tunnel`); the index tables,
-    the images ys (CRT over S) and the hints are buffers:
+    the images ys (CRT over S) and the hints of the pipeline's channels
+    are buffers:
 
         e0 = sum_i NTT_S(embed(a0_i)) ys_i + sum_{i,j} NTT_S(embed(digit_j(a1_i))) h0_{i,j}
         e1 = sum_{i,j} NTT_S(embed(digit_j(a1_i))) h1_{i,j}
@@ -887,7 +1185,9 @@ class Tunnel(nn.Module):
     `BatchedBGV._crt_one`).  Digit j's re-expansion into channel ch runs as
     the prologue of ch's forward transform over S, into every channel, j
     included (where it is the identity; the embed scatter keeps zeros, so
-    the order commutes)."""
+    the order commutes).  e0's channel ch reads iNTT_R(c0)'s channel ch
+    alone; the digits read every channel of iNTT_R(c1), which a mesh
+    gathers."""
 
     def __init__(self, bb: BatchedBGV, th: TunnelHint):
         super().__init__()
@@ -902,16 +1202,17 @@ class Tunnel(nn.Module):
         self.bb = bb
         self.s_ctx = lin.s_ctx
         dev = bb.device
-        self.register_buffer("qv", _channel_consts(bb.qs, dev))
+        lo, hi = bb.chans.start, bb.chans.stop
+        self.register_buffer("qv", bb._consts(lambda q: q))
         self.register_buffer("coeff", torch.from_numpy(
             gen.rel_coeff_table(lin.e_ctx.m, lin.r_ctx.m).copy()).to(dev))
         self.register_buffer("embed", torch.from_numpy(
             gen.embed_pow_table(lin.e_ctx.m, lin.s_ctx.m).copy()).to(dev))
-        ys = np.stack([_crt_np(lin.s_ctx, y) for y in lin.ys]).astype(np.int64)
+        ys = np.stack([_crt_np(lin.s_ctx, y)[lo:hi] for y in lin.ys]).astype(np.int64)
         self.register_buffer("ys", torch.from_numpy(ys).to(dev)[..., None])
         for k in ("h0", "h1"):
-            self.register_buffer(k, torch.stack([getattr(h, k) for h in th.hints]).to(
-                dev, torch.int64)[..., None])  # (d, ell, nrns, n_s, 1)
+            self.register_buffer(k, torch.stack([getattr(h, k)[:, lo:hi] for h in th.hints]).to(
+                dev, torch.int64)[..., None])  # (d, ell, len(chans), n_s, 1)
 
     def _embed(self, a: torch.Tensor) -> torch.Tensor:
         """(..., n_e, B) coefficients over E -> (..., n_s, B) over S."""
@@ -923,22 +1224,32 @@ class Tunnel(nn.Module):
         return self.bb._crt_one(x, ch, ctx=self.s_ctx, pre_digit_q=pre_digit_q)
 
     @torch.no_grad()
-    def forward(self, c0, c1):
+    def combine(self, c0p, c1p):
+        """The tunnel's output from the inverse-transformed components:
+        c0p over the pipeline's channels, c1p over every channel."""
         bb, qv = self.bb, self.qv
-        nrns = len(bb.qs)
-        c0p, c1p = bb._ntt(c0, inverse=True), bb._ntt(c1, inverse=True)
         e0 = e1 = 0
         for i, rows in enumerate(self.coeff):
             a0 = self._embed(c0p[:, rows, :])
-            t0 = torch.stack([self._ntt_s(a0[ch], ch) for ch in range(nrns)])
+            t0 = torch.stack([self._ntt_s(a0[k], ch) for k, ch in enumerate(bb.chans)])
             e0 = (e0 + t0.long() * self.ys[i]) % qv
             a1 = self._embed(c1p[:, rows, :])
             for j, qj in enumerate(bb.qs):
                 dj = torch.stack([self._ntt_s(a1[j], ch, pre_digit_q=qj)
-                                  for ch in range(nrns)]).long()
+                                  for ch in bb.chans]).long()
                 e0 = (e0 + dj * self.h0[i, j]) % qv
                 e1 = (e1 + dj * self.h1[i, j]) % qv
         return e0.to(torch.int32), e1.to(torch.int32)
+
+    @torch.no_grad()
+    def forward(self, c0, c1):
+        return self.combine(self.bb._ntt(c0, inverse=True), self.bb._ntt(c1, inverse=True))
+
+    @staticmethod
+    def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1):
+        c0p, c1p = blocks.map(lambda k, a, b: (k.bb._ntt(a, inverse=True),
+                                               k.bb._ntt(b, inverse=True)), parts, c0, c1)
+        return blocks.map(lambda k, a, f: k.combine(a, f), parts, c0p, blocks.gather(c1p))
 
 
 class Galois(KeySwitchLinear):
@@ -956,6 +1267,12 @@ class Galois(KeySwitchLinear):
     def forward(self, c0, c1):
         return super().forward(c0.index_select(1, self.perm), c1.index_select(1, self.perm))
 
+    @staticmethod
+    def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1):
+        c0k, c1k = blocks.map(lambda k, a, b: (a.index_select(1, k.perm),
+                                               b.index_select(1, k.perm)), parts, c0, c1)
+        return KeySwitchLinear.sharded(blocks, parts, c0k, c1k)
+
 
 class GaloisMany(nn.Module):
     """Hoisted Galois automorphisms (`build_galois_many`): per k, the hint
@@ -969,7 +1286,8 @@ class GaloisMany(nn.Module):
         nrns = len(bb.qs)
         self.bb = bb
         self.ks = tuple(sorted(hints))
-        self.register_buffer("qv", _channel_consts(bb.qs, bb.device))
+        lo, hi = bb.chans.start, bb.chans.stop
+        self.register_buffer("qv", bb._consts(lambda q: q))
         for k in self.ks:
             h = hints[k]
             if h.h0.shape != (nrns, nrns, bb.ctx.n) or h.h1.shape != h.h0.shape:
@@ -979,13 +1297,14 @@ class GaloisMany(nn.Module):
             inv = torch.from_numpy(np.argsort(perm))
             self.register_buffer(f"perm_{k}", torch.from_numpy(perm).to(bb.device))
             for name in ("h0", "h1"):
-                self.register_buffer(f"{name}_{k}", getattr(h, name).to(torch.int64)[
-                    :, :, inv].to(bb.device)[..., None])  # (ell, nrns, n, 1)
+                self.register_buffer(f"{name}_{k}", getattr(h, name)[:, lo:hi].to(torch.int64)[
+                    :, :, inv].to(bb.device)[..., None])  # (ell, len(chans), n, 1)
 
     @torch.no_grad()
-    def forward(self, c0, c1):
+    def rotations(self, c0, c1, xc):
+        """{k: (e0_k, e1_k)} from c1's inverse xc over every channel (on a
+        mesh, gathered)."""
         bb, qv = self.bb, self.qv
-        xc = bb._ntt(c1, inverse=True)
         digits = [bb._digit_crt(xc[i], i, c1).long() for i in range(len(bb.qs))]
         outs = {}
         for k in self.ks:
@@ -998,3 +1317,13 @@ class GaloisMany(nn.Module):
             outs[k] = (e0.to(torch.int32).index_select(1, perm),
                        e1.to(torch.int32).index_select(1, perm))
         return outs
+
+    @torch.no_grad()
+    def forward(self, c0, c1):
+        return self.rotations(c0, c1, self.bb._ntt(c1, inverse=True))
+
+    @staticmethod
+    def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1):
+        xc = blocks.gather(blocks.map(lambda k, b: k.bb._ntt(b, inverse=True), parts, c1))
+        outs = blocks.map(lambda k, a, b, f: k.rotations(a, b, f), parts, c0, c1, xc)
+        return {k: blocks.map(lambda o: o[k], outs) for k in parts[0, 0].ks}

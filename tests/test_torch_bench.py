@@ -142,10 +142,13 @@ def test_measurements_refuse_to_run_without_a_card(monkeypatch):
                lambda: steptime.call_time(None, *[torch.zeros(1, 2, 3)] * 2, "", ""),
                lambda: steptime.galois_ab(None, {}, *[torch.zeros(1, 2, 3)] * 2),
                lambda: steptime.odd_axis(None, (), None),
+               lambda: steptime.mesh_inputs(64, 3, 4, 0), lambda: steptime.ab({}),
+               lambda: steptime.copies(None, ()),
                lambda: ntt_ab.run(str(Path(__file__).resolve().parents[1]), "this tree")):
         with pytest.raises(RuntimeError, match="CUDA device"):
             fn()
-    for leg in ("--pt-round", "--homom-prf", "--general-m", "--tunnel-general", "--galois"):
+    for leg in ("--pt-round", "--homom-prf", "--general-m", "--tunnel-general", "--galois",
+                "--mesh"):
         monkeypatch.setattr(sys, "argv", ["steptime", leg, "--m", "16", "--batch", "2"])
         with pytest.raises(RuntimeError, match="CUDA device"):
             steptime.main()

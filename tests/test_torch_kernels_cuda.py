@@ -546,3 +546,138 @@ def test_galois_on_card_equals_cpu(cuda, m):
         _same(many[k], ref[k])
         if m == 4096:
             _same(many[k], tuple(t.cpu() for t in one))
+
+
+def _mesh_setup(cuda, m=256, p=257):
+    """Three primes and two special ones at m, hints made on the card, two
+    LSD encryptions of 40 messages; the mesh {"rns": 3, "data": 2} over the
+    visible cards (one card: six entries of it)."""
+    from lol_tpu_torch import linear
+
+    all5 = tuple(nt.ntt_primes(m, 30, 5))
+    params = she.SHEParams(m=m, p=p, qs=all5[:3], var=2.0)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    bb = BatchedBGV(params, cuda)
+    sk, sk_new = she.gen_sk(params, g), she.gen_sk(params, g)
+    enc = bb.build_encrypt(sk)
+    cts = [enc(she.pt_random(params, g, (40,)), g) for _ in range(2)]
+    ps = she.SHEParams(m=m // 2, p=p, qs=params.qs, var=2.0)
+    ys = [np.zeros(ps.ctx.n, dtype=np.int64), np.zeros(ps.ctx.n, dtype=np.int64)]
+    ys[0][0] = 1
+    th = bb.gen_tunnel_hint(linear.linear_pow(ps.ctx, params.ctx, ps.ctx, ys),
+                            she.gen_sk(ps, g), sk, g)
+    hints = dict(quad=bb.gen_ks_quad_hint(sk, g), lin=bb.gen_ks_linear_hint(sk_new, sk, g),
+                 quad_ext=bb.gen_ks_quad_hint_ext(sk, all5[3:], g),
+                 lin_ext=bb.gen_ks_linear_hint_ext(sk_new, sk, all5[3:], g), tunnel=th,
+                 galois={k: bb.gen_galois_hint(k, sk, g) for k in (3, 5)})
+    return bb, hints, cts
+
+
+def _mesh_builders(bb, hints):
+    """name -> (builder taking mesh=, number of ciphertexts it takes)."""
+    return {
+        "step_lsd": (lambda mesh: bb.build_step(hints["quad"], "lsd", mesh), 2),
+        "step_msd": (lambda mesh: bb.build_step(hints["quad"], "msd", mesh), 2),
+        "mod_switch": (lambda mesh: bb.build_mod_switch("lsd", mesh), 1),
+        "key_switch_linear": (lambda mesh: bb.build_key_switch_linear(hints["lin"], mesh), 1),
+        "step_ext": (lambda mesh: bb.build_step_ext(hints["quad_ext"], "lsd", mesh), 2),
+        "key_switch_linear_ext": (lambda mesh: bb.build_key_switch_linear_ext(
+            hints["lin_ext"], mesh), 1),
+        "galois": (lambda mesh: bb.build_galois(hints["galois"][3], 3, mesh), 1),
+        "galois_many": (lambda mesh: bb.build_galois_many(hints["galois"], mesh), 1),
+        "tunnel": (lambda mesh: bb.build_tunnel(hints["tunnel"], mesh), 1),
+        "pt_ops": (lambda mesh: bb.build_add(1, 3, True, mesh), 2),
+    }
+
+
+def _unshard_all(out):
+    if isinstance(out, dict):
+        return {k: _unshard_all(v) for k, v in out.items()}
+    return tuple(sh.unshard_batch_rns(b) for b in out)
+
+
+def _same_any(a, b):
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            _same_any(a[k], b[k])
+    else:
+        assert all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("builder", ["step_lsd", "step_msd", "mod_switch", "key_switch_linear",
+                                     "step_ext", "key_switch_linear_ext", "galois",
+                                     "galois_many", "tunnel", "pt_ops"])
+def test_mesh_builders_on_card_equal_unsharded(cuda, builder):
+    """Each mesh builder over make_mesh({"rns": 3, "data": 2}) at m = 256,
+    three primes, B = 40: unsharded, the card's unsharded output, its
+    launches exactly twice the unsharded call's (one per data column)."""
+    bb, hints, cts = _mesh_setup(cuda)
+    mesh = sh.make_mesh({"rns": 3, "data": 2})
+    make, k = _mesh_builders(bb, hints)[builder]
+    args = [t for c in cts[:k] for t in c]
+    before = dict(tk.LAUNCHES, **pw.LAUNCHES)
+    want = make(None)(*args)
+    one = {key: v - before[key] for key, v in dict(tk.LAUNCHES, **pw.LAUNCHES).items()}
+    blocks = [sh.shard_batch_rns(mesh, t) for t in args]
+    torch.cuda.synchronize()
+    before = dict(tk.LAUNCHES, **pw.LAUNCHES)
+    got = make(mesh)(*blocks)
+    mesh_launches = {key: v - before[key] for key, v in dict(tk.LAUNCHES, **pw.LAUNCHES).items()}
+    assert mesh_launches == {key: 2 * v for key, v in one.items()}
+    _same_any(_unshard_all(got), want)
+
+
+def test_mesh_blocks_stay_on_their_cards():
+    """A mesh whose rns rows sit on two cards (row 0 on cuda:0, row 1 on
+    cuda:1): every block of the step's, the key switch's and the tunnel's
+    output, and every part's buffers, on its block's card; the outputs
+    unsharded == the single-card run."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    c0_, c1_ = torch.device("cuda", 0), torch.device("cuda", 1)
+    mesh = sh.make_mesh({"rns": 3, "data": 2}, [c0_, c0_, c1_, c1_, c0_, c1_])
+    bb, hints, cts = _mesh_setup(c0_)
+    grid = sh.rns_data_grid(mesh)
+    for name in ("step_lsd", "key_switch_linear", "step_ext", "tunnel", "galois_many"):
+        make, k = _mesh_builders(bb, hints)[name]
+        args = [t for c in cts[:k] for t in c]
+        mod = make(mesh)
+        for (i, j), part in np.ndenumerate(mod.grid):
+            assert all(b.device == grid[i, j] for b in part.buffers()), (name, i, j)
+        got = mod(*[sh.shard_batch_rns(mesh, t) for t in args])
+        outs = got.values() if isinstance(got, dict) else [got]
+        for out in outs:
+            for comp in out:
+                for (i, j), blk in np.ndenumerate(comp):
+                    assert blk.device == grid[i, j], (name, i, j)
+        _same_any(_unshard_all(got), make(None)(*args))
+    torch.cuda.synchronize(c1_)
+
+
+def test_slot_map_homom_prf_on_card_equals_cpu(cuda):
+    """HomomPRF at p = 257 down 32 -> 16 with maps="slots" (BaseBGad(16),
+    balanced(2)), hints made on the card, 40 key ciphertexts: every
+    component equals the CPU's and decrypts to the slot map applied to the
+    clear s * A_T(x)."""
+    from lol_tpu_torch import gadget, linear
+
+    qs = tuple(nt.ntt_primes(64, 30, 3))
+    g = torch.Generator(device=cuda).manual_seed(32)
+    sks = [she.gen_sk(she.SHEParams(m=r, p=257, qs=qs, var=2.0), g) for r in (32, 16)]
+    fam = prf.PRFFamily.random(32, 257, gadget.BaseBGad(16), prf.balanced(2), g)
+    hints, sk_out = prf.make_eval_hints(fam, sks, [32, 16], [16], g, p_final=257, maps="slots",
+                                        device=cuda)
+    bb = BatchedBGV(sks[0].params, cuda)
+    keys = torch.randint(0, 257, (16, 40), generator=g, device=cuda, dtype=torch.int32)
+    cts = bb.build_encrypt(sks[0])(keys, g)
+    lin = hints.tunnels[0].lin
+    for i in range(gadget.num_digits(fam.spec, 257)):
+        bb_out, f_out, out = serving.batched_homom_prf_component(fam, hints, bb, *cts, (0, 1), i)
+        _same(out, serving.batched_homom_prf_component(
+            fam, hints, BatchedBGV(bb.params, "cpu"), *(c.cpu() for c in cts), (0, 1), i)[2])
+        got = bb_out.build_decrypt(sk_out, f=f_out)(*out).cpu().numpy()
+        for k in range(40):
+            want = linear.eval_lin(lin, prf.prf_pre_round(fam, keys[:, k].cpu().numpy(),
+                                                          (0, 1))[i], 257)
+            np.testing.assert_array_equal(got[:, k], want)

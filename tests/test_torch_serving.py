@@ -151,8 +151,8 @@ def test_make_eval_hints_auto_is_project_at_even_p(monkeypatch):
     back to the coefficient projection at every hop (its slot map needs p
     coprime to the ring indices): the maps the JAX make_eval_hints hands
     its hint generator (stubbed here, the maps are the point) are the
-    port's "auto" and "project" maps.  The port raises for the slot maps
-    it has not ported."""
+    port's "auto" and "project" maps.  "slots" refuses there as the JAX
+    package does, and at odd p "auto" takes the JAX package's maps."""
     rings, e_rings = [16, 8, 2], [8, 2]
     qs = tuple(nt.ntt_primes(32, 30, 2))
     jsks = [jshe.SK(jshe.SHEParams(m=m, p=8, qs=qs, var=2.0), np.zeros(m // 2, np.int64), 2.0)
@@ -163,19 +163,31 @@ def test_make_eval_hints_auto_is_project_at_even_p(monkeypatch):
     sks = [convert.sk_from_numpy(she.SHEParams(m=m, p=8, qs=qs, var=2.0), np.zeros(m // 2))
            for m in rings]
     g = torch.Generator().manual_seed(3)
-    for maps in ("auto", "project"):
-        port, _ = prf.make_eval_hints(None, sks, rings, e_rings, g, maps=maps, device="cpu")
-        for th, lin in zip(port.tunnels, auto.tunnels):
+
+    def same_maps(port, ref):
+        assert len(port.tunnels) == len(ref.tunnels)
+        for th, lin in zip(port.tunnels, ref.tunnels):
             assert (th.lin.e_ctx.m, th.lin.r_ctx.m, th.lin.s_ctx.m) == \
                 (lin.e_ctx.m, lin.r_ctx.m, lin.s_ctx.m)
             np.testing.assert_array_equal(np.stack(th.lin.ys),
                                           np.stack([y.lift_ints(rep=JRep.POW) for y in lin.ys]))
-    with pytest.raises(NotImplementedError, match="slot maps"):
-        prf.make_eval_hints(None, sks, rings, e_rings, g, maps="slots", device="cpu")
-    odd = [convert.sk_from_numpy(she.SHEParams(m=m, p=9, qs=qs, var=2.0), np.zeros(m // 2))
+
+    for maps in ("auto", "project"):
+        same_maps(prf.make_eval_hints(None, sks, rings, e_rings, g, maps=maps, device="cpu")[0],
+                  auto)
+    for mk in (lambda: jprf.make_eval_hints(None, jsks, rings, e_rings, jgd.RnsGad(),
+                                            jax.random.PRNGKey(2), maps="slots"),
+               lambda: prf.make_eval_hints(None, sks, rings, e_rings, g, maps="slots",
+                                           device="cpu")):
+        with pytest.raises(ValueError, match="coprime"):
+            mk()
+    odd = [convert.sk_from_numpy(she.SHEParams(m=m, p=257, qs=qs, var=2.0), np.zeros(m // 2))
            for m in rings]
-    with pytest.raises(NotImplementedError, match="slot maps"):
-        prf.make_eval_hints(None, odd, rings, e_rings, g, maps="auto", device="cpu")
+    jodd = [jshe.SK(jshe.SHEParams(m=m, p=257, qs=qs, var=2.0), np.zeros(m // 2, np.int64), 2.0)
+            for m in rings]
+    same_maps(prf.make_eval_hints(None, odd, rings, e_rings, g, maps="auto", device="cpu")[0],
+              jprf.make_eval_hints(None, jodd, rings, e_rings, jgd.RnsGad(),
+                                   jax.random.PRNGKey(2), maps="auto")[0])
     # where e_rings[i] != rings[i+1] both take the projection, as the reference does
     prf.make_eval_hints(None, odd, [16, 8], [4], g, maps="auto", device="cpu")
     with pytest.raises(ValueError, match="maps must be"):

@@ -160,17 +160,27 @@ def test_lifts_match_reference(rng):
 
 
 def test_unported_paths_raise():
-    """The CRT-set slot maps are not ported: `prf.make_eval_hints` with
-    maps="slots" raises before it makes any hint.  (General m and MSD,
-    which raised here before, are ported and held against the JAX package
-    in test_torch_general.py and test_torch_she_builders.py.)"""
+    """`prf.make_eval_hints(maps="slots")` raises where the reference's
+    slot map cannot be built (p = 8 is not coprime to the 2-power ring
+    indices), before it makes any hint, with the reference's ValueError;
+    where it can (p = 257), its maps equal the JAX package's (the slot
+    maps, which raised NotImplementedError here before, are ported; the
+    full comparison is test_torch_crtset.py)."""
+    from lol_tpu import linear as jlinear
+    from lol_tpu.cyc import Rep as JRep
+    from lol_tpu.ring import ring_context as j_ring_context
     from lol_tpu_torch import gadget, prf
     qs = tuple(nt.ntt_primes(16, 30, 2))
     g = torch.Generator().manual_seed(0)
     sks = [she.gen_sk(she.SHEParams(m=m, p=8, qs=qs, var=2.0), g) for m in (16, 8)]
     fam = prf.PRFFamily.random(16, 8, gadget.BaseBGad(2), prf.balanced(2), g)
-    with pytest.raises(NotImplementedError, match="slot maps"):
+    with pytest.raises(ValueError, match="coprime"):
         prf.make_eval_hints(fam, sks, [16, 8], [8], g, maps="slots", device="cpu")
+    sks = [she.gen_sk(she.SHEParams(m=m, p=257, qs=qs, var=2.0), g) for m in (16, 8)]
+    hints, _ = prf.make_eval_hints(None, sks, [16, 8], [8], g, maps="slots", device="cpu")
+    want = jlinear.slot_projection(j_ring_context(16, qs), j_ring_context(8, qs), 257)
+    np.testing.assert_array_equal(np.stack(hints.tunnels[0].lin.ys),
+                                  np.stack([y.lift_ints(rep=JRep.POW) for y in want.ys]))
 
 
 def test_pack_matches_jax_pack(jax_state):
@@ -192,8 +202,9 @@ def test_step_module_moves_with_its_buffers(jax_state):
 def test_port_never_imports_jax():
     """In a fresh interpreter where importing jax or lol_tpu fails, every
     module of the port imports (the package walked with pkgutil), and the
-    port still builds a pipeline and runs a step, a tunnel and a pt_round
-    on the CPU."""
+    port still builds a pipeline and runs a step, a tunnel, a pt_round,
+    a general-m step, a Galois rotation, a slot map and a step over an
+    rns x data mesh on the CPU."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -208,7 +219,8 @@ def test_port_never_imports_jax():
                 "lol_tpu_torch.bench.roofline", "lol_tpu_torch.ops.cuda.pointwise",
                 "lol_tpu_torch.linear", "lol_tpu_torch.ops.general",
                 "lol_tpu_torch.serving", "lol_tpu_torch.prf",
-                "lol_tpu_torch.factored", "lol_tpu_torch.zmstar"} <= set(mods)
+                "lol_tpu_torch.factored", "lol_tpu_torch.zmstar",
+                "lol_tpu_torch.crtset", "lol_tpu_torch.gf"} <= set(mods)
         from lol_tpu_torch import linear, numtheory as nt, serving, she
         from lol_tpu_torch.ring import ring_context
         from lol_tpu_torch.she_batched import BatchedBGV
@@ -256,6 +268,16 @@ def test_port_never_imports_jax():
         rot = bb36.build_galois(bb36.gen_galois_hint(5, sk36, g), 5)(*enc36(a, g))
         got = bb36.build_decrypt(sk36)(*rot)
         assert (got[:, 1].numpy() == she.galois_ints(36, a[:, 1].numpy(), 5, 5)).all()
+        # a slot map 32 -> 16 at p = 257, and the m = 32 step over a mesh
+        f = linear.slot_projection(params.ctx, ring_context(16, qs), 257)
+        assert f.d == 2 and max(abs(int(v)) for y in f.ys for v in y) <= 128
+        from lol_tpu_torch.parallel import sharding as sh
+        mesh = sh.make_mesh({"rns": 2, "data": 2}, ["cpu"] * 4)
+        cs = (*enc(m1, g), *enc(m2, g))
+        hint = bb.gen_ks_quad_hint(sk, g)
+        got = bb.build_step(hint, mesh=mesh)(*(sh.shard_batch_rns(mesh, c) for c in cs))
+        want = bb.build_step(hint)(*cs)
+        assert all(torch.equal(sh.unshard_batch_rns(x), y) for x, y in zip(got, want))
         assert not any(k == "jax" or k.startswith(("jax.", "lol_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
