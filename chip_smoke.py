@@ -109,6 +109,25 @@ then runs its phases and exits non-zero on the first failure:
    components decrypted (columns 0-7) against the slot map applied to
    the clear s * A_T(x) and equal to the CPU's over columns 0-15,
    launches counted exactly;
+3h. the object path (`she` over `cyc.Cyc`, one ciphertext, B = 1): (a)
+   ring identities at m = 32768 and 18432 and their half rings (crt,
+   crt_inv o crt, l, l_inv o l, mul_g and div_g o mul_g in the three
+   bases, twace o embed in the powerful and CRT bases, the relative
+   coefficients against pow_basis); (b) the README Quick start at m =
+   8192 and she_demo's flow at phase 3's ring and key (encrypt x2,
+   ct_add, ct_mul, the RNS quad hint and key switch, mod_switch, a
+   BaseBGad(2^16) key switch, a TrivGad one over Q P with 4 special
+   primes, an RNS ext one with 2, sigma_5, the MSD encryption and both
+   encoding switches), each decryption against its plaintext; (c) the
+   object path against the batched one on the earlier phases' inputs
+   and hints: phase 3's step (columns 0-7), phase 3d's tunnel (columns
+   0-7), phase 3f's general step (columns 0-7) and phase 3e's HomomPRF
+   (column 0), bit for bit.  Each object call is checked as phase 3c's
+   builders are: a shim records its `ntt_cm` / `ct_mul_cm` calls, and the
+   card launches each call's passes and nothing else; a deterministic
+   call runs on CPU copies first, where the card must make the same
+   calls and give the same output bit for bit; closed forms hold the
+   encryption, the hints, the step, decrypt and the tunnel;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -142,7 +161,10 @@ then runs its phases and exits non-zero on the first failure:
    `mesh_tunnel_ops_per_sec` beside the unsharded step's and tunnel's
    rates in the same interleaved windows (`steptime.mesh_ab`), with the
    mesh calls' layout copies timed on the device (`steptime.copies`);
-   each printed on a `metric` line beside the card line.
+   and phase 3h's object path at m = 32768 (`encrypt`, the step,
+   `decrypt`, `tunnel`, `homom_prf_component`) beside the batched path's
+   time per ciphertext in the same call; each printed on a `metric` line
+   beside the card line.
    Phase 1 also fails if ptxas gave a ring or route-B kernel a stack
    frame or spills.
 
@@ -212,12 +234,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import_port()
-    from lol_tpu_torch import gadget, linear, numtheory as nt, prf, serving, she
+    from collections import Counter
+    from dataclasses import replace as dc_replace
+
+    from lol_tpu_torch import gadget, linear, numtheory as nt, prf, ring as ring_mod, serving, she
+    from lol_tpu_torch.cyc import Cyc, Rep
     from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, steptime, time_ms
     from lol_tpu_torch.ops import general as gen, ntt
     from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw
     from lol_tpu_torch.ops.cuda import remote_ntt as rn
     from lol_tpu_torch.parallel import sharding as sh
+    from lol_tpu_torch.ring import ring_context
     from lol_tpu_torch.she_batched import BatchedBGV
 
     counters = (tk.LAUNCHES, pw.LAUNCHES, mx.LAUNCHES, rn.LAUNCHES)
@@ -512,7 +539,8 @@ def main() -> int:
     # must equal its NTT calls times the passes of `cm_schedule` (one at
     # n = 4096, 8192 and 2^14), its ct_mul calls, and nothing else.
     path_launches = {ph: dict.fromkeys(counts(), 0)
-                     for ph in ("3c", "3d", "3e", "3e_ext", "3f", "3f_galois", "3g", "3g_slots")}
+                     for ph in ("3c", "3d", "3e", "3e_ext", "3f", "3f_galois", "3g", "3g_slots",
+                                "3h")}
 
     def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, n_fwd=None, n_inv=None):
         return run_by_n(phase, name, fn, *args, fwd={n_fwd: fwd} if fwd else {},
@@ -682,7 +710,7 @@ def main() -> int:
     tunnel_launches = counts()
     got_t = run("3d", "decrypt over S", bb.target_pipeline(th).build_decrypt(sk_s), t0, t1,
                 inv=nrns, n_inv=n_s)
-    decrypts_to("tunnel", got_t, np.stack([linear.eval_lin(fmap, mt[:, k].cpu().numpy(), p)
+    decrypts_to("tunnel", got_t, np.stack([linear.eval_lin_ints(fmap, mt[:, k].cpu().numpy(), p)
                                            for k in range(8)], -1))
     same_on_cpu("tunnel", (t0, t1), BatchedBGV(params, "cpu").build_tunnel(th), *ct)
     mark(f"phase 3d: tunnel m = {m} -> {m_s}, B = {B}: decrypt of columns 0-7 == eval_lin; "
@@ -741,7 +769,7 @@ def main() -> int:
     rings = [m >> k for k in range(m.bit_length() - 1)]
     ns = [r // 2 for r in rings]  # 16384 .. 1
     sks = [she.gen_sk(she.SHEParams(m=r, p=pr_p, qs=qs_prf, var=2.0), g) for r in rings]
-    fam = prf.PRFFamily.random(m, pr_p, gadget.BaseBGad(2), prf.balanced(2), g)
+    fam = prf.PRFFamily.random(ring_context(m, (pr_p,)), gadget.BaseBGad(2), prf.balanced(2), g)
     hint_fwd = {}
     for n_s in ns[1:]:  # one hint pass over each target ring: L forwards
         add_by_n(hint_fwd, n_s, L_prf)
@@ -767,7 +795,7 @@ def main() -> int:
     got = run("3e", "decrypt homom_prf", bb_prf_out.build_decrypt(
         she.SK(bb_prf_out.params, sk_out.s_ints, sk_out.var), f=f_prf), *y_prf,
         inv=len(bb_prf_out.qs), n_inv=1)
-    want = int(prf.prf(fam, s_key[:, 0].cpu().numpy(), bits, 2)[0][0])
+    want = int(prf.prf_ints(fam, s_key[:, 0].cpu().numpy(), bits, 2)[0][0])
     if (bb_prf_out.params.m, bb_prf_out.params.p) != (2, 2) or got[0, :8].tolist() != [want] * 8:
         raise AssertionError(f"homom_prf: decrypt {got[0, :8].tolist()}, want {want} x 8")
     same_on_cpu("homom_prf", y_prf, lambda c0_, c1_: serving.batched_homom_prf_component(
@@ -885,7 +913,7 @@ def main() -> int:
               inv=nrns, n_inv=n2_gs)
     # decrypt gives decoding-basis coefficients, eval_lin takes and gives
     # powerful-basis ones: L and L^-1 mod p on either side
-    decrypts_to("tunnel m=18432", got, np.stack([gen.l_host(m_g // 2, linear.eval_lin(
+    decrypts_to("tunnel m=18432", got, np.stack([gen.l_host(m_g // 2, linear.eval_lin_ints(
         fmap_g, gen.l_host(m_g, mt_g[:, k].cpu().numpy(), p_g), p_g), p_g, inverse=True)
         for k in range(8)], -1))
     same_on_cpu("tunnel m=18432", tg, BatchedBGV(params_g, "cpu").build_tunnel(th_g), *ctt_g,
@@ -1013,7 +1041,7 @@ def main() -> int:
     out = run_mesh("tunnel (data-only)", tun_mesh, tun_blocks, (t0, t1),
                    {m // 4: tunnel_calls["ntt_fwd"]}, {n: tunnel_calls["ntt_inv"]})
     decrypts_to("mesh tunnel", bb.target_pipeline(th).build_decrypt(sk_s)(*out),
-                np.stack([linear.eval_lin(fmap, mt[:, k].cpu().numpy(), p) for k in range(8)], -1))
+                np.stack([linear.eval_lin_ints(fmap, mt[:, k].cpu().numpy(), p) for k in range(8)], -1))
     for e in ("lsd", "msd"):
         out = run_mesh(f"step {e} m=18432", bb_g.build_step(hint_g, e, rd_mesh),
                        shard(*ct_g[e][0], *ct_g[e][1]), step_g[e](*ct_g[e][0], *ct_g[e][1]),
@@ -1030,7 +1058,7 @@ def main() -> int:
         fam, hints, bb_top, *c_, bits, 0, mesh=rd_mesh)[2], shard(*ct_prf), y_prf, *prf_calls)
     got = bb_prf_out.build_decrypt(she.SK(bb_prf_out.params, sk_out.s_ints, sk_out.var),
                                    f=f_prf)(*out)
-    if got[0, :8].tolist() != [int(prf.prf(fam, s_key[:, 0].cpu().numpy(), bits, 2)[0][0])] * 8:
+    if got[0, :8].tolist() != [int(prf.prf_ints(fam, s_key[:, 0].cpu().numpy(), bits, 2)[0][0])] * 8:
         raise AssertionError(f"mesh homom_prf: decrypt {got[0, :8].tolist()}")
     mark(f"phase 3g: every mesh builder over {rd_mesh.shape} == its unsharded run over all {B} "
          f"columns, decrypts == the plaintexts; launches {path_launches['3g']}")
@@ -1054,7 +1082,7 @@ def main() -> int:
     L_sl, n_sl = len(qs_sl), m_sl // 2
     rings_sl = [m_sl, m_sl // 2]
     sks_sl = [she.gen_sk(she.SHEParams(m=r, p=p_sl, qs=qs_sl, var=2.0), g) for r in rings_sl]
-    fam_sl = prf.PRFFamily.random(m_sl, p_sl, gadget.BaseBGad(16), prf.balanced(2), g)
+    fam_sl = prf.PRFFamily.random(ring_context(m_sl, (p_sl,)), gadget.BaseBGad(16), prf.balanced(2), g)
     t_host = time.time()
     hints_sl, sk_sl = run_by_n("3g_slots", "make_eval_hints slots", lambda: prf.make_eval_hints(
         fam_sl, sks_sl, rings_sl, rings_sl[1:], g, p_final=p_sl, maps="slots", device=dev),
@@ -1066,7 +1094,7 @@ def main() -> int:
     keys_sl = torch.randint(0, p_sl, (n_sl, B), generator=g, device=dev, dtype=torch.int32)
     bb_sl = BatchedBGV(sks_sl[0].params, dev)
     ct_sl = bb_sl.build_encrypt(sks_sl[0])(keys_sl, g)
-    ell_sl = gadget.num_digits(fam_sl.spec, p_sl)
+    ell_sl = gadget.num_digits(fam_sl.spec, fam_sl.ctx.basis)
     for i in range(ell_sl):
         bb_o, f_o, y_sl = run_by_n(
             "3g_slots", f"homom_prf slots component {i}",
@@ -1074,8 +1102,8 @@ def main() -> int:
                                                         bits_sl, i),
             fwd={n_sl: L_sl, n_sl // 2: lin_sl.d * (L_sl + L_sl ** 2)}, inv={n_sl: 2 * L_sl})
         got = bb_o.build_decrypt(sk_sl, f=f_o)(*y_sl)
-        decrypts_to(f"homom_prf slots component {i}", got, np.stack([linear.eval_lin(
-            lin_sl, prf.prf_pre_round(fam_sl, keys_sl[:, k].cpu().numpy(), bits_sl)[i], p_sl)
+        decrypts_to(f"homom_prf slots component {i}", got, np.stack([linear.eval_lin_ints(
+            lin_sl, prf.prf_pre_round_ints(fam_sl, keys_sl[:, k].cpu().numpy(), bits_sl)[i], p_sl)
             for k in range(8)], -1))
         same_on_cpu(f"homom_prf slots component {i}", y_sl,
                     lambda c0_, c1_, i=i: serving.batched_homom_prf_component(
@@ -1084,6 +1112,286 @@ def main() -> int:
     mark(f"phase 3g: HomomPRF {m_sl} -> {m_sl // 2}, p = {p_sl}, maps=slots, {ell_sl} "
          f"components, B = {B}: decrypts == the slot map of the clear s * A_T(x); GPU == CPU "
          f"over columns 0-15; launches {path_launches['3g_slots']}")
+
+    # -- phase 3h: the object path (she over Cyc) at full width ----------
+    # Every object call runs between a reset and a read of the counts.  A
+    # shim around ntt_cm and ct_mul_cm records each call; the card must
+    # launch cm_schedule(n)'s passes for every transform called and one
+    # ct_mul per channel product, and nothing else.  A deterministic call
+    # runs first on CPU copies (the plain versions), and the card must make
+    # the same calls and give the same output bit for bit; where a closed
+    # form is known (encrypt, hints, the step, decrypt, the tunnel) the
+    # calls must equal it too.  Random draws on the card's generator
+    # differ from the CPU's, so keygen and encryption are checked by
+    # decryption.
+    obj_calls = Counter()
+    real_ntt, real_ctm = ring_mod.ntt_cm, she.ct_mul_cm
+
+    def ntt_shim(x_, plan_, inverse=False, pre_digit_q=None, alg="gs"):
+        obj_calls["ntt_inv" if inverse else "ntt_fwd", x_.shape[0]] += 1
+        return real_ntt(x_, plan_, inverse, pre_digit_q, alg)
+
+    def ctm_shim(*a_, **k_):
+        obj_calls["ct_mul", 0] += 1
+        return real_ctm(*a_, **k_)
+
+    ring_mod.ntt_cm = gen.ntt_cm = ntt_shim
+    she.ct_mul_cm = ctm_shim
+
+    def to_dev(x_, device):
+        """A Cyc or object CT with its tensors on device."""
+        if isinstance(x_, Cyc):
+            return Cyc(x_.ctx, x_.rep, x_.data.to(device))
+        if isinstance(x_, torch.Tensor):
+            return x_.to(device)
+        if isinstance(x_, (tuple, list)):
+            return type(x_)(to_dev(y_, device) for y_ in x_)
+        return dc_replace(x_, cs=tuple(to_dev(c_, device) for c_ in x_.cs))
+
+    def same_obj(name, a_, b_):
+        """Card and CPU outputs (Cyc, CT, tensors or tuples of them) equal."""
+        if isinstance(a_, (tuple, list)):
+            for x_, y_ in zip(a_, b_):
+                same_obj(name, x_, y_)
+            return
+        if isinstance(a_, np.ndarray):
+            ok = np.array_equal(a_, b_)
+        elif isinstance(a_, torch.Tensor):
+            ok = torch.equal(a_.cpu(), b_.cpu())
+        elif isinstance(a_, Cyc):
+            ok = a_.ctx == b_.ctx and a_.rep is b_.rep and torch.equal(a_.data.cpu(), b_.data)
+        else:
+            ok = ((a_.params, a_.ctx, a_.f, a_.encoding) == (b_.params, b_.ctx, b_.f, b_.encoding)
+                  and len(a_.cs) == len(b_.cs))
+            for x_, y_ in zip(a_.cs, b_.cs):
+                same_obj(name, x_, y_)
+        if not ok:
+            raise AssertionError(f"phase 3h {name}: card != CPU")
+
+    def obj_run(name, fn, cpu_fn=None, want=None):
+        """fn() on the card, checked as the phase's comment says; cpu_fn()
+        its CPU shadow (the same call on CPU copies)."""
+        cpu = None
+        if cpu_fn is not None:
+            obj_calls.clear()
+            cpu = cpu_fn()
+            cpu_calls = dict(obj_calls)
+        obj_calls.clear()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        calls = dict(obj_calls)
+        if cpu_fn is not None and calls != cpu_calls:
+            raise AssertionError(f"phase 3h {name}: card calls {calls} != CPU calls {cpu_calls}")
+        if want is not None and calls != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"phase 3h {name}: calls {calls}, want {want}")
+        want_l = dict.fromkeys(got, 0)
+        for (kind, n_), k in calls.items():
+            want_l[kind] += k if kind == "ct_mul" else k * len(tk.cm_schedule(n_))
+        if got != want_l:
+            raise AssertionError(f"phase 3h {name}: launches {got}, want {want_l}")
+        for k, v in got.items():
+            path_launches["3h"][k] += v
+        if cpu_fn is not None:
+            same_obj(name, out, cpu)
+        return out
+
+    def col_ct(prm, c0_, c1_, k, f=1, enc_="lsd"):
+        """Column k of packed (nrns, n, B) CRT components as an object CT."""
+        ctx_ = prm.ctx
+        return she.CT(prm, ctx_, tuple(Cyc(ctx_, Rep.CRT, c_[..., k].contiguous())
+                                      for c_ in (c0_, c1_)), f, enc_)
+
+    def step_calls_obj(L, n_):
+        """ct_mul + key_switch_quad_circ + mod_switch on degree-1 CRT
+        operands: L ct_mul, the L digits' L forwards each, c2's and the two
+        rescaled components' inverses."""
+        return {("ct_mul", 0): L, ("ntt_fwd", n_): L * L, ("ntt_inv", n_): 3 * L}
+
+    def dec_calls(L, n_, pow_comps=False):
+        """decrypt: s into the CRT basis, c(s) back (and, after a modulus
+        switch, the two powerful-basis components into the CRT basis)."""
+        return {("ntt_fwd", n_): 3 * L if pow_comps else L, ("ntt_inv", n_): L}
+
+    def tunnel_calls_obj(L, d, n_r, n_s):
+        """she.tunnel: both components inverse-transformed over R; over S
+        eval_lin's d images and embedded coefficients, and the d L digits
+        of c1's coefficients."""
+        return {("ntt_inv", n_r): 2 * L, ("ntt_fwd", n_s): 2 * d * L + d * L * L}
+
+    def hint_calls(L, ell, n_):
+        """_ks_hint (and ks_quad_circ_hint's s): s twice, and per gadget
+        entry the error's and the scalar's transforms."""
+        return {("ntt_fwd", n_): 2 * L + 2 * ell * L}
+
+    # (a) ring identities, card == CPU, at m = 32768 and 18432, each with
+    # its half ring
+    for m_a, qs_a in ((m, params.qs), (m_g, params_g.qs)):
+        ctx_a = ring_context(m_a, qs_a)
+        sub_a = ctx_a.child(m_a // 2)
+        n_t = ctx_a.n if ctx_a.fm.is_pow2() else ctx_a.fm.phi_shape[0]  # the NTT's length
+        rng_a = np.random.default_rng(SEED + m_a)
+        x_a = np.stack([rng_a.integers(0, q, ctx_a.n) for q in qs_a])
+        xs_a = np.stack([rng_a.integers(0, q, sub_a.n) for q in qs_a])
+        X, Xs = torch.from_numpy(x_a.astype(np.int32)), torch.from_numpy(xs_a.astype(np.int32))
+        L_a = len(qs_a)
+        ring_checks = {
+            "crt": (lambda t: ring_mod.crt(ctx_a, t), {("ntt_fwd", n_t): L_a}, X),
+            "crt_inv o crt": (lambda t: ring_mod.crt_inv(ctx_a, ring_mod.crt(ctx_a, t)),
+                              {("ntt_fwd", n_t): L_a, ("ntt_inv", n_t): L_a}, X),
+            "l": (lambda t: ring_mod.l(ctx_a, t), {}, X),
+            "l_inv o l": (lambda t: ring_mod.l_inv(ctx_a, ring_mod.l(ctx_a, t)), {}, X),
+            "twace o embed pow": (lambda t: ring_mod.twace_pow(ctx_a, sub_a, ring_mod.embed_pow(
+                sub_a, ctx_a, t)), {}, Xs),
+            "twace o embed crt": (lambda t: ring_mod.twace_crt(ctx_a, sub_a, ring_mod.embed_crt(
+                sub_a, ctx_a, t)), {}, Xs),
+        }
+        for b_ in ("pow", "dec", "crt"):
+            mul_, div_ = getattr(ring_mod, f"mul_g_{b_}"), getattr(ring_mod, f"div_g_{b_}")
+            ring_checks[f"mul_g_{b_}"] = (lambda t, f_=mul_: f_(ctx_a, t), {}, X)
+            ring_checks[f"div_g o mul_g {b_}"] = (
+                lambda t, f_=mul_, h_=div_: h_(ctx_a, f_(ctx_a, t)), {}, X)
+        for name, (fn_, want_, inp) in ring_checks.items():
+            got = obj_run(f"{name} m={m_a}", lambda: fn_(inp.to(dev)), lambda: fn_(inp), want_)
+            if name.startswith(("crt_inv", "l_inv", "div_g", "twace")) and not torch.equal(
+                    got.cpu(), inp):
+                raise AssertionError(f"phase 3h: {name} at m = {m_a} is not the identity")
+        # coeffs against pow_basis: x = sum_rel b_rel embed(a_rel)
+        def recon(device):
+            c_ = Cyc.from_pow(ctx_a, X, device)
+            acc = Cyc.zero(ctx_a, device=device, rep=Rep.CRT)
+            for b_rel, a_rel in zip(Cyc.rel_pow_basis(ctx_a, sub_a, device), c_.coeffs(sub_a)):
+                acc = acc + b_rel * a_rel.embed(ctx_a)
+            return acc.to_pow()
+        d_a = ctx_a.n // sub_a.n
+        got = obj_run(f"coeffs vs pow_basis m={m_a}", lambda: recon(dev), lambda: recon("cpu"),
+                      {("ntt_fwd", n_t): 2 * d_a * L_a, ("ntt_inv", n_t): L_a})
+        if not torch.equal(got.data.cpu(), X):
+            raise AssertionError(f"phase 3h: sum b_rel embed(coeffs) != x at m = {m_a}")
+    mark(f"phase 3h: ring identities at m = {m} and {m_g}: card == CPU bit for bit, every "
+         f"identity holds; launches {path_launches['3h']}")
+
+    # (b) the Quick start at m = 8192, and she_demo's flow at m = 32768 (the
+    # phase-3 ring and key) with a base-b, a trivial-gadget (extended
+    # modulus, 4 special primes) and an RNS extended key switch, sigma_5,
+    # and an MSD round trip
+    def demo(prm, sk_o, tag, full):
+        g_o = torch.Generator(device=dev).manual_seed(SEED + 80 + prm.m)
+        L_, n_o = len(prm.qs), prm.ctx.n
+        a_m, b_m = (she.pt_random(prm, g_o).cpu().numpy() for _ in range(2))
+        ca = obj_run(f"{tag} encrypt", lambda: she.encrypt(sk_o, a_m, g_o, dev),
+                     want={("ntt_fwd", n_o): 2 * L_})
+        cb = obj_run(f"{tag} encrypt", lambda: she.encrypt(sk_o, b_m, g_o, dev),
+                     want={("ntt_fwd", n_o): 2 * L_})
+
+        def decrypts(name, ct_, want_, sk_=sk_o, calls=None):
+            got_ = obj_run(f"{tag} decrypt {name}", lambda: she.decrypt(sk_, ct_),
+                           lambda: she.decrypt(sk_, to_dev(ct_, "cpu")), calls)
+            np.testing.assert_array_equal(got_, want_, err_msg=f"{tag} {name}")
+
+        decrypts("encrypt", ca, a_m, calls=dec_calls(L_, n_o))
+        s_add = obj_run(f"{tag} ct_add", lambda: she.ct_add(ca, cb),
+                        lambda: she.ct_add(to_dev(ca, "cpu"), to_dev(cb, "cpu")), {})
+        decrypts("ct_add", s_add, she.pt_add(prm, a_m, b_m), calls=dec_calls(L_, n_o))
+        prod = obj_run(f"{tag} ct_mul", lambda: she.ct_mul(ca, cb),
+                       lambda: she.ct_mul(to_dev(ca, "cpu"), to_dev(cb, "cpu")),
+                       {("ct_mul", 0): L_})
+        want_ab = she.pt_mul(prm, a_m, b_m)
+        hint_o = obj_run(f"{tag} ks_quad_circ_hint", lambda: she.ks_quad_circ_hint(
+            sk_o, gadget.RnsGad(), g_o, dev), want=hint_calls(L_, L_, n_o))
+        rel = obj_run(f"{tag} key_switch_quad_circ", lambda: she.key_switch_quad_circ(hint_o, prod),
+                      lambda: she.key_switch_quad_circ(hint_o, to_dev(prod, "cpu")),
+                      {("ntt_inv", n_o): L_, ("ntt_fwd", n_o): L_ * L_})
+        decrypts("key switch", rel, want_ab)
+        small = obj_run(f"{tag} mod_switch", lambda: she.mod_switch(rel),
+                        lambda: she.mod_switch(to_dev(rel, "cpu")), {("ntt_inv", n_o): 2 * L_})
+        decrypts("mod_switch", small, want_ab, she.SK(small.params, sk_o.s_ints, sk_o.var),
+                 dec_calls(L_ - 1, n_o, pow_comps=True))
+        if not full:
+            return ca, cb, a_m, b_m, hint_o
+        ell_b = gadget.num_digits(gadget.BaseBGad(1 << 16), prm.ctx.basis)
+        hb = obj_run(f"{tag} ks_quad_circ_hint BaseBGad", lambda: she.ks_quad_circ_hint(
+            sk_o, gadget.BaseBGad(1 << 16), g_o, dev), want=hint_calls(L_, ell_b, n_o))
+        decrypts("key switch BaseBGad", obj_run(
+            f"{tag} key_switch BaseBGad", lambda: she.key_switch_quad_circ(hb, prod),
+            lambda: she.key_switch_quad_circ(hb, to_dev(prod, "cpu")),
+            {("ntt_inv", n_o): L_, ("ntt_fwd", n_o): ell_b * L_}), want_ab)
+        for spec_, nsp in ((gadget.TrivGad(), 4), (gadget.RnsGad(), 2)):
+            special_o = tuple(nt.ntt_primes(prm.m, 30, L_ + nsp)[L_:])
+            Lx, ell_x = L_ + nsp, gadget.num_digits(spec_, prm.ctx.basis)
+            hx = obj_run(f"{tag} ks_quad_circ_hint_ext {spec_}", lambda: she.ks_quad_circ_hint_ext(
+                sk_o, spec_, g_o, special_o, dev),
+                want={("ntt_fwd", n_o): L_ + 2 * Lx + 2 * ell_x * Lx, ("ntt_inv", n_o): L_})
+            decrypts(f"ext key switch {spec_}", obj_run(
+                f"{tag} key_switch_quad_circ_ext {spec_}",
+                lambda: she.key_switch_quad_circ_ext(hx, prod),
+                lambda: she.key_switch_quad_circ_ext(hx, to_dev(prod, "cpu")),
+                {("ntt_inv", n_o): L_ + 2 * Lx, ("ntt_fwd", n_o): ell_x * Lx + 2 * L_}), want_ab)
+        hg = obj_run(f"{tag} ks_galois_hint k=5", lambda: she.ks_galois_hint(
+            5, sk_o, gadget.RnsGad(), g_o, dev), want=hint_calls(L_, L_, n_o))
+        decrypts("ct_galois k=5", obj_run(f"{tag} ct_galois k=5", lambda: she.ct_galois(hg, 5, ca),
+                                          lambda: she.ct_galois(hg, 5, to_dev(ca, "cpu")),
+                                          {("ntt_inv", n_o): L_, ("ntt_fwd", n_o): L_ * L_}),
+                 she.galois_ints(prm.m, a_m, 5, prm.p))
+        cm_ = obj_run(f"{tag} encrypt_msd", lambda: she.encrypt_msd(sk_o, a_m, g_o, dev),
+                      want={("ntt_fwd", n_o): 2 * L_})
+        decrypts("msd", cm_, a_m)
+        decrypts("to_lsd", obj_run(f"{tag} to_lsd", lambda: she.to_lsd(cm_),
+                                   lambda: she.to_lsd(to_dev(cm_, "cpu")), {}), a_m)
+        decrypts("to_msd", obj_run(f"{tag} to_msd", lambda: she.to_msd(ca),
+                                   lambda: she.to_msd(to_dev(ca, "cpu")),
+                                   {("ntt_fwd", n_o): L_}), a_m)
+        return ca, cb, a_m, b_m, hint_o
+
+    params_q = she.SHEParams(m=8192, p=257, qs=tuple(nt.ntt_primes(8192, 30, 3)))
+    demo(params_q, she.gen_sk(params_q, g), "quick start m=8192", full=False)
+    ca_o, cb_o, am_o, bm_o, hint_o = demo(params, sk, f"she_demo m={m}", full=True)
+    mark(f"phase 3h: the Quick start at m = 8192 and she_demo's flow at m = {m} (BaseBGad, "
+         f"TrivGad over Q P, ext RNS, sigma_5, MSD): every decryption == its plaintext; "
+         f"launches {path_launches['3h']}")
+
+    # (c) object path == batched path, columns 0-7, on earlier phases' inputs
+    f2 = bb.step_f()
+    for col in range(8):
+        a_c, b_c = col_ct(params, c0, c1, col), col_ct(params, d0, d1, col)
+        out_c = obj_run(f"step column {col}", lambda: she.mod_switch(
+            she.key_switch_quad_circ(hint, she.ct_mul(a_c, b_c))),
+            lambda: she.mod_switch(she.key_switch_quad_circ(hint, she.ct_mul(
+                to_dev(a_c, "cpu"), to_dev(b_c, "cpu")))), step_calls_obj(nrns, n))
+        if out_c.f != f2 or not all(torch.equal(c_.to_crt().data, e_[..., col]) for c_, e_ in
+                                     zip(out_c.cs, (e0, e1))):
+            raise AssertionError(f"phase 3h: object step != batched step, column {col}")
+    for col in range(8):
+        t_c = col_ct(params, *ct, col)
+        out_c = obj_run(f"tunnel column {col}", lambda: she.tunnel(th, t_c),
+                        lambda: she.tunnel(th, to_dev(t_c, "cpu")),
+                        tunnel_calls_obj(nrns, th.lin.d, n, th.lin.s_ctx.n))
+        if out_c.ctx != th.lin.s_ctx or not all(torch.equal(c_.data, e_[..., col]) for c_, e_ in
+                                                 zip(out_c.cs, (t0, t1))):
+            raise AssertionError(f"phase 3h: object tunnel != build_tunnel, column {col}")
+    step_out_g = step_g["lsd"](*ct_g["lsd"][0], *ct_g["lsd"][1])
+    for col in range(8):
+        a_c, b_c = (col_ct(params_g, *x_, col) for x_ in ct_g["lsd"])
+        out_c = obj_run(f"general step column {col}", lambda: she.mod_switch(
+            she.key_switch_quad_circ(hint_g, she.ct_mul(a_c, b_c))),
+            lambda: she.mod_switch(she.key_switch_quad_circ(hint_g, she.ct_mul(
+                to_dev(a_c, "cpu"), to_dev(b_c, "cpu")))), step_calls_obj(nrns, n2_g))
+        if out_c.f != bb_g.step_f() or not all(torch.equal(c_.to_crt().data, e_[..., col])
+                                               for c_, e_ in zip(out_c.cs, step_out_g)):
+            raise AssertionError(f"phase 3h: object general step != batched, column {col}")
+    key_ct = col_ct(sks[0].params, *ct_prf, 0)
+    out_prf = obj_run("homom_prf_component", lambda: prf.homom_prf_component(
+        fam, hints, key_ct, bits, 0), lambda: prf.homom_prf_component(
+        fam, hints, to_dev(key_ct, "cpu"), bits, 0))
+    if (out_prf.params.m, out_prf.params.p, out_prf.f) != (2, 2, f_prf) or not all(
+            torch.equal(c_.to_crt().data, e_[..., 0]) for c_, e_ in zip(out_prf.cs, y_prf)):
+        raise AssertionError("phase 3h: object homom_prf_component != batched column 0")
+    ring_mod.ntt_cm = gen.ntt_cm = real_ntt
+    she.ct_mul_cm = real_ctm
+    mark(f"phase 3h: object == batched bit for bit: the step (columns 0-7), the tunnel "
+         f"{m} -> {m // 2}, the general step at {m_g}, HomomPRF {m} -> 2 (column 0); "
+         f"launches {path_launches['3h']}")
 
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
@@ -1320,6 +1628,26 @@ def main() -> int:
         timings[f"{arm}_unsharded_ops_per_sec"] = mesh_rates[f"{arm[5:]}_ops_per_sec"]
         timings[f"{arm}_copies"] = mesh_copies[arm]
     timings["mesh_ms_windows"] = mesh_rates["ms_windows"]
+    # the object path at m = 32768 on phase 3h's inputs, as its caller sees
+    # it, beside the batched path's time per ciphertext (its call over
+    # B = 1024 columns / B) in the same windows' discipline, on phase 3's
+    # plaintexts encrypted anew (its ciphertexts were freed above)
+    cc, dd = enc(m1, g), enc(m2, g)
+    obj_pairs = {
+        "encrypt": (lambda: she.encrypt(sk, am_o, g, dev), lambda: enc(m1, g)),
+        "step": (lambda: she.mod_switch(she.key_switch_quad_circ(hint, she.ct_mul(ca_o, cb_o))),
+                 lambda: step(*cc, *dd)),
+        "decrypt": (lambda: she.decrypt(sk, ca_o), lambda: dec_gal(*cc)),
+        "tunnel": (lambda: she.tunnel(th, col_ct(params, *ct, 0)), lambda: tun(*ct)),
+        "homom_prf": (lambda: prf.homom_prf_component(fam, hints, key_ct, bits, 0),
+                      lambda: prf_run(*ct_prf)),
+    }
+    for key, (obj_fn, batched_fn) in obj_pairs.items():
+        obj_ms, obj_wins = time_ms(obj_fn, 1)
+        bat_ms, _ = time_ms(batched_fn, 1)
+        timings[f"object_{key}_ms"] = obj_ms
+        timings[f"object_{key}_ms_windows"] = obj_wins
+        timings[f"batched_{key}_per_ct_ms"] = bat_ms / B
     timings["step_ext_noise_bits_delta"] = step_ext_delta
     timings["step_ext_noise_bits"] = noise
     timings["homom_prf_peak_GiB"] = prf_peak_gib
@@ -1333,6 +1661,10 @@ def main() -> int:
               "mesh_step_ops_per_sec", "mesh_step_unsharded_ops_per_sec",
               "mesh_tunnel_ops_per_sec", "mesh_tunnel_unsharded_ops_per_sec"):
         print(f"metric {k} = {timings[k]} on {card}", flush=True)
+    for key in obj_pairs:
+        print(f"metric object_{key}_ms = {timings[f'object_{key}_ms']} (batched "
+              f"{timings[f'batched_{key}_per_ct_ms']} ms per ciphertext) at m = {params.m} on {card}",
+              flush=True)
     mark("phase 4: timings done")
 
     def bound(op, n_, B_, D_=1):
@@ -1358,6 +1690,7 @@ def main() -> int:
          "launches_galois": path_launches["3f_galois"]["ntt_fwd"],
          "launches_mesh": path_launches["3g"]["ntt_fwd"],
          "launches_slots": path_launches["3g_slots"]["ntt_fwd"],
+         "launches_object": path_launches["3h"]["ntt_fwd"],
          "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"],
          **bound("ntt_fwd", n, B), "library_ms": None},
         {"name": "ntt_inv_pass", "route": "cuda", "source": ntt_src,
@@ -1372,6 +1705,7 @@ def main() -> int:
          "launches_galois": path_launches["3f_galois"]["ntt_inv"],
          "launches_mesh": path_launches["3g"]["ntt_inv"],
          "launches_slots": path_launches["3g_slots"]["ntt_inv"],
+         "launches_object": path_launches["3h"]["ntt_inv"],
          "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"],
          **bound("ntt_inv_gs", n, B), "library_ms": None},
         # one kernel in two geometries, as the reference's two bodies: the
@@ -1405,6 +1739,7 @@ def main() -> int:
          "launches_galois": path_launches["3f_galois"]["ct_mul"],
          "launches_mesh": path_launches["3g"]["ct_mul"],
          "launches_slots": path_launches["3g_slots"]["ct_mul"],
+         "launches_object": path_launches["3h"]["ct_mul"],
          "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"],
          **bound("ct_mul", n, B), "library_ms": None},
         {"name": "u32_chain", "route": "cuda", "source": "lol_tpu_torch/csrc/chain.cu",

@@ -58,6 +58,7 @@ from .. import gadget, linear, numtheory as nt, prf, sampling, serving, she
 from ..ops import general as gen
 from ..ops.cuda.ntt_kernel import ntt_cm
 from ..parallel import sharding as sh
+from ..ring import ring_context
 from ..she_batched import BatchedBGV, BGVStep
 from . import SPIN_CYCLES, require_cuda, time_ms
 
@@ -294,7 +295,7 @@ def homom_prf_inputs(m_top: int, p: int, B: int, seed: int, device="cuda"):
     rings = [m_top >> k for k in range(m_top.bit_length() - 1)]
     g = torch.Generator(device=device).manual_seed(seed)
     sks = [she.gen_sk(she.SHEParams(m=m, p=p, qs=qs, var=2.0), g) for m in rings]
-    fam = prf.PRFFamily.random(m_top, p, gadget.BaseBGad(2), prf.balanced(2), g)
+    fam = prf.PRFFamily.random(ring_context(m_top, (p,)), gadget.BaseBGad(2), prf.balanced(2), g)
     hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], g, homomorphic_round=True,
                                         maps="project", device=device)
     bb = BatchedBGV(sks[0].params, device)

@@ -4,8 +4,13 @@ The JAX package's keys, hints and packed ciphertexts become the port's
 objects, so both sides compute on identical state:
 
     sk_from_numpy(params, sk.s_ints)
+    c = cyc_from_numpy(ctx, x.rep.value, np.asarray(x.data))      # a Cyc
+    ct = ct_from_numpy(params, [(c.rep.value, np.asarray(c.data)) for c in jct.cs],
+                       jct.f, jct.encoding)                          # an object CT
+    rep, data = cyc_to_numpy(c);  cs, f, encoding = ct_to_numpy(ct)
     hint_from_numpy(params, np.stack([np.asarray(h.data) for h in hint.h0]),
                             np.stack([np.asarray(h.data) for h in hint.h1]))
+    hint_from_numpy(params, h0, h1, spec=BaseBGad(2))  # another gadget's hint
     cts_from_numpy(*bb.pack(cts))
     lin = linear_from_numpy(qs, f.e_ctx.m, f.r_ctx.m, f.s_ctx.m,
                             [y.lift_ints(rep=Rep.POW) for y in f.ys])
@@ -20,9 +25,11 @@ objects, so both sides compute on identical state:
                                   rounds=[(h0_i, h1_i), ...])
 
 They work at any m (a general-m `Linear`'s ys are powerful-basis
-coefficients, as `lift_ints(rep=Rep.POW)` gives them).  Like the port's
-other entry points they place their tensors on the card unless the
-caller names another device.
+coefficients, as `lift_ints(rep=Rep.POW)` gives them).  A ciphertext's
+ring is its params' (the reference keeps them equal); a hint's gadget is
+named by the port's spec of the same gadget.  Like the port's other
+entry points they place their tensors on the card unless the caller
+names another device.
 """
 
 from __future__ import annotations
@@ -33,12 +40,13 @@ import numpy as np
 import torch
 
 from . import zq
-from .gadget import BaseBGad
+from .cyc import Cyc, Rep
+from .gadget import BaseBGad, GadgetSpec, RnsGad
 from .linear import Linear, linear_pow
 from .parallel import sharding
 from .prf import EvalHints, PRFFamily, Tree
-from .ring import ring_context
-from .she import KSHint, KSHintExt, PTRoundHints, SHEParams, SK, TunnelHint
+from .ring import RingContext, ring_context
+from .she import CT, KSHint, KSHintExt, PTRoundHints, SHEParams, SK, TunnelHint
 
 
 def _residues(x, device) -> torch.Tensor:
@@ -57,9 +65,34 @@ def sk_from_numpy(params: SHEParams, s_ints) -> SK:
     return SK(params, s, params.var)
 
 
-def hint_from_numpy(params: SHEParams, h0, h1, device="cuda") -> KSHint:
+def hint_from_numpy(params: SHEParams, h0, h1, device="cuda",
+                    spec: GadgetSpec = RnsGad()) -> KSHint:
     """Key-switch hint from (ell, nrns, n) CRT residue arrays."""
-    return KSHint(params, _residues(h0, device), _residues(h1, device))
+    return KSHint(params, _residues(h0, device), _residues(h1, device), spec)
+
+
+def cyc_from_numpy(ctx: RingContext, rep: str, data, device="cuda") -> Cyc:
+    """A ring element from its representation's name ("pow", "dec" or
+    "crt") and its (..., nrns, n) residue array."""
+    return Cyc(ctx, Rep(rep), _residues(data, device))
+
+
+def cyc_to_numpy(c: Cyc) -> tuple[str, np.ndarray]:
+    """(the representation's name, the (..., nrns, n) u32 residues)."""
+    return c.rep.value, c.data.cpu().numpy().astype(np.uint32)
+
+
+def ct_from_numpy(params: SHEParams, cs, f: int = 1, encoding: str = "lsd",
+                  device="cuda") -> CT:
+    """An object-path ciphertext over params' ring from its components,
+    [(rep, (nrns, n) residues), ...] as `cyc_to_numpy` gives them."""
+    ctx = params.ctx
+    return CT(params, ctx, tuple(cyc_from_numpy(ctx, r, d, device) for r, d in cs), f, encoding)
+
+
+def ct_to_numpy(ct: CT) -> tuple[list[tuple[str, np.ndarray]], int, str]:
+    """(components as `cyc_to_numpy` gives them, f, encoding)."""
+    return [cyc_to_numpy(c) for c in ct.cs], ct.f, ct.encoding
 
 
 def linear_from_numpy(qs, m_e: int, m_r: int, m_s: int, ys) -> Linear:

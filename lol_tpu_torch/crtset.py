@@ -8,10 +8,9 @@ mod p^k by the quadratic iteration e <- 3e^2 - 2e^3.
 `linear.slot_projection` builds HomomPRF's tower-descent maps from them.
 
 Host-side exact computation (Python ints); sizes are plaintext-ring
-sized and nothing here runs on the device.  The JAX package's
-`crt_set_cyc` returns ring elements; the port has no ring-element object
-yet, so `crt_set_ints` returns the same idempotents as powerful-basis
-integer rows.
+sized and nothing here runs on the device.  `crt_set_ints` returns the
+idempotents as powerful-basis integer rows, and `crt_set_cyc` as the
+ring elements of R_{p^k} that the JAX package's returns.
 """
 
 from __future__ import annotations
@@ -342,6 +341,15 @@ def crt_set_ints(m: int, p: int, k: int = 1) -> np.ndarray:
     E = crt_set_powerful(m, p, k)
     T = power_to_powerful(m)[:, : E.shape[1]]
     return np.stack([(T @ row) % (p**k) for row in E])
+
+
+def crt_set_cyc(m: int, p: int, k: int = 1, device="cuda"):
+    """The CRT set as `Cyc` elements of R_{p^k} (powerful basis)."""
+    from .cyc import Cyc
+    from .ring import ring_context
+
+    ctx = ring_context(m, (p**k,))
+    return [Cyc.from_ints(ctx, row, device=device) for row in crt_set_ints(m, p, k)]
 
 
 def num_slots(m: int, p: int) -> int:

@@ -54,6 +54,20 @@ class Factored:
     def phi(self) -> int:
         return math.prod(pp.phi for pp in self.pps)
 
+    @property
+    def mhat(self) -> int:
+        """m-hat: m / 2 for even m, else m (the tweak scalar)."""
+        return self.m // 2 if self.m % 2 == 0 else self.m
+
+    @property
+    def radical(self) -> int:
+        return math.prod(pp.p for pp in self.pps)
+
+    @property
+    def odd_radical(self) -> int:
+        """The product of the odd primes of m (the primes of g)."""
+        return math.prod(pp.p for pp in self.pps if pp.p != 2)
+
     def divides(self, other: "Factored") -> bool:
         return other.m % self.m == 0
 

@@ -9,10 +9,11 @@ f(x) = sum_i ys_i * embed_S(a_i).
 
 The JAX package keeps each ys_i as a ring element mod Q; here ys_i is its
 (n_s,) integer powerful-basis coefficient vector over S (numpy int64),
-which the tunnel reduces into each channel.  `eval_lin` is the host
-plaintext map on numpy, the oracle that ring tunneling is checked against.
-`slot_projection` builds the CRT-set tower-descent maps (host numpy, as
-the reference).
+which the tunnel reduces into each channel.  `eval_lin` applies the map
+to a `Cyc` of R, as the reference does; `eval_lin_ints` is the host
+plaintext map on numpy, the oracle that ring tunneling is checked
+against.  `slot_projection` builds the CRT-set tower-descent maps (host
+numpy, as the reference).
 """
 
 from __future__ import annotations
@@ -63,7 +64,28 @@ def linear_pow(e_ctx: RingContext, r_ctx: RingContext, s_ctx: RingContext, ys) -
                   tuple(np.array(y, dtype=np.int64) for y in ys))
 
 
-def eval_lin(lin: Linear, x, p: int) -> np.ndarray:
+def rel_basis_elements(r_ctx: RingContext, e_ctx: RingContext, device="cuda"):
+    """The relative powerful basis monomials b_i as elements of R."""
+    from .cyc import Cyc
+
+    return Cyc.rel_pow_basis(r_ctx, e_ctx, device)
+
+
+def eval_lin(lin: Linear, x):
+    """Apply the E-linear map to x, a `Cyc` of R (Lol evalLin): the sum of
+    ys_i embed_S(a_i) over x's relative coefficients a_i, on x's device."""
+    from .cyc import Cyc, Rep
+
+    if x.ctx != lin.r_ctx:
+        raise ValueError("eval_lin: x not in the map's source ring")
+    acc = Cyc.zero(lin.s_ctx, device=x.device,
+                   rep=Rep.CRT if lin.s_ctx.has_crt() else Rep.POW)
+    for y, a in zip(lin.ys, x.coeffs(lin.e_ctx, rep=Rep.POW)):
+        acc = acc + Cyc.from_ints(lin.s_ctx, y, device=x.device) * a.embed(lin.s_ctx)
+    return acc
+
+
+def eval_lin_ints(lin: Linear, x, p: int) -> np.ndarray:
     """f(x) mod p for x in R given by its (n_r,) integer powerful-basis
     coefficients: the (n_s,) int64 powerful-basis coefficients of the image
     in [0, p), exact (`she.ring_mul_sum` over S).  (At 2-power m the
@@ -74,7 +96,7 @@ def eval_lin(lin: Linear, x, p: int) -> np.ndarray:
     n_r, n_s = lin.r_ctx.n, lin.s_ctx.n
     x = np.asarray(x, dtype=np.int64) % p
     if x.shape != (n_r,):
-        raise ValueError(f"eval_lin: x of shape {x.shape}, R has n={n_r}")
+        raise ValueError(f"eval_lin_ints: x of shape {x.shape}, R has n={n_r}")
     coeff = gen.rel_coeff_table(lin.e_ctx.m, lin.r_ctx.m)
     embed = gen.embed_pow_table(lin.e_ctx.m, lin.s_ctx.m)
     pairs = []

@@ -57,6 +57,25 @@ def factorize(n: int) -> tuple[tuple[int, int], ...]:
     return tuple(out)
 
 
+def radical(n: int) -> int:
+    """The product of the distinct primes of n."""
+    return math.prod(p for p, _ in factorize(n))
+
+
+def divides(a: int, b: int) -> bool:
+    """a | b."""
+    return b % a == 0
+
+
+def crt_reconstruct(residues: list[int], moduli: list[int]) -> int:
+    """Garner: the unique x in [0, prod(moduli)) with x = r_i mod q_i."""
+    x, q = 0, 1
+    for r, qi in zip(residues, moduli):
+        x += q * ((r - x) * modinv(q, qi) % qi)
+        q *= qi
+    return x
+
+
 def modinv(a: int, q: int) -> int:
     """Inverse of a mod q; raises if gcd(a, q) != 1."""
     g = math.gcd(a % q, q)

@@ -254,6 +254,115 @@ def l_cm(plan: GeneralPlan, x: torch.Tensor, inverse: bool = False) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
+# the object forms over (..., n), and multiplication by g
+# ---------------------------------------------------------------------------
+
+
+def _last_axis(x: torch.Tensor, fn) -> torch.Tensor:
+    """fn over the coefficient-major (n, B) view of (..., n) x: the
+    reference's ring-element layout in, transposed for the (n, B)
+    transforms and back.  int32 out."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    flat = x.reshape(-1, n)
+    y = fn(flat.reshape(n, 1) if flat.shape[0] == 1 else flat.t().contiguous())
+    return y.t().reshape(*lead, y.shape[0]).to(torch.int32)
+
+
+def crt(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    """Powerful -> CRT basis over (..., n) residues (`crt_cm`)."""
+    return _last_axis(x, lambda c: crt_cm(plan, c))
+
+
+def crt_inv(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    return _last_axis(x, lambda c: crt_cm(plan, c, inverse=True))
+
+
+def l(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    """Decoding -> powerful basis over (..., n) residues (`l_cm`)."""
+    return _last_axis(x, lambda c: l_cm(plan, c))
+
+
+def l_inv(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    return _last_axis(x, lambda c: l_cm(plan, c, inverse=True))
+
+
+@lru_cache(maxsize=256)
+def _g_matrices(p: int, e: int, q: int) -> tuple[np.ndarray, ...]:
+    """The p^e axis's matrices over Z_q, (phi, phi) u32: G (times
+    g_p = 1 - zeta_p in the powerful basis), G^-1, and their decoding-basis
+    conjugates L^-1 G L and its inverse.  With the axis viewed as (t, r),
+    t < p - 1, (zeta_p x)[t, r] = x[t - 1, r] (t >= 1) - x[p - 2, r]."""
+    pp = PrimePower(p, e)
+    phi, r = pp.phi, p ** (e - 1)
+    eye = np.eye(phi, dtype=np.int64).reshape(phi, p - 1, r)  # basis vectors as rows
+    zx = np.concatenate([np.zeros_like(eye[:, :1]), eye[:, :-1]], axis=1) - eye[:, -1:]
+    G = ((eye - zx).reshape(phi, phi).T % q).astype(np.uint32)
+    Lm = (np.cumsum(eye, axis=1).reshape(phi, phi).T % q).astype(np.uint32)
+    Linv = _mat_inv_mod(Lm, q)
+    Gdec = _np_matvec_mod(Linv, _np_matvec_mod(G, Lm, q), q).astype(np.uint32)
+    return tuple(_frozen(a) for a in (G, _mat_inv_mod(G, q), Gdec, _mat_inv_mod(Gdec, q)))
+
+
+def _odd_axes_cm(plan: GeneralPlan, x: torch.Tensor, which: int) -> torch.Tensor:
+    """(n, B) residues times `_g_matrices(...)[which]` along every odd axis."""
+    n, B = x.shape
+    shape = plan.phi_shape
+    for i, ax in enumerate(plan.axes):
+        if ax.pp.p == 2:
+            continue
+        M = _g_matrices(ax.pp.p, ax.pp.e, plan.q)[which]
+        x = matvec_mod(M, x.reshape(*shape, B), plan.q, axis=i).reshape(n, B)
+    return x.to(torch.int32)
+
+
+def mul_g_pow(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    return _last_axis(x, lambda c: _odd_axes_cm(plan, c, 0))
+
+
+def div_g_pow(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    return _last_axis(x, lambda c: _odd_axes_cm(plan, c, 1))
+
+
+def mul_g_dec(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    return _last_axis(x, lambda c: _odd_axes_cm(plan, c, 2))
+
+
+def div_g_dec(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    return _last_axis(x, lambda c: _odd_axes_cm(plan, c, 3))
+
+
+@lru_cache(maxsize=512)
+def _g_crt_vec(m: int, q: int) -> np.ndarray:
+    """CRT(g), the flat length-phi(m) vector in slot order: per odd axis
+    1 - omega_p^u over its units u, the 2-power axis all ones."""
+    if m == 1:
+        return _frozen(np.ones(1, dtype=np.uint32))
+    plan = general_plan(m, q)
+    out = np.ones(1, dtype=np.int64)
+    for ax in plan.axes:
+        v = np.ones(ax.phi, dtype=np.int64)
+        if ax.pp.p != 2:
+            wp = pow(nt.principal_root_of_unity(m, q), m // ax.pp.p, q)  # the image of zeta_p
+            v = np.array([(1 - pow(wp, int(u), q)) % q for u in ax.units], dtype=np.int64)
+        out = np.multiply.outer(out, v).reshape(-1) % q
+    return _frozen(out.astype(np.uint32))
+
+
+def _slot_mul(plan: GeneralPlan, x: torch.Tensor, v: np.ndarray) -> torch.Tensor:
+    vt = torch.from_numpy(v.astype(np.int64)).to(x.device)
+    return (x.long() * vt % plan.q).to(torch.int32)
+
+
+def mul_g_crt(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    return _slot_mul(plan, x, _g_crt_vec(plan.fm.m, plan.q))
+
+
+def div_g_crt(plan: GeneralPlan, x: torch.Tensor) -> torch.Tensor:
+    inv = [nt.modinv(int(v), plan.q) for v in _g_crt_vec(plan.fm.m, plan.q)]
+    return _slot_mul(plan, x, np.array(inv, dtype=np.int64))
+
+
+# ---------------------------------------------------------------------------
 # exact numpy mirrors over (..., n) (host keygen and plaintext products)
 # ---------------------------------------------------------------------------
 
@@ -397,6 +506,70 @@ def rel_pow_basis_positions(m_sub: int, m_sup: int) -> np.ndarray:
     return _frozen(rel_coeff_table(m_sub, m_sup)[:, 0].copy())
 
 
+@lru_cache(maxsize=512)
+def crt_embed_table(m_sub: int, m_sup: int, q: int) -> np.ndarray:
+    """(n_sup,) int64: the sub slot each sup slot reads, the one whose
+    unit is the sup slot's unit mod m_sub."""
+    _check(m_sub, m_sup, "crt_embed_table")
+    pos = {int(u): i for i, u in enumerate(_global_units(general_plan(m_sub, q)))}
+    return _frozen(np.array([pos[int(u) % m_sub] for u in _global_units(general_plan(m_sup, q))],
+                            dtype=np.int64))
+
+
+@lru_cache(maxsize=512)
+def twace_crt_twists(m_sub: int, m_sup: int, q: int) -> tuple[np.ndarray, np.ndarray]:
+    """(pre, post) u32 slot vectors of the CRT tweaked trace:
+    pre = t^-1 = g mhat^-1 over the sup ring, post = t' = mhat' g'^-1 over
+    the sub ring."""
+    g_sup = _g_crt_vec(m_sup, q).astype(np.int64)
+    pre = g_sup * nt.modinv(fact(m_sup).mhat % q, q) % q
+    mh_sub = fact(m_sub).mhat % q
+    post = [mh_sub * nt.modinv(int(v), q) % q for v in _g_crt_vec(m_sub, q)]
+    return _frozen(pre.astype(np.uint32)), _frozen(np.array(post, dtype=np.uint32))
+
+
+def embed_pow(m_sub: int, m_sup: int, x: torch.Tensor) -> torch.Tensor:
+    """(..., n_sub) powerful (or decoding) coefficients -> (..., n_sup):
+    the `embed_pow_table` scatter."""
+    tbl = torch.from_numpy(embed_pow_table(m_sub, m_sup).copy()).to(x.device)
+    out = x.new_zeros((*x.shape[:-1], fact(m_sup).phi))
+    out[..., tbl] = x
+    return out
+
+
+def twace_pow(m_sub: int, m_sup: int, x: torch.Tensor) -> torch.Tensor:
+    """The tweaked trace in the powerful basis: the embedded positions'
+    gather."""
+    return x[..., torch.from_numpy(embed_pow_table(m_sub, m_sup).copy()).to(x.device)]
+
+
+def embed_crt(m_sub: int, m_sup: int, q: int, x: torch.Tensor) -> torch.Tensor:
+    """(..., n_sub) CRT slots -> (..., n_sup): each sup slot reads its sub
+    slot (`crt_embed_table`)."""
+    return x[..., torch.from_numpy(crt_embed_table(m_sub, m_sup, q).copy()).to(x.device)]
+
+
+def twace_crt(m_sub: int, m_sup: int, q: int, x: torch.Tensor) -> torch.Tensor:
+    """The tweaked trace in the CRT basis, Tw(x) = t' Tr(x / t): the slots
+    times `pre`, summed over each sub slot's coset, times `post` (for
+    2-power towers the coset mean)."""
+    tbl = crt_embed_table(m_sub, m_sup, q)
+    n_sub = fact(m_sub).phi
+    pre, post = (torch.from_numpy(v.astype(np.int64)).to(x.device)
+                 for v in twace_crt_twists(m_sub, m_sup, q))
+    order = torch.from_numpy(np.argsort(tbl, kind="stable")).to(x.device)
+    y = x.long() * pre % q
+    s = y[..., order].reshape(*x.shape[:-1], n_sub, -1).sum(-1) % q
+    return (s * post % q).to(torch.int32)
+
+
+def coeffs_rel(m_sub: int, m_sup: int, x: torch.Tensor) -> torch.Tensor:
+    """(..., n_sup) -> (d, ..., n_sub): the relative coefficients (powerful
+    or decoding, one table for both) by the `rel_coeff_table` gather."""
+    T = torch.from_numpy(rel_coeff_table(m_sub, m_sup).copy()).to(x.device)
+    return torch.movedim(x[..., T], -2, 0)
+
+
 # ---------------------------------------------------------------------------
 # decoding-basis geometry (the sampler's mixing factors)
 # ---------------------------------------------------------------------------
@@ -444,3 +617,19 @@ def dec_mixing_factors(m: int) -> tuple[np.ndarray, ...]:
         else:
             out.append(np.linalg.cholesky(np.linalg.inv(_axis_gram_real(pp.p, pp.e, False))))
     return tuple(out)
+
+
+@lru_cache(maxsize=256)
+def gram_g_dec(m: int) -> np.ndarray:
+    """The integer Gram matrix G with ||g x||^2 = x^T G x for decoding-basis
+    coordinates x (the canonical-embedding norm): the Kronecker product of
+    the per-axis Grams twisted by each odd axis's share of g, each rounded
+    to the integers it is."""
+    out = np.ones((1, 1), dtype=np.int64)
+    for pp in fact(m).pps:
+        G = _axis_gram_real(pp.p, pp.e, True)
+        Gi = np.rint(G).astype(np.int64)
+        if np.max(np.abs(G - Gi)) >= min(max(1e-6, 1e-12 * float(np.max(np.abs(G))) * pp.phi), 0.4):
+            raise ArithmeticError(f"gram_g_dec: the {pp.p}^{pp.e} axis Gram is not integral")
+        out = np.kron(out, Gi)
+    return _frozen(out)

@@ -1,9 +1,9 @@
 """The key-homomorphic PRF (BP14, ring version): its public family, the
-clear PRF, and the hints of its homomorphic evaluation.
+clear PRF, the hints of its homomorphic evaluation, and that evaluation
+on the object path.
 
-Counterpart of `lol_tpu/prf.py`'s public family and EvalHints (the
-object-path `homom_prf` is the reference's; the port serves the batched
-form, `serving.batched_homom_prf_component`).  Public parameters are two
+Counterpart of `lol_tpu/prf.py` (the batched form of the evaluation is
+`serving.batched_homom_prf_component`).  Public parameters are two
 gadget-dimension vectors a0, a1 in R_p^ell (p the PRF modulus, ell the
 digits of the base-b gadget over Z_p); a full binary tree T over the
 input bits defines
@@ -17,6 +17,14 @@ decoding basis is the power basis, so a ring element here is its (n,)
 int64 coefficient vector in [0, p).  p = 2^k is no NTT modulus, so every
 product is exact over the integers (`she.ring_mul_sum`); this is host
 set-up, once per PRF input.
+
+`prf` / `prf_pre_round` take the key as a `Cyc` over the family's ring
+`fam.ctx` and multiply there (the E route where p has no CRT basis), as
+the reference does; `prf_ints` / `prf_pre_round_ints` are their host
+oracles on the key's integer coefficients.  `homom_prf_component` /
+`homom_prf` run the evaluation on one `she.CT` through the object path
+(`she.mul_public`, `she.tunnel`, `she.pt_round`) on the hints that
+`make_eval_hints` makes for either path.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ import torch
 from . import gadget as gd
 from . import linear as lin
 from . import she
-from .ring import ring_context
+from .cyc import Cyc
+from .ring import RingContext, ring_context
+from .rns import rns_basis
 from .she_batched import BatchedBGV
 
 
@@ -102,7 +112,7 @@ class PRFFamily:
     _cache: dict = field(default_factory=dict)
 
     def __post_init__(self):
-        shape = (gd.num_digits(self.spec, self.p), self.m // 2)
+        shape = (gd.num_digits(self.spec, rns_basis((self.p,))), self.m // 2)
         for a in (self.a0, self.a1):
             if a.shape != shape:
                 raise ValueError(f"PRFFamily: public vector of shape {a.shape} != (ell, n) = "
@@ -112,14 +122,22 @@ class PRFFamily:
     def n(self) -> int:
         return self.m // 2
 
+    @property
+    def ctx(self) -> RingContext:
+        """The family's ring R_p."""
+        return ring_context(self.m, (self.p,))
+
     @staticmethod
-    def random(m: int, p: int, spec: gd.BaseBGad, tree: Tree,
+    def random(ctx: RingContext, spec: gd.BaseBGad, tree: Tree,
                generator: torch.Generator) -> "PRFFamily":
-        """a0, a1 uniform in R_p^ell."""
-        ell = gd.num_digits(spec, p)
-        a = torch.randint(0, p, (2, ell, m // 2), generator=generator,
+        """a0, a1 uniform in R_p^ell over ctx = R_p (2-power m, one modulus p)."""
+        if ctx.nrns != 1 or not ctx.fm.is_pow2():
+            raise ValueError(f"PRFFamily: a 2-power ring over one modulus, got {ctx}")
+        p = ctx.basis.qs[0]
+        ell = gd.num_digits(spec, ctx.basis)
+        a = torch.randint(0, p, (2, ell, ctx.n), generator=generator,
                           device=generator.device).cpu().numpy().astype(np.int64)
-        return PRFFamily(m, p, spec, tree, a[0], a[1])
+        return PRFFamily(ctx.m, p, spec, tree, a[0], a[1])
 
     # -- A_T(x) with per-node caching --------------------------------------
     def _eval_node(self, tree: Tree, bits: tuple[int, ...]) -> np.ndarray:
@@ -140,7 +158,7 @@ class PRFFamily:
     def _mul_ginv(self, al: np.ndarray, ar: np.ndarray) -> np.ndarray:
         """al * G^{-1}(ar): column i = sum_j al[j] * digit_j(ar[i]),
         exact in R_p."""
-        digits = gd.decompose(self.spec, self.p, ar)  # (ell_digit, ell, n)
+        digits = gd.decompose_mod(self.spec, self.p, ar)  # (ell_digit, ell, n)
         return np.stack([
             she.ring_mul_sum([(al[j], digits[j, i]) for j in range(len(al))], self.p)
             for i in range(len(ar))
@@ -154,20 +172,41 @@ class PRFFamily:
         return self._eval_node(self.tree, bits)
 
 
-def prf_pre_round(fam: PRFFamily, s, bits) -> np.ndarray:
+def prf_pre_round_ints(fam: PRFFamily, s, bits) -> np.ndarray:
     """s * A_T(x) over R_p, the value before rounding: (ell, n) int64 mod
-    p; s is the key's (n,) integer coefficients."""
+    p; s is the key's (n,) integer coefficients (the host oracle of
+    `prf_pre_round`)."""
     return np.stack([she.ring_mul_sum([(s, a)], fam.p) for a in fam.a_t(bits)])
 
 
-def prf(fam: PRFFamily, s, bits, p_out: int) -> np.ndarray:
-    """F_s(x): round each coefficient's centered lift c from p to p_out,
-    round-half-UP (floor(c p_out / p + 1/2), matching the homomorphic
-    pt_round chain).  (ell, n) int64 out, mod p_out."""
-    q = fam.p
-    v = prf_pre_round(fam, s, bits)
+def _round_to(v, q: int, p_out: int) -> np.ndarray:
+    """Round-half-UP of centered values from q to p_out, floor(c p_out / q
+    + 1/2), matching the homomorphic pt_round chain; mod p_out, int64."""
+    v = np.asarray(v, dtype=object) % q
     c = np.where(v >= (q + 1) // 2, v - q, v)
-    return (2 * c * p_out + q) // (2 * q) % p_out
+    return ((2 * c * p_out + q) // (2 * q) % p_out).astype(np.int64)
+
+
+def prf_ints(fam: PRFFamily, s, bits, p_out: int) -> np.ndarray:
+    """F_s(x) of the key's integer coefficients s: each coefficient of
+    `prf_pre_round_ints` rounded from p to p_out.  (ell, n) int64 mod p_out."""
+    return _round_to(prf_pre_round_ints(fam, s, bits), fam.p, p_out)
+
+
+def prf_pre_round(fam: PRFFamily, s: Cyc, bits) -> tuple[Cyc, ...]:
+    """s * A_T(x) over R_p as ring elements on s's device, the key s a
+    `Cyc` over `fam.ctx`."""
+    if s.ctx != fam.ctx:
+        raise ValueError(f"prf: key over {s.ctx}, the family's ring is {fam.ctx}")
+    sc = s.to_crt() if fam.ctx.has_crt() else s
+    return tuple(sc * Cyc.from_ints(fam.ctx, a, device=s.device) for a in fam.a_t(bits))
+
+
+def prf(fam: PRFFamily, s: Cyc, bits, p_out: int) -> np.ndarray:
+    """F_s(x): each decoding coefficient of `prf_pre_round` rounded from p
+    to p_out, round-half-UP.  (ell, n) int64 out, mod p_out."""
+    return np.stack([_round_to(v.lift_ints(), fam.p, p_out)
+                     for v in prf_pre_round(fam, s, bits)])
 
 
 # ---------------------------------------------------------------------------
@@ -232,3 +271,34 @@ def make_eval_hints(fam: PRFFamily, sks: list[she.SK], rings: list[int],
             raise ValueError("homomorphic rounding targets Z_2")
         rounds = she.pt_round_hints(sks[-1], generator, device)
     return EvalHints(tuple(tunnels), p_final, rounds), sks[-1]
+
+
+# ---------------------------------------------------------------------------
+# homomorphic evaluation on the object path (Lol HomomPRF)
+# ---------------------------------------------------------------------------
+
+
+def homom_prf_component(fam: PRFFamily, hints: EvalHints, ct_s: "she.CT", bits,
+                        i: int) -> "she.CT":
+    """Component i of s * A_T(x) under encryption: ct_s encrypts the key
+    s (plaintext modulus p = the PRF's), times the public A_T(x)_i, walked
+    down the tunnel chain, then the homomorphic rounding (`she.pt_round`)
+    where hints.rounds is present, else the plaintext modulus switch to
+    hints.p_final."""
+    a_pt = fam.a_t(bits)[i] % ct_s.params.p
+    ct = she.mul_public(ct_s, a_pt)
+    for th in hints.tunnels:
+        ct = she.tunnel(th, ct)
+    if hints.rounds is not None:
+        return she.pt_round(ct, hints.rounds)
+    if hints.p_final != ct.params.p:
+        ct = she.mod_switch_pt(ct, hints.p_final)
+    return ct
+
+
+def homom_prf(fam: PRFFamily, hints: EvalHints, ct_s: "she.CT", bits) -> tuple["she.CT", ...]:
+    """Every component of s * A_T(x) under encryption, each walked down
+    the chain and rounded: one ciphertext per component, in the chain's
+    last ring."""
+    return tuple(homom_prf_component(fam, hints, ct_s, bits, i)
+                 for i in range(len(fam.a_t(bits))))

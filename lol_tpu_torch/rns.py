@@ -1,11 +1,14 @@
-"""RNS modulus chains: the decrypt-side lifts.
+"""RNS modulus chains: residue conversions, channel-wise arithmetic and
+the decrypt-side lifts.
 
-Counterpart of the parts of `lol_tpu/rns.py` the batched BGV slice uses:
-`RnsBasis.modulus`, the host-exact `lift_centered` (numpy object ints) and
-the Garner mixed-radix digits, the canonical representative and the
-centered lift reduced mod p (`to_mixed_radix_jnp`/`pos_mod_jnp`/
-`lift_mod_jnp` there), here in int64 torch with the residue axis first:
-(nrns, ...).
+Counterpart of `lol_tpu/rns.py`: `RnsBasis.modulus`, the host-exact
+`to_rns` / `from_rns` / `lift_centered` (numpy object ints) and the Garner
+mixed-radix digits, the canonical representative and the centered lift
+reduced mod p (`to_mixed_radix_jnp`/`pos_mod_jnp`/`lift_mod_jnp` there),
+here in int64 torch with the residue axis first: (nrns, ...).  The
+channel-wise ring arithmetic and the exact drop-last rescale take the
+reference's ring-element layout, the residue axis second to last:
+(..., nrns, n) int32 residues.
 """
 
 from __future__ import annotations
@@ -43,6 +46,58 @@ class RnsBasis:
     def modulus(self) -> int:
         """The full composite modulus Q = prod q_i (Python int)."""
         return math.prod(self.qs)
+
+    def drop_last(self) -> "RnsBasis":
+        if self.nrns < 2:
+            raise ValueError("RnsBasis.drop_last: need >= 2 moduli")
+        return rns_basis(self.qs[:-1])
+
+    def to_rns(self, x) -> np.ndarray:
+        """Integers (any shape; int64 or object) -> u32 residues with a
+        leading rns axis, (nrns, *x.shape)."""
+        xa = np.asarray(x)
+        if xa.dtype != object and not np.issubdtype(xa.dtype, np.integer):
+            raise TypeError(f"to_rns: integer input needed, got {xa.dtype}")
+        if xa.dtype != object:
+            xa = xa.astype(np.int64)
+        return np.stack([np.mod(xa, q).astype(np.uint32) for q in self.qs]).reshape(
+            (self.nrns,) + xa.shape)
+
+    def from_rns(self, r) -> np.ndarray:
+        """(nrns, ...) residues -> object ints in [0, Q)."""
+        digits = self.to_mixed_radix(torch.from_numpy(np.asarray(r, dtype=np.int64))).numpy()
+        x = digits[-1].astype(object)
+        for j in range(self.nrns - 2, -1, -1):
+            x = x * self.qs[j] + digits[j].astype(object)
+        return x
+
+    def qv(self, device) -> torch.Tensor:
+        """The moduli as an (nrns, 1) int64 tensor on device, to broadcast
+        over (..., nrns, n) residues."""
+        return _qv(self.qs, str(torch.device(device)))
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return zq.add_mod(a, b, self.qv(a.device)).to(torch.int32)
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return zq.sub_mod(a, b, self.qv(a.device)).to(torch.int32)
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        return zq.neg_mod(a, self.qv(a.device)).to(torch.int32)
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return zq.mul_mod(a, b, self.qv(a.device)).to(torch.int32)
+
+    def rescale_drop_last(self, a: torch.Tensor) -> torch.Tensor:
+        """Exact modulus switch Q -> Q / q_last of (..., nrns, n) residues:
+        b_i = (a_i - [a]_last) q_last^-1 mod q_i, [a]_last the centered
+        residue mod q_last, so b = round(a / q_last) exactly."""
+        ql = self.qs[-1]
+        last = a[..., -1:, :].long()
+        centered = torch.where(last >= (ql + 1) // 2, last - ql, last)
+        qv = self.drop_last().qv(a.device)
+        inv = _qv(tuple(nt.modinv(ql % q, q) for q in self.qs[:-1]), str(a.device))
+        return ((a[..., :-1, :].long() - centered) % qv * inv % qv).to(torch.int32)
 
     def to_mixed_radix(self, r: torch.Tensor) -> torch.Tensor:
         """(nrns, ...) residues -> int64 Garner digits v with
@@ -93,12 +148,14 @@ class RnsBasis:
 
     def lift_centered(self, r: np.ndarray) -> np.ndarray:
         """(nrns, ...) residues -> object ints in [-Q/2, Q/2)."""
-        digits = self.to_mixed_radix(torch.from_numpy(np.asarray(r, dtype=np.int64))).numpy()
-        x = digits[-1].astype(object)
-        for j in range(self.nrns - 2, -1, -1):
-            x = x * self.qs[j] + digits[j].astype(object)
+        x = self.from_rns(r)
         Q = self.modulus
         return np.where(x >= (Q + 1) // 2, x - Q, x)
+
+
+@lru_cache(maxsize=1024)
+def _qv(values: tuple[int, ...], device: str) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int64, device=device).view(-1, 1)
 
 
 @lru_cache(maxsize=256)

@@ -79,6 +79,7 @@ from .ops.cuda.ntt_kernel import ntt_cm
 from .ops.cuda.pointwise import ct_mul_cm
 from .parallel import sharding as sh
 from .ring import RingContext
+from . import she
 from .she import KSHint, KSHintExt, SHEParams, SK, TunnelHint
 
 ENCODINGS = ("lsd", "msd")
@@ -88,6 +89,16 @@ def _check_encoding(encoding: str) -> str:
     if encoding not in ENCODINGS:
         raise ValueError(f"encoding must be 'lsd' or 'msd', got {encoding!r}")
     return encoding
+
+
+def _check_rns_gadget(*specs) -> None:
+    """The pipeline's key switches take RNS-gadget hints only (their
+    digits are the forward kernels' prologue); the object path
+    (`she.key_switch_*`) takes the others."""
+    for spec in specs:
+        if not isinstance(spec, gd.RnsGad):
+            raise ValueError(f"BatchedBGV: RNS-gadget hints only, got a {spec} hint "
+                             "(the object path in `she` takes any gadget)")
 
 
 def _channel_consts(values, device) -> torch.Tensor:
@@ -197,24 +208,21 @@ class BatchedBGV:
         return _channel_consts((fn(q) for q in self.cqs), self.device)
 
     # --- layout ---------------------------------------------------------
-    def pack(self, cts) -> tuple[torch.Tensor, torch.Tensor]:
-        """List of degree-1 ciphertexts, each a pair of (nrns, n) CRT
-        residue arrays, -> two (nrns, n, B) int32 tensors on the device."""
-        return tuple(
-            torch.from_numpy(
-                np.stack([np.asarray(ct[k], dtype=np.int64) for ct in cts], axis=-1)
-            ).to(device=self.device, dtype=torch.int32)
-            for k in range(2)
-        )
+    def pack(self, cts: list["she.CT"]) -> tuple[torch.Tensor, torch.Tensor]:
+        """List of degree-1 object-path ciphertexts -> two (nrns, n, B)
+        int32 tensors of their CRT components on the device."""
+        return tuple(torch.stack([ct.cs[k].to_crt().data.to(self.device) for ct in cts], dim=-1)
+                     for k in range(2))
 
-    def unpack(self, arrs) -> list[tuple[np.ndarray, np.ndarray]]:
-        """Two (nrns, n, B) component tensors -> the list of B ciphertexts
-        `pack` takes, each a pair of (nrns, n) u32 CRT residue arrays (the
-        port has no ring-element object; the JAX package's unpack wraps
-        the same arrays)."""
-        comps = [a.cpu().numpy().astype(np.uint32) for a in arrs]
-        return [tuple(np.ascontiguousarray(c[..., b]) for c in comps)
-                for b in range(comps[0].shape[-1])]
+    def unpack(self, arrs, f: int = 1, encoding: str = "lsd") -> list["she.CT"]:
+        """Two (nrns, n, B) component tensors -> the list of B object-path
+        ciphertexts (CRT components on the tensors' device) with scale f
+        and the encoding."""
+        from .cyc import Cyc, Rep
+
+        return [she.CT(self.params, self.ctx, tuple(Cyc(self.ctx, Rep.CRT, a[..., b].contiguous())
+                                                    for a in arrs), f=f, encoding=encoding)
+                for b in range(arrs[0].shape[-1])]
 
     # --- per-channel transforms -----------------------------------------
     def _crt_one(self, x2d, ch, inverse=False, ctx=None, pre_digit_q=None):
@@ -628,7 +636,7 @@ class BatchedBGV:
         (T, ell, nrns, n) int32 tensors."""
         self._check_sk(sk, "hint generation")
         qs, p, n = self.qs, self.params.p, self.ctx.n
-        g_ints = gd.gadget_ints(self.ctx.basis) if gadget is None else list(gadget)
+        g_ints = gd.gadget_ints(gd.RnsGad(), self.ctx.basis) if gadget is None else list(gadget)
         nrns, ell = len(qs), len(g_ints)
         T = targets.shape[0]
         L = T * ell  # column l = t * ell + j
@@ -674,7 +682,7 @@ class BatchedBGV:
         P = math.prod(special_qs)
         h0, h1 = BatchedBGV(params_ext, self.device)._gen_gadget_hints(
             SK(params_ext, sk_enc.s_ints, sk_enc.var), tgt_crt_ext[None], generator,
-            gadget=[P * g for g in gd.gadget_ints(self.ctx.basis)])
+            gadget=[P * g for g in gd.gadget_ints(gd.RnsGad(), self.ctx.basis)])
         return KSHintExt(self.params, ext_qs, len(special_qs), h0[0], h1[0])
 
     def _s_crt_ext(self, sk: SK, special_qs) -> torch.Tensor:
@@ -989,6 +997,7 @@ class KeySwitchLinear(nn.Module):
 
     def __init__(self, bb: BatchedBGV, hint: KSHint):
         super().__init__()
+        _check_rns_gadget(hint.spec)
         nrns = len(bb.qs)
         if hint.h0.shape != (nrns, nrns, bb.ctx.n) or hint.h1.shape != hint.h0.shape:
             raise ValueError(f"key switch: hint shape {tuple(hint.h0.shape)} "
@@ -1079,6 +1088,7 @@ class KeySwitchLinearExt(nn.Module):
 
     def __init__(self, bb: BatchedBGV, hint: KSHintExt):
         super().__init__()
+        _check_rns_gadget(hint.spec)
         self.bb = bb
         self.ext, self.drops = bb._ext_hint_setup(hint)
         lo, hi = self.ext.chans.start, self.ext.chans.stop
@@ -1193,6 +1203,7 @@ class Tunnel(nn.Module):
         super().__init__()
         lin = th.lin
         bb._check_lin(lin, "build_tunnel")
+        _check_rns_gadget(th.spec, *(h.spec for h in th.hints))
         nrns, n_s = len(bb.qs), lin.s_ctx.n
         if len(th.hints) != lin.d or any(
                 h.h0.shape != (nrns, nrns, n_s) or h.h1.shape != h.h0.shape
@@ -1283,6 +1294,7 @@ class GaloisMany(nn.Module):
 
     def __init__(self, bb: BatchedBGV, hints: dict):
         super().__init__()
+        _check_rns_gadget(*(h.spec for h in hints.values()))
         nrns = len(bb.qs)
         self.bb = bb
         self.ks = tuple(sorted(hints))

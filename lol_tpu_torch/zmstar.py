@@ -1,8 +1,9 @@
 """The unit group (Z/mZ)^*: slot indexing and automorphisms.
 
 Counterpart of `lol_tpu/zmstar.py`: the units mod m, their order in the
-CRT slots of the transforms (`ops.general._global_units`), and the slot
-permutation of the Galois automorphism sigma_k : zeta -> zeta^k.
+CRT slots of the transforms (`ops.general._global_units`), the group's
+order and product table, and the slot permutation of the Galois
+automorphism sigma_k : zeta -> zeta^k.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from .factored import fact
 from .ops import general as gen
 
 
@@ -26,6 +28,19 @@ def units(m: int) -> tuple[int, ...]:
 @lru_cache(maxsize=1024)
 def unit_index(m: int) -> dict[int, int]:
     return {u: i for i, u in enumerate(units(m))}
+
+
+def order(m: int) -> int:
+    """|(Z/mZ)^*| = phi(m)."""
+    return fact(m).phi
+
+
+def mul_table(m: int) -> np.ndarray:
+    """(phi, phi) int32 table of unit products, by index into `units`."""
+    us = np.array(units(m), dtype=np.int64)
+    idx = np.zeros(max(m, 1), dtype=np.int32)
+    idx[us] = np.arange(len(us), dtype=np.int32)
+    return idx[np.outer(us, us) % max(m, 1)]
 
 
 @lru_cache(maxsize=1024)

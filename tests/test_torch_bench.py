@@ -170,7 +170,7 @@ def test_steptime_serving_inputs_on_cpu():
     assert bb_out.params == ref_bb.params and f_out == ref_f
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     got = bb_out.build_decrypt(she.SK(bb_out.params, sk_out.s_ints, 2.0), f=f_out)(*out)
-    want = prf.prf(fam, s[:, 0].numpy(), (1, 0), 2)[0][0]
+    want = prf.prf_ints(fam, s[:, 0].numpy(), (1, 0), 2)[0][0]
     assert got.tolist() == [[want] * 3]
 
 

@@ -184,7 +184,7 @@ def test_gaussian_dec_ints_covariance_at_config3():
     none across 2-axis positions; at 2-power m it is iid."""
     m, var, rows = 18432, 16.0, 24
     ctx = ring_context(m, (nt.ntt_primes(m, 30, 1)[0],))
-    x = sampling.gaussian_dec_ints(ctx, var, torch.Generator().manual_seed(3), (rows,))
+    x = sampling.gaussian_dec_ints(ctx, torch.Generator().manual_seed(3), var, (rows,))
     assert x.shape == (rows, 6144) and x.dtype == torch.int64
     v = x.view(rows * 1024, 6).double().numpy()
     L1 = gen.dec_mixing_factors(m)[1]
@@ -197,7 +197,7 @@ def test_gaussian_dec_ints_covariance_at_config3():
     assert np.abs(cross).max() < 0.05 * np.abs(want).max()
     ctx2 = ring_context(64, (nt.ntt_primes(64, 30, 1)[0],))
     g1, g2 = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
-    assert torch.equal(sampling.gaussian_dec_ints(ctx2, 2.0, g1, (3,)),
+    assert torch.equal(sampling.gaussian_dec_ints(ctx2, g1, 2.0, (3,)),
                        sampling.gaussian_ints((3, 32), 2.0, g2))
 
 
@@ -367,7 +367,7 @@ def test_tunnel_72_to_36_matches_reference():
     got = bb2.target_pipeline(th2).build_decrypt(sk_s)(t0, t1)
     for b in range(B):
         x_pow = gen.l_host(72, st["m1"][:, b], p)
-        want_pow = linear.eval_lin(lin, x_pow, p)
+        want_pow = linear.eval_lin_ints(lin, x_pow, p)
         if b == 0:
             with jax.disable_jit():
                 ref_pow = jlinear.eval_lin(jf, JCyc.from_ints(jf.r_ctx, x_pow)).lift_ints(

@@ -14,6 +14,7 @@ from lol_tpu_torch.bench import mxu_ntt as mx, steptime
 from lol_tpu_torch.ops import ntt
 from lol_tpu_torch.ops.cuda import ntt_kernel as tk, pointwise as pw, remote_ntt as rn
 from lol_tpu_torch.parallel import sharding as sh
+from lol_tpu_torch.ring import ring_context
 from lol_tpu_torch.she_batched import BatchedBGV
 
 pytestmark = pytest.mark.cuda
@@ -456,7 +457,7 @@ def test_homom_prf_tower_on_card_equals_cpu(cuda):
                                                     *(c.cpu() for c in cts), (1, 0), 0)
     _same(out, ref)
     got = bb_out.build_decrypt(she.SK(bb_out.params, sk_out.s_ints, 2.0), f=f_out)(*out)
-    assert got.cpu().tolist() == [[prf.prf(fam, s[:, 0].cpu().numpy(), (1, 0), 2)[0][0]] * 40]
+    assert got.cpu().tolist() == [[prf.prf_ints(fam, s[:, 0].cpu().numpy(), (1, 0), 2)[0][0]] * 40]
 
 
 @pytest.mark.parametrize("encoding", ["lsd", "msd"])
@@ -665,19 +666,19 @@ def test_slot_map_homom_prf_on_card_equals_cpu(cuda):
     qs = tuple(nt.ntt_primes(64, 30, 3))
     g = torch.Generator(device=cuda).manual_seed(32)
     sks = [she.gen_sk(she.SHEParams(m=r, p=257, qs=qs, var=2.0), g) for r in (32, 16)]
-    fam = prf.PRFFamily.random(32, 257, gadget.BaseBGad(16), prf.balanced(2), g)
+    fam = prf.PRFFamily.random(ring_context(32, (257,)), gadget.BaseBGad(16), prf.balanced(2), g)
     hints, sk_out = prf.make_eval_hints(fam, sks, [32, 16], [16], g, p_final=257, maps="slots",
                                         device=cuda)
     bb = BatchedBGV(sks[0].params, cuda)
     keys = torch.randint(0, 257, (16, 40), generator=g, device=cuda, dtype=torch.int32)
     cts = bb.build_encrypt(sks[0])(keys, g)
     lin = hints.tunnels[0].lin
-    for i in range(gadget.num_digits(fam.spec, 257)):
+    for i in range(gadget.num_digits(fam.spec, fam.ctx.basis)):
         bb_out, f_out, out = serving.batched_homom_prf_component(fam, hints, bb, *cts, (0, 1), i)
         _same(out, serving.batched_homom_prf_component(
             fam, hints, BatchedBGV(bb.params, "cpu"), *(c.cpu() for c in cts), (0, 1), i)[2])
         got = bb_out.build_decrypt(sk_out, f=f_out)(*out).cpu().numpy()
         for k in range(40):
-            want = linear.eval_lin(lin, prf.prf_pre_round(fam, keys[:, k].cpu().numpy(),
+            want = linear.eval_lin_ints(lin, prf.prf_pre_round_ints(fam, keys[:, k].cpu().numpy(),
                                                           (0, 1))[i], 257)
             np.testing.assert_array_equal(got[:, k], want)

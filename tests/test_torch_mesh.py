@@ -35,6 +35,7 @@ from lol_tpu.ring import ring_context as j_ring_context
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
 from lol_tpu_torch import gadget, linear, numtheory as nt, prf, serving, she
 from lol_tpu_torch.parallel import sharding as sh
+from lol_tpu_torch.ring import ring_context
 from lol_tpu_torch.she_batched import BatchedBGV
 
 torch.set_num_threads(2)
@@ -254,7 +255,7 @@ def test_homom_prf_on_the_mesh():
     rings = [32, 16, 8, 4, 2]
     g = torch.Generator().manual_seed(6)
     sks = [she.gen_sk(she.SHEParams(m=r, p=8, qs=qs, var=2.0), g) for r in rings]
-    fam = prf.PRFFamily.random(32, 8, gadget.BaseBGad(2), prf.balanced(2), g)
+    fam = prf.PRFFamily.random(ring_context(32, (8,)), gadget.BaseBGad(2), prf.balanced(2), g)
     hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], g, homomorphic_round=True,
                                         maps="project", device="cpu")
     bb = BatchedBGV(sks[0].params, "cpu")
@@ -265,7 +266,7 @@ def test_homom_prf_on_the_mesh():
                                                   mesh=MESH)
     assert _equal(_unsharded(got), want)
     dec = bb_out.build_decrypt(she.SK(bb_out.params, sk_out.s_ints, 2.0), f=f_out)(*want)
-    assert dec[0].tolist() == [int(prf.prf(fam, s[:, 0].numpy(), (1, 0), 2)[0][0])] * B
+    assert dec[0].tolist() == [int(prf.prf_ints(fam, s[:, 0].numpy(), (1, 0), 2)[0][0])] * B
 
 
 @pytest.mark.parametrize("R,nrns", [(2, 4), (2, 3), (3, 3), (3, 5), (4, 2), (1, 3)])

@@ -32,6 +32,8 @@ from lol_tpu.ring import ring_context as j_ring_context
 from lol_tpu.rns import rns_basis as j_rns_basis
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
 from lol_tpu_torch import convert, gadget, numtheory as nt, prf, serving, she
+from lol_tpu_torch.ring import ring_context
+from lol_tpu_torch.rns import rns_basis as port_rns_basis
 from lol_tpu_torch.she_batched import BatchedBGV
 
 torch.set_num_threads(2)
@@ -84,14 +86,14 @@ def test_pt_round_hints_refuse_a_short_chain():
 
 @pytest.mark.parametrize("q,b", [(257, 2), (257, 3), (12289, 16), (8, 2), (9, 3)])
 def test_base_b_digits_match_jax(rng, q, b):
-    """num_digits, decompose_host (where no lift overflows its ell digits;
-    both raise where one does) and the KH-PRF's `decompose` (the
-    reference's decompose_base_jnp, no overflow check)."""
+    """num_digits, decompose_host_mod (where no lift overflows its ell
+    digits; both raise where one does) and the KH-PRF's `decompose_mod`
+    (the reference's decompose_base_jnp, no overflow check)."""
     spec, jspec, jbasis = gadget.BaseBGad(b), jgd.BaseBGad(b), j_rns_basis((q,))
-    ell = gadget.num_digits(spec, q)
+    ell = gadget.num_digits(spec, port_rns_basis((q,)))
     assert ell == jgd.num_digits(jspec, jbasis)
     a = rng.integers(0, q, (2, 64)).astype(np.uint32)
-    got = gadget.decompose(spec, q, a)
+    got = gadget.decompose_mod(spec, q, a)
     want = np.asarray(jgd.decompose(jspec, jbasis, jnp.asarray(a)[:, None, :]))[:, :, 0]
     np.testing.assert_array_equal(got, want.astype(np.int64))
     lifted = np.where(a >= (q + 1) // 2, a.astype(np.int64) - q, a)
@@ -104,12 +106,12 @@ def test_base_b_digits_match_jax(rng, q, b):
             with pytest.raises(ValueError, match="digit overflow"):
                 gadget._signed_digits(int(v), b, ell)
             with pytest.raises(ValueError, match="digit overflow"):
-                gadget.decompose_host(spec, q, np.array([int(v) % q]))
+                gadget.decompose_host_mod(spec, q, np.array([int(v) % q]))
         else:
             assert gadget._signed_digits(int(v), b, ell) == want
     ok = a[:, fits.all(0)]
     assert ok.shape[1] > 0
-    got = gadget.decompose_host(spec, q, ok)
+    got = gadget.decompose_host_mod(spec, q, ok)
     want = jgd.decompose_host(jspec, jbasis, ok[:, None, :])[:, :, 0]
     np.testing.assert_array_equal(got, want.astype(np.int64))
     with pytest.raises(ValueError, match="b >= 2"):
@@ -141,7 +143,7 @@ def test_prf_family_and_prf_match_jax(rng, prf_state, m):
     want = np.stack([a.lift_ints(rep=JRep.POW) for a in fam_j.a_t(bits)]) % 8
     np.testing.assert_array_equal(got, want)
     assert fam.a_t(bits) is got  # the per-node cache
-    np.testing.assert_array_equal(prf.prf(fam, s, bits, 2), jprf.prf(fam_j, s_j, bits, 2))
+    np.testing.assert_array_equal(prf.prf_ints(fam, s, bits, 2), jprf.prf(fam_j, s_j, bits, 2))
     with pytest.raises(ValueError, match="needs 3 bits"):
         fam.a_t((1, 0))
 
@@ -325,7 +327,7 @@ def test_homom_prf_component_matches_jax(prf_state, mode, encoding):
         sk_out = convert.sk_from_numpy(bb_out.params, st["jsk_s"].s_ints)
         got = bb_out.build_decrypt(sk_out, f=f_out, encoding=encoding)(e0, e1).numpy()
         for b in range(2):
-            assert got[0, b] == prf.prf(st["fam"], st["msgs"][:, b], bits, 2)[0][0]
+            assert got[0, b] == prf.prf_ints(st["fam"], st["msgs"][:, b], bits, 2)[0][0]
 
 
 # --- the port's own hints through the port's pipeline ----------------------
@@ -365,7 +367,7 @@ def test_port_homom_prf_down_a_halving_tower_to_n1():
     qs = tuple(nt.ntt_primes(32, 30, she.pt_round_mults(p) + 4))
     g = torch.Generator().manual_seed(11)
     sks = [she.gen_sk(she.SHEParams(m=m, p=p, qs=qs, var=2.0), g) for m in rings]
-    fam = prf.PRFFamily.random(16, p, gadget.BaseBGad(2), prf.balanced(2), g)
+    fam = prf.PRFFamily.random(ring_context(16, (p,)), gadget.BaseBGad(2), prf.balanced(2), g)
     hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], g, homomorphic_round=True,
                                         maps="project", device="cpu")
     assert len(hints.tunnels) == 3 and len(hints.rounds.hints) == she.pt_round_mults(p)
@@ -376,7 +378,7 @@ def test_port_homom_prf_down_a_halving_tower_to_n1():
         fam, hints, bb, *bb.build_encrypt(sks[0])(keys, g), bits, 0)
     assert bb_out.params.m == 2 and bb_out.params.p == 2 and out[0].shape[1] == 1
     got = bb_out.build_decrypt(she.SK(bb_out.params, sk_out.s_ints, 2.0), f=f_out)(*out)
-    want = [prf.prf(fam, keys[:, b].numpy(), bits, 2)[0][0] for b in range(4)]
+    want = [prf.prf_ints(fam, keys[:, b].numpy(), bits, 2)[0][0] for b in range(4)]
     np.testing.assert_array_equal(got[0].numpy(), want)
     with pytest.raises(ValueError, match="targets Z_2"):
         prf.make_eval_hints(fam, sks, rings, rings[1:], g, p_final=4, homomorphic_round=True,

@@ -141,9 +141,9 @@ def test_pt_mul_and_gadget_match_reference(rng):
                                   jshe.pt_mul(J_PARAMS, a, b))
     from lol_tpu_torch import gadget
     from lol_tpu.rns import rns_basis as j_rns_basis
-    assert gadget.gadget_ints(PARAMS.ctx.basis) == jgd.gadget_ints(
+    assert gadget.gadget_ints(gadget.RnsGad(), PARAMS.ctx.basis) == jgd.gadget_ints(
         jgd.RnsGad(), j_rns_basis(QS))
-    np.testing.assert_array_equal(gadget.gadget_rns(PARAMS.ctx.basis),
+    np.testing.assert_array_equal(gadget.gadget_rns(gadget.RnsGad(), PARAMS.ctx.basis),
                                   jgd.gadget_rns(jgd.RnsGad(), j_rns_basis(QS)))
 
 
@@ -170,10 +170,11 @@ def test_unported_paths_raise():
     from lol_tpu.cyc import Rep as JRep
     from lol_tpu.ring import ring_context as j_ring_context
     from lol_tpu_torch import gadget, prf
+    from lol_tpu_torch.ring import ring_context
     qs = tuple(nt.ntt_primes(16, 30, 2))
     g = torch.Generator().manual_seed(0)
     sks = [she.gen_sk(she.SHEParams(m=m, p=8, qs=qs, var=2.0), g) for m in (16, 8)]
-    fam = prf.PRFFamily.random(16, 8, gadget.BaseBGad(2), prf.balanced(2), g)
+    fam = prf.PRFFamily.random(ring_context(16, (8,)), gadget.BaseBGad(2), prf.balanced(2), g)
     with pytest.raises(ValueError, match="coprime"):
         prf.make_eval_hints(fam, sks, [16, 8], [8], g, maps="slots", device="cpu")
     sks = [she.gen_sk(she.SHEParams(m=m, p=257, qs=qs, var=2.0), g) for m in (16, 8)]
@@ -184,9 +185,9 @@ def test_unported_paths_raise():
 
 
 def test_pack_matches_jax_pack(jax_state):
-    cols = [tuple(np.asarray(c.to_crt().data) for c in ct.cs)
-            for ct in jax_state["cts_a"]]
-    packed = BatchedBGV(PARAMS, "cpu").pack(cols)
+    cts = [convert.ct_from_numpy(PARAMS, [(c.rep.value, np.asarray(c.data)) for c in ct.cs],
+                                 ct.f, ct.encoding, "cpu") for ct in jax_state["cts_a"]]
+    packed = BatchedBGV(PARAMS, "cpu").pack(cts)
     for mine, ref in zip(packed, convert.cts_from_numpy(*jax_state["c"], device="cpu")):
         assert mine.dtype == torch.int32 and torch.equal(mine, ref)
 
@@ -204,7 +205,8 @@ def test_port_never_imports_jax():
     module of the port imports (the package walked with pkgutil), and the
     port still builds a pipeline and runs a step, a tunnel, a pt_round,
     a general-m step, a Galois rotation, a slot map and a step over an
-    rns x data mesh on the CPU."""
+    rns x data mesh on the CPU, and the README's Quick start on the object
+    path at m = 8192."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -220,7 +222,9 @@ def test_port_never_imports_jax():
                 "lol_tpu_torch.linear", "lol_tpu_torch.ops.general",
                 "lol_tpu_torch.serving", "lol_tpu_torch.prf",
                 "lol_tpu_torch.factored", "lol_tpu_torch.zmstar",
-                "lol_tpu_torch.crtset", "lol_tpu_torch.gf"} <= set(mods)
+                "lol_tpu_torch.crtset", "lol_tpu_torch.gf", "lol_tpu_torch.cyc",
+                "lol_tpu_torch.rlwe", "lol_tpu_torch.rrq",
+                "lol_tpu_torch.complexfield"} <= set(mods)
         from lol_tpu_torch import linear, numtheory as nt, serving, she
         from lol_tpu_torch.ring import ring_context
         from lol_tpu_torch.she_batched import BatchedBGV
@@ -242,7 +246,7 @@ def test_port_never_imports_jax():
         t0, t1 = bb.build_tunnel(th)(*enc(m1, g))
         got = bb.target_pipeline(th).build_decrypt(sk_s)(t0, t1)
         for b in range(2):
-            assert (got[:, b].numpy() == linear.eval_lin(f, m1[:, b].numpy(), 17)).all()
+            assert (got[:, b].numpy() == linear.eval_lin_ints(f, m1[:, b].numpy(), 17)).all()
         # a pt_round Z_4 -> Z_2 (one squaring) on its own hints
         p4 = she.SHEParams(m=16, p=4, qs=tuple(nt.ntt_primes(32, 30, 3)), var=2.0)
         sk4 = she.gen_sk(p4, g)
@@ -278,6 +282,19 @@ def test_port_never_imports_jax():
         got = bb.build_step(hint, mesh=mesh)(*(sh.shard_batch_rns(mesh, c) for c in cs))
         want = bb.build_step(hint)(*cs)
         assert all(torch.equal(sh.unshard_batch_rns(x), y) for x, y in zip(got, want))
+        # the Quick start on the object path, m = 8192
+        from lol_tpu_torch import gadget as gd
+        qs = tuple(nt.ntt_primes(8192, 30, 3))
+        params = she.SHEParams(m=8192, p=257, qs=qs)
+        sk = she.gen_sk(params, torch.Generator().manual_seed(0))
+        m1 = she.pt_random(params, torch.Generator().manual_seed(1)).numpy()
+        ct = she.encrypt(sk, m1, torch.Generator().manual_seed(2), device="cpu")
+        assert (she.decrypt(sk, ct) == m1).all()
+        hint = she.ks_quad_circ_hint(sk, gd.RnsGad(), torch.Generator().manual_seed(3),
+                                     device="cpu")
+        prod = she.mod_switch(she.key_switch_quad_circ(hint, she.ct_mul(ct, ct)))
+        assert (she.decrypt(she.SK(prod.params, sk.s_ints, sk.var), prod)
+                == she.pt_mul(params, m1, m1)).all()
         assert not any(k == "jax" or k.startswith(("jax.", "lol_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")

@@ -248,8 +248,9 @@ def test_scale_factor_helpers_match_jax_pipeline(st, f):
 def test_pack_unpack_round_trip(st):
     bb = st["bb"]
     x = st["cts"]["msd"][0]
-    cts = bb.unpack(x)
-    assert len(cts) == B and cts[0][0].shape == (len(QS), N)
+    cts = bb.unpack(x, encoding="msd")
+    assert len(cts) == B and cts[0].cs[0].data.shape == (len(QS), N)
+    assert cts[0].encoding == "msd" and cts[0].cs[0].rep.value == "crt"
     for a, b in zip(bb.pack(cts), x):
         assert torch.equal(a, b)
 

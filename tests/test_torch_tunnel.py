@@ -85,14 +85,14 @@ def test_eval_lin_is_the_e_linear_map_of_its_images(rng, m_e):
     f = linear.linear_pow(*(ring_context(m, QS) for m in (m_e, M_R, M_S)), ys)
     n_r = M_R // 2
     for i, pos in enumerate(gen.rel_pow_basis_positions(m_e, M_R)):
-        np.testing.assert_array_equal(linear.eval_lin(f, np.eye(1, n_r, pos)[0], P), ys[i] % P)
+        np.testing.assert_array_equal(linear.eval_lin_ints(f, np.eye(1, n_r, pos)[0], P), ys[i] % P)
     x, y = rng.integers(0, P, n_r), rng.integers(0, P, n_r)
-    np.testing.assert_array_equal(linear.eval_lin(f, x + y, P),
-                                  (linear.eval_lin(f, x, P) + linear.eval_lin(f, y, P)) % P)
+    np.testing.assert_array_equal(linear.eval_lin_ints(f, x + y, P),
+                                  (linear.eval_lin_ints(f, x, P) + linear.eval_lin_ints(f, y, P)) % P)
     c = rng.integers(0, P, m_e // 2)
     cx = she.pt_mul(PR, _embed(c, m_e, M_R), x)
-    np.testing.assert_array_equal(linear.eval_lin(f, cx, P),
-                                  she.pt_mul(PS, _embed(c, m_e, M_S), linear.eval_lin(f, x, P)))
+    np.testing.assert_array_equal(linear.eval_lin_ints(f, cx, P),
+                                  she.pt_mul(PS, _embed(c, m_e, M_S), linear.eval_lin_ints(f, x, P)))
 
 
 def _embed(c, m_sub, m_sup):
@@ -123,7 +123,7 @@ def test_tunnel_matches_jax_pipeline(keys, m_e):
     assert {k for k, _ in tun.named_buffers()} == {"qv", "coeff", "embed", "ys", "h0", "h1"}
     got = bb.target_pipeline(th).build_decrypt(keys["sk_s"])(e0, e1)
     for b in range(B):
-        np.testing.assert_array_equal(got[:, b].numpy(), linear.eval_lin(f, msgs[:, b], P))
+        np.testing.assert_array_equal(got[:, b].numpy(), linear.eval_lin_ints(f, msgs[:, b], P))
 
 
 def test_port_tunnel_hint_decrypts_through_both_tunnels(keys):
@@ -137,7 +137,7 @@ def test_port_tunnel_hint_decrypts_through_both_tunnels(keys):
     th = bb.gen_tunnel_hint(f, keys["sk_s"], keys["sk_r"], torch.Generator().manual_seed(4))
     assert len(th.hints) == 2 and th.hints[0].h0.shape == (len(QS), len(QS), M_S // 2)
     msgs, (c0, c1) = _encrypt(keys["sk_r"], 5)
-    want = np.stack([linear.eval_lin(f, msgs[:, b], P) for b in range(B)], -1)
+    want = np.stack([linear.eval_lin_ints(f, msgs[:, b], P) for b in range(B)], -1)
     e0, e1 = bb.build_tunnel(th)(c0, c1)
     got = bb.target_pipeline(th).build_decrypt(keys["sk_s"])(e0, e1)
     np.testing.assert_array_equal(got.numpy(), want)
