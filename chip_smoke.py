@@ -128,6 +128,25 @@ then runs its phases and exits non-zero on the first failure:
    call runs on CPU copies first, where the card must make the same
    calls and give the same output bit for bit; closed forms hold the
    encryption, the hints, the step, decrypt and the tunnel;
+3i. persistence, the challenges, the debug guards and two processes:
+   (a) phase 3h's SK and ciphertexts (LSD, MSD), phase 3's step hint,
+   phase 3c's ext hint, phase 3d's tunnel hint and phase 3e's rounding
+   hints and EvalHints written to bytes (`io`) from the card and from
+   CPU copies (the same bytes), read back onto the card, and the step,
+   the ext step, the tunnel (columns 0-7) and homom_prf_component
+   (column 0) on the reloaded hints == the originals' bit for bit, each
+   bundle's size and write / read times printed; (b) the RLWE challenges
+   at m = 32768 (disc, cont, rlwr q' = 257) and 18432 (disc), 8
+   instances each: generate on the card == the same seed on the CPU byte
+   for byte, suppress, verify OK, an error moved past its bound and a
+   restored held-out secret each caught, and the CLI's three phases in
+   subprocesses; (c) `ntt_cm_checked` == `ntt_cm` on the step's channel
+   (forward, GS, route B) and route B at n = 2^16, a planted q and a
+   planted 0x80000000 raising `ReductionError`; (d) two processes on the
+   card over gloo (`parallel.multihost_check`): one mesh {"data": 2,
+   "rns": 3} across them, the step at m = 32768 (512 columns a rank) and
+   the ext step at m = 8192 == the unsharded columns, one all_reduce,
+   launches counted per rank; every launch of (a)-(d) counted exactly;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -163,7 +182,10 @@ then runs its phases and exits non-zero on the first failure:
    mesh calls' layout copies timed on the device (`steptime.copies`);
    and phase 3h's object path at m = 32768 (`encrypt`, the step,
    `decrypt`, `tunnel`, `homom_prf_component`) beside the batched path's
-   time per ciphertext in the same call; each printed on a `metric` line
+   time per ciphertext in the same call; phase 3i's challenge generate
+   and verify ms per instance at m = 32768 (disc, cont), the EvalHints
+   write and read in MB/s, and the two-rank mesh step's ops/s beside the
+   same layout's in one process; each printed on a `metric` line
    beside the card line.
    Phase 1 also fails if ptxas gave a ring or route-B kernel a stack
    frame or spills.
@@ -235,7 +257,7 @@ def main() -> int:
         return 2
     import_port()
     from collections import Counter
-    from dataclasses import replace as dc_replace
+    from dataclasses import fields as dc_fields, replace as dc_replace
 
     from lol_tpu_torch import gadget, linear, numtheory as nt, prf, ring as ring_mod, serving, she
     from lol_tpu_torch.cyc import Cyc, Rep
@@ -540,7 +562,7 @@ def main() -> int:
     # n = 4096, 8192 and 2^14), its ct_mul calls, and nothing else.
     path_launches = {ph: dict.fromkeys(counts(), 0)
                      for ph in ("3c", "3d", "3e", "3e_ext", "3f", "3f_galois", "3g", "3g_slots",
-                                "3h")}
+                                "3h", "3i")}
 
     def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, n_fwd=None, n_inv=None):
         return run_by_n(phase, name, fn, *args, fwd={n_fwd: fwd} if fwd else {},
@@ -1139,14 +1161,21 @@ def main() -> int:
     she.ct_mul_cm = ctm_shim
 
     def to_dev(x_, device):
-        """A Cyc or object CT with its tensors on device."""
+        """A Cyc, an object CT, a hint or a hint bundle with its tensors on
+        device."""
         if isinstance(x_, Cyc):
             return Cyc(x_.ctx, x_.rep, x_.data.to(device))
         if isinstance(x_, torch.Tensor):
             return x_.to(device)
         if isinstance(x_, (tuple, list)):
             return type(x_)(to_dev(y_, device) for y_ in x_)
-        return dc_replace(x_, cs=tuple(to_dev(c_, device) for c_ in x_.cs))
+        if isinstance(x_, (she.KSHint, she.KSHintExt, she.TunnelHint, she.PTRoundHints,
+                           prf.EvalHints)):
+            return dc_replace(x_, **{f_.name: to_dev(getattr(x_, f_.name), device)
+                                     for f_ in dc_fields(x_)})
+        if isinstance(x_, she.CT):
+            return dc_replace(x_, cs=tuple(to_dev(c_, device) for c_ in x_.cs))
+        return x_
 
     def same_obj(name, a_, b_):
         """Card and CPU outputs (Cyc, CT, tensors or tuples of them) equal."""
@@ -1392,6 +1421,289 @@ def main() -> int:
     mark(f"phase 3h: object == batched bit for bit: the step (columns 0-7), the tunnel "
          f"{m} -> {m // 2}, the general step at {m_g}, HomomPRF {m} -> 2 (column 0); "
          f"launches {path_launches['3h']}")
+    # -- phase 3i: persistence, the challenges, the debug guards, two processes
+    # Every card call runs between a reset and a read of the counts, which
+    # must be exactly what it launches (`run_3i`); io writes and reads
+    # without a launch, since every hint row is a CRT stack and every
+    # object-path ciphertext CRT.
+    import shutil
+    import tempfile
+
+    from lol_tpu_torch import io as lio
+    from lol_tpu_torch.challenges import ChallengeParams, LocalBeacon
+    from lol_tpu_torch.challenges import driver as chd
+    from lol_tpu_torch.ops import debug as dbg
+    from lol_tpu_torch.parallel import multihost_check
+    from lol_tpu_torch.proto import wire as pb
+
+    def passes(n_):
+        return len(tk.cm_schedule(n_))
+
+    def run_3i(name, fn, want=None):
+        """fn() between a reset and a read of the counts, which must be want
+        ({counter: launches}) and nothing else; want=None records them."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        full = dict.fromkeys(got, 0)
+        full.update(want or {})
+        if want is not None and got != full:
+            raise AssertionError(f"phase 3i {name}: launches {got}, want {full}")
+        for k_, v_ in got.items():
+            path_launches["3i"][k_] += v_
+        return out if want is not None else (out, got)
+
+    # (a) persistence at full width: each bundle written from the card and
+    # from CPU copies (the same bytes), read back onto the card (io's default
+    # device; no launch), and written again from what was read (the same bytes)
+    cm_o = she.encrypt_msd(sk, am_o, g, dev)
+    bundles = {
+        "sk": (lio.sk_to_proto, lio.sk_from_proto, pb.SecretKey, sk),
+        "ct_lsd": (lio.ct_to_proto, lio.ct_from_proto, pb.SHECiphertext, ca_o),
+        "ct_msd": (lio.ct_to_proto, lio.ct_from_proto, pb.SHECiphertext, cm_o),
+        "step_hint": (lio.ks_hint_to_proto, lio.ks_hint_from_proto, pb.KSHint, hint),
+        "ext_hint": (lio.ks_hint_ext_to_proto, lio.ks_hint_ext_from_proto, pb.KSHintExt, quad_ext),
+        "tunnel_hint": (lio.tunnel_hint_to_proto, lio.tunnel_hint_from_proto, pb.TunnelHint, th),
+        "pt_round_hints": (lio.pt_round_hints_to_proto, lio.pt_round_hints_from_proto,
+                           pb.PTRoundHints, rh),
+        "eval_hints": (lio.eval_hints_to_proto, lio.eval_hints_from_proto, pb.EvalHints, hints),
+    }
+    loaded, io_stats = {}, {}
+    for name, (to_p, from_p, cls, obj) in bundles.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        data = to_p(obj).SerializeToString()
+        t_w = time.perf_counter() - t
+        if to_p(to_dev(obj, "cpu")).SerializeToString() != data:
+            raise AssertionError(f"phase 3i: {name} written from the card != from CPU copies")
+        t = time.perf_counter()
+        loaded[name] = run_3i(f"read {name}", lambda: from_p(cls.FromString(data)), {})
+        t_r = time.perf_counter() - t
+        if to_p(loaded[name]).SerializeToString() != data:
+            raise AssertionError(f"phase 3i: {name} read back != written")
+        io_stats[name] = {"MB": len(data) / 1e6, "write_ms": t_w * 1e3, "read_ms": t_r * 1e3}
+        print(f"persistence {name}: {len(data) / 1e6:.3f} MB, write {t_w * 1e3:.2f} ms, "
+              f"read {t_r * 1e3:.2f} ms", flush=True)
+    if loaded["step_hint"].h0.device.type != dev.type:  # io's default device is the card
+        raise AssertionError("phase 3i: a hint read with device=None is not on the card")
+    L_o, n_o = len(params.qs), params.ctx.n
+    for name, want_m in (("ct_lsd", am_o), ("ct_msd", am_o)):
+        got = run_3i(f"decrypt reloaded {name}", lambda: she.decrypt(loaded["sk"], loaded[name]),
+                     {"ntt_fwd": L_o * passes(n_o), "ntt_inv": L_o * passes(n_o)})
+        np.testing.assert_array_equal(got, want_m, err_msg=f"reloaded {name}")
+    # the reloaded hints against the originals' outputs, columns 0-7
+    first8 = slice(0, 8)
+    cols8 = [t_[..., first8].contiguous() for t_ in (c0, c1, d0, d1)]
+    out = run_3i("step (reloaded hint)", lambda: bb.build_step(loaded["step_hint"])(*cols8),
+                 {"ntt_fwd": step_calls["ntt_fwd"] * passes(n),
+                  "ntt_inv": step_calls["ntt_inv"] * passes(n), "ct_mul": nrns})
+    if not all(torch.equal(a_, b_[..., first8]) for a_, b_ in zip(out, (e0, e1))):
+        raise AssertionError("phase 3i: the step on the reloaded hint != the original's")
+    cx = [t_[..., first8].contiguous() for t_ in (*c8["lsd"][0], *c8["lsd"][1])]
+    out = run_3i("ext step (reloaded hint)", lambda: bb8.build_step_ext(loaded["ext_hint"])(*cx),
+                 {"ntt_fwd": (ks_fwd + 2 * (Lb - 1)) * passes(n8),
+                  "ntt_inv": (ks_inv + 2) * passes(n8), "ct_mul": Lb})
+    if not all(torch.equal(a_, b_[..., first8]) for a_, b_ in zip(out, ext["lsd"])):
+        raise AssertionError("phase 3i: the ext step on the reloaded hint != the original's")
+    out = run_3i("tunnel (reloaded hint)", lambda: bb.build_tunnel(loaded["tunnel_hint"])(
+        *(t_[..., first8].contiguous() for t_ in ct)),
+        {"ntt_fwd": tunnel_calls["ntt_fwd"] * passes(th.lin.s_ctx.n),
+         "ntt_inv": tunnel_calls["ntt_inv"] * passes(n)})
+    if not all(torch.equal(a_, b_[..., first8]) for a_, b_ in zip(out, (t0, t1))):
+        raise AssertionError("phase 3i: the tunnel on the reloaded hint != the original's")
+    prf_orig, l_orig = run_3i("homom_prf_component (original hints)",
+                              lambda: prf.homom_prf_component(fam, hints, key_ct, bits, 0))
+    prf_back, l_back = run_3i("homom_prf_component (reloaded hints)",
+                              lambda: prf.homom_prf_component(fam, loaded["eval_hints"], key_ct,
+                                                              bits, 0))
+    if l_back != l_orig or not l_orig["ntt_fwd"] or not all(
+            torch.equal(a_.data, b_.data) and torch.equal(a_.data, c_.data)
+            for a_, b_, c_ in zip(prf_back.cs, prf_orig.cs, out_prf.cs)):
+        raise AssertionError("phase 3i: homom_prf_component on the reloaded hints != original")
+    mark(f"phase 3i: persistence: {len(bundles)} bundles, card bytes == CPU bytes, reloaded "
+         f"onto the card; step, ext step, tunnel (columns 0-7) and homom_prf_component "
+         f"(column 0) == the originals bit for bit; launches {path_launches['3i']}")
+
+    # (b) the challenges at the repo's rings, 8 instances each, svar = 4:
+    # generate on the card (and the same seeds on the CPU: the same bytes),
+    # suppress with LocalBeacon, verify; two corruptions caught; the CLI
+    os.makedirs(os.path.join(ROOT, "_scratch"), exist_ok=True)  # gitignored, removed below
+    work = tempfile.mkdtemp(prefix="chall_", dir=os.path.join(ROOT, "_scratch"))
+    q_c, q_cg = nt.ntt_primes(m, 30, 1)[0], nt.ntt_primes(m_g, 30, 1)[0]
+    n_cg = ring_context(m_g, (q_cg,)).fm.phi_shape[0]  # the general ring's NTT length
+    n_c = m // 2
+    chall = [ChallengeParams(0, m, q_c, 4.0, 8, "disc", beacon_epoch=1201),
+             ChallengeParams(1, m, q_c, 4.0, 8, "cont", beacon_epoch=1202, beacon_offset=16),
+             ChallengeParams(2, m, q_c, 4.0, 8, "rlwr", qprime=257, beacon_epoch=1203),
+             ChallengeParams(3, m_g, q_cg, 4.0, 8, "disc", beacon_epoch=1204)]
+    gen_calls = {"disc": (2, 0), "cont": (1, 1), "rlwr": (1, 1)}  # per instance: fwd, inv
+    for cp in chall:  # first-call set-up (plans, tables, the bounds) out of the timings
+        chd.generate(os.path.join(work, "warm"), [dc_replace(cp, num_instances=1)], seed=SEED,
+                     device=dev)
+    def tree_files(root_):
+        return sorted(os.path.relpath(os.path.join(dp, f_), root_)
+                      for dp, _, fs in os.walk(root_) for f_ in fs)
+
+    def same_tree(a_, b_):
+        """The same files under both roots, byte for byte."""
+        def read(p_):
+            with open(p_, "rb") as fh:
+                return fh.read()
+        return tree_files(a_) == tree_files(b_) and all(
+            read(os.path.join(a_, f_)) == read(os.path.join(b_, f_)) for f_ in tree_files(a_))
+
+    chall_ms, roots = {}, {}
+    for cp in chall:
+        n_t = n_c if cp.m == m else n_cg
+        fw, iv = gen_calls[cp.kind]
+        roots[cp.challenge_id] = root_c = os.path.join(work, f"card{cp.challenge_id}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_3i(f"generate {cp.kind} m={cp.m}", lambda: chd.generate(
+            root_c, [cp], seed=SEED + cp.challenge_id, device=dev),
+            {"ntt_fwd": fw * 8 * passes(n_t), "ntt_inv": iv * 8 * passes(n_t)})
+        chall_ms[f"generate_{cp.kind}_m{cp.m}"] = (time.perf_counter() - t) * 1e3 / 8
+        cpu_root = os.path.join(work, f"cpu{cp.challenge_id}")
+        chd.generate(cpu_root, [cp], seed=SEED + cp.challenge_id, device="cpu")
+        if len(tree_files(root_c)) != 17 or not same_tree(root_c, cpu_root):
+            raise AssertionError(f"phase 3i: challenge {cp.challenge_id} on the card != on the CPU")
+        chd.suppress(root_c)
+        t = time.perf_counter()
+        ok = run_3i(f"verify {cp.kind} m={cp.m}", lambda: chd.verify(root_c, device=dev),
+                    {"ntt_fwd": 7 * passes(n_t), "ntt_inv": 7 * passes(n_t)})
+        chall_ms[f"verify_{cp.kind}_m{cp.m}"] = (time.perf_counter() - t) * 1e3 / 7
+        if ok is not True:
+            raise AssertionError(f"phase 3i: challenge {cp.challenge_id} did not verify")
+    print("challenges verify: OK", flush=True)
+    # corruption 1: one disc instance's b moved by q / 2 in one decoding coefficient
+    bad = os.path.join(work, "bad_b")
+    shutil.copytree(roots[0], bad)
+    d_bad = os.path.join(bad, "chall-id0000")
+    iid = int(sorted(f_ for f_ in os.listdir(d_bad) if f_.endswith(".secret"))[0][9:12])
+    f_bad = os.path.join(d_bad, f"instance-{iid:03d}.instance")
+    with open(f_bad, "rb") as fh:
+        inst = pb.InstanceDisc.FromString(fh.read())
+    bump = np.zeros(n_c, dtype=np.int64)
+    bump[0] = q_c // 2
+
+    def moved():
+        b_ = lio.cyc_from_proto(inst.b, device=dev)
+        return lio.cyc_to_proto((b_.to_dec() + Cyc.from_ints(b_.ctx, bump, device=dev)).to_crt())
+
+    inst.b = run_3i("move b past the bound", moved,
+                    {"ntt_fwd": passes(n_c), "ntt_inv": passes(n_c)})
+    with open(f_bad, "wb") as fh:
+        fh.write(inst.SerializeToString())
+    if run_3i("verify (b moved)", lambda: chd.verify(bad, device=dev),
+              {"ntt_fwd": 7 * passes(n_c), "ntt_inv": 7 * passes(n_c)}) is not False:
+        raise AssertionError("phase 3i: verify passed an instance whose error left its bound")
+    # corruption 2: the held-out secret restored (from the CPU's unsuppressed copy)
+    bad = os.path.join(work, "bad_secret")
+    shutil.copytree(roots[1], bad)
+    keep = LocalBeacon().bits(chall[1].beacon_epoch, chall[1].beacon_offset, 3) % 8
+    name_ = f"instance-{keep:03d}.secret"
+    shutil.copy(os.path.join(work, "cpu1", "chall-id0001", name_),
+                os.path.join(bad, "chall-id0001", name_))
+    if run_3i("verify (held-out secret restored)", lambda: chd.verify(bad, device=dev),
+              {"ntt_fwd": 7 * passes(n_c), "ntt_inv": 7 * passes(n_c)}) is not False:
+        raise AssertionError("phase 3i: verify passed a restored held-out secret")
+    # the CLI, in subprocesses on the card
+    pfile = os.path.join(work, "params.txt")
+    with open(pfile, "w") as fh:
+        fh.write(f"# id m q svar num kind [qprime] [epoch] [offset]\n0 {m} {q_c} 4.0 8 disc 0 1201\n")
+    cli_root = os.path.join(work, "cli")
+    env_cli = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p_ for p_ in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p_]))
+    cli_out = []
+    for args_ in (["generate", cli_root, "--params", pfile, "--seed", str(SEED)],
+                  ["suppress", cli_root], ["verify", cli_root]):
+        r_ = subprocess.run([sys.executable, "-m", "lol_tpu_torch.challenges.driver", *args_],
+                            capture_output=True, text=True, cwd=ROOT, env=env_cli, timeout=300)
+        cli_out.append(r_.stdout.strip())
+        if r_.returncode != 0:
+            raise AssertionError(f"phase 3i: CLI {args_[0]} exit {r_.returncode}:\n{r_.stdout}\n"
+                                 f"{r_.stderr}")
+    # the CLI's directory is challenge 0's (the same line and seed, suppressed alike)
+    if cli_out[-1] != "verify: OK" or not same_tree(cli_root, roots[0]):
+        raise AssertionError(f"phase 3i: CLI output {cli_out}, or its files != challenge 0's")
+    shutil.rmtree(work)
+    mark(f"phase 3i: challenges at m = {m} (disc, cont, rlwr q' = 257) and {m_g} (disc), 8 "
+         f"instances each: verify OK, card bytes == CPU bytes, both corruptions caught, the CLI "
+         f"{cli_out}; ms per instance {chall_ms}; launches {path_launches['3i']}")
+
+    # (c) the debug guards on the step's channel (n = 2^14, B = 1024) and route B at 2^16
+    x_g = e0[0].contiguous()
+    plan_g, q_g0 = bb.plans()[0], params.qs[0]
+    plan65, x65 = ring[-1][:2]
+    invb = {"ntt_invb_block": 1, "ntt_invb_cross": len(tk.dit_schedule(n)) - 1}
+    guards = [
+        ("forward", x_g, plan_g, {}, {"ntt_fwd": passes(n)}),
+        ("GS inverse", x_g, plan_g, {"inverse": True}, {"ntt_inv": passes(n)}),
+        ("route-B inverse", x_g, plan_g, {"inverse": True, "alg": "dit"}, invb),
+        ("route-B inverse n=2^16", x65, plan65, {"inverse": True, "alg": "dit"},
+         {"ntt_invb_block": 1, "ntt_invb_cross": len(tk.dit_schedule(plan65.n)) - 1}),
+    ]
+    for name, x_, pl_, kw_, want in guards:
+        got = run_3i(f"ntt_cm_checked {name}", lambda: dbg.ntt_cm_checked(x_, pl_, **kw_), want)
+        if not torch.equal(got, tk.ntt_cm(x_, pl_, **kw_)):
+            raise AssertionError(f"phase 3i: ntt_cm_checked {name} != ntt_cm")
+    for word in (q_g0, -(1 << 31)):  # a planted q, and the u32 word 0x80000000
+        planted = x_g.clone()
+        planted[5, 7] = word
+        try:
+            run_3i(f"ntt_cm_checked planted {word}", lambda: dbg.ntt_cm_checked(planted, plan_g), {})
+        except dbg.ReductionError as exc:
+            print(f"planted {word & 0xFFFFFFFF:#x}: {exc}", flush=True)
+        else:
+            raise AssertionError(f"phase 3i: a planted word {word} passed the guard")
+    mark(f"phase 3i: debug guards: ntt_cm_checked == ntt_cm forward, GS, route B at n = {n} "
+         f"and route B at {plan65.n}; a planted q and 0x80000000 raise; launches "
+         f"{path_launches['3i']}")
+
+    # (d) two processes on this card: NCCL refuses two ranks on one card, so
+    # the ranks' collective goes through gloo on a CPU copy; their builders
+    # and kernels run on cuda:0.  Each rank checks its columns against the
+    # unsharded run and counts its launches exactly (multihost_check).
+    print("two ranks on cuda:0 over gloo: the collective on a CPU copy, the kernels on the card",
+          flush=True)
+    t = time.perf_counter()
+    ranks = multihost_check.spawn(2, timeout=600, device="cuda", backend="gloo", m=m,
+                                  batch=B, ext_m=m8, time_iters=5)
+    t_ranks = time.perf_counter() - t
+    want_rank = {"ntt": {"ntt_fwd": passes(n)},
+                 "step": multihost_check.step_launches(3, n),
+                 "ext": multihost_check.ext_step_launches(3, 2, n8)}
+    for rep in ranks:
+        if rep["launches"] != want_rank or rep["columns"] != [rep["rank"] * B // 2,
+                                                              (rep["rank"] + 1) * B // 2]:
+            raise AssertionError(f"phase 3i: rank {rep['rank']}: {rep}")
+        for part in rep["launches"].values():
+            for k_, v_ in part.items():
+                path_launches["3i"][k_] += v_
+    rank_launches = [rep["launches"] for rep in ranks]
+    two_rank_ops = ranks[0]["step_ops_per_sec"]
+    gm1 = sh.make_mesh({"data": 2, "rns": 3}, [dev] * 6)  # the same layout in one process
+    st1 = bb.build_step(hint, mesh=gm1)
+    blk1 = [sh.shard_batch_rns(gm1, t_) for t_ in (c0, c1, d0, d1)]
+    one_proc_ms, _ = time_ms(lambda: st1(*blk1), 5)
+    del blk1
+    mark(f"phase 3i: two ranks, mesh {ranks[0]['mesh']} over gloo on one card, in {t_ranks:.1f} s: "
+         f"the mesh step (m = {m}, B = {B}) and the ext step (m = {m8}) == the unsharded "
+         f"columns on each rank, all_reduce held; launches per rank {rank_launches}; step "
+         f"{two_rank_ops:.1f} ops/s against {B / (one_proc_ms / 1e3):.1f} in one process")
+    persist_timings = {
+        "challenge_generate_ms_per_instance_disc": chall_ms[f"generate_disc_m{m}"],
+        "challenge_generate_ms_per_instance_cont": chall_ms[f"generate_cont_m{m}"],
+        "challenge_verify_ms_per_instance_disc": chall_ms[f"verify_disc_m{m}"],
+        "challenge_verify_ms_per_instance_cont": chall_ms[f"verify_cont_m{m}"],
+        "eval_hints_write_MB_per_s": io_stats["eval_hints"]["MB"] / io_stats["eval_hints"]["write_ms"] * 1e3,
+        "eval_hints_read_MB_per_s": io_stats["eval_hints"]["MB"] / io_stats["eval_hints"]["read_ms"] * 1e3,
+        "mesh_step_two_ranks_ops_per_sec": two_rank_ops,
+        "mesh_step_one_process_data2_ops_per_sec": B / (one_proc_ms / 1e3),
+        "persistence": io_stats, "challenge_ms_per_instance": chall_ms,
+        "two_ranks_step_ms_windows": ranks[0]["step_ms_windows"],
+    }
 
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
@@ -1648,6 +1960,7 @@ def main() -> int:
         timings[f"object_{key}_ms"] = obj_ms
         timings[f"object_{key}_ms_windows"] = obj_wins
         timings[f"batched_{key}_per_ct_ms"] = bat_ms / B
+    timings.update(persist_timings)
     timings["step_ext_noise_bits_delta"] = step_ext_delta
     timings["step_ext_noise_bits"] = noise
     timings["homom_prf_peak_GiB"] = prf_peak_gib
@@ -1659,7 +1972,11 @@ def main() -> int:
               "tunnel_general_m_ops_per_sec", "galois_hoisted_rot_per_sec",
               "galois_separate_rot_per_sec", "galois_hoisted_speedup",
               "mesh_step_ops_per_sec", "mesh_step_unsharded_ops_per_sec",
-              "mesh_tunnel_ops_per_sec", "mesh_tunnel_unsharded_ops_per_sec"):
+              "mesh_tunnel_ops_per_sec", "mesh_tunnel_unsharded_ops_per_sec",
+              "challenge_generate_ms_per_instance_disc", "challenge_generate_ms_per_instance_cont",
+              "challenge_verify_ms_per_instance_disc", "challenge_verify_ms_per_instance_cont",
+              "eval_hints_write_MB_per_s", "eval_hints_read_MB_per_s",
+              "mesh_step_two_ranks_ops_per_sec", "mesh_step_one_process_data2_ops_per_sec"):
         print(f"metric {k} = {timings[k]} on {card}", flush=True)
     for key in obj_pairs:
         print(f"metric object_{key}_ms = {timings[f'object_{key}_ms']} (batched "
@@ -1691,6 +2008,7 @@ def main() -> int:
          "launches_mesh": path_launches["3g"]["ntt_fwd"],
          "launches_slots": path_launches["3g_slots"]["ntt_fwd"],
          "launches_object": path_launches["3h"]["ntt_fwd"],
+         "launches_3i": path_launches["3i"]["ntt_fwd"],
          "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"],
          **bound("ntt_fwd", n, B), "library_ms": None},
         {"name": "ntt_inv_pass", "route": "cuda", "source": ntt_src,
@@ -1706,6 +2024,7 @@ def main() -> int:
          "launches_mesh": path_launches["3g"]["ntt_inv"],
          "launches_slots": path_launches["3g_slots"]["ntt_inv"],
          "launches_object": path_launches["3h"]["ntt_inv"],
+         "launches_3i": path_launches["3i"]["ntt_inv"],
          "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"],
          **bound("ntt_inv_gs", n, B), "library_ms": None},
         # one kernel in two geometries, as the reference's two bodies: the
@@ -1716,6 +2035,7 @@ def main() -> int:
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:421",
          "path": "route-B inverse A/B (ntt_cm alg='dit')",
          "launches": invb["ntt_invb_block"], "max_abs_err": err["ntt_invb"],
+         "launches_3i": path_launches["3i"]["ntt_invb_block"],
          "shape": f"n={n}, B={B}, one cluster pass",
          "ms": timings["ntt_invb_ms"], "plain_ms": timings["ntt_invb_plain_ms"],
          **bound("ntt_inv_dit", n, B), "library_ms": None,
@@ -1726,6 +2046,7 @@ def main() -> int:
          "replaces": "lol_tpu/ops/pallas/ntt_kernel.py:437",
          "path": "route-B inverse A/B (ntt_cm alg='dit')",
          "launches": invb["ntt_invb_cross"], "max_abs_err": err["ntt_invb"],
+         "launches_3i": path_launches["3i"]["ntt_invb_cross"],
          "shape": f"n=65536, B={B}, block + cross passes",
          "ms": timings["ntt_invb_n65536_ms"], "plain_ms": timings["ntt_invb_n65536_plain_ms"],
          **bound("ntt_inv_dit", 65536, B), "library_ms": None},
@@ -1740,6 +2061,7 @@ def main() -> int:
          "launches_mesh": path_launches["3g"]["ct_mul"],
          "launches_slots": path_launches["3g_slots"]["ct_mul"],
          "launches_object": path_launches["3h"]["ct_mul"],
+         "launches_3i": path_launches["3i"]["ct_mul"],
          "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"],
          **bound("ct_mul", n, B), "library_ms": None},
         {"name": "u32_chain", "route": "cuda", "source": "lol_tpu_torch/csrc/chain.cu",

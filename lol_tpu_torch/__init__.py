@@ -5,8 +5,10 @@ own (`numtheory`, `zq`, `factored`, `zmstar`, `ops/ntt`,
 `ops/cuda/ntt_kernel` for `ops/pallas/ntt_kernel`, `ops/general`, `rns`,
 `gadget`, `ring`, `cyc`, `sampling`, `gf`, `crtset`, `linear`, `rlwe`,
 `rrq`, `complexfield`, `she`, `she_batched`, `prf`, `serving`,
-`parallel/sharding`), and every result is bit-identical to it.  This
-package imports torch and numpy, never jax and never lol_tpu.
+`parallel/sharding`, `parallel/multihost`, `io` with `proto/`,
+`challenges`, `ops/debug`), and every result is bit-identical to it.
+This package imports torch and numpy, never jax, lol_tpu or a protobuf
+runtime.
 
 Residues are `torch.int32` tensors holding values in [0, q) with q < 2^30:
 the batched pipeline's in the coefficient-major (nrns, n, B) layout, a

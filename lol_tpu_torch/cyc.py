@@ -218,8 +218,10 @@ class Cyc:
 
     # --- misc -----------------------------------------------------------
     def gsq_norm(self):
-        """||g self||^2 in the canonical embedding (Lol gSqNorm)."""
-        return rg.gsq_norm_dec_host(self.ctx, self.to_dec().data)
+        """||g self||^2 in the canonical embedding (Lol gSqNorm), exact:
+        on the element's device over one modulus (`ring.gsq_norm_dec`),
+        on the host over a chain."""
+        return rg.gsq_norm_dec(self.ctx, self.to_dec().data)
 
     def __eq__(self, other) -> bool:
         if not isinstance(other, Cyc):

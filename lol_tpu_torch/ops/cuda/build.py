@@ -11,6 +11,7 @@ at import time: the CPU test suite imports every module without nvcc.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -53,11 +54,22 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
     path.  The compilers' log (with `-Xptxas -v`'s register and shared
-    memory report per kernel) is kept beside the library as build.log."""
+    memory report per kernel) is kept beside the library as build.log.
+    Safe under concurrency: processes that build the same sources take
+    turns on an advisory lock beside the library (released when its holder
+    exits, however it exits), and the later ones find it built."""
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.parent / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(lib)
+    return lib
+
+
+def _compile(lib: Path) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         cu = [s for s in _sources() if s.suffix == ".cu"]
@@ -78,7 +90,6 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed:\n{log}")
         # atomic: a concurrent process never sees a partial file
         os.replace(f"{tmp}/lib.so", lib)
-    return lib
 
 
 _LIB: list[ctypes.CDLL] = []

@@ -6,7 +6,12 @@ one process: named axes over an array of `torch.device`s, on which the
 caller places the shards.  A device may repeat.  `make_mesh({"ring": 4})`
 on a one-card machine is four entries of `cuda:0`: every exchange is then
 a copy inside that card's memory, through the same kernels, chunk
-addressing and twiddles as across cards.
+addressing and twiddles as across cards.  A mesh may also span processes
+(`parallel.multihost.global_mesh`): its first axis, 'data', crosses them
+and every other axis stays inside one; each process then runs the same
+code on its own entries (`Mesh.local`), the rns x data functions below
+take that part, and `shard_batch_rns` places only the process's own
+columns.
 
 Layouts (coefficient-major, as the port's `ntt_cm`):
 
@@ -49,14 +54,38 @@ from ..ops.ntt import NTTPlan, dit_net_cm
 @dataclass(frozen=True, eq=False)
 class Mesh:
     """Named axes over an object array of `torch.device`s (one array axis
-    per name; entries may repeat)."""
+    per name; entries may repeat).  `ranks`, where the mesh spans several
+    processes (`parallel.multihost.global_mesh`), is the rank of the
+    process that holds each entry; those entries are a contiguous run of
+    the first axis (the layout rule), and `local()` is the sub-mesh of
+    one process's entries.  None: every entry is this process's."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    ranks: np.ndarray | None = None
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    def local_rows(self, rank: int | None = None) -> slice:
+        """The run of the first axis that process `rank` (this process by
+        default) holds."""
+        if self.ranks is None:
+            return slice(0, self.devices.shape[0])
+        if rank is None:
+            rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+        rows = np.flatnonzero((self.ranks == rank).reshape(self.ranks.shape[0], -1).any(1))
+        if rows.size == 0:
+            raise ValueError(f"Mesh: process {rank} holds no entry of {self.shape}")
+        return slice(int(rows[0]), int(rows[-1]) + 1)
+
+    def local(self, rank: int | None = None) -> "Mesh":
+        """The entries of process `rank` (this process's by default), as a
+        one-process mesh with the same axes."""
+        if self.ranks is None:
+            return self
+        return Mesh(self.devices[self.local_rows(rank)].copy(), self.axis_names)
 
     def axis_devices(self, axis: str) -> list[torch.device]:
         """The devices along `axis`, at index 0 of every other axis."""
@@ -145,9 +174,10 @@ def ntt_ring_sharded(mesh: Mesh, shards: list[torch.Tensor], plan: NTTPlan,
 
 
 def rns_data_grid(mesh: Mesh) -> np.ndarray:
-    """The (rns, data) grid of devices, at index 0 of any other axis."""
+    """The (rns, data) grid of this process's devices, at index 0 of any
+    other axis."""
     r, d = mesh.axis_names.index("rns"), mesh.axis_names.index("data")
-    grid = np.moveaxis(mesh.devices, (r, d), (0, 1))
+    grid = np.moveaxis(mesh.local().devices, (r, d), (0, 1))
     return grid.reshape(grid.shape[0], grid.shape[1], -1)[:, :, 0]
 
 
@@ -165,11 +195,33 @@ def rns_rows(mesh: Mesh, nrns: int) -> int:
     return R if nrns % R == 0 else 1
 
 
+def local_columns(mesh: Mesh, B: int) -> slice:
+    """The columns of a B-column batch that this process holds on `mesh`:
+    all B on a one-process mesh; on one that spans processes, the run of
+    the global 'data' axis its entries cover (B split evenly over it)."""
+    if mesh.ranks is None:
+        return slice(0, B)
+    if mesh.axis_names[0] != "data":
+        raise ValueError("local_columns: 'data' must be the first axis of a mesh that spans "
+                         "processes")
+    Dd = mesh.devices.shape[0]
+    if B % Dd:
+        raise ValueError(f"local_columns: {B} columns do not split over data={Dd}")
+    rows = mesh.local_rows()
+    return slice(rows.start * (B // Dd), rows.stop * (B // Dd))
+
+
 def shard_batch_rns(mesh: Mesh, x: torch.Tensor, batch_axis: int = 2) -> np.ndarray:
     """Place an (nrns, n, B) stack as an object array of blocks: (R, Dd)
     with the channels split over 'rns' where R divides nrns, else (1, Dd)
     data-only (`rns_rows`); axis `batch_axis` split over 'data'; block
-    (i, j) on the mesh's device (i, j)."""
+    (i, j) on the mesh's device (i, j).  On a mesh that spans processes x
+    is the whole batch, every process's columns, and each process places
+    only its own (`local_columns`) on its own entries."""
+    if mesh.ranks is not None:
+        idx = [slice(None)] * x.dim()
+        idx[batch_axis] = local_columns(mesh, x.shape[batch_axis])
+        x = x[tuple(idx)]
     grid = rns_data_grid(mesh)
     rows, Dd = rns_rows(mesh, x.shape[0]), grid.shape[1]
     if x.shape[batch_axis] % Dd:
@@ -183,7 +235,7 @@ def shard_batch_rns(mesh: Mesh, x: torch.Tensor, batch_axis: int = 2) -> np.ndar
 
 def unshard_batch_rns(blocks: np.ndarray, batch_axis: int = 2) -> torch.Tensor:
     """The stack the blocks of `shard_batch_rns` hold, on block (0, 0)'s
-    device."""
+    device: on a mesh that spans processes, this process's columns."""
     dev = blocks[0, 0].device
     return torch.cat([torch.cat([b.to(dev) for b in row], batch_axis) for row in blocks])
 

@@ -15,7 +15,7 @@ batch), on whatever device the tensor lies:
   twacePowDec/twaceCRT -> twace_pow / twace_crt
   embedPow/embedDec/embedCRT -> embed_pow / embed_dec / embed_crt
   coeffs -> coeffs_pow         powBasisPow -> pow_basis
-  gSqNormDec -> gsq_norm_dec_host
+  gSqNormDec -> gsq_norm_dec (on the device, one modulus) / gsq_norm_dec_host
 
 `crt` / `crt_inv` move the residues into the kernels' coefficient-major
 layout once, (nrns, n, B) with B the batch, and transform each channel's
@@ -284,6 +284,64 @@ def gsq_norm_dec_host(ctx: RingContext, x) -> np.ndarray:
     G = None if ctx.fm.is_pow2() else gen.gram_g_dec(ctx.m)
     out = [_quad_form_exact(row, G, ctx.n) for row in flat]
     return np.array(out, dtype=object).reshape(lifted.shape[:-1] or (1,))
+
+
+def lift_centered(ctx: RingContext, x: torch.Tensor) -> torch.Tensor:
+    """(..., 1, n) residues of a one-modulus ring -> int64 (..., n) in
+    [-q/2, q/2), on x's device (`lift_centered_host` at any chain)."""
+    if ctx.nrns != 1:
+        raise ValueError(f"lift_centered: one modulus, the ring has {ctx.nrns}")
+    q = ctx.basis.qs[0]
+    v = x[..., 0, :].long()
+    return torch.where(v >= (q + 1) // 2, v - q, v)
+
+
+@lru_cache(maxsize=64)
+def _gram_rows(m: int) -> tuple[np.ndarray, np.ndarray]:
+    """gram_g_dec(m) by rows: (n, k) column indices and values of each
+    row's nonzeros, padded with zeros (k = 2 at m = 18432)."""
+    G = gen.gram_g_dec(m)
+    k = int((G != 0).sum(1).max())
+    cols = np.zeros((G.shape[0], k), dtype=np.int64)
+    vals = np.zeros((G.shape[0], k), dtype=np.int64)
+    for i, row in enumerate(G):
+        nz = np.flatnonzero(row)
+        cols[i, :nz.size], vals[i, :nz.size] = nz, row[nz]
+    return cols, vals
+
+
+_NORM_LIMB = 15
+
+
+def gsq_norm_dec(ctx: RingContext, x: torch.Tensor) -> np.ndarray:
+    """`gsq_norm_dec_host` computed on x's device, exact, for a one-modulus
+    ring: the centered lift split into signed 15-bit limbs X_0, X_1, and
+    x^T G x = S_00 + 2^16 S_01 + 2^30 S_11 with S_kl = X_k^T G X_l in int64
+    (G by its nonzeros; n I at 2-power m), summed as Python ints.  A
+    chain of several moduli, or a Gram too wide for int64 limb products,
+    takes the host path."""
+    n, pow2 = ctx.n, ctx.fm.is_pow2()
+    if ctx.nrns != 1:
+        return gsq_norm_dec_host(ctx, x)
+    if not pow2:
+        cols, vals = _gram_rows(ctx.m)
+    row_sum = n if pow2 else int(np.abs(vals).sum(1).max())
+    if n * row_sum << 2 * _NORM_LIMB >= 1 << 62:
+        return gsq_norm_dec_host(ctx, x)
+    v = lift_centered(ctx, x)
+    a, sign = v.abs(), torch.where(v < 0, -1, 1)
+    limbs = [sign * (a & ((1 << _NORM_LIMB) - 1)), sign * (a >> _NORM_LIMB)]
+    if pow2:
+        gx = [n * t for t in limbs]
+    else:
+        c = torch.from_numpy(cols).to(v.device)
+        w = torch.from_numpy(vals).to(v.device)
+        gx = [(t[..., c] * w).sum(-1) for t in limbs]
+    def dot(k, j):  # S_kj per element, as Python ints
+        return (limbs[k] * gx[j]).sum(-1).cpu().numpy().astype(object)
+
+    total = dot(0, 0) + (dot(0, 1) << (_NORM_LIMB + 1)) + (dot(1, 1) << (2 * _NORM_LIMB))
+    return np.asarray(total, dtype=object).reshape(v.shape[:-1] or (1,))
 
 
 _LIMB_BITS = 16

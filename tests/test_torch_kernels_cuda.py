@@ -682,3 +682,63 @@ def test_slot_map_homom_prf_on_card_equals_cpu(cuda):
             want = linear.eval_lin_ints(lin, prf.prf_pre_round_ints(fam, keys[:, k].cpu().numpy(),
                                                           (0, 1))[i], 257)
             np.testing.assert_array_equal(got[:, k], want)
+
+
+def test_io_reads_onto_the_card_and_writes_the_cpu_bytes(cuda):
+    """A hint and a ciphertext written from the card are the bytes written
+    from their CPU copies; read back (io's default device) they land on
+    the card, and a row in the powerful basis converts through the
+    kernels to the CRT stack."""
+    from lol_tpu_torch import gadget, io
+    from lol_tpu_torch.cyc import Cyc, Rep
+    from lol_tpu_torch.proto import wire as pb
+
+    params = she.SHEParams(m=64, p=257, qs=tuple(nt.ntt_primes(64, 30, 3)), var=2.0)
+    g = torch.Generator().manual_seed(3)
+    sk = she.gen_sk(params, g)
+    hint = she.ks_quad_circ_hint(sk, gadget.RnsGad(), g, cuda)
+    ct = she.encrypt(sk, she.pt_random(params, g).numpy(), g, cuda)
+    data = io.ks_hint_to_proto(hint).SerializeToString()
+    cpu = she.KSHint(hint.params, hint.h0.cpu(), hint.h1.cpu(), hint.spec)
+    assert io.ks_hint_to_proto(cpu).SerializeToString() == data
+    back = io.ks_hint_from_proto(pb.KSHint.FromString(data))
+    assert back.h0.device.type == "cuda" and torch.equal(back.h0, hint.h0)
+    msg = io.ks_hint_to_proto(hint)
+    msg.h0 = [io.cyc_to_proto(Cyc(params.ctx, Rep.CRT, hint.h0[j]).to_pow())
+              for j in range(hint.h0.shape[0])]
+    assert torch.equal(io.ks_hint_from_proto(msg).h0, hint.h0)
+    ct2 = io.ct_from_proto(pb.SHECiphertext.FromString(io.ct_to_proto(ct).SerializeToString()))
+    assert all(torch.equal(a.data, b.data) for a, b in zip(ct2.cs, ct.cs))
+
+
+def test_challenges_on_card_equal_cpu_bytes(cuda, tmp_path):
+    """generate on the card writes the CPU's bytes for the same seed; the
+    card's verify passes after suppress."""
+    from lol_tpu_torch.challenges import ChallengeParams, generate, suppress, verify
+
+    q = nt.ntt_primes(1024, 30, 1)[0]
+    params = [ChallengeParams(0, 1024, q, 4.0, 3, "disc"),
+              ChallengeParams(1, 1024, q, 4.0, 2, "cont", beacon_epoch=5),
+              ChallengeParams(2, 1024, q, 4.0, 2, "rlwr", qprime=257)]
+    generate(tmp_path / "card", params, seed=4, device=cuda)
+    generate(tmp_path / "cpu", params, seed=4, device="cpu")
+    files = sorted(p.relative_to(tmp_path / "card") for p in (tmp_path / "card").rglob("*.*"))
+    assert files and all((tmp_path / "card" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()
+                         for f in files)
+    suppress(tmp_path / "card")
+    assert verify(tmp_path / "card", device=cuda) is True
+
+
+def test_ntt_cm_checked_on_card(cuda):
+    from lol_tpu_torch.ops import debug as dbg
+
+    q = nt.ntt_primes(2 * 4096, 30, 1)[0]
+    plan = ntt.ntt_plan(4096, q)
+    x = torch.randint(0, q, (4096, 64), device=cuda, dtype=torch.int32)
+    for kw in ({}, {"inverse": True}, {"inverse": True, "alg": "dit"}):
+        assert torch.equal(dbg.ntt_cm_checked(x, plan, **kw), tk.ntt_cm_ref(x, plan, **kw))
+    for word in (q, -(1 << 31)):
+        bad = x.clone()
+        bad[1, 2] = word
+        with pytest.raises(dbg.ReductionError):
+            dbg.ntt_cm_checked(bad, plan)

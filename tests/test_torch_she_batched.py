@@ -201,16 +201,19 @@ def test_step_module_moves_with_its_buffers(jax_state):
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter where importing jax or lol_tpu fails, every
-    module of the port imports (the package walked with pkgutil), and the
-    port still builds a pipeline and runs a step, a tunnel, a pt_round,
-    a general-m step, a Galois rotation, a slot map and a step over an
-    rns x data mesh on the CPU, and the README's Quick start on the object
-    path at m = 8192."""
+    """In a fresh interpreter where importing jax, lol_tpu or
+    google.protobuf fails, every module of the port imports (the package
+    walked with pkgutil), and the port still builds a pipeline and runs a
+    step, a tunnel, a pt_round, a general-m step, a Galois rotation, a
+    slot map and a step over an rns x data mesh on the CPU, the README's
+    Quick start on the object path at m = 8192, an io round trip of a
+    hint bundle, and the challenges' generate -> suppress -> verify at
+    m = 64."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["lol_tpu"] = None
+        sys.modules["google.protobuf"] = None
         import torch
         torch.set_num_threads(1)
         import lol_tpu_torch
@@ -224,7 +227,10 @@ def test_port_never_imports_jax():
                 "lol_tpu_torch.factored", "lol_tpu_torch.zmstar",
                 "lol_tpu_torch.crtset", "lol_tpu_torch.gf", "lol_tpu_torch.cyc",
                 "lol_tpu_torch.rlwe", "lol_tpu_torch.rrq",
-                "lol_tpu_torch.complexfield"} <= set(mods)
+                "lol_tpu_torch.complexfield", "lol_tpu_torch.io",
+                "lol_tpu_torch.proto.wire", "lol_tpu_torch.ops.debug",
+                "lol_tpu_torch.challenges.driver", "lol_tpu_torch.challenges.beacon",
+                "lol_tpu_torch.parallel.multihost"} <= set(mods)
         from lol_tpu_torch import linear, numtheory as nt, serving, she
         from lol_tpu_torch.ring import ring_context
         from lol_tpu_torch.she_batched import BatchedBGV
@@ -295,7 +301,25 @@ def test_port_never_imports_jax():
         prod = she.mod_switch(she.key_switch_quad_circ(hint, she.ct_mul(ct, ct)))
         assert (she.decrypt(she.SK(prod.params, sk.s_ints, sk.var), prod)
                 == she.pt_mul(params, m1, m1)).all()
-        assert not any(k == "jax" or k.startswith(("jax.", "lol_tpu."))
+        # an io round trip of a rounding-hint bundle, and the challenges at m = 64
+        from lol_tpu_torch import io
+        from lol_tpu_torch.proto import wire as pb
+        rh = she.pt_round_hints(sk4, g, "cpu")
+        back = io.pt_round_hints_from_proto(pb.PTRoundHints.FromString(
+            io.pt_round_hints_to_proto(rh).SerializeToString()), device="cpu")
+        assert all(torch.equal(a.h0, b.h0) and torch.equal(a.h1, b.h1)
+                   for a, b in zip(rh.hints, back.hints))
+        import tempfile
+        from lol_tpu_torch.challenges import ChallengeParams, generate, suppress, verify
+        q64 = nt.ntt_primes(64, 30, 1)[0]
+        with tempfile.TemporaryDirectory() as root:
+            generate(root, [ChallengeParams(0, 64, q64, 4.0, 2, "disc"),
+                            ChallengeParams(1, 64, q64, 4.0, 2, "cont", beacon_epoch=3)],
+                     seed=1, device="cpu")
+            suppress(root)
+            assert verify(root, device="cpu")
+        assert not any(k in ("jax", "google.protobuf")
+                       or k.startswith(("jax.", "lol_tpu.", "google.protobuf."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
     """)
