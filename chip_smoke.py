@@ -30,10 +30,12 @@ then runs its phases and exits non-zero on the first failure:
    over B' = 6144 columns: forward with and without the prologue, GS;
 3. the batched BGV slice at full width (m = 32768 so n = 2^14, three
    30-bit primes, p = 257, var = 2.0, B = 1024): keygen, encrypt, the
-   ct-mult + key-switch + rescale step, decrypt.  It checks the kernels'
+   ct-mult + key-switch + rescale step, decrypt, every draw from `prng`
+   keys (the JAX package's threefry bits).  It checks the kernels'
    launch counts over that run (the NTT kernels, one per pass of
    `ntt_cm`'s schedule: one cluster pass per n = 2^14 transform; one
-   ct_mul per channel; no route-B launch), decrypts columns 0-7 against the exact
+   ct_mul per channel; no route-B launch; two prng draws per encryption,
+   its error's and its c1's), decrypts columns 0-7 against the exact
    plaintext product, and reruns the step on the CPU over columns 0-63,
    which must equal the card's output bit for bit;
 3b. the ring-sharded NTT at full width: D = 4 shards on the mesh that
@@ -147,6 +149,20 @@ then runs its phases and exits non-zero on the first failure:
    "rns": 3} across them, the step at m = 32768 (512 columns a rank) and
    the ext step at m = 8192 == the unsharded columns, one all_reduce,
    launches counted per rank; every launch of (a)-(d) counted exactly;
+3j. the randomness (`prng`, the kernel of `csrc/prng.cu`), card against
+   the plain twin on the CPU bit for bit (`phase_3j`): (a) the kernel's
+   erf_inv epilogue on all 2^23 inputs a normal can take, raw, as
+   jax.random.normal and rounded at var 2, 4 and 9; (b) its threefry
+   words for two keys and randint over the three primes at (16384, 1024),
+   and every mode at ragged sizes; (c) gen_sk at m = 32768 and 18432,
+   build_encrypt LSD and MSD, gen_ks_quad_hint and gen_tunnel_hint
+   32768 -> 16384 at B = 1024 (the challenges' bytes are 3i(b)'s); (d)
+   the JAX package's known answers (`KNOWN`: words, splits, randint, a
+   normal, and the digests of gen_sk(PRNGKey(0)) at m = 32768 and of a
+   challenge directory) computed on the card; (e) the kernel's and its
+   plain version's times at (16384, 1024) beside its bound and
+   torch.randn's, and gen_sk, build_encrypt (B = 1024) and
+   gen_ks_quad_hint at m = 32768 as their caller sees them;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -249,6 +265,181 @@ def extremal(xs, q: int) -> None:
     for j, x in enumerate(xs):
         x.view(-1)[:81] = ext[(idx // 3 ** j) % 3]
 
+# Known answers from the JAX package (jax 0.9.0 on the CPU, its default
+# threefry mode): split(PRNGKey(0), 3), bits(PRNGKey(42), (8,), uint32),
+# randint(PRNGKey(7), (6,), 0, q, uint32) at the first 30-bit prime of
+# m = 32768, normal(PRNGKey(9), (4,)) as float32 bit patterns, and SHA-256
+# digests of gen_sk(SHEParams(m=32768, p=257, three 30-bit primes,
+# var=2.0), PRNGKey(0)).s_ints as little-endian int64, and of the
+# directory generate writes for CHALLENGES_3J with seed 4 (each file's
+# relative path then its bytes, in sorted order).
+KNOWN = {
+    "split_0_3": [[1797259609, 2579123966], [928981903, 3453687069], [4146024105, 2718843009]],
+    "bits_42_8": [2098992034, 2919706841, 2646866425, 2409546199, 1935504149, 2516274904,
+                  321304473, 3329172656],
+    "randint_7_6": (1073643521, [752389917, 327470435, 618516859, 748797932, 900059358,
+                                 100004708]),
+    "normal_9_4_bits": [3219058923, 1072450925, 3192856715, 3215102208],
+    "gen_sk_m32768_key0_sha256": "366feed47945d16866cbf8c568c6d7609b17d6a28137c61067d13f3089263480",
+    "challenges_m1024_seed4_sha256":
+        "f053b09904b9f79ba1d47412b592e83282e3cfc4e3030ada5d90717f1d445d7c",
+}
+CHALLENGES_3J = [(0, 1024, 3, "disc", {}), (1, 1024, 2, "cont", {"beacon_epoch": 5}),
+                 (2, 1024, 2, "rlwr", {"qprime": 257})]
+
+
+def tree_digest(root) -> str:
+    """SHA-256 over a directory's files: each relative path, then its bytes."""
+    import hashlib
+    from pathlib import Path
+
+    h = hashlib.sha256()
+    for f in sorted(Path(root).rglob("*")):
+        if f.is_file():
+            h.update(str(f.relative_to(root)).encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()
+
+
+def phase_3j(dev, m=32768, m_g=18432, B=1024, m_c=1024, every=1 << 23, time_it=True) -> dict:
+    """The randomness (`prng`, `csrc/prng.cu`) on the card, against the
+    plain twin on the CPU, bit for bit: (a) the kernel's erf_inv epilogue
+    on all 2^23 inputs, raw, as jax.random.normal, and rounded at var 2, 4
+    and 9; (b) its threefry words for two keys and randint over three
+    30-bit primes at (n, B), and every mode at ragged sizes; (c) gen_sk at
+    m and m_g, build_encrypt LSD and MSD and gen_ks_quad_hint at m, B, and
+    gen_tunnel_hint m -> m / 2, drawn on the card == drawn on the CPU;
+    (d) the known answers of the JAX package (KNOWN), computed on the card;
+    (e) the kernel's and its plain version's times at (n, B), beside its
+    bound and torch.randn's, and keygen's and encryption's times at m.
+    Returns the kernel row's numbers and the timings."""
+    import hashlib
+    import tempfile
+
+    from lol_tpu_torch import linear, numtheory as nt, prng, she
+    from lol_tpu_torch.bench import roofline, time_ms
+    from lol_tpu_torch.challenges import ChallengeParams, generate
+    from lol_tpu_torch.ops.cuda import prng as pk
+    from lol_tpu_torch.she_batched import BatchedBGV
+
+    def same(name, a, b):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"phase 3j {name}: card != plain")
+
+    out = {"checks": 0}
+    # (a) every input of the normal: the words i << 9, i < 2^23
+    words = (torch.arange(every, dtype=torch.int64) << 9).to(torch.int32)
+    r = prng.gaussian_from_bits(words.long() & prng.MASK, pre=1.0)
+    cases = [("float", 1.0, 1.0), ("float", prng.SQRT2, 1.0)] + [
+        ("round", 1.0, prng.folded_scale(v)) for v in (2.0, 4.0, 9.0)]
+    for mode, pre, scale in cases:
+        want = (r * torch.tensor(pre, dtype=torch.float32)) * torch.tensor(scale, dtype=torch.float32)
+        want = want if mode == "float" else torch.round(want).to(torch.int32)
+        same(f"epilogue {mode} pre={pre} scale={scale}", pk.map_words(words.to(dev), mode, pre, scale),
+             want)
+        out["checks"] += 1
+    del words, r
+    # (b) the words and randint at (n, B), two keys; every mode at ragged sizes
+    n = m // 2
+    qs = tuple(nt.ntt_primes(m, 30, 3))
+    for seed in (11, 12):
+        key = prng.PRNGKey(seed)
+        same(f"bits key {seed}", pk.draw([key], n * B, "bits", device=dev),
+             pk.draw_ref([key], n * B, "bits"))
+    keys3 = list(prng.split(prng.PRNGKey(13), 3))
+    same("randint 3 x 30-bit", pk.draw(keys3, n * B, "randint", qs=qs, device=dev),
+         pk.draw_ref(keys3, n * B, "randint", qs=qs))
+    for count in (1, 7, 1000, 4097, 1000003):
+        kk = list(prng.split(prng.PRNGKey(count), 2))
+        for mode, kw in (("bits", {}), ("randint", {"qs": [qs[0], 257]}),
+                         ("float", {"pre": prng.SQRT2}), ("round", {"scale": 1.5})):
+            same(f"{mode} x {count}", pk.draw(kk, count, mode, device=dev, **kw),
+                 pk.draw_ref(kk, count, mode, **kw))
+    out["checks"] += 3 + 5 * 4
+    # (c) full width: the entry points drawn on the card == drawn on the CPU
+    params = she.SHEParams(m=m, p=257, qs=qs, var=2.0)
+    for prm in (params, she.SHEParams(m=m_g, p=7, qs=tuple(nt.ntt_primes(m_g, 30, 3)), var=2.0)):
+        same(f"gen_sk m={prm.m}", she.gen_sk(prm, prng.PRNGKey(prm.m), dev).s_ints,
+             she.gen_sk(prm, prng.PRNGKey(prm.m), "cpu").s_ints)
+    sk = she.gen_sk(params, prng.PRNGKey(21), dev)
+    bb, bb_cpu = BatchedBGV(params, dev), BatchedBGV(params, "cpu")
+    msgs = she.pt_random(params, np.random.default_rng(22), (B,), "cpu")
+    for enc_ in ("lsd", "msd"):
+        key = prng.PRNGKey(23)
+        for a, b in zip(bb.build_encrypt(sk, enc_)(msgs.to(dev), key),
+                        bb_cpu.build_encrypt(sk, enc_)(msgs, key)):
+            same(f"build_encrypt {enc_} m={m} B={B}", a, b)
+    h, h_cpu = bb.gen_ks_quad_hint(sk, prng.PRNGKey(24)), bb_cpu.gen_ks_quad_hint(sk, prng.PRNGKey(24))
+    same("gen_ks_quad_hint h0", h.h0, h_cpu.h0)
+    same("gen_ks_quad_hint h1", h.h1, h_cpu.h1)
+    ps = she.SHEParams(m=m // 2, p=257, qs=qs, var=2.0)
+    ys = [np.eye(1, ps.ctx.n, dtype=np.int64)[0], np.zeros(ps.ctx.n, dtype=np.int64)]
+    fmap = linear.linear_pow(ps.ctx, params.ctx, ps.ctx, ys)
+    sk_s = she.gen_sk(ps, prng.PRNGKey(25), dev)
+    th = bb.gen_tunnel_hint(fmap, sk_s, sk, prng.PRNGKey(26))
+    th_cpu = bb_cpu.gen_tunnel_hint(fmap, sk_s, sk, prng.PRNGKey(26))
+    for a, b in zip(th.hints, th_cpu.hints):
+        same("gen_tunnel_hint h0", a.h0, b.h0)
+        same("gen_tunnel_hint h1", a.h1, b.h1)
+    out["checks"] += 2 + 4 + 2 + 4
+    # (d) the JAX package's known answers, drawn on the card
+    ok = [prng.split(prng.PRNGKey(0), 3).tolist() == KNOWN["split_0_3"],
+          prng.random_bits(prng.PRNGKey(42), (8,), dev).cpu().tolist() == KNOWN["bits_42_8"],
+          prng.randint(prng.PRNGKey(7), (6,), 0, KNOWN["randint_7_6"][0], dev).cpu().tolist()
+          == KNOWN["randint_7_6"][1],
+          (prng.normal(prng.PRNGKey(9), (4,), dev).cpu().view(torch.int32).long() & prng.MASK
+           ).tolist() == KNOWN["normal_9_4_bits"]]
+    s0 = she.gen_sk(params, prng.PRNGKey(0), dev).s_ints.numpy().astype("<i8")
+    ok.append(hashlib.sha256(s0.tobytes()).hexdigest() == KNOWN["gen_sk_m32768_key0_sha256"])
+    q_c = nt.ntt_primes(m_c, 30, 1)[0]
+    os.makedirs(os.path.join(ROOT, "_scratch"), exist_ok=True)  # gitignored
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_scratch")) as d:
+        generate(d, [ChallengeParams(cid, m_c, q_c, 4.0, k, kind, **kw)
+                     for cid, _, k, kind, kw in CHALLENGES_3J], seed=4, device=dev)
+        ok.append(tree_digest(d) == KNOWN["challenges_m1024_seed4_sha256"])
+    if m == 32768 and m_c == 1024 and not all(ok):
+        raise AssertionError(f"phase 3j: known answers {ok}")
+    out["known_answers"] = ok
+    out["checks"] += len(ok)
+    if not time_it:
+        return out
+    # (e) times at (n, B): the encryption's draws (its error, rounded; c1,
+    # randint over three primes) and the bare words; each kernel call
+    # checked == its plain version on the card first
+    key = prng.PRNGKey(31)
+    legs = {"round": ([key], {"scale": prng.folded_scale(2.0)}, "prng_normal", 1),
+            "randint": (keys3, {"qs": qs}, "prng_randint", 3),
+            "bits": ([key], {}, "prng_bits", 1)}
+    for leg, (kk, kw, op, ch) in legs.items():
+        same(f"{leg} on the card", pk.draw(kk, n * B, leg, device=dev, **kw),
+             pk.draw_ref(kk, n * B, leg, device=dev, **kw))
+        out[f"{leg}_ms"] = time_ms(lambda: pk.draw(kk, n * B, leg, device=dev, **kw), 10,
+                                   device_only=True)[0]
+        out[f"{leg}_plain_ms"] = time_ms(lambda: pk.draw_ref(kk, n * B, leg, device=dev, **kw),
+                                         2)[0]
+        out[f"{leg}_bound"] = roofline.bound(*roofline.work(op, n, ch * B))
+    out["randn_ms"] = time_ms(lambda: torch.randn((n, B), device=dev), 10, device_only=True)[0]
+    out["randint_torch_ms"] = time_ms(lambda: torch.randint(0, qs[0], (3, n, B), device=dev,
+                                                            dtype=torch.int32), 10,
+                                      device_only=True)[0]
+
+    def synced(fn):
+        def call():
+            fn()
+            torch.cuda.synchronize()
+        return call
+
+    enc = bb.build_encrypt(sk)
+    msgs_d = msgs.to(dev)
+    for name, fn in (("gen_sk", lambda: she.gen_sk(params, key, dev)),
+                     ("encrypt_B1024", lambda: enc(msgs_d, key)),
+                     ("gen_ks_quad_hint", lambda: bb.gen_ks_quad_hint(sk, key))):
+        out[f"{name}_ms_m{m}"] = time_ms(synced(fn), 5)[0]
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -259,11 +450,12 @@ def main() -> int:
     from collections import Counter
     from dataclasses import fields as dc_fields, replace as dc_replace
 
-    from lol_tpu_torch import gadget, linear, numtheory as nt, prf, ring as ring_mod, serving, she
+    from lol_tpu_torch import gadget, linear, numtheory as nt, prf, prng, ring as ring_mod
+    from lol_tpu_torch import serving, she
     from lol_tpu_torch.cyc import Cyc, Rep
     from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, steptime, time_ms
     from lol_tpu_torch.ops import general as gen, ntt
-    from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw
+    from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw, prng as pk
     from lol_tpu_torch.ops.cuda import remote_ntt as rn
     from lol_tpu_torch.parallel import sharding as sh
     from lol_tpu_torch.ring import ring_context
@@ -455,28 +647,33 @@ def main() -> int:
     m, B, p = 32768, 1024, 257
     params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
     n, nrns = params.ctx.n, len(params.qs)
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    sk = she.gen_sk(params, g)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)  # input data that no key draws
+    nk, rng = prng.KeyChain(SEED + 1), np.random.default_rng(SEED + 1)
+    sk = she.gen_sk(params, nk())
     bb = BatchedBGV(params, dev)
-    hint = bb.gen_ks_quad_hint(sk, g)
+    hint = bb.gen_ks_quad_hint(sk, nk())
     enc = bb.build_encrypt(sk)
     step = bb.build_step(hint)
     p2 = she.SHEParams(m=m, p=p, qs=params.qs[:-1], var=params.var)
     dec = BatchedBGV(p2, dev).build_decrypt(she.SK(p2, sk.s_ints, sk.var),
                                             f=bb.step_f())
-    m1 = she.pt_random(params, g, (B,))
-    m2 = she.pt_random(params, g, (B,))
+    m1 = she.pt_random(params, rng, (B,))
+    m2 = she.pt_random(params, rng, (B,))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    c0, c1 = enc(m1, g)
-    d0, d1 = enc(m2, g)
+    pk.LAUNCHES["prng"] = 0
+    c0, c1 = enc(m1, nk())
+    d0, d1 = enc(m2, nk())
     before_step = counts()
     e0, e1 = step(c0, c1, d0, d1)
     after_step = counts()
     got = dec(e0, e1)
     torch.cuda.synchronize()
     launches = counts()
+    prng_launches = pk.LAUNCHES["prng"]  # each encryption: its error's and its c1's draw
+    if prng_launches != 4:
+        raise AssertionError(f"prng: {prng_launches} launches on the path, want 4")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     passes = len(tk.cm_schedule(n))
     step_calls = {"ntt_fwd": nrns * (nrns - 1) + 2 * (nrns - 1), "ntt_inv": nrns + 2}
@@ -491,7 +688,8 @@ def main() -> int:
             raise AssertionError(f"{k}: {in_step} launches in the step, {launches[k]} "
                                  f"on the path; want {want_step[k]}, {want_path[k]}")
     in_bytes = sum(t.numel() * t.element_size() for t in (c0, c1, d0, d1))
-    mark(f"phase 3: step ran; launches {launches}; inputs {in_bytes / 1e6:.0f} MB; "
+    mark(f"phase 3: step ran; launches {launches}, prng {prng_launches}; inputs "
+         f"{in_bytes / 1e6:.0f} MB; "
          f"peak {peak_gib:.2f} GiB")
     qv = torch.tensor(params.qs[:-1], device=dev).view(-1, 1, 1)
     for e in (e0, e1):
@@ -586,6 +784,32 @@ def main() -> int:
             path_launches[phase][k] += v
         return out
 
+    def run_recorded(phase, name, fn):
+        """fn() between a reset and a read of the counts, every ring-layer
+        ntt_cm call recorded by n: the launches must be each call's
+        cm_schedule(n) passes, and nothing else."""
+        rec, real = Counter(), ring_mod.ntt_cm
+
+        def shim(x_, plan_, inverse=False, pre_digit_q=None, alg="gs"):
+            rec["ntt_inv" if inverse else "ntt_fwd"] += len(tk.cm_schedule(x_.shape[0]))
+            return real(x_, plan_, inverse, pre_digit_q, alg)
+
+        reset_counts()
+        ring_mod.ntt_cm = gen.ntt_cm = shim
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            ring_mod.ntt_cm = gen.ntt_cm = real
+        got = counts()
+        want = dict.fromkeys(got, 0)
+        want.update(rec)
+        if got != want:
+            raise AssertionError(f"phase {phase} {name}: launches {got}, want {want}")
+        for k, v in got.items():
+            path_launches[phase][k] += v
+        return out
+
     def same_on_cpu(name, out, fn, *args, atol=None, ncols=None):
         """fn on the CPU over columns 0-63 (or 0..ncols-1) of args == out's
         (exactly, or within atol for the float32 noise budget)."""
@@ -610,8 +834,8 @@ def main() -> int:
 
     # the MSD step at the phase-3 ring, m = 32768 (n = 2^14), B = 1024
     enc_msd = bb.build_encrypt(sk, encoding="msd")
-    cm = run("3c", "encrypt msd n16384", enc_msd, m1, g, fwd=nrns, n_fwd=n)
-    dm = run("3c", "encrypt msd n16384", enc_msd, m2, g, fwd=nrns, n_fwd=n)
+    cm = run("3c", "encrypt msd n16384", enc_msd, m1, nk(), fwd=nrns, n_fwd=n)
+    dm = run("3c", "encrypt msd n16384", enc_msd, m2, nk(), fwd=nrns, n_fwd=n)
     step_msd = bb.build_step(hint, encoding="msd")
     em = run("3c", "step msd n16384", step_msd, *cm, *dm, fwd=step_calls["ntt_fwd"],
              inv=step_calls["ntt_inv"], ct_mul=nrns, n_fwd=n, n_inv=n)
@@ -628,18 +852,18 @@ def main() -> int:
     params8 = she.SHEParams(m=m8, p=p, qs=tuple(nt.ntt_primes(m8, 30, 3)), var=2.0)
     n8 = params8.ctx.n
     bb8, bb8_cpu = BatchedBGV(params8, dev), BatchedBGV(params8, "cpu")
-    sk8, sk8_new = she.gen_sk(params8, g), she.gen_sk(params8, g)
+    sk8, sk8_new = she.gen_sk(params8, nk()), she.gen_sk(params8, nk())
     p8d = she.SHEParams(m=m8, p=p, qs=params8.qs[:-1], var=2.0)
     bb8d = BatchedBGV(p8d, dev)
     sk8d = she.SK(p8d, sk8.s_ints, sk8.var)
-    a8, b8 = she.pt_random(params8, g, (B,)), she.pt_random(params8, g, (B,))
-    pub = she.pt_random(params8, g, (B,))
+    a8, b8 = she.pt_random(params8, rng, (B,)), she.pt_random(params8, rng, (B,))
+    pub = she.pt_random(params8, rng, (B,))
     c8 = {}  # encoding -> (encryption of a8, encryption of b8)
     for e in ("lsd", "msd"):
         enc_e = bb8.build_encrypt(sk8, e)
-        c8[e] = tuple(run("3c", f"encrypt {e}", enc_e, x, g, fwd=nrns, n_fwd=n8)
+        c8[e] = tuple(run("3c", f"encrypt {e}", enc_e, x, nk(), fwd=nrns, n_fwd=n8)
                       for x in (a8, b8))
-    hint8 = run("3c", "gen_ks_quad_hint", bb8.gen_ks_quad_hint, sk8, g, fwd=nrns, n_fwd=n8)
+    hint8 = run("3c", "gen_ks_quad_hint", bb8.gen_ks_quad_hint, sk8, nk(), fwd=nrns, n_fwd=n8)
 
     def dec(e, x, name, f=1, pipe=None, key=None, phase="3c"):
         fn = (pipe or bb8).build_decrypt(key or sk8, f=f, encoding=e)
@@ -663,7 +887,7 @@ def main() -> int:
                                            bb8.mod_switch_f(1) if e == "lsd" else 1,
                                            bb8d, sk8d), a8.cpu())
         same_on_cpu(f"mod_switch {e}", out, bb8_cpu.build_mod_switch(e), *c8[e][0])
-    lin_hint = run("3c", "gen_ks_linear_hint", bb8.gen_ks_linear_hint, sk8_new, sk8, g,
+    lin_hint = run("3c", "gen_ks_linear_hint", bb8.gen_ks_linear_hint, sk8_new, sk8, nk(),
                    fwd=nrns, n_fwd=n8)
     ksl = bb8.build_key_switch_linear(lin_hint)
     out = run("3c", "key_switch_linear", ksl, *c8["lsd"][0], fwd=nrns * (nrns - 1), inv=nrns,
@@ -716,16 +940,16 @@ def main() -> int:
     m_s = m // 2
     ps = she.SHEParams(m=m_s, p=p, qs=params.qs, var=2.0)
     n_s = ps.ctx.n
-    sk_s = she.gen_sk(ps, g)
+    sk_s = she.gen_sk(ps, nk())
     S = ps.ctx
     fmap = linear.linear_pow(S, params.ctx, S, [np.eye(1, n_s, dtype=np.int64)[0],
                                                 np.zeros(n_s, dtype=np.int64)])
     d_rel = fmap.d
-    th = run("3d", "gen_tunnel_hint", bb.gen_tunnel_hint, fmap, sk_s, sk, g,
+    th = run("3d", "gen_tunnel_hint", bb.gen_tunnel_hint, fmap, sk_s, sk, nk(),
              fwd=nrns, n_fwd=n_s)
     tun = bb.build_tunnel(th)
-    mt = she.pt_random(params, g, (B,))
-    ct = run("3d", "encrypt", enc, mt, g, fwd=nrns, n_fwd=n)
+    mt = she.pt_random(params, rng, (B,))
+    ct = run("3d", "encrypt", enc, mt, nk(), fwd=nrns, n_fwd=n)
     tunnel_calls = {"ntt_fwd": d_rel * nrns + d_rel * nrns * nrns, "ntt_inv": 2 * nrns}
     t0, t1 = run("3d", "tunnel", tun, *ct, fwd=tunnel_calls["ntt_fwd"],
                  inv=tunnel_calls["ntt_inv"], n_fwd=n_s, n_inv=n)
@@ -753,14 +977,17 @@ def main() -> int:
     params_pr = she.SHEParams(m=m, p=pr_p, qs=tuple(nt.ntt_primes(m, 30, she.pt_round_mults(pr_p) + 2)),
                               var=2.0)
     L_pr = len(params_pr.qs)
-    sk_pr = she.gen_sk(params_pr, g)
-    rh = run_by_n("3e", "pt_round_hints", she.pt_round_hints, sk_pr, g, dev,
-                  fwd={n: sum(L_pr - i for i in range(she.pt_round_mults(pr_p)))}, inv={})
+    sk_pr = she.gen_sk(params_pr, nk())
+    # the object path's ks_quad_circ_hint at each prefix L: s into the CRT
+    # basis twice, and per RNS digit the error's and the scalar's transforms
+    rh = run_by_n("3e", "pt_round_hints", she.pt_round_hints, sk_pr, gadget.RnsGad(), nk(), dev,
+                  fwd={n: sum(2 * (L_pr - i) * (1 + L_pr - i)
+                              for i in range(she.pt_round_mults(pr_p)))}, inv={})
     bb_pr = BatchedBGV(params_pr, dev)
     vals = torch.randint(0, pr_p, (B,), generator=g, device=dev, dtype=torch.int32)
     msgs = torch.zeros((n, B), dtype=torch.int32, device=dev)
     msgs[0] = vals
-    ct_pr = run("3e", "encrypt p=8", bb_pr.build_encrypt(sk_pr), msgs, g, fwd=L_pr, n_fwd=n)
+    ct_pr = run("3e", "encrypt p=8", bb_pr.build_encrypt(sk_pr), msgs, nk(), fwd=L_pr, n_fwd=n)
     run_pr, bb_pr_out, f_pr = serving.build_pt_round(bb_pr, rh)
 
     def pt_round_calls(L, n_):
@@ -790,18 +1017,16 @@ def main() -> int:
     L_prf, bits = len(qs_prf), (1, 0)
     rings = [m >> k for k in range(m.bit_length() - 1)]
     ns = [r // 2 for r in rings]  # 16384 .. 1
-    sks = [she.gen_sk(she.SHEParams(m=r, p=pr_p, qs=qs_prf, var=2.0), g) for r in rings]
-    fam = prf.PRFFamily.random(ring_context(m, (pr_p,)), gadget.BaseBGad(2), prf.balanced(2), g)
-    hint_fwd = {}
-    for n_s in ns[1:]:  # one hint pass over each target ring: L forwards
-        add_by_n(hint_fwd, n_s, L_prf)
-    add_by_n(hint_fwd, 1, sum(L_prf - i for i in range(she.pt_round_mults(pr_p))))
-    hints, sk_out = run_by_n("3e", "make_eval_hints", lambda: prf.make_eval_hints(
-        fam, sks, rings, rings[1:], g, homomorphic_round=True, maps="project", device=dev),
-        fwd=hint_fwd, inv={})
+    sks = [she.gen_sk(she.SHEParams(m=r, p=pr_p, qs=qs_prf, var=2.0), nk()) for r in rings]
+    fam = prf.PRFFamily.random(ring_context(m, (pr_p,)), gadget.BaseBGad(2), prf.balanced(2), nk())
+    # the object path's tunnel and rounding hints: each transform they call
+    # (recorded by n) launches cm_schedule(n)'s passes, and nothing else
+    hints, sk_out = run_recorded("3e", "make_eval_hints", lambda: prf.make_eval_hints(
+        fam, sks, rings, rings[1:], gadget.RnsGad(), nk(), homomorphic_round=True,
+        maps="project", device=dev))
     bb_top = BatchedBGV(sks[0].params, dev)
     s_key = torch.randint(0, pr_p, (n, 1), generator=g, device=dev, dtype=torch.int32)
-    ct_prf = run("3e", "encrypt key", bb_top.build_encrypt(sks[0]), s_key.expand(n, B), g,
+    ct_prf = run("3e", "encrypt key", bb_top.build_encrypt(sks[0]), s_key.expand(n, B), nk(),
                  fwd=L_prf, n_fwd=n)
     fw, iv, cm_ = pt_round_calls(L_prf, 1)
     add_by_n(fw, n, L_prf)  # mul_public
@@ -834,10 +1059,10 @@ def main() -> int:
         raise AssertionError("the extended chain does not extend phase 3c's")
     special = all5[3:]
     Lb, Lx = len(params8.qs), len(all5)
-    quad_ext = run("3e_ext", "gen_ks_quad_hint_ext", bb8.gen_ks_quad_hint_ext, sk8, special, g,
+    quad_ext = run("3e_ext", "gen_ks_quad_hint_ext", bb8.gen_ks_quad_hint_ext, sk8, special, nk(),
                    fwd=Lx, n_fwd=n8)
     lin_ext = run("3e_ext", "gen_ks_linear_hint_ext", bb8.gen_ks_linear_hint_ext, sk8_new, sk8,
-                  special, g, fwd=Lx, n_fwd=n8)
+                  special, nk(), fwd=Lx, n_fwd=n8)
     # the digits into every extended channel but their own, then one
     # rescale pair per special prime; the step adds its own rescale
     ks_fwd = Lb * (Lx - 1) + sum(2 * (Lb + k - 1) for k in range(1, len(special) + 1))
@@ -893,17 +1118,17 @@ def main() -> int:
     params_g = she.SHEParams(m=m_g, p=p_g, qs=tuple(nt.ntt_primes(m_g, 30, 3)), var=2.0)
     n_g, n2_g = params_g.ctx.n, params_g.ctx.fm.phi_shape[0]
     bb_g, bb_g_cpu = BatchedBGV(params_g, dev), BatchedBGV(params_g, "cpu")
-    sk_g = she.gen_sk(params_g, g)
+    sk_g = she.gen_sk(params_g, nk())
     pg_d = she.SHEParams(m=m_g, p=p_g, qs=params_g.qs[:-1], var=2.0)
     bb_gd = BatchedBGV(pg_d, dev)
     sk_gd = she.SK(pg_d, sk_g.s_ints, sk_g.var)
-    hint_g = run("3f", "gen_ks_quad_hint m=18432", bb_g.gen_ks_quad_hint, sk_g, g,
+    hint_g = run("3f", "gen_ks_quad_hint m=18432", bb_g.gen_ks_quad_hint, sk_g, nk(),
                  fwd=nrns, n_fwd=n2_g)
-    a_g, b_g = she.pt_random(params_g, g, (B,)), she.pt_random(params_g, g, (B,))
+    a_g, b_g = she.pt_random(params_g, rng, (B,)), she.pt_random(params_g, rng, (B,))
     ct_g, step_g = {}, {}
     for e in ("lsd", "msd"):
         enc_g = bb_g.build_encrypt(sk_g, e)
-        ct_g[e] = [run("3f", f"encrypt {e} m=18432", enc_g, x, g, fwd=nrns, n_fwd=n2_g)
+        ct_g[e] = [run("3f", f"encrypt {e} m=18432", enc_g, x, nk(), fwd=nrns, n_fwd=n2_g)
                    for x in (a_g, b_g)]
         step_g[e] = bb_g.build_step(hint_g, encoding=e)
         out = run("3f", f"step {e} m=18432", step_g[e], *ct_g[e][0], *ct_g[e][1],
@@ -921,14 +1146,14 @@ def main() -> int:
     # at n2 = 512
     ps_g = she.SHEParams(m=m_g // 2, p=p_g, qs=params_g.qs, var=2.0)
     n_gs, n2_gs = ps_g.ctx.n, ps_g.ctx.fm.phi_shape[0]
-    sk_gs = she.gen_sk(ps_g, g)
+    sk_gs = she.gen_sk(ps_g, nk())
     fmap_g = linear.linear_pow(ps_g.ctx, params_g.ctx, ps_g.ctx,
                                [np.eye(1, n_gs, dtype=np.int64)[0], np.zeros(n_gs, dtype=np.int64)])
-    th_g = run("3f", "gen_tunnel_hint m=18432", bb_g.gen_tunnel_hint, fmap_g, sk_gs, sk_g, g,
+    th_g = run("3f", "gen_tunnel_hint m=18432", bb_g.gen_tunnel_hint, fmap_g, sk_gs, sk_g, nk(),
                fwd=nrns, n_fwd=n2_gs)
     tun_g = bb_g.build_tunnel(th_g)
-    mt_g = she.pt_random(params_g, g, (B,))
-    ctt_g = run("3f", "encrypt m=18432", bb_g.build_encrypt(sk_g), mt_g, g, fwd=nrns, n_fwd=n2_g)
+    mt_g = she.pt_random(params_g, rng, (B,))
+    ctt_g = run("3f", "encrypt m=18432", bb_g.build_encrypt(sk_g), mt_g, nk(), fwd=nrns, n_fwd=n2_g)
     tg = run_by_n("3f", "tunnel m=18432", tun_g, *ctt_g,
                   fwd={n2_gs: fmap_g.d * nrns * (1 + nrns)}, inv={n2_g: 2 * nrns})
     got = run("3f", "decrypt over S m=9216", bb_g.target_pipeline(th_g).build_decrypt(sk_gs), *tg,
@@ -947,12 +1172,12 @@ def main() -> int:
     # nrns (nrns - 1) digit forwards at n = 2^14; the hoisted module runs
     # them once for all k
     ks = (3, 5, 9)
-    ghints = {k: run("3f_galois", f"gen_galois_hint k={k}", bb.gen_galois_hint, k, sk, g,
+    ghints = {k: run("3f_galois", f"gen_galois_hint k={k}", bb.gen_galois_hint, k, sk, nk(),
                      fwd=nrns, n_fwd=n) for k in ks}
     gal_many = bb.build_galois_many(ghints)
     gal_one = {k: bb.build_galois(ghints[k], k) for k in ks}
-    mg = she.pt_random(params, g, (B,))
-    ct_gal = run("3f_galois", "encrypt", enc, mg, g, fwd=nrns, n_fwd=n)
+    mg = she.pt_random(params, rng, (B,))
+    ct_gal = run("3f_galois", "encrypt", enc, mg, nk(), fwd=nrns, n_fwd=n)
     rot_fwd, rot_inv = nrns * (nrns - 1), nrns
     outs_many = run("3f_galois", "galois_many", gal_many, *ct_gal, fwd=rot_fwd, inv=rot_inv,
                     n_fwd=n, n_inv=n)
@@ -968,7 +1193,7 @@ def main() -> int:
         same_on_cpu(f"galois k={k}", out, BatchedBGV(params, "cpu").build_galois(ghints[k], k),
                     *ct_gal, ncols=cols_g)
     # one rotation at the general ring, m = 18432, k = 5
-    gh_g = run("3f_galois", "gen_galois_hint m=18432", bb_g.gen_galois_hint, 5, sk_g, g,
+    gh_g = run("3f_galois", "gen_galois_hint m=18432", bb_g.gen_galois_hint, 5, sk_g, nk(),
                fwd=nrns, n_fwd=n2_g)
     gal_g = bb_g.build_galois(gh_g, 5)
     out = run("3f_galois", "galois k=5 m=18432", gal_g, *ct_g["lsd"][0], fwd=rot_fwd,
@@ -1027,7 +1252,7 @@ def main() -> int:
     out = run_mesh("step lsd n16384", step_mesh, step_blocks, (e0, e1), {n: sf}, {n: si}, nrns)
     decrypts_to("mesh step lsd", BatchedBGV(p2, dev).build_decrypt(
         she.SK(p2, sk.s_ints, sk.var), f=bb.step_f())(*out), pt_muls(m1, m2, params))
-    cm, dm = enc_msd(m1, g), enc_msd(m2, g)
+    cm, dm = enc_msd(m1, nk()), enc_msd(m2, nk())
     out = run_mesh("step msd n16384", bb.build_step(hint, "msd", rd_mesh), shard(*cm, *dm),
                    step_msd(*cm, *dm), {n: sf}, {n: si}, nrns)
     decrypts_to("mesh step msd", dec_msd(*out), pt_muls(m1, m2, params))
@@ -1103,19 +1328,19 @@ def main() -> int:
     qs_sl = tuple(nt.ntt_primes(m_sl, 30, 3))
     L_sl, n_sl = len(qs_sl), m_sl // 2
     rings_sl = [m_sl, m_sl // 2]
-    sks_sl = [she.gen_sk(she.SHEParams(m=r, p=p_sl, qs=qs_sl, var=2.0), g) for r in rings_sl]
-    fam_sl = prf.PRFFamily.random(ring_context(m_sl, (p_sl,)), gadget.BaseBGad(16), prf.balanced(2), g)
+    sks_sl = [she.gen_sk(she.SHEParams(m=r, p=p_sl, qs=qs_sl, var=2.0), nk()) for r in rings_sl]
+    fam_sl = prf.PRFFamily.random(ring_context(m_sl, (p_sl,)), gadget.BaseBGad(16), prf.balanced(2), nk())
     t_host = time.time()
-    hints_sl, sk_sl = run_by_n("3g_slots", "make_eval_hints slots", lambda: prf.make_eval_hints(
-        fam_sl, sks_sl, rings_sl, rings_sl[1:], g, p_final=p_sl, maps="slots", device=dev),
-        fwd={n_sl // 2: L_sl}, inv={})
+    hints_sl, sk_sl = run_recorded("3g_slots", "make_eval_hints slots", lambda: prf.make_eval_hints(
+        fam_sl, sks_sl, rings_sl, rings_sl[1:], gadget.RnsGad(), nk(), p_final=p_sl, maps="slots",
+        device=dev))
     t_host = time.time() - t_host
     lin_sl = hints_sl.tunnels[0].lin
     print(f"slot map {m_sl} -> {m_sl // 2} at p = {p_sl}: hints (the slot map on the host, "
           f"{lin_sl.d} images) in {t_host:.2f} s", flush=True)
     keys_sl = torch.randint(0, p_sl, (n_sl, B), generator=g, device=dev, dtype=torch.int32)
     bb_sl = BatchedBGV(sks_sl[0].params, dev)
-    ct_sl = bb_sl.build_encrypt(sks_sl[0])(keys_sl, g)
+    ct_sl = bb_sl.build_encrypt(sks_sl[0])(keys_sl, nk())
     ell_sl = gadget.num_digits(fam_sl.spec, fam_sl.ctx.basis)
     for i in range(ell_sl):
         bb_o, f_o, y_sl = run_by_n(
@@ -1143,9 +1368,8 @@ def main() -> int:
     # runs first on CPU copies (the plain versions), and the card must make
     # the same calls and give the same output bit for bit; where a closed
     # form is known (encrypt, hints, the step, decrypt, the tunnel) the
-    # calls must equal it too.  Random draws on the card's generator
-    # differ from the CPU's, so keygen and encryption are checked by
-    # decryption.
+    # calls must equal it too.  Keygen and encryption are checked here by
+    # decryption; phase 3j holds the card's draws against the CPU's.
     obj_calls = Counter()
     real_ntt, real_ctm = ring_mod.ntt_cm, she.ct_mul_cm
 
@@ -1306,12 +1530,12 @@ def main() -> int:
     # modulus, 4 special primes) and an RNS extended key switch, sigma_5,
     # and an MSD round trip
     def demo(prm, sk_o, tag, full):
-        g_o = torch.Generator(device=dev).manual_seed(SEED + 80 + prm.m)
+        g_o, rng_o = prng.KeyChain(SEED + 80 + prm.m), np.random.default_rng(SEED + 80 + prm.m)
         L_, n_o = len(prm.qs), prm.ctx.n
-        a_m, b_m = (she.pt_random(prm, g_o).cpu().numpy() for _ in range(2))
-        ca = obj_run(f"{tag} encrypt", lambda: she.encrypt(sk_o, a_m, g_o, dev),
+        a_m, b_m = (she.pt_random(prm, rng_o).cpu().numpy() for _ in range(2))
+        ca = obj_run(f"{tag} encrypt", lambda: she.encrypt(sk_o, a_m, g_o(), dev),
                      want={("ntt_fwd", n_o): 2 * L_})
-        cb = obj_run(f"{tag} encrypt", lambda: she.encrypt(sk_o, b_m, g_o, dev),
+        cb = obj_run(f"{tag} encrypt", lambda: she.encrypt(sk_o, b_m, g_o(), dev),
                      want={("ntt_fwd", n_o): 2 * L_})
 
         def decrypts(name, ct_, want_, sk_=sk_o, calls=None):
@@ -1328,7 +1552,7 @@ def main() -> int:
                        {("ct_mul", 0): L_})
         want_ab = she.pt_mul(prm, a_m, b_m)
         hint_o = obj_run(f"{tag} ks_quad_circ_hint", lambda: she.ks_quad_circ_hint(
-            sk_o, gadget.RnsGad(), g_o, dev), want=hint_calls(L_, L_, n_o))
+            sk_o, gadget.RnsGad(), g_o(), dev), want=hint_calls(L_, L_, n_o))
         rel = obj_run(f"{tag} key_switch_quad_circ", lambda: she.key_switch_quad_circ(hint_o, prod),
                       lambda: she.key_switch_quad_circ(hint_o, to_dev(prod, "cpu")),
                       {("ntt_inv", n_o): L_, ("ntt_fwd", n_o): L_ * L_})
@@ -1341,7 +1565,7 @@ def main() -> int:
             return ca, cb, a_m, b_m, hint_o
         ell_b = gadget.num_digits(gadget.BaseBGad(1 << 16), prm.ctx.basis)
         hb = obj_run(f"{tag} ks_quad_circ_hint BaseBGad", lambda: she.ks_quad_circ_hint(
-            sk_o, gadget.BaseBGad(1 << 16), g_o, dev), want=hint_calls(L_, ell_b, n_o))
+            sk_o, gadget.BaseBGad(1 << 16), g_o(), dev), want=hint_calls(L_, ell_b, n_o))
         decrypts("key switch BaseBGad", obj_run(
             f"{tag} key_switch BaseBGad", lambda: she.key_switch_quad_circ(hb, prod),
             lambda: she.key_switch_quad_circ(hb, to_dev(prod, "cpu")),
@@ -1350,7 +1574,7 @@ def main() -> int:
             special_o = tuple(nt.ntt_primes(prm.m, 30, L_ + nsp)[L_:])
             Lx, ell_x = L_ + nsp, gadget.num_digits(spec_, prm.ctx.basis)
             hx = obj_run(f"{tag} ks_quad_circ_hint_ext {spec_}", lambda: she.ks_quad_circ_hint_ext(
-                sk_o, spec_, g_o, special_o, dev),
+                sk_o, spec_, g_o(), special_o, dev),
                 want={("ntt_fwd", n_o): L_ + 2 * Lx + 2 * ell_x * Lx, ("ntt_inv", n_o): L_})
             decrypts(f"ext key switch {spec_}", obj_run(
                 f"{tag} key_switch_quad_circ_ext {spec_}",
@@ -1358,12 +1582,12 @@ def main() -> int:
                 lambda: she.key_switch_quad_circ_ext(hx, to_dev(prod, "cpu")),
                 {("ntt_inv", n_o): L_ + 2 * Lx, ("ntt_fwd", n_o): ell_x * Lx + 2 * L_}), want_ab)
         hg = obj_run(f"{tag} ks_galois_hint k=5", lambda: she.ks_galois_hint(
-            5, sk_o, gadget.RnsGad(), g_o, dev), want=hint_calls(L_, L_, n_o))
+            5, sk_o, gadget.RnsGad(), g_o(), dev), want=hint_calls(L_, L_, n_o))
         decrypts("ct_galois k=5", obj_run(f"{tag} ct_galois k=5", lambda: she.ct_galois(hg, 5, ca),
                                           lambda: she.ct_galois(hg, 5, to_dev(ca, "cpu")),
                                           {("ntt_inv", n_o): L_, ("ntt_fwd", n_o): L_ * L_}),
                  she.galois_ints(prm.m, a_m, 5, prm.p))
-        cm_ = obj_run(f"{tag} encrypt_msd", lambda: she.encrypt_msd(sk_o, a_m, g_o, dev),
+        cm_ = obj_run(f"{tag} encrypt_msd", lambda: she.encrypt_msd(sk_o, a_m, g_o(), dev),
                       want={("ntt_fwd", n_o): 2 * L_})
         decrypts("msd", cm_, a_m)
         decrypts("to_lsd", obj_run(f"{tag} to_lsd", lambda: she.to_lsd(cm_),
@@ -1374,7 +1598,7 @@ def main() -> int:
         return ca, cb, a_m, b_m, hint_o
 
     params_q = she.SHEParams(m=8192, p=257, qs=tuple(nt.ntt_primes(8192, 30, 3)))
-    demo(params_q, she.gen_sk(params_q, g), "quick start m=8192", full=False)
+    demo(params_q, she.gen_sk(params_q, nk()), "quick start m=8192", full=False)
     ca_o, cb_o, am_o, bm_o, hint_o = demo(params, sk, f"she_demo m={m}", full=True)
     mark(f"phase 3h: the Quick start at m = 8192 and she_demo's flow at m = {m} (BaseBGad, "
          f"TrivGad over Q P, ext RNS, sigma_5, MSD): every decryption == its plaintext; "
@@ -1457,7 +1681,7 @@ def main() -> int:
     # (a) persistence at full width: each bundle written from the card and
     # from CPU copies (the same bytes), read back onto the card (io's default
     # device; no launch), and written again from what was read (the same bytes)
-    cm_o = she.encrypt_msd(sk, am_o, g, dev)
+    cm_o = she.encrypt_msd(sk, am_o, nk(), dev)
     bundles = {
         "sk": (lio.sk_to_proto, lio.sk_from_proto, pb.SecretKey, sk),
         "ct_lsd": (lio.ct_to_proto, lio.ct_from_proto, pb.SHECiphertext, ca_o),
@@ -1705,6 +1929,23 @@ def main() -> int:
         "two_ranks_step_ms_windows": ranks[0]["step_ms_windows"],
     }
 
+    # -- phase 3j: the randomness, the JAX package's bits on the card ------
+    pk_before = pk.LAUNCHES["prng"]
+    rand = phase_3j(dev)
+    print(f"prng kernel at (n, B) = ({n}, {B}): rounded normal {rand['round_ms']:.4f} ms "
+          f"(plain {rand['round_plain_ms']:.3f}, bound {rand['round_bound'][0]:.4f}), randint "
+          f"over 3 primes {rand['randint_ms']:.4f} ms (plain {rand['randint_plain_ms']:.3f}, bound "
+          f"{rand['randint_bound'][0]:.4f}), words {rand['bits_ms']:.4f} ms; torch.randn "
+          f"{rand['randn_ms']:.4f} ms; on {card}", flush=True)
+    for k_ in ("gen_sk", "encrypt_B1024", "gen_ks_quad_hint"):
+        print(f"metric {k_}_ms_m{m} = {rand[f'{k_}_ms_m{m}']:.3f} on {card}", flush=True)
+    mark(f"phase 3j: prng: {rand['checks']} checks card == plain bit for bit (every 2^23 "
+         f"normal input raw and rounded at var 2, 4, 9; words and randint at ({n}, {B}); "
+         f"gen_sk at {m} and {m_g}, build_encrypt LSD / MSD, gen_ks_quad_hint and the tunnel "
+         f"hint at {m}; the challenges' card bytes == CPU bytes in 3i(b)), known answers "
+         f"{rand['known_answers']}; "
+         f"{pk.LAUNCHES['prng'] - pk_before} launches")
+
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
     # n = 4096 ones in phase 2, one channel of the step's here.
@@ -1897,9 +2138,9 @@ def main() -> int:
     timings["bgv_step_ct_mul_share_n16384"] = nrns * timings["ct_mul_ms"] / step_ms
     del c0, c1, d0, d1, e0, e1, x, xd, x4b, ops
     enc8 = bb8.build_encrypt(sk8)
-    step8 = bb8.build_step(bb8.gen_ks_quad_hint(sk8, g))
-    cts8 = (*enc8(she.pt_random(params8, g, (B,)), g),
-            *enc8(she.pt_random(params8, g, (B,)), g))
+    step8 = bb8.build_step(bb8.gen_ks_quad_hint(sk8, nk()))
+    cts8 = (*enc8(she.pt_random(params8, rng, (B,)), nk()),
+            *enc8(she.pt_random(params8, rng, (B,)), nk()))
     step8_ms, wins8 = time_ms(lambda: step8(*cts8), 5)
     timings["bgv_ops_per_s_n4096"] = B / (step8_ms / 1e3)
     timings["bgv_step_ms_windows_n4096"] = wins8
@@ -1944,9 +2185,10 @@ def main() -> int:
     # it, beside the batched path's time per ciphertext (its call over
     # B = 1024 columns / B) in the same windows' discipline, on phase 3's
     # plaintexts encrypted anew (its ciphertexts were freed above)
-    cc, dd = enc(m1, g), enc(m2, g)
+    cc, dd = enc(m1, nk()), enc(m2, nk())
+    k_enc = nk()
     obj_pairs = {
-        "encrypt": (lambda: she.encrypt(sk, am_o, g, dev), lambda: enc(m1, g)),
+        "encrypt": (lambda: she.encrypt(sk, am_o, k_enc, dev), lambda: enc(m1, k_enc)),
         "step": (lambda: she.mod_switch(she.key_switch_quad_circ(hint, she.ct_mul(ca_o, cb_o))),
                  lambda: step(*cc, *dd)),
         "decrypt": (lambda: she.decrypt(sk, ca_o), lambda: dec_gal(*cc)),
@@ -2100,6 +2342,20 @@ def main() -> int:
          "ms_n65536": timings["ntt_inv_scatter_ms_n65536"],
          "unfused_ms_n65536": timings["phase_b_inv_unfused_ms_n65536"],
          "bound_ms_n65536": bound("ntt_inv_scatter", 65536, B, D)["bound_ms"]},
+        # no pallas_call draws randomness in the reference (its threefry and
+        # erf_inv are XLA code); no torch call computes threefry, so the
+        # kernel has no library time (randn_ms: torch's Philox normals of the
+        # same shape, a yardstick only)
+        {"name": "prng_draw", "route": "cuda", "source": "lol_tpu_torch/csrc/prng.cu",
+         "replaces": "lol_tpu/sampling.py:102 (jax.random.normal: XLA threefry2x32 + erf_inv; "
+                     "no pallas_call)", "path": "build_encrypt's error and c1 draws (phase 3)",
+         "launches": prng_launches, "max_abs_err": 0,
+         "shape": f"({n}, {B}), the rounded normal; randint over 3 primes beside it",
+         "ms": rand["round_ms"], "plain_ms": rand["round_plain_ms"],
+         "bound_ms": rand["round_bound"][0], "bound_by": rand["round_bound"][1],
+         "library_ms": None, "randint_ms": rand["randint_ms"],
+         "randint_plain_ms": rand["randint_plain_ms"], "randint_bound_ms": rand["randint_bound"][0],
+         "bits_ms": rand["bits_ms"], "randn_ms": rand["randn_ms"]},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

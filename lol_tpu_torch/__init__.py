@@ -6,7 +6,8 @@ own (`numtheory`, `zq`, `factored`, `zmstar`, `ops/ntt`,
 `gadget`, `ring`, `cyc`, `sampling`, `gf`, `crtset`, `linear`, `rlwe`,
 `rrq`, `complexfield`, `she`, `she_batched`, `prf`, `serving`,
 `parallel/sharding`, `parallel/multihost`, `io` with `proto/`,
-`challenges`, `ops/debug`), and every result is bit-identical to it.
+`challenges`, `ops/debug`; `prng` is its `jax.random`), and every result
+is bit-identical to it, the random draws from the same key included.
 This package imports torch and numpy, never jax, lol_tpu or a protobuf
 runtime.
 

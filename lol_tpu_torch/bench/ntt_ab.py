@@ -31,6 +31,12 @@ checks kernel == plain on every input it times, and prints one JSON line:
   device alone (`_dev_`);
 - the card's name and power limit (nvidia-smi).
 
+With `--keygen` it times keygen and encryption instead, as their caller
+sees them (each call ends in a synchronize): `gen_sk`, `build_encrypt`'s
+`enc` at B = 1024 and `gen_ks_quad_hint`, at m = 32768 over three 30-bit
+primes, from `prng` keys where the tree has them and from a
+`torch.Generator` in a tree that predates them.
+
 Times are `bench.time_ms` medians of 5 CUDA-event windows.  `ring_phase_b`
 builds the ring's timed phase-B calls for this script and `chip_smoke.py`.
 """
@@ -114,7 +120,48 @@ def ring(rn, tk, sh, ntt, nt, bench, dev, g, out: dict) -> None:
         del x, shards, want
 
 
-def run(tree: str, label: str) -> dict:
+def draws(she, dev, seed: int):
+    """(gen_sk(params), key(), pt(params, B), what): the tree's keygen from
+    `prng` keys where it has them, else from a `torch.Generator` (a tree
+    that predates them)."""
+    import numpy as np
+    import torch
+
+    try:
+        prng = importlib.import_module("lol_tpu_torch.prng")
+    except ImportError:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (lambda params: she.gen_sk(params, g), lambda: g,
+                lambda params, B: she.pt_random(params, g, (B,)), "torch.Generator")
+    keys, rng = prng.KeyChain(seed), np.random.default_rng(seed)
+    return (lambda params: she.gen_sk(params, keys(), dev), keys,
+            lambda params, B: she.pt_random(params, rng, (B,), dev), "prng keys")
+
+
+def keygen(she, BatchedBGV, nt, bench, dev, out: dict) -> None:
+    """The keygen timings into out (see the module docstring)."""
+    import torch
+
+    gen_sk, key, pt, out["keygen_randomness"] = draws(she, dev, 1)
+    m, B = 32768, 1024
+    params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
+    bb = BatchedBGV(params, dev)
+    sk = gen_sk(params)
+    enc = bb.build_encrypt(sk)
+    msgs = pt(params, B)
+
+    def synced(fn):
+        def call():
+            fn()
+            torch.cuda.synchronize()
+        return call
+
+    for name, fn in (("gen_sk", lambda: gen_sk(params)), ("encrypt_B1024", lambda: enc(msgs, key())),
+                     ("gen_ks_quad_hint", lambda: bb.gen_ks_quad_hint(sk, key()))):
+        out[f"{name}_ms_m{m}"] = bench.time_ms(synced(fn), 5)[0]
+
+
+def run(tree: str, label: str, keygen_only: bool = False) -> dict:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
     import torch
@@ -134,6 +181,9 @@ def run(tree: str, label: str) -> dict:
     dev = bench.require_cuda()
     g = torch.Generator(device=dev).manual_seed(4)
     out = {"label": label, "tree": root, "card": card_line()}
+    if keygen_only:
+        keygen(she, BatchedBGV, nt, bench, dev, out)
+        return out
     ring(rn, tk, sh, ntt, nt, bench, dev, g, out)
 
     def bound(op, n, B):
@@ -196,14 +246,14 @@ def run(tree: str, label: str) -> dict:
                 lambda: tk.ntt_cm_ref(x4, plans[0], inverse=inverse, alg=alg))
     del x4
     # the step at n = 2^14 and 4096
+    gen_sk, key, pt, _ = draws(she, dev, 4)
     for m in (32768, 8192):
         params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
         bb = BatchedBGV(params, dev)
-        sk = she.gen_sk(params, g)
+        sk = gen_sk(params)
         enc = bb.build_encrypt(sk)
-        step = bb.build_step(bb.gen_ks_quad_hint(sk, g))
-        cts = (*enc(she.pt_random(params, g, (1024,)), g),
-               *enc(she.pt_random(params, g, (1024,)), g))
+        step = bb.build_step(bb.gen_ks_quad_hint(sk, key()))
+        cts = (*enc(pt(params, 1024), key()), *enc(pt(params, 1024), key()))
         ms, wins = bench.time_ms(lambda: step(*cts), 5)
         out[f"step_ops_per_s_n{params.ctx.n}"] = 1024 / (ms / 1e3)
         out[f"step_ms_windows_n{params.ctx.n}"] = wins
@@ -214,8 +264,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True, help="root of the tree whose port is timed")
     ap.add_argument("--label", default="")
+    ap.add_argument("--keygen", action="store_true",
+                    help="time keygen and encryption at m = 32768 instead")
     args = ap.parse_args()
-    print(json.dumps(run(args.tree, args.label or args.tree)), flush=True)
+    print(json.dumps(run(args.tree, args.label or args.tree, args.keygen)), flush=True)
     return 0
 
 

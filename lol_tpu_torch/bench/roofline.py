@@ -26,6 +26,15 @@ pass schedule, and `work` is the one place that states them:
   fused phase-B passes of all D shards (`ntt_fwd_gather`,
   `ntt_inv_scatter`) read and write 8*n*B bytes for log2(n/D) of the
   transform's stages, 9*log2(n/D)*n/2*B u32 ops.
+- the random draws (`ops/cuda/prng`) over n*B words, each written once,
+  4*n*B bytes.  A threefry2x32 hash is 73 u32 ops: 2 key adds, 20 rounds
+  of add, rotate and xor, 5 key injections of 2 adds, the output xor.  Its
+  41 rotations and xors run only on the integer ALU pipe, 64 lanes a
+  clock an SM; its 32 adds may also run on the FMA pipe (as IMAD), which
+  issues beside it, so a hash takes at least max(41, 73 / 2) = 41 ALU
+  issue slots, and that is its count here (`PRNG_HASH_OPS`).  `prng_bits`
+  and `prng_normal` hash once a word (the normal's float32 epilogue, ~45
+  ops on the FP32 pipes, stays below that), `prng_randint` twice.
 
 `bound` turns a count into the least time the H100 could take: the
 larger of the bytes over the data sheet's 3.35 TB/s and the u32 ops
@@ -59,6 +68,7 @@ from . import require_cuda, time_ms
 OPS = ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit", "ct_mul", "mul_mod", "add_mod")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 U32_OPS_PER_S = 132 * 64 * 1.98e9  # SMs x IMAD per clock per SM x boost clock
+PRNG_HASH_OPS = 41  # ALU issue slots of one threefry2x32 hash (see the module docstring)
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -81,6 +91,10 @@ def work(op: str, n: int, B: int, D: int = 1) -> tuple[int, int]:
         return (9 * (k * n // 2) + 5 * n) * B, 8 * n * B
     if op == "ct_mul":
         return (4 * 9 + 2) * n * B, 28 * n * B
+    if op in ("prng_bits", "prng_normal"):
+        return PRNG_HASH_OPS * n * B, 4 * n * B
+    if op == "prng_randint":
+        return 2 * PRNG_HASH_OPS * n * B, 4 * n * B
     if op == "mul_mod":
         return 9 * n * B, 12 * n * B
     if op == "add_mod":

@@ -54,7 +54,7 @@ import statistics
 import numpy as np
 import torch
 
-from .. import gadget, linear, numtheory as nt, prf, sampling, serving, she
+from .. import gadget, linear, numtheory as nt, prf, prng, sampling, serving, she
 from ..ops import general as gen
 from ..ops.cuda.ntt_kernel import ntt_cm
 from ..parallel import sharding as sh
@@ -194,8 +194,7 @@ def odd_axis(fn, args, plan: gen.GeneralPlan, calls: int = 5, iters: int = 5,
     span = sum(a.elapsed_time(b) for a, b in spans) / calls
     shape, B = plan.phi_shape, args[0].shape[-1]
     n, n2 = plan.fm.phi, shape[0]
-    x = sampling.uniform_residues((plan.q,), (n, B),
-                                  torch.Generator(device=dev).manual_seed(0))[0]
+    x = sampling.uniform_residues((plan.q,), (n, B), prng.PRNGKey(0), dev)[0]
     odd_axes = [i for i, ax in enumerate(plan.axes) if ax.ntt2 is None and ax.phi > 1]
 
     def odd_alone():
@@ -220,10 +219,10 @@ def odd_axis(fn, args, plan: gen.GeneralPlan, calls: int = 5, iters: int = 5,
 def _inputs(m: int, nrns: int, B: int, seed: int, p: int = 257):
     dev = require_cuda()
     params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    nk = prng.KeyChain(seed)
     bb = BatchedBGV(params, dev)
-    step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, g), g))
-    cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), g) for _ in range(4)]
+    step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, nk(), dev), nk()))
+    cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), nk(), dev) for _ in range(4)]
     return step, cts
 
 
@@ -240,11 +239,12 @@ def _tunnel_inputs(m: int, nrns: int, B: int, seed: int, p: int = 257):
     dev = require_cuda()
     params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
     ps = she.SHEParams(m=m // 2, p=p, qs=params.qs, var=2.0)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    nk, rng = prng.KeyChain(seed), np.random.default_rng(seed)
     bb = BatchedBGV(params, dev)
-    sk = she.gen_sk(params, g)
-    tun = bb.build_tunnel(bb.gen_tunnel_hint(_halving_map(params, ps), she.gen_sk(ps, g), sk, g))
-    return tun, bb.build_encrypt(sk)(she.pt_random(params, g, (B,)), g)
+    sk = she.gen_sk(params, nk(), dev)
+    tun = bb.build_tunnel(bb.gen_tunnel_hint(_halving_map(params, ps), she.gen_sk(ps, nk(), dev),
+                                             sk, nk()))
+    return tun, bb.build_encrypt(sk)(she.pt_random(params, rng, (B,), dev), nk())
 
 
 def pt_round_inputs(m: int, p: int, B: int, seed: int, device="cuda"):
@@ -253,14 +253,15 @@ def pt_round_inputs(m: int, p: int, B: int, seed: int, device="cuda"):
     plaintexts: (run, bb_out, f_out, sk, vals, (c0, c1))."""
     qs = tuple(nt.ntt_primes(m, 30, she.pt_round_mults(p) + 2))
     params = she.SHEParams(m=m, p=p, qs=qs, var=2.0)
-    g = torch.Generator(device=device).manual_seed(seed)
-    sk = she.gen_sk(params, g)
+    nk, rng = prng.KeyChain(seed), np.random.default_rng(seed)
+    sk = she.gen_sk(params, nk(), device)
     bb = BatchedBGV(params, device)
-    run, bb_out, f_out = serving.build_pt_round(bb, she.pt_round_hints(sk, g, device))
-    vals = torch.randint(0, p, (B,), generator=g, device=device, dtype=torch.int32)
+    run, bb_out, f_out = serving.build_pt_round(
+        bb, she.pt_round_hints(sk, gadget.RnsGad(), nk(), device))
+    vals = torch.from_numpy(rng.integers(0, p, B).astype(np.int32)).to(device)
     msgs = torch.zeros((params.ctx.n, B), dtype=torch.int32, device=device)
     msgs[0] = vals
-    return run, bb_out, f_out, sk, vals, bb.build_encrypt(sk)(msgs, g)
+    return run, bb_out, f_out, sk, vals, bb.build_encrypt(sk)(msgs, nk())
 
 
 def homom_prf_run(fam: prf.PRFFamily, hints: prf.EvalHints, bb: BatchedBGV, bits, i: int):
@@ -293,14 +294,15 @@ def homom_prf_inputs(m_top: int, p: int, B: int, seed: int, device="cuda"):
     over m_top: (fam, hints, bb, sk_out, s, (c0, c1))."""
     qs = tuple(nt.ntt_primes(m_top, 30, she.pt_round_mults(p) + 4))
     rings = [m_top >> k for k in range(m_top.bit_length() - 1)]
-    g = torch.Generator(device=device).manual_seed(seed)
-    sks = [she.gen_sk(she.SHEParams(m=m, p=p, qs=qs, var=2.0), g) for m in rings]
-    fam = prf.PRFFamily.random(ring_context(m_top, (p,)), gadget.BaseBGad(2), prf.balanced(2), g)
-    hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], g, homomorphic_round=True,
-                                        maps="project", device=device)
+    nk, rng = prng.KeyChain(seed), np.random.default_rng(seed)
+    sks = [she.gen_sk(she.SHEParams(m=m, p=p, qs=qs, var=2.0), nk(), device) for m in rings]
+    fam = prf.PRFFamily.random(ring_context(m_top, (p,)), gadget.BaseBGad(2), prf.balanced(2),
+                               nk(), device)
+    hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], gadget.RnsGad(), nk(),
+                                        homomorphic_round=True, maps="project", device=device)
     bb = BatchedBGV(sks[0].params, device)
-    s = torch.randint(0, p, (bb.ctx.n, 1), generator=g, device=device, dtype=torch.int32)
-    return fam, hints, bb, sk_out, s, bb.build_encrypt(sks[0])(s.expand(-1, B), g)
+    s = torch.from_numpy(rng.integers(0, p, (bb.ctx.n, 1)).astype(np.int32)).to(device)
+    return fam, hints, bb, sk_out, s, bb.build_encrypt(sks[0])(s.expand(-1, B), nk())
 
 
 GALOIS_KS = (3, 5, 9)
@@ -311,11 +313,12 @@ def galois_inputs(m: int, nrns: int, B: int, seed: int, ks=GALOIS_KS, device="cu
     device (p = 257), the hoisted module over all ks, one `build_galois`
     per k, and uniform (c0, c1): (many, singles, sk, (c0, c1))."""
     params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
-    g = torch.Generator(device=device).manual_seed(seed)
-    sk = she.gen_sk(params, g)
+    nk = prng.KeyChain(seed)
+    sk = she.gen_sk(params, nk(), device)
     bb = BatchedBGV(params, device)
-    hints = {k: bb.gen_galois_hint(k, sk, g) for k in ks}
-    cts = tuple(sampling.uniform_residues(params.qs, (params.ctx.n, B), g) for _ in range(2))
+    hints = {k: bb.gen_galois_hint(k, sk, nk()) for k in ks}
+    cts = tuple(sampling.uniform_residues(params.qs, (params.ctx.n, B), nk(), device)
+                for _ in range(2))
     return (bb.build_galois_many(hints), {k: bb.build_galois(hints[k], k) for k in ks},
             sk, cts)
 
@@ -362,14 +365,14 @@ def mesh_inputs(m: int, nrns: int, B: int, seed: int, p: int = 257) -> dict:
     mesh = sh.make_mesh(MESH_SHAPE)
     dmesh = sh.data_mesh(mesh)
     params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, nrns)), var=2.0)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    nk, rng = prng.KeyChain(seed), np.random.default_rng(seed)
     bb = BatchedBGV(params, dev)
-    sk = she.gen_sk(params, g)
-    hint = bb.gen_ks_quad_hint(sk, g)
-    cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), g) for _ in range(4)]
+    sk = she.gen_sk(params, nk(), dev)
+    hint = bb.gen_ks_quad_hint(sk, nk())
+    cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), nk(), dev) for _ in range(4)]
     ps = she.SHEParams(m=m // 2, p=p, qs=params.qs, var=2.0)
-    th = bb.gen_tunnel_hint(_halving_map(params, ps), she.gen_sk(ps, g), sk, g)
-    tcts = bb.build_encrypt(sk)(she.pt_random(params, g, (B,)), g)
+    th = bb.gen_tunnel_hint(_halving_map(params, ps), she.gen_sk(ps, nk(), dev), sk, nk())
+    tcts = bb.build_encrypt(sk)(she.pt_random(params, rng, (B,), dev), nk())
     return dict(mesh=mesh, step=bb.build_step(hint), step_mesh=bb.build_step(hint, mesh=mesh),
                 cts=cts, blocks=[sh.shard_batch_rns(mesh, c) for c in cts],
                 tun=bb.build_tunnel(th), tun_mesh=bb.build_tunnel(th, dmesh), tcts=tcts,

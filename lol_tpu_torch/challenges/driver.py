@@ -2,12 +2,14 @@
 `rlwe-challenges/.../{Generate,Suppress,Verify,Main}.hs`); counterpart of
 `lol_tpu/challenges/driver.py`, with its directory layout and file names.
 
-`generate` draws every secret, error and uniform element from one CPU
-`torch.Generator(seed)`, in a fixed order per instance, so a seed names
-the same directory whichever device runs the ring work (`a s + e`, the
-CRT transforms, RLWR's rounding); `verify` recomputes `a s` and the
-error's norm on its device.  Either package's `verify` reads either
-package's directory: it reads files and draws nothing.
+`generate` draws every secret, error and uniform element from
+`prng.PRNGKey(seed)`, split per instance as the reference splits
+`jax.random.PRNGKey(seed)`, so a seed names the same directory in both
+packages, byte for byte, whichever device runs the draws and the ring
+work (`a s + e`, the CRT transforms, RLWR's rounding); `verify`
+recomputes `a s` and the error's norm on its device.  Either package's
+`verify` reads either package's directory: it reads files and draws
+nothing.
 
     python -m lol_tpu_torch.challenges.driver generate DIR --params FILE [--seed S]
     python -m lol_tpu_torch.challenges.driver suppress DIR [--beacon-records RECS]
@@ -27,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import rlwe, sampling
+from .. import prng, rlwe, sampling
 from ..cyc import Cyc, Rep
 from ..io import cyc_from_proto, cyc_to_proto, ints_from_proto, ints_to_proto
 from ..proto import wire as pb
@@ -75,7 +77,7 @@ def _device(device) -> torch.device:
 def generate(root: Path, params: list[ChallengeParams], seed: int = 0, device=None) -> None:
     """Sample instances and secrets and write their files."""
     root, dev = Path(root), _device(device)
-    g = torch.Generator().manual_seed(seed)
+    key = prng.PRNGKey(seed)
     for cp in params:
         if cp.kind not in KINDS:
             raise ValueError(f"unknown kind {cp.kind}")
@@ -89,26 +91,27 @@ def generate(root: Path, params: list[ChallengeParams], seed: int = 0, device=No
         (d / "challenge.proto").write_bytes(ch.SerializeToString())
         ctx = ring_context(cp.m, (cp.q,))
         for iid in range(cp.num_instances):
-            s_ints = sampling.gaussian_dec_ints(ctx, g, cp.svar, device="cpu").numpy()
+            key, ks, kw = prng.split(key, 3)
+            s_ints = sampling.gaussian_dec_ints(ctx, ks, cp.svar, device=dev).cpu().numpy()
             s = Cyc.from_ints(ctx, s_ints, device=dev)
             sec = pb.Secret(challenge_id=cp.challenge_id, instance_id=iid, m=cp.m,
                             s=ints_to_proto(cp.m, s_ints))
             (d / f"instance-{iid:03d}.secret").write_bytes(sec.SerializeToString())
             if cp.kind == "disc":
-                samp = rlwe.sample_discrete(ctx, s, cp.svar, g)
+                samp = rlwe.sample_discrete(ctx, s, cp.svar, kw)
                 inst = pb.InstanceDisc(
                     challenge_id=cp.challenge_id, instance_id=iid,
                     a=cyc_to_proto(samp.a.to_crt()), b=cyc_to_proto(samp.b.to_crt()),
                     bound=_bound(cp.m, cp.q, cp.svar, "disc"))
             elif cp.kind == "cont":
-                a, b = rlwe.sample_continuous(ctx, s, cp.svar, g)
+                a, b = rlwe.sample_continuous(ctx, s, cp.svar, kw)
                 inst = pb.InstanceCont(
                     challenge_id=cp.challenge_id, instance_id=iid,
                     a=cyc_to_proto(a.to_crt()),
                     b=pb.Kq(m=cp.m, q=float(cp.q), coeffs=b.tolist()),
                     bound=_bound(cp.m, cp.q, cp.svar, "cont"))
             else:
-                samp = rlwe.sample_rlwr(ctx, ring_context(cp.m, (cp.qprime,)), s, g)
+                samp = rlwe.sample_rlwr(ctx, ring_context(cp.m, (cp.qprime,)), s, kw)
                 inst = pb.InstanceRLWR(challenge_id=cp.challenge_id, instance_id=iid,
                                        a=cyc_to_proto(samp.a.to_crt()), b=cyc_to_proto(samp.b))
             (d / f"instance-{iid:03d}.instance").write_bytes(inst.SerializeToString())

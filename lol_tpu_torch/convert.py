@@ -3,6 +3,7 @@
 The JAX package's keys, hints and packed ciphertexts become the port's
 objects, so both sides compute on identical state:
 
+    key = key_from_numpy(np.asarray(jax_key))   # a jax.random key -> a prng key
     sk_from_numpy(params, sk.s_ints)
     c = cyc_from_numpy(ctx, x.rep.value, np.asarray(x.data))      # a Cyc
     ct = ct_from_numpy(params, [(c.rep.value, np.asarray(c.data)) for c in jct.cs],
@@ -55,6 +56,16 @@ def _residues(x, device) -> torch.Tensor:
     if a.size and (int(a.min()) < 0 or int(a.max()) >= 1 << zq.MAX_MODULUS_BITS):
         raise ValueError("residues must lie in [0, 2^30)")
     return torch.from_numpy(a.astype(np.int32)).to(device)
+
+
+def key_from_numpy(key) -> torch.Tensor:
+    """A raw `jax.random` key (its `uint32[2]`, as numpy) -> the port's
+    key (`prng`): the same two words, so both packages draw the same bits."""
+    a = np.asarray(key)
+    if a.shape != (2,) or not np.issubdtype(a.dtype, np.integer):
+        raise ValueError(f"a key is two u32 words, got {a.dtype} {a.shape}")
+    words = [int(v) & 0xFFFFFFFF for v in a.astype(np.int64)]
+    return torch.tensor(words, dtype=torch.int64)
 
 
 def sk_from_numpy(params: SHEParams, s_ints) -> SK:

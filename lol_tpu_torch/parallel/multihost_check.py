@@ -6,7 +6,7 @@ one process group (`multihost.initialize` over localhost) and one mesh
 over all of them, `global_mesh({"data": -1, "rns": 3})` with three
 entries each; each process then checks its own part against the unsharded run
 over every column, which it also makes (every process draws the same
-keys, hints and ciphertexts from one CPU generator seed):
+keys, hints and ciphertexts from one seed's `prng` keys):
 
 1. a data-sharded forward NTT (`sharding.batched_ntt_sharded`) == the
    plain transform of its columns;
@@ -43,6 +43,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -103,7 +104,7 @@ def run_rank(rank: int, world: int, port: int, device: str = "cuda", backend: st
              time_iters: int = 0) -> dict:
     """One process's part (see the module's docstring); returns its report."""
     from .. import numtheory as nt
-    from .. import she
+    from .. import prng, sampling, she
     from ..ops.cuda import ntt_kernel as tk
     from ..she_batched import BatchedBGV
 
@@ -116,14 +117,14 @@ def run_rank(rank: int, world: int, port: int, device: str = "cuda", backend: st
         gm = multihost.global_mesh({"data": -1, "rns": PRIMES}, [dev] * PRIMES)
         blocks_here = gm.local().shape["data"]
         cols = sharding.local_columns(gm, batch)
-        g = torch.Generator().manual_seed(SEED)
+        nk, rng = prng.KeyChain(SEED), np.random.default_rng(SEED)
         report = {"rank": rank, "world": world, "device": str(dev),
                   "backend": dist.get_backend(), "mesh": gm.shape,
                   "columns": [cols.start, cols.stop], "launches": {}}
         # 1. the data-sharded NTT of one channel (data-only blocks)
         params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, PRIMES)), var=2.0)
         n, plan = params.ctx.n, params.ctx.ntt_plans()[0]
-        x = torch.randint(0, plan.q, (1, n, batch), generator=g, dtype=torch.int32)
+        x = sampling.uniform_residues((plan.q,), (n, batch), nk(), dev).cpu()
         _reset()
         y = sharding.batched_ntt_sharded(gm, sharding.shard_batch_rns(gm, x), [plan])
         report["launches"]["ntt"] = got = _counts(dev)
@@ -140,12 +141,12 @@ def run_rank(rank: int, world: int, port: int, device: str = "cuda", backend: st
             raise AssertionError(f"rank {rank}: all_reduce {int(total.item())} != "
                                  f"{int(x.long().sum())}")
         # 3. the BGV step over the mesh against the unsharded step
-        sk = she.gen_sk(params, g)
+        sk = she.gen_sk(params, nk(), dev)
         bb = BatchedBGV(params, dev)
-        hint = bb.gen_ks_quad_hint(sk, g)
+        hint = bb.gen_ks_quad_hint(sk, nk())
         enc = bb.build_encrypt(sk)
-        cts = (*enc(she.pt_random(params, g, (batch,)), g),
-               *enc(she.pt_random(params, g, (batch,)), g))
+        cts = (*enc(she.pt_random(params, rng, (batch,), dev), nk()),
+               *enc(she.pt_random(params, rng, (batch,), dev), nk()))
         step_mesh = bb.build_step(hint, mesh=gm)
         blocks = [sharding.shard_batch_rns(gm, c) for c in cts]
         _reset()
@@ -160,11 +161,12 @@ def run_rank(rank: int, world: int, port: int, device: str = "cuda", backend: st
         # 4. the extended-modulus step, two special primes
         all_qs = tuple(nt.ntt_primes(ext_m, 30, PRIMES + 2))
         px = she.SHEParams(m=ext_m, p=257, qs=all_qs[:PRIMES], var=2.0)
-        skx = she.gen_sk(px, g)
+        skx = she.gen_sk(px, nk(), dev)
         bbx = BatchedBGV(px, dev)
-        hx = bbx.gen_ks_quad_hint_ext(skx, all_qs[PRIMES:], g)
+        hx = bbx.gen_ks_quad_hint_ext(skx, all_qs[PRIMES:], nk())
         encx = bbx.build_encrypt(skx)
-        ctx_ = (*encx(she.pt_random(px, g, (batch,)), g), *encx(she.pt_random(px, g, (batch,)), g))
+        ctx_ = (*encx(she.pt_random(px, rng, (batch,), dev), nk()),
+                *encx(she.pt_random(px, rng, (batch,), dev), nk()))
         _reset()
         out = bbx.build_step_ext(hx, mesh=gm)(*(sharding.shard_batch_rns(gm, c) for c in ctx_))
         report["launches"]["ext"] = got = _counts(dev)

@@ -32,15 +32,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from . import gadget as gd
 from . import linear as lin
-from . import she
+from . import prng, sampling, she
 from .cyc import Cyc
 from .ring import RingContext, ring_context
 from .rns import rns_basis
-from .she_batched import BatchedBGV
 
 
 # ---------------------------------------------------------------------------
@@ -128,16 +126,19 @@ class PRFFamily:
         return ring_context(self.m, (self.p,))
 
     @staticmethod
-    def random(ctx: RingContext, spec: gd.BaseBGad, tree: Tree,
-               generator: torch.Generator) -> "PRFFamily":
-        """a0, a1 uniform in R_p^ell over ctx = R_p (2-power m, one modulus p)."""
+    def random(ctx: RingContext, spec: gd.BaseBGad, tree: Tree, key,
+               device="cuda") -> "PRFFamily":
+        """a0, a1 uniform in R_p^ell over ctx = R_p (2-power m, one modulus
+        p): a0[j] = `sampling.uniform(ctx, ks[j])`, a1[j] from ks[ell + j],
+        ks = split(key, 2 ell), as the reference draws them (drawn on device,
+        kept as powerful-basis coefficients on the host)."""
         if ctx.nrns != 1 or not ctx.fm.is_pow2():
             raise ValueError(f"PRFFamily: a 2-power ring over one modulus, got {ctx}")
         p = ctx.basis.qs[0]
         ell = gd.num_digits(spec, ctx.basis)
-        a = torch.randint(0, p, (2, ell, ctx.n), generator=generator,
-                          device=generator.device).cpu().numpy().astype(np.int64)
-        return PRFFamily(ctx.m, p, spec, tree, a[0], a[1])
+        a = np.stack([sampling.uniform(ctx, k, device=device).to_pow().data[0].cpu().numpy()
+                      for k in prng.split(key, 2 * ell)]).astype(np.int64)
+        return PRFFamily(ctx.m, p, spec, tree, a[:ell], a[ell:])
 
     # -- A_T(x) with per-node caching --------------------------------------
     def _eval_node(self, tree: Tree, bits: tuple[int, ...]) -> np.ndarray:
@@ -230,13 +231,16 @@ MAPS = ("auto", "project", "slots")
 
 
 def make_eval_hints(fam: PRFFamily, sks: list[she.SK], rings: list[int],
-                    e_rings: list[int], generator: torch.Generator,
+                    e_rings: list[int], spec: gd.GadgetSpec, key,
                     p_final: int = 2, homomorphic_round: bool = False,
                     maps: str = "auto", device="cuda") -> tuple[EvalHints, she.SK]:
     """The tunnel chain down `rings` (sks[i] lives in rings[i]; e_rings[i]
     is the common subring of rings[i] and rings[i+1]), made on the device
-    by `BatchedBGV.gen_tunnel_hint`, and with homomorphic_round (p = 2^k,
-    p_final = 2) the rounding hints of the last key (`she.pt_round_hints`).
+    by `she.tunnel_hint` with the gadget `spec` (the batched HomomPRF takes
+    `RnsGad()`), and with homomorphic_round (p = 2^k, p_final = 2) the
+    rounding hints of the last key (`she.pt_round_hints`); hop i takes the
+    i-th subkey of the key's split chain and the rounding the next, as the
+    reference's do.
 
     maps: "project" takes the coefficient projection (b_0 -> 1, the rest
     -> 0) at every hop; "slots" the CRT-set slot projection
@@ -263,13 +267,14 @@ def make_eval_hints(fam: PRFFamily, sks: list[she.SK], rings: list[int],
             ys = [np.zeros(s_ctx.n, dtype=np.int64) for _ in range(r_ctx.n // e_ctx.n)]
             ys[0][0] = 1
             f = lin.linear_pow(e_ctx, r_ctx, s_ctx, ys)
-        bb = BatchedBGV(sks[i].params, device)
-        tunnels.append(bb.gen_tunnel_hint(f, sks[i + 1], sks[i], generator))
+        key, sub = prng.split(key)
+        tunnels.append(she.tunnel_hint(f, sks[i + 1], sks[i], spec, sub, device))
     rounds = None
     if homomorphic_round:
         if p_final != 2:
             raise ValueError("homomorphic rounding targets Z_2")
-        rounds = she.pt_round_hints(sks[-1], generator, device)
+        key, kr = prng.split(key)
+        rounds = she.pt_round_hints(sks[-1], spec, kr, device)
     return EvalHints(tuple(tunnels), p_final, rounds), sks[-1]
 
 

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import sampling
+from . import prng, sampling
 from .cyc import Cyc, Rep
 from .ops import general as gen
 from .ring import RingContext
@@ -29,20 +29,22 @@ class RLWESample:
     b: Cyc  # a s + e, or the rounded a s for RLWR
 
 
-def sample_discrete(ctx: RingContext, s: Cyc, var: float,
-                    generator: torch.Generator) -> RLWESample:
-    """Discrete RLWE: e a rounded decoding-basis Gaussian."""
-    a = sampling.uniform(ctx, generator, device=s.device)
-    e = sampling.gaussian_cyc(ctx, generator, var, device=s.device)
+def sample_discrete(ctx: RingContext, s: Cyc, var: float, key) -> RLWESample:
+    """Discrete RLWE: e a rounded decoding-basis Gaussian (a from the
+    key's first subkey, e from its second)."""
+    ka, ke = prng.split(key)
+    a = sampling.uniform(ctx, ka, device=s.device)
+    e = sampling.gaussian_cyc(ctx, ke, var, device=s.device)
     return RLWESample(a, (a * s + e).to_crt())
 
 
-def sample_continuous(ctx: RingContext, s: Cyc, var: float, generator: torch.Generator):
+def sample_continuous(ctx: RingContext, s: Cyc, var: float, key):
     """Continuous RLWE: (a, b) with b the decoding coordinates of a s plus a
-    real Gaussian, host float64 (the lift of a s reaches q / 2, past
-    float32's mantissa)."""
-    a = sampling.uniform(ctx, generator, device=s.device)
-    e_real = sampling.real_gaussians(generator, var, (ctx.n,)).cpu().numpy().astype(np.float64)
+    real float32 Gaussian, host float64 (the lift of a s reaches q / 2,
+    past float32's mantissa)."""
+    ka, ke = prng.split(key)
+    a = sampling.uniform(ctx, ka, device=s.device)
+    e_real = sampling.real_gaussians(ke, var, (ctx.n,), s.device).cpu().numpy().astype(np.float64)
     lifted = (a * s).to_dec().lift_ints()
     return a, lifted.astype(np.float64) + e_real
 
@@ -56,13 +58,12 @@ def _round_scale(ctx: RingContext, ctx2: RingContext, prod: Cyc) -> Cyc:
     return Cyc(ctx2, Rep.DEC, b[..., None, :].to(torch.int32))
 
 
-def sample_rlwr(ctx: RingContext, ctx2: RingContext, s: Cyc,
-                generator: torch.Generator) -> RLWESample:
+def sample_rlwr(ctx: RingContext, ctx2: RingContext, s: Cyc, key) -> RLWESample:
     """RLWR: b = round(q2 / q (a s)) over the rounding chain ctx2 (one
     modulus each; deterministic given a and s)."""
     if ctx.nrns != 1 or ctx2.nrns != 1:
         raise ValueError("sample_rlwr: single-modulus chains")
-    a = sampling.uniform(ctx, generator, device=s.device)
+    a = sampling.uniform(ctx, key, device=s.device)
     return RLWESample(a, _round_scale(ctx, ctx2, a * s))
 
 

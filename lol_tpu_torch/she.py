@@ -34,7 +34,7 @@ import torch
 
 from . import gadget as gd
 from . import numtheory as nt
-from . import sampling
+from . import prng, sampling
 from .cyc import Cyc, Rep
 from .factored import fact
 from .linear import Linear
@@ -126,19 +126,21 @@ class TunnelHint:
     spec: gd.GadgetSpec = gd.RnsGad()
 
 
-def gen_sk(params: SHEParams, generator: torch.Generator) -> SK:
+def gen_sk(params: SHEParams, key, device="cuda") -> SK:
     """Sample s from the rounded decoding-basis Gaussian of variance
-    params.var (`sampling.gaussian_dec_ints`)."""
-    s = sampling.gaussian_dec_ints(params.ctx, generator, params.var, device="cpu")
+    params.var (`sampling.gaussian_dec_ints`), drawn on device; the
+    integers are kept on the host."""
+    s = sampling.gaussian_dec_ints(params.ctx, key, params.var, device=device).cpu()
     return SK(params, s, params.var)
 
 
-def pt_random(params: SHEParams, generator: torch.Generator,
-              batch: tuple[int, ...] = ()) -> torch.Tensor:
-    """Uniform plaintext coefficients in [0, p), shape (n, *batch), int32."""
-    return torch.randint(0, params.p, (params.ctx.n, *batch),
-                         generator=generator, device=generator.device,
-                         dtype=torch.int32)
+def pt_random(params: SHEParams, rng: np.random.Generator, batch: tuple[int, ...] = (),
+              device="cuda") -> torch.Tensor:
+    """Uniform plaintext coefficients in [0, p), shape (n, *batch), int32
+    on device: `rng.integers(0, p, (n, *batch))`, so with batch () the
+    same rng gives the reference's `pt_random(params, rng)`."""
+    x = rng.integers(0, params.p, (params.ctx.n, *batch)).astype(np.int32)
+    return torch.from_numpy(x).to(device)
 
 
 def pt_mul(params: SHEParams, a, b) -> np.ndarray:
@@ -305,22 +307,20 @@ def pt_round_mults(p: int) -> int:
     return sum(2 * (j - 1) for j in range(2, k + 1))
 
 
-def pt_round_hints(sk: SK, generator: torch.Generator, device="cuda") -> PTRoundHints:
-    """Quad hints for pt_round (RNS gadget, for both paths), made on the
-    device: hint i lives at chain prefix qs[:L0-i], because every
-    multiplication is followed by one modulus switch, and is made there
-    by that prefix's `BatchedBGV.gen_ks_quad_hint`."""
-    from .she_batched import BatchedBGV
-
+def pt_round_hints(sk: SK, spec: gd.GadgetSpec, key, device="cuda") -> PTRoundHints:
+    """Quad hints for pt_round, made on the device: hint i lives at chain
+    prefix qs[:L0-i], because every multiplication is followed by one
+    modulus switch, and is `ks_quad_circ_hint` there under the i-th
+    subkey of the key (the batched rounding takes spec = RnsGad())."""
     M = pt_round_mults(sk.params.p)
     L0 = len(sk.params.qs)
     if L0 < M + 1:
         raise ValueError(f"pt_round needs >= {M + 1} RNS primes, have {L0}")
     hints = []
     for i in range(M):
+        key, sub = prng.split(key)
         params_i = replace(sk.params, qs=sk.params.qs[: L0 - i])
-        hints.append(BatchedBGV(params_i, device).gen_ks_quad_hint(
-            SK(params_i, sk.s_ints, sk.var), generator))
+        hints.append(ks_quad_circ_hint(SK(params_i, sk.s_ints, sk.var), spec, sub, device))
     return PTRoundHints(tuple(hints))
 
 
@@ -355,30 +355,32 @@ def pt_add(params: SHEParams, a, b) -> np.ndarray:
     return (np.asarray(a, dtype=np.int64) + np.asarray(b, dtype=np.int64)) % params.p
 
 
-def _gaussian(ctx: RingContext, generator: torch.Generator, var: float) -> np.ndarray:
-    return sampling.gaussian_dec_ints(ctx, generator, var, device="cpu").numpy()
+def _gaussian(ctx: RingContext, key, var: float, device) -> np.ndarray:
+    return sampling.gaussian_dec_ints(ctx, key, var, device=device).cpu().numpy()
 
 
-def encrypt(sk: SK, m_ints, generator: torch.Generator, device="cuda") -> CT:
+def encrypt(sk: SK, m_ints, key, device="cuda") -> CT:
     """LSD encryption (Lol encrypt): c1 uniform, c0 = (m + p e) - c1 s."""
     params = sk.params
     ctx = params.ctx
-    e = _gaussian(ctx, generator, params.var)
+    k_err, k_unif = prng.split(key)
+    e = _gaussian(ctx, k_err, params.var, device)
     msg_err = Cyc.from_ints(ctx, np.asarray(m_ints, dtype=np.int64) + params.p * e,
                             rep=Rep.DEC, device=device)
-    c1 = sampling.uniform(ctx, generator, device=device)
+    c1 = sampling.uniform(ctx, k_unif, device=device)
     return CT(params, ctx, (msg_err - c1 * sk.s_cyc(ctx, device), c1))
 
 
-def encrypt_msd(sk: SK, m_ints, generator: torch.Generator, device="cuda") -> CT:
+def encrypt_msd(sk: SK, m_ints, key, device="cuda") -> CT:
     """MSD encryption: c(s) = Delta m + e, Delta = Q // p."""
     params = sk.params
     ctx = params.ctx
     delta = ctx.basis.modulus // params.p
-    e = _gaussian(ctx, generator, params.var)
+    k_err, k_unif = prng.split(key)
+    e = _gaussian(ctx, k_err, params.var, device)
     scaled = np.asarray(m_ints, dtype=object) % params.p * delta + e.astype(object)
     msg_err = Cyc.from_ints(ctx, scaled, rep=Rep.DEC, device=device)
-    c1 = sampling.uniform(ctx, generator, device=device)
+    c1 = sampling.uniform(ctx, k_unif, device=device)
     return CT(params, ctx, (msg_err - c1 * sk.s_cyc(ctx, device), c1), encoding="msd")
 
 
@@ -436,6 +438,12 @@ def noise_bits(sk: SK, ct: CT) -> float:
 
 
 # --- homomorphic arithmetic -------------------------------------------------
+
+
+def _p_times(ctx: RingContext, p: int, key, var: float, device) -> Cyc:
+    """p e (CRT) for e the rounded decoding-basis Gaussian of the key."""
+    e = sampling.gaussian_dec_ints(ctx, key, var, device=device)
+    return Cyc(ctx, Rep.POW, sampling._ints_to_rns(ctx, p * e)).to_crt()
 
 
 def _scalar_crt(ctx: RingContext, c: int, device) -> Cyc:
@@ -550,44 +558,44 @@ def mul_public(ct: CT, m_pub) -> CT:
 # --- key switching (Lol KSLinearHint / KSQuadCircHint) ----------------------
 
 
-def _ks_hint(sk: SK, target: Cyc, spec: gd.GadgetSpec, generator: torch.Generator,
-             device="cuda") -> KSHint:
+def _ks_hint(sk: SK, target: Cyc, spec: gd.GadgetSpec, key, device="cuda") -> KSHint:
     """Gadget encryptions of target under sk: for each gadget entry g_j,
-    h0_j = p e_j + g_j t - a_j s, h1_j = a_j (CRT)."""
+    h0_j = p e_j + g_j t - a_j s, h1_j = a_j (CRT), a_j and e_j drawn from
+    the j-th (k_a, k_e) of the key's split chain."""
     params = sk.params
     ctx = params.ctx
     s = sk.s_cyc(ctx, device)
     t = target.to_crt()
     h0, h1 = [], []
     for gj in gd.gadget_ints(spec, ctx.basis):
-        a_j = sampling.uniform(ctx, generator, device=device)
-        pe = Cyc.from_ints(ctx, params.p * _gaussian(ctx, generator, params.var),
-                           device=device).to_crt()
+        key, k_a, k_e = prng.split(key, 3)
+        a_j = sampling.uniform(ctx, k_a, device=device)
+        pe = _p_times(ctx, params.p, k_e, params.var, device)
         h0.append((pe + t * _scalar_crt(ctx, gj, device) - a_j * s).to_crt().data)
         h1.append(a_j.to_crt().data)
     return KSHint(params, torch.stack(h0), torch.stack(h1), spec)
 
 
-def ks_linear_hint(s_new: SK, s_old: SK, spec: gd.GadgetSpec, generator: torch.Generator,
+def ks_linear_hint(s_new: SK, s_old: SK, spec: gd.GadgetSpec, key,
                    device="cuda") -> KSHint:
     """The hint re-encrypting from s_old to s_new (Lol ksLinearHint)."""
     tgt = Cyc.from_ints(s_new.params.ctx, s_old.s_ints, device=device)
-    return _ks_hint(s_new, tgt, spec, generator, device)
+    return _ks_hint(s_new, tgt, spec, key, device)
 
 
-def ks_quad_circ_hint(sk: SK, spec: gd.GadgetSpec, generator: torch.Generator,
+def ks_quad_circ_hint(sk: SK, spec: gd.GadgetSpec, key,
                       device="cuda") -> KSHint:
     """The hint relinearizing the s^2 component (Lol ksQuadCircHint)."""
     s = sk.s_cyc(sk.params.ctx, device)
-    return _ks_hint(sk, s * s, spec, generator, device)
+    return _ks_hint(sk, s * s, spec, key, device)
 
 
-def ks_galois_hint(k: int, sk: SK, spec: gd.GadgetSpec, generator: torch.Generator,
+def ks_galois_hint(k: int, sk: SK, spec: gd.GadgetSpec, key,
                    device="cuda") -> KSHint:
     """The hint of sigma_k (gcd(k, m) = 1): gadget encryptions of
     sigma_k(s) under s."""
     target = Cyc.from_ints(sk.params.ctx, sk.s_ints, device=device).galois(k)
-    return _ks_hint(sk, target, spec, generator, device)
+    return _ks_hint(sk, target, spec, key, device)
 
 
 def _hint_cycs(ctx: RingContext, h: torch.Tensor, device) -> list[Cyc]:
@@ -643,7 +651,7 @@ def ct_galois(hint: KSHint, k: int, ct: CT) -> CT:
 # --- extended-modulus (hybrid) key switching --------------------------------
 
 
-def _ks_hint_ext(sk: SK, target: Cyc, spec: gd.GadgetSpec, generator: torch.Generator,
+def _ks_hint_ext(sk: SK, target: Cyc, spec: gd.GadgetSpec, key,
                  special_qs: tuple[int, ...], device="cuda") -> KSHintExt:
     """Gadget encryptions of P g_j t over Q P (P the special primes'
     product) under sk, g the base chain's gadget."""
@@ -655,27 +663,27 @@ def _ks_hint_ext(sk: SK, target: Cyc, spec: gd.GadgetSpec, generator: torch.Gene
     t_ext = Cyc.from_ints(ctx_ext, target.lift_ints(rep=Rep.POW), device=device).to_crt()
     h0, h1 = [], []
     for gj in gd.gadget_ints(spec, params.ctx.basis):
-        a_j = sampling.uniform(ctx_ext, generator, device=device)
-        pe = Cyc.from_ints(ctx_ext, params.p * _gaussian(ctx_ext, generator, params.var),
-                           device=device).to_crt()
+        key, k_a, k_e = prng.split(key, 3)
+        a_j = sampling.uniform(ctx_ext, k_a, device=device)
+        pe = _p_times(ctx_ext, params.p, k_e, params.var, device)
         pg = _scalar_crt(ctx_ext, P * gj % ctx_ext.basis.modulus, device)
         h0.append((pe + t_ext * pg - a_j * s_ext).to_crt().data)
         h1.append(a_j.to_crt().data)
     return KSHintExt(params, ext_qs, len(special_qs), torch.stack(h0), torch.stack(h1), spec)
 
 
-def ks_quad_circ_hint_ext(sk: SK, spec: gd.GadgetSpec, generator: torch.Generator,
+def ks_quad_circ_hint_ext(sk: SK, spec: gd.GadgetSpec, key,
                           special_qs: tuple[int, ...], device="cuda") -> KSHintExt:
     """The relinearization hint over the extended modulus Q P."""
     s = sk.s_cyc(sk.params.ctx, device)
-    return _ks_hint_ext(sk, s * s, spec, generator, special_qs, device)
+    return _ks_hint_ext(sk, s * s, spec, key, special_qs, device)
 
 
-def ks_linear_hint_ext(s_new: SK, s_old: SK, spec: gd.GadgetSpec, generator: torch.Generator,
+def ks_linear_hint_ext(s_new: SK, s_old: SK, spec: gd.GadgetSpec, key,
                        special_qs: tuple[int, ...], device="cuda") -> KSHintExt:
     """The re-encryption hint over the extended modulus Q P."""
     tgt = Cyc.from_ints(s_new.params.ctx, s_old.s_ints, device=device)
-    return _ks_hint_ext(s_new, tgt, spec, generator, special_qs, device)
+    return _ks_hint_ext(s_new, tgt, spec, key, special_qs, device)
 
 
 def _ks_inner_ext(hint: KSHintExt, c: Cyc) -> tuple[Cyc, Cyc]:
@@ -843,15 +851,17 @@ def twace_ct(ct: CT, m_sub: int) -> CT:
 
 
 def tunnel_hint(lin: Linear, sk_s: SK, sk_r: SK, spec: gd.GadgetSpec,
-                generator: torch.Generator, device="cuda") -> TunnelHint:
+                key, device="cuda") -> TunnelHint:
     """Lol tunnelHint: hint i holds the gadget encryptions of f(b_i s_R)
     under s_S, b_i the relative powerful basis of R / E."""
     from . import linear
 
     s_r = Cyc.from_ints(lin.r_ctx, sk_r.s_ints, device=device).to_crt()
-    hints = tuple(_ks_hint(sk_s, linear.eval_lin(lin, b_i * s_r), spec, generator, device)
-                  for b_i in linear.rel_basis_elements(lin.r_ctx, lin.e_ctx, device))
-    return TunnelHint(lin, hints, spec)
+    hints = []
+    for b_i in linear.rel_basis_elements(lin.r_ctx, lin.e_ctx, device):
+        key, sub = prng.split(key)
+        hints.append(_ks_hint(sk_s, linear.eval_lin(lin, b_i * s_r), spec, sub, device))
+    return TunnelHint(lin, tuple(hints), spec)
 
 
 def tunnel(th: TunnelHint, ct: CT) -> CT:

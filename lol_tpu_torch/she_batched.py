@@ -71,7 +71,7 @@ from torch import nn
 
 from . import gadget as gd
 from . import numtheory as nt
-from . import sampling, zmstar, zq
+from . import prng, sampling, zmstar, zq
 from .linear import Linear
 from .ops import general as gen
 from .ops import ntt as ntt_mod
@@ -322,28 +322,29 @@ class BatchedBGV:
         return torch.from_numpy(_s_crt_np(self.params, sk.s_ints).astype(np.int64))
 
     def build_encrypt(self, sk: SK, encoding: str = "lsd"):
-        """(msgs, generator) -> (c0, c1): encrypt an (n, B) batch of
+        """(msgs, key) -> (c0, c1): encrypt an (n, B) batch of
         decoding-basis plaintext coefficients mod p.  c1 is uniform in the
         CRT domain and c0 = CRT(L(m + p e)) - c1 * s (LSD) or
         CRT(L(Delta [m]_p + e)) - c1 * s
         (MSD, Delta = Q // p entering as Delta mod q_i per channel), e
-        rounded Gaussian of variance var."""
+        rounded Gaussian of variance var.  The key splits as the reference's
+        does: e from the first subkey, c1's channel i from subkey i + 1."""
         msd = _check_encoding(encoding) == "msd"
         qs, p, var = self.qs, self.params.p, self.params.var
         s_crt = self._s_crt(sk).to(self.device)[..., None]
         qv = _channel_consts(qs, self.device)
         delta = self._consts(lambda q: self.ctx.basis.modulus // p % q)
 
-        def enc(msgs: torch.Tensor, generator: torch.Generator):
-            e = sampling.gaussian_ints(tuple(msgs.shape), var, generator, self.device)
+        def enc(msgs: torch.Tensor, key):
+            k_e, *k_u = prng.split(key, 1 + len(qs))
+            e = sampling.gaussian_ints(tuple(msgs.shape), var, k_e, self.device)
             msgs = msgs.to(self.device).long()
             if msd:
                 me = ((msgs % p)[None] * delta + e[None]) % qv
             else:
                 me = (msgs + p * e)[None] % qv
             me_crt = self._ntt(self._l(me.to(torch.int32)))
-            c1 = sampling.uniform_residues(qs, tuple(msgs.shape), generator,
-                                           self.device)
+            c1 = prng.randint_channels(k_u, qs, tuple(msgs.shape), self.device)
             c0 = _submod_ch(qv, me_crt, _mulmod_ch(qv, c1, s_crt))
             return c0.to(torch.int32), c1
 
@@ -625,12 +626,15 @@ class BatchedBGV:
                 f"!= pipeline params (m={self.params.m}, qs={self.params.qs})")
 
     def _gen_gadget_hints(self, sk: SK, targets: torch.Tensor,
-                          generator: torch.Generator,
+                          key,
                           gadget=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Gadget hints for T targets in one pass on the device: targets is
         a (T, nrns, n) CRT-domain tensor, and for target t and digit j,
         h0[t, j] = p e + g_j target_t - a s and h1[t, j] = a, with a
-        uniform and e rounded Gaussian, fresh for each (t, j).  gadget: the
+        uniform and e rounded Gaussian, fresh for each (t, j): as the
+        reference draws them, e over (n, T ell) from the key's first
+        subkey and a's channel i over (n, T ell) from subkey i + 1, column
+        t ell + j holding (t, j).  gadget: the
         g_j as integers, by default this chain's RNS gadget (the
         extended-modulus hints pass P times the base chain's).  Returns two
         (T, ell, nrns, n) int32 tensors."""
@@ -645,33 +649,33 @@ class BatchedBGV:
         s_crt = self._s_crt(sk).to(self.device)  # (nrns, n)
         g = torch.tensor([[gi % q for q in qs] for gi in g_ints], dtype=torch.int64,
                          device=self.device)[None, :, :, None]  # (1, ell, nrns, 1)
-        pe = p * sampling.gaussian_ints((n, L), self.params.var, generator, self.device)
+        k_e, *k_a = prng.split(key, 1 + nrns)
+        pe = p * sampling.gaussian_ints((n, L), self.params.var, k_e, self.device, how="f64")
         pe_crt = self._ntt((pe[None] % qv).to(torch.int32)).long()  # (nrns, n, L)
         pe_crt = pe_crt.view(nrns, n, T, ell).permute(2, 3, 0, 1)
-        a = torch.stack([
-            sampling.uniform_residues(qs, (n,), generator, self.device) for _ in range(L)
-        ]).view(T, ell, nrns, n)
+        a = prng.randint_channels(k_a, qs, (n, L), self.device)
+        a = a.view(nrns, n, T, ell).permute(2, 3, 0, 1).contiguous()
         gt = g * targets.to(self.device).long()[:, None] % q2
         h0 = (pe_crt + gt - a.long() * s_crt % q2) % q2
         return h0.to(torch.int32), a
 
-    def gen_ks_quad_hint(self, sk: SK, generator: torch.Generator) -> KSHint:
+    def gen_ks_quad_hint(self, sk: SK, key) -> KSHint:
         """Relinearization hint for s^2, made on the device."""
         s_crt = self._s_crt(sk).to(self.device)
         s2 = s_crt * s_crt % _channel_consts(self.qs, self.device)[..., 0]
-        h0, h1 = self._gen_gadget_hints(sk, s2[None], generator)
+        h0, h1 = self._gen_gadget_hints(sk, s2[None], key)
         return KSHint(self.params, h0[0], h1[0])
 
     def gen_ks_linear_hint(self, s_new: SK, s_old: SK,
-                           generator: torch.Generator) -> KSHint:
+                           key) -> KSHint:
         """Re-encryption hint from s_old to s_new, made on the device."""
         self._check_sk(s_old, "gen_ks_linear_hint")
-        h0, h1 = self._gen_gadget_hints(s_new, self._s_crt(s_old)[None], generator)
+        h0, h1 = self._gen_gadget_hints(s_new, self._s_crt(s_old)[None], key)
         return KSHint(self.params, h0[0], h1[0])
 
     # --- extended-modulus (hybrid) hints --------------------------------
     def _gen_hint_ext(self, sk_enc: SK, tgt_crt_ext: torch.Tensor,
-                      special_qs: tuple[int, ...], generator: torch.Generator) -> KSHintExt:
+                      special_qs: tuple[int, ...], key) -> KSHintExt:
         """Gadget encryptions of P * target over Q*P under sk_enc, with the
         BASE chain's RNS gadget: `_gen_gadget_hints` of the pipeline over
         the extended chain, its gadget P g_j.  P*t mod Q*P depends on t mod
@@ -681,7 +685,7 @@ class BatchedBGV:
         params_ext = replace(self.params, qs=ext_qs)
         P = math.prod(special_qs)
         h0, h1 = BatchedBGV(params_ext, self.device)._gen_gadget_hints(
-            SK(params_ext, sk_enc.s_ints, sk_enc.var), tgt_crt_ext[None], generator,
+            SK(params_ext, sk_enc.s_ints, sk_enc.var), tgt_crt_ext[None], key,
             gadget=[P * g for g in gd.gadget_ints(gd.RnsGad(), self.ctx.basis)])
         return KSHintExt(self.params, ext_qs, len(special_qs), h0[0], h1[0])
 
@@ -691,7 +695,7 @@ class BatchedBGV:
         return torch.from_numpy(_s_crt_np(params_ext, sk.s_ints).astype(np.int64))
 
     def gen_ks_quad_hint_ext(self, sk: SK, special_qs: tuple[int, ...],
-                             generator: torch.Generator) -> KSHintExt:
+                             key) -> KSHintExt:
         """Extended-modulus relinearization hint, made on the device: gadget
         encryptions of P * s^2 over the chain Q*P (P = prod special_qs)
         with the base chain's RNS gadget; the digit inner product then runs
@@ -699,17 +703,17 @@ class BatchedBGV:
         self._check_sk(sk, "gen_ks_quad_hint_ext")
         s = self._s_crt_ext(sk, special_qs)
         qv = _channel_consts(self.qs + tuple(special_qs), "cpu")[..., 0]
-        return self._gen_hint_ext(sk, s * s % qv, special_qs, generator)
+        return self._gen_hint_ext(sk, s * s % qv, special_qs, key)
 
     def gen_ks_linear_hint_ext(self, s_new: SK, s_old: SK, special_qs: tuple[int, ...],
-                               generator: torch.Generator) -> KSHintExt:
+                               key) -> KSHintExt:
         """Extended-modulus re-encryption hint, made on the device: gadget
         encryptions of P * s_old over Q*P under s_new, with the base
         chain's RNS gadget."""
         self._check_sk(s_new, "gen_ks_linear_hint_ext")
         self._check_sk(s_old, "gen_ks_linear_hint_ext")
         return self._gen_hint_ext(s_new, self._s_crt_ext(s_old, special_qs), special_qs,
-                                  generator)
+                                  key)
 
     def _ext_hint_setup(self, hint: KSHintExt) -> tuple["BatchedBGV", list["BatchedBGV"]]:
         """Checks that the hint's chain extends this one, and returns the
@@ -745,7 +749,7 @@ class BatchedBGV:
             raise ValueError(f"{what}: the map's rings are over another chain")
 
     def gen_tunnel_hint(self, lin: Linear, sk_s: SK, sk_r: SK,
-                        generator: torch.Generator) -> TunnelHint:
+                        key) -> TunnelHint:
         """The ring-tunneling hints of lin under sk_s: hint i encrypts
         f(b_i s_R).  The targets are exact host numpy, per channel: b_i s_R
         (a CRT Hadamard with the monomial's CRT over R, back to the
@@ -774,17 +778,17 @@ class BatchedBGV:
             crt = gen.np_crt(s_gp, emb.reshape(d * d, n_s)).reshape(d, d, n_s)
             targets[:, ch] = (crt.astype(np.int64) * ys_crt[None, :, ch] % q).sum(1) % q
         over_s = self._over(s_ctx)
-        h0, h1 = over_s._gen_gadget_hints(sk_s, torch.from_numpy(targets), generator)
+        h0, h1 = over_s._gen_gadget_hints(sk_s, torch.from_numpy(targets), key)
         return TunnelHint(lin, tuple(KSHint(over_s.params, h0[i], h1[i])
                                      for i in range(lin.d)))
 
-    def gen_galois_hint(self, k: int, sk: SK, generator: torch.Generator) -> KSHint:
+    def gen_galois_hint(self, k: int, sk: SK, key) -> KSHint:
         """The sigma_k hint, made on the device: gadget encryptions under s
         of sigma_k(s), whose CRT residues are s's, slot-permuted."""
         self._check_sk(sk, "gen_galois_hint")
         perm = zmstar.automorphism_slot_perm(self.ctx.m, self.qs[0], k)
         target = torch.from_numpy(_s_crt_np(self.params, sk.s_ints)[:, perm].astype(np.int64))
-        h0, h1 = self._gen_gadget_hints(sk, target[None], generator)
+        h0, h1 = self._gen_gadget_hints(sk, target[None], key)
         return KSHint(self.params, h0[0], h1[0])
 
 

@@ -22,6 +22,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from lol_tpu.bench import mxu_ntt as jmx
+from lol_tpu_torch import prng
 from lol_tpu_torch import numtheory as nt, prf, sampling, serving, she
 from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, sass_diff, steptime
 from lol_tpu_torch.ops.cuda import build
@@ -187,10 +188,10 @@ def test_steptime_galois_inputs_on_cpu():
 def test_steptime_legs_on_cpu_and_step_leg_equals_the_step():
     m, B = 64, 5
     params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
-    g = torch.Generator().manual_seed(7)
+    g = prng.KeyChain(7)
     bb = BatchedBGV(params, "cpu")
-    step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, g), g))
-    cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), g) for _ in range(4)]
+    step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, g(), "cpu"), g()))
+    cts = [sampling.uniform_residues(params.qs, (params.ctx.n, B), g(), "cpu") for _ in range(4)]
     legs = steptime.build_legs(step, *cts)
     assert list(legs) == [*steptime.PARTS, "step"]
     out = {name: fn() for name, fn in legs.items()}

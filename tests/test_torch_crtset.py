@@ -23,9 +23,9 @@ from lol_tpu import prf as jprf
 from lol_tpu import she as jshe
 from lol_tpu.cyc import Rep as JRep
 from lol_tpu.ring import ring_context as j_ring_context
-from lol_tpu_torch import convert, crtset, gf, linear, numtheory as nt, prf, she
+from lol_tpu_torch import prng
+from lol_tpu_torch import convert, crtset, gadget as gd, gf, linear, numtheory as nt, prf, she
 from lol_tpu_torch.ring import ring_context
-from lol_tpu_torch.she_batched import BatchedBGV
 
 CASES = [(7, 2, 1), (7, 2, 3), (12, 5, 2), (15, 2, 1), (16, 7, 2), (9, 2, 2)]
 
@@ -149,7 +149,7 @@ def _maps(monkeypatch, p, rings, e_rings, maps):
     generator (stubbed), or the exception type it raises."""
     qs = tuple(nt.ntt_primes(2 * 63 * 16, 30, 2))  # = 1 mod every ring index here
     monkeypatch.setattr(jshe, "tunnel_hint", lambda lin, *args: lin)
-    monkeypatch.setattr(BatchedBGV, "gen_tunnel_hint", lambda self, lin, *args: lin)
+    monkeypatch.setattr(she, "tunnel_hint", lambda lin, *args: lin)
     params = [she.SHEParams(m=m, p=p, qs=qs, var=2.0) for m in rings]
     jsks = [jshe.SK(jshe.SHEParams(m=m, p=p, qs=qs, var=2.0),
                     np.zeros(prm.ctx.n, np.int64), 2.0) for m, prm in zip(rings, params)]
@@ -157,8 +157,8 @@ def _maps(monkeypatch, p, rings, e_rings, maps):
     out = []
     for run in (lambda: jprf.make_eval_hints(None, jsks, rings, e_rings, jgd.RnsGad(),
                                              jax.random.PRNGKey(2), maps=maps),
-                lambda: prf.make_eval_hints(None, sks, rings, e_rings,
-                                            torch.Generator().manual_seed(3), maps=maps,
+                lambda: prf.make_eval_hints(None, sks, rings, e_rings, gd.RnsGad(),
+                                            prng.PRNGKey(3), maps=maps,
                                             device="cpu")):
         try:
             out.append(run()[0].tunnels)

@@ -24,6 +24,7 @@ from lol_tpu import zmstar as jzm
 from lol_tpu.cyc import Cyc as JCyc, Rep as JRep
 from lol_tpu.crtset import crt_set_cyc as j_crt_set_cyc
 from lol_tpu.ops import general as jgen
+from lol_tpu_torch import prng
 from lol_tpu_torch import complexfield as cf
 from lol_tpu_torch import convert, crtset, gadget, numtheory as nt, ring as rg
 from lol_tpu_torch import rlwe, rrq, sampling, zmstar
@@ -249,21 +250,21 @@ def test_gadgets_match_jax(spec_name):
 def test_sampling_rest():
     """uniform (CRT-tagged where the ring has a CRT basis, POW where not),
     gaussian_cyc, error_coset (congruent to its coset mod p),
-    real_gaussians and gaussian_ints_np, all from a torch.Generator."""
+    real_gaussians and gaussian_ints_np, all from one `prng` key chain."""
     ctx, _ = _ctxs(64)
-    g = torch.Generator().manual_seed(0)
-    u = sampling.uniform(ctx, g, (3,), device="cpu")
+    g = prng.KeyChain(0)
+    u = sampling.uniform(ctx, g(), (3,), device="cpu")
     assert u.rep is Rep.CRT and u.data.shape == (3, 2, 32)
     assert all(int(u.data[:, i].max()) < q for i, q in enumerate(ctx.basis.qs))
-    assert sampling.uniform(rg.ring_context(16, (256,)), g, device="cpu").rep is Rep.POW
-    e = sampling.gaussian_cyc(ctx, g, 4.0, device="cpu")
+    assert sampling.uniform(rg.ring_context(16, (256,)), g(), device="cpu").rep is Rep.POW
+    e = sampling.gaussian_cyc(ctx, g(), 4.0, device="cpu")
     assert e.rep is Rep.DEC and max(abs(int(v)) for v in e.lift_ints()) < 40
     coset = np.arange(32) % 17
-    ec = sampling.error_coset(ctx, g, 4.0, coset, 17, device="cpu")
+    ec = sampling.error_coset(ctx, g(), 4.0, coset, 17, device="cpu")
     np.testing.assert_array_equal(ec.lift_ints() % 17, coset)
-    r = sampling.real_gaussians(g, 9.0, (20000,))
+    r = sampling.real_gaussians(g(), 9.0, (20000,), "cpu")
     assert r.dtype == torch.float32 and abs(float(r.var()) - 9.0) < 0.5
-    gi = sampling.gaussian_ints_np(rg.ring_context(36, _qs(36)), g, 2.0)
+    gi = sampling.gaussian_ints_np(rg.ring_context(36, _qs(36)), g(), 2.0, "cpu")
     assert gi.shape == (12,) and gi.dtype == np.int64
 
 
@@ -297,10 +298,10 @@ def test_rlwe_matches_jax(m):
     and the bound itself agree; a continuous sample's b is a s plus a
     small real error."""
     ctx, jctx = _ctxs(m)
-    g = torch.Generator().manual_seed(m)
+    g = prng.KeyChain(m)
     s = Cyc.from_ints(ctx, np.arange(ctx.n) % 3 - 1, rep=Rep.DEC, device="cpu")
     js = JCyc.from_ints(jctx, np.arange(ctx.n) % 3 - 1, rep=JRep.DEC)
-    samp = rlwe.sample_discrete(ctx, s, 2.0, g)
+    samp = rlwe.sample_discrete(ctx, s, 2.0, g())
     jsamp = jrlwe.RLWESample(*(JCyc(jctx, JRep(c.rep.value), jnp.asarray(c.data.numpy().astype(np.uint32)))
                                for c in (samp.a, samp.b)))
     np.testing.assert_array_equal(rlwe.error_term(s, samp), jrlwe.error_term(js, jsamp))
@@ -310,13 +311,13 @@ def test_rlwe_matches_jax(m):
     assert rlwe.gaussian_quad_bound(ctx, 2.0, "id", rounded=False) == \
         jrlwe.gaussian_quad_bound(jctx, 2.0, "id", rounded=False)
     assert rlwe.valid_instance(s, samp, bound) and jrlwe.valid_instance(js, jsamp, bound)
-    a, b = rlwe.sample_continuous(ctx, s, 0.25, g)
+    a, b = rlwe.sample_continuous(ctx, s, 0.25, g())
     lifted = (a * s).to_dec().lift_ints().astype(np.float64)
     assert b.dtype == np.float64 and np.abs(b - lifted).max() < 4.0
     c1, jc1 = _ctxs(m, (_qs(m)[0],))
     c2, jc2 = _ctxs(m, (257,)) if m == 64 else _ctxs(m, (37,))
     s1 = Cyc.from_ints(c1, np.arange(ctx.n) % 3 - 1, device="cpu")
-    r = rlwe.sample_rlwr(c1, c2, s1, g)
+    r = rlwe.sample_rlwr(c1, c2, s1, g())
     ja = JCyc(jc1, JRep(r.a.rep.value), jnp.asarray(r.a.data.numpy().astype(np.uint32)))
     js1 = JCyc.from_ints(jc1, np.arange(ctx.n) % 3 - 1)
     _eq(rlwe.sample_rlwr_recompute(c1, c2, r.a, s1), jrlwe.sample_rlwr_recompute(jc1, jc2, ja, js1))

@@ -21,6 +21,7 @@ import torch
 
 from lol_tpu import she as jshe
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import prng
 from lol_tpu_torch import convert, numtheory as nt, she
 from lol_tpu_torch.she_batched import BatchedBGV
 
@@ -108,18 +109,18 @@ def test_port_ext_hints_decrypt_with_less_noise():
     Q*P): the ext step decrypts to pt_mul and the ext linear key switch
     to the message under the new key, LSD and MSD, each with a noise
     budget strictly below the base-gadget builder's on the same inputs."""
-    g = torch.Generator().manual_seed(5)
+    g, rng = prng.KeyChain(5), np.random.default_rng(5)
     bb, bb2 = BatchedBGV(PARAMS, "cpu"), BatchedBGV(DROPPED, "cpu")
-    sk, sk_new = she.gen_sk(PARAMS, g), she.gen_sk(PARAMS, g)
+    sk, sk_new = she.gen_sk(PARAMS, g(), "cpu"), she.gen_sk(PARAMS, g(), "cpu")
     sk2 = she.SK(DROPPED, sk.s_ints, sk.var)
-    quad_ext = bb.gen_ks_quad_hint_ext(sk, SPECIAL, g)
-    lin_ext = bb.gen_ks_linear_hint_ext(sk_new, sk, SPECIAL, g)
+    quad_ext = bb.gen_ks_quad_hint_ext(sk, SPECIAL, g())
+    lin_ext = bb.gen_ks_linear_hint_ext(sk_new, sk, SPECIAL, g())
     assert quad_ext.h0.shape == (len(QS), len(ALL5), M // 2) and quad_ext.ext_qs == ALL5
-    quad, lin = bb.gen_ks_quad_hint(sk, g), bb.gen_ks_linear_hint(sk_new, sk, g)
-    m1, m2 = she.pt_random(PARAMS, g, (B,)), she.pt_random(PARAMS, g, (B,))
+    quad, lin = bb.gen_ks_quad_hint(sk, g()), bb.gen_ks_linear_hint(sk_new, sk, g())
+    m1, m2 = she.pt_random(PARAMS, rng, (B,), "cpu"), she.pt_random(PARAMS, rng, (B,), "cpu")
     for encoding in ("lsd", "msd"):
         enc = bb.build_encrypt(sk, encoding)
-        a, b = enc(m1, g), enc(m2, g)
+        a, b = enc(m1, g()), enc(m2, g())
         f2 = bb.step_f(1, 1, encoding)
         ext = bb.build_step_ext(quad_ext, encoding)(*a, *b)
         base = bb.build_step(quad, encoding)(*a, *b)

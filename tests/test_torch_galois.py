@@ -26,6 +26,7 @@ from lol_tpu import she as jshe
 from lol_tpu.cyc import Cyc as JCyc, Rep as JRep
 from lol_tpu.ops import general as jgen
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import prng
 from lol_tpu_torch import convert, numtheory as nt, she, zmstar
 from lol_tpu_torch.ops import general as gen
 from lol_tpu_torch.she_batched import BatchedBGV
@@ -71,11 +72,11 @@ def _state(m):
     p, ks = P[m], KS[m]
     qs = tuple(nt.ntt_primes(m, 30, 3))
     params = she.SHEParams(m=m, p=p, qs=qs, var=2.0)
-    g = torch.Generator().manual_seed(m)
-    sk = she.gen_sk(params, g)
+    g, rng = prng.KeyChain(m), np.random.default_rng(m)
+    sk = she.gen_sk(params, g(), "cpu")
     bb = BatchedBGV(params, "cpu")
-    msgs = she.pt_random(params, g, (B,))
-    c = bb.build_encrypt(sk)(msgs, g)
+    msgs = she.pt_random(params, rng, (B,), "cpu")
+    c = bb.build_encrypt(sk)(msgs, g())
     jp = jshe.SHEParams(m=m, p=p, qs=qs, var=2.0)
     jsk = jshe.SK(jp, sk.s_ints.numpy(), 2.0)
     jbb = JBatchedBGV(jp, use_pallas=False)
@@ -162,7 +163,7 @@ def test_port_galois_hint_decrypts_as_reference(m):
     st = _state(m)
     bb, dec = st["bb"], st["bb"].build_decrypt(st["sk"])
     k = KS[m][1]
-    hint = bb.gen_galois_hint(k, st["sk"], torch.Generator().manual_seed(1))
+    hint = bb.gen_galois_hint(k, st["sk"], prng.PRNGKey(1))
     assert hint.h0.shape == hint.h1.shape == (3, 3, bb.ctx.n)
     got = dec(*bb.build_galois(hint, k)(*st["c"]))
     np.testing.assert_array_equal(got.numpy(), dec(*bb.build_galois(st["hints"][k], k)(*st["c"])).numpy())

@@ -28,6 +28,7 @@ from lol_tpu.cyc import Cyc as JCyc, Rep as JRep
 from lol_tpu.ops import general as jgen
 from lol_tpu.ring import ring_context as j_ring_context
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import prng
 from lol_tpu_torch import convert, factored, linear, numtheory as nt, sampling, she
 from lol_tpu_torch.ops import general as gen
 from lol_tpu_torch.ops import ntt
@@ -184,7 +185,7 @@ def test_gaussian_dec_ints_covariance_at_config3():
     none across 2-axis positions; at 2-power m it is iid."""
     m, var, rows = 18432, 16.0, 24
     ctx = ring_context(m, (nt.ntt_primes(m, 30, 1)[0],))
-    x = sampling.gaussian_dec_ints(ctx, torch.Generator().manual_seed(3), var, (rows,))
+    x = sampling.gaussian_dec_ints(ctx, prng.PRNGKey(3), var, (rows,), "cpu")
     assert x.shape == (rows, 6144) and x.dtype == torch.int64
     v = x.view(rows * 1024, 6).double().numpy()
     L1 = gen.dec_mixing_factors(m)[1]
@@ -196,9 +197,8 @@ def test_gaussian_dec_ints_covariance_at_config3():
     cross = (pairs.T @ nxt / len(pairs)).numpy()
     assert np.abs(cross).max() < 0.05 * np.abs(want).max()
     ctx2 = ring_context(64, (nt.ntt_primes(64, 30, 1)[0],))
-    g1, g2 = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
-    assert torch.equal(sampling.gaussian_dec_ints(ctx2, g1, 2.0, (3,)),
-                       sampling.gaussian_ints((3, 32), 2.0, g2))
+    assert torch.equal(sampling.gaussian_dec_ints(ctx2, prng.PRNGKey(4), 2.0, (3,), "cpu"),
+                       sampling.gaussian_ints((3, 32), 2.0, prng.PRNGKey(4), "cpu"))
 
 
 def test_ring_context_at_general_m():
@@ -228,12 +228,12 @@ def _state(m, p, full=True):
         return _STATE[m]
     qs = tuple(nt.ntt_primes(m, 30, 3))
     params = she.SHEParams(m=m, p=p, qs=qs, var=2.0)
-    g = torch.Generator().manual_seed(m)
-    sk = she.gen_sk(params, g)
+    g, rng = prng.KeyChain(m), np.random.default_rng(m)
+    sk = she.gen_sk(params, g(), "cpu")
     bb = BatchedBGV(params, "cpu")
-    m1, m2 = she.pt_random(params, g, (B,)), she.pt_random(params, g, (B,))
+    m1, m2 = she.pt_random(params, rng, (B,), "cpu"), she.pt_random(params, rng, (B,), "cpu")
     enc = bb.build_encrypt(sk)
-    c, d = enc(m1, g), enc(m2, g)
+    c, d = enc(m1, g()), enc(m2, g())
     jp, jp2 = (jshe.SHEParams(m=m, p=p, qs=q_, var=2.0) for q_ in (qs, qs[:-1]))
     jsk = jshe.SK(jp, sk.s_ints.numpy(), 2.0)
     jc, jd = ([jnp.asarray(_u32(t)) for t in x] for x in (c, d))
@@ -306,12 +306,12 @@ def test_msd_step_at_m36_matches_reference():
     m, p = 36, 5
     qs = tuple(nt.ntt_primes(m, 30, 3))
     params = she.SHEParams(m=m, p=p, qs=qs, var=2.0)
-    g = torch.Generator().manual_seed(36)
-    sk = she.gen_sk(params, g)
+    g, rng = prng.KeyChain(36), np.random.default_rng(36)
+    sk = she.gen_sk(params, g(), "cpu")
     bb = BatchedBGV(params, "cpu")
     enc = bb.build_encrypt(sk, "msd")
-    m1, m2 = she.pt_random(params, g, (B,)), she.pt_random(params, g, (B,))
-    c, d = enc(m1, g), enc(m2, g)
+    m1, m2 = she.pt_random(params, rng, (B,), "cpu"), she.pt_random(params, rng, (B,), "cpu")
+    c, d = enc(m1, g()), enc(m2, g())
     np.testing.assert_array_equal(bb.build_decrypt(sk, encoding="msd")(*c).numpy(), m1.numpy())
     jp = jshe.SHEParams(m=m, p=p, qs=qs, var=2.0)
     jsk = jshe.SK(jp, sk.s_ints.numpy(), 2.0)
@@ -341,8 +341,8 @@ def test_tunnel_72_to_36_matches_reference():
     qs, p = st["params"].qs[:-1], st["params"].p
     p2 = she.SHEParams(m=72, p=p, qs=qs, var=2.0)
     ps = she.SHEParams(m=36, p=p, qs=qs, var=2.0)
-    g = torch.Generator().manual_seed(7)
-    sk_s, sk2 = she.gen_sk(ps, g), she.SK(p2, st["sk"].s_ints, 2.0)
+    g, rng = prng.KeyChain(7), np.random.default_rng(7)
+    sk_s, sk2 = she.gen_sk(ps, g(), "cpu"), she.SK(p2, st["sk"].s_ints, 2.0)
     E = S = j_ring_context(36, qs)
     rng = np.random.default_rng(72)
     ys = [rng.integers(-2, 3, 12) for _ in range(2)]
@@ -362,8 +362,8 @@ def test_tunnel_72_to_36_matches_reference():
     e = convert.cts_from_numpy(*(np.asarray(a) for a in st["je"]), device="cpu")
     for mine, ref in zip(bb2.build_tunnel(pth)(*e), want):
         np.testing.assert_array_equal(_u32(mine), np.asarray(ref))
-    th2 = bb2.gen_tunnel_hint(lin, sk_s, sk2, g)
-    t0, t1 = bb2.build_tunnel(th2)(*bb2.build_encrypt(sk2)(torch.from_numpy(st["m1"]), g))
+    th2 = bb2.gen_tunnel_hint(lin, sk_s, sk2, g())
+    t0, t1 = bb2.build_tunnel(th2)(*bb2.build_encrypt(sk2)(torch.from_numpy(st["m1"]), g()))
     got = bb2.target_pipeline(th2).build_decrypt(sk_s)(t0, t1)
     for b in range(B):
         x_pow = gen.l_host(72, st["m1"][:, b], p)

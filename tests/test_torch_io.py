@@ -32,6 +32,7 @@ from lol_tpu import she as jshe
 from lol_tpu.cyc import Cyc as JCyc
 from lol_tpu.proto import lol_pb2 as jpb
 from lol_tpu.ring import ring_context as j_ring_context
+from lol_tpu_torch import prng
 from lol_tpu_torch import convert, gadget as gd, io, linear, numtheory as nt, prf, she
 from lol_tpu_torch.cyc import Cyc, Rep
 from lol_tpu_torch.proto import wire as pb
@@ -246,23 +247,23 @@ def _same_tensors(a, b):
 @pytest.fixture(scope="module")
 def port_objects():
     """The port's own objects at m = 32 (and 16, 8), made on the CPU."""
-    g = torch.Generator().manual_seed(5)
+    g, rng = prng.KeyChain(5), np.random.default_rng(5)
     params = she.SHEParams(m=M, p=257, qs=QS, var=2.0)
-    sk = she.gen_sk(params, g)
-    m1 = she.pt_random(params, g).numpy()
-    out = {"sk": sk, "ct": she.encrypt(sk, m1, g, "cpu"), "ct_msd": she.encrypt_msd(sk, m1, g, "cpu")}
+    sk = she.gen_sk(params, g(), "cpu")
+    m1 = she.pt_random(params, rng, device="cpu").numpy()
+    out = {"sk": sk, "ct": she.encrypt(sk, m1, g(), "cpu"), "ct_msd": she.encrypt_msd(sk, m1, g(), "cpu")}
     for tag, spec in (("rns", gd.RnsGad()), ("base", gd.BaseBGad(BASE)), ("triv", gd.TrivGad())):
-        out[f"ks_{tag}"] = she.ks_quad_circ_hint(sk, spec, g, "cpu")
-    out["ks_ext"] = she.ks_quad_circ_hint_ext(sk, gd.RnsGad(), g, SPECIAL, "cpu")
+        out[f"ks_{tag}"] = she.ks_quad_circ_hint(sk, spec, g(), "cpu")
+    out["ks_ext"] = she.ks_quad_circ_hint_ext(sk, gd.RnsGad(), g(), SPECIAL, "cpu")
     S = ring_context(MS, QS)
     out["linear"] = linear.linear_pow(S, params.ctx, S, [[1] + [0] * 7, [0, -3, 2] + [0] * 5])
-    sk_s = she.gen_sk(replace(params, m=MS), g)
-    out["tunnel"] = BatchedBGV(params, "cpu").gen_tunnel_hint(out["linear"], sk_s, sk, g)
+    sk_s = she.gen_sk(replace(params, m=MS), g(), "cpu")
+    out["tunnel"] = BatchedBGV(params, "cpu").gen_tunnel_hint(out["linear"], sk_s, sk, g())
     rings = [16, 8]
-    sks = [she.gen_sk(she.SHEParams(m=r, p=8, qs=P8_QS, var=2.0), g) for r in rings]
-    out["rounds"] = she.pt_round_hints(sks[-1], g, "cpu")
+    sks = [she.gen_sk(she.SHEParams(m=r, p=8, qs=P8_QS, var=2.0), g(), "cpu") for r in rings]
+    out["rounds"] = she.pt_round_hints(sks[-1], gd.RnsGad(), g(), "cpu")
     for tag, rnd in (("eval", False), ("eval_rounds", True)):
-        out[tag] = prf.make_eval_hints(None, sks, rings, rings[1:], g, homomorphic_round=rnd,
+        out[tag] = prf.make_eval_hints(None, sks, rings, rings[1:], gd.RnsGad(), g(), homomorphic_round=rnd,
                                        maps="project", device="cpu")[0]
     return out
 
@@ -383,7 +384,7 @@ def test_port_written_hint_key_switches_in_jax_bit_for_bit(st):
     read by the JAX package, relinearizes there to the port's ciphertext."""
     params = _params(st["jp"])
     sk = convert.sk_from_numpy(params, st["jsk"].s_ints)
-    hint = she.ks_quad_circ_hint(sk, gd.RnsGad(), torch.Generator().manual_seed(9), "cpu")
+    hint = she.ks_quad_circ_hint(sk, gd.RnsGad(), prng.PRNGKey(9), "cpu")
     jhint = jio.ks_hint_from_proto(jpb.KSHint.FromString(
         io.ks_hint_to_proto(hint).SerializeToString()))
     want = jshe.key_switch_quad_circ(jhint, jshe.ct_mul(st["a"], st["b"]))

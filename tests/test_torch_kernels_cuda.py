@@ -9,10 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from lol_tpu_torch import numtheory as nt, prf, serving, she
+from lol_tpu_torch import gadget, numtheory as nt, prf, prng, serving, she
 from lol_tpu_torch.bench import mxu_ntt as mx, steptime
 from lol_tpu_torch.ops import ntt
-from lol_tpu_torch.ops.cuda import ntt_kernel as tk, pointwise as pw, remote_ntt as rn
+from lol_tpu_torch.ops.cuda import ntt_kernel as tk, pointwise as pw, prng as pk
+from lol_tpu_torch.ops.cuda import remote_ntt as rn
 from lol_tpu_torch.parallel import sharding as sh
 from lol_tpu_torch.ring import ring_context
 from lol_tpu_torch.she_batched import BatchedBGV
@@ -222,13 +223,13 @@ def test_tower_tail_transforms_launch_once(cuda, n):
 def test_step_on_card_equals_step_on_cpu(cuda):
     m = 512
     params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
-    g = torch.Generator().manual_seed(0)
-    sk = she.gen_sk(params, g)
+    g, rng = prng.KeyChain(0), np.random.default_rng(0)
+    sk = she.gen_sk(params, g())
     bb = BatchedBGV(params, cuda)
-    hint = bb.gen_ks_quad_hint(sk, g)
+    hint = bb.gen_ks_quad_hint(sk, g())
     enc = bb.build_encrypt(sk)
-    cts = (*enc(she.pt_random(params, g, (40,)), g),
-           *enc(she.pt_random(params, g, (40,)), g))
+    cts = (*enc(she.pt_random(params, rng, (40,), cuda), g()),
+           *enc(she.pt_random(params, rng, (40,), cuda), g()))
     before = pw.LAUNCHES["ct_mul"]
     e_gpu = bb.build_step(hint)(*cts)
     assert pw.LAUNCHES["ct_mul"] - before == len(params.qs)
@@ -256,8 +257,8 @@ def test_prologue_on_the_tunnel_ring(cuda, B):
 
 def _pipelines(cuda, m, seed):
     params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
-    g = torch.Generator().manual_seed(seed)
-    return params, g, BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
+    g, rng = prng.KeyChain(seed), np.random.default_rng(seed)
+    return params, g, rng, BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
 
 
 def _same(gpu_out, cpu_out):
@@ -271,12 +272,12 @@ def _same(gpu_out, cpu_out):
 def test_builders_on_card_equal_cpu(cuda, builder):
     """Each standalone builder at m = 4096 on the card == on the CPU;
     the public plaintexts at (n, 1) take ntt_cm at B = 1."""
-    params, g, bb, bb_cpu = _pipelines(cuda, 4096, 1)
-    sk, sk_new = she.gen_sk(params, g), she.gen_sk(params, g)
+    params, g, rng, bb, bb_cpu = _pipelines(cuda, 4096, 1)
+    sk, sk_new = she.gen_sk(params, g()), she.gen_sk(params, g())
     enc = "msd" if builder.endswith("msd") else "lsd"
     e = bb.build_encrypt(sk, enc)
-    cts = e(she.pt_random(params, g, (40,)), g)
-    pub = she.pt_random(params, g, (1,))
+    cts = e(she.pt_random(params, rng, (40,), cuda), g())
+    pub = she.pt_random(params, rng, (1,), cuda)
     make = {
         "step_msd": lambda b: (lambda c0, c1: b.build_step(hint, "msd")(c0, c1, c0, c1)),
         "mod_switch_lsd": lambda b: b.build_mod_switch("lsd"),
@@ -286,8 +287,8 @@ def test_builders_on_card_equal_cpu(cuda, builder):
         "mul_public_n1": lambda b: (lambda c0, c1: b.build_mul_public()(c0, c1, pub)),
         "error_term": lambda b: (lambda c0, c1: (b.build_error_term(sk)(c0, c1),)),
     }[builder]
-    hint = (bb.gen_ks_linear_hint(sk_new, sk, g) if builder == "key_switch_linear"
-            else bb.gen_ks_quad_hint(sk, g))
+    hint = (bb.gen_ks_linear_hint(sk_new, sk, g()) if builder == "key_switch_linear"
+            else bb.gen_ks_quad_hint(sk, g()))
     _same(make(bb)(*cts), make(bb_cpu)(*(c.cpu() for c in cts)))
 
 
@@ -297,13 +298,13 @@ def test_tunnel_on_card_equals_cpu(cuda):
     forwards, and the CPU's output."""
     from lol_tpu_torch import linear
 
-    params, g, bb, bb_cpu = _pipelines(cuda, 4096, 2)
+    params, g, rng, bb, bb_cpu = _pipelines(cuda, 4096, 2)
     ps = she.SHEParams(m=2048, p=257, qs=params.qs, var=2.0)
-    sk, sk_s = she.gen_sk(params, g), she.gen_sk(ps, g)
+    sk, sk_s = she.gen_sk(params, g()), she.gen_sk(ps, g())
     ys = [np.random.default_rng(i).integers(-2, 3, 1024) for i in range(2)]
     f = linear.linear_pow(ps.ctx, params.ctx, ps.ctx, ys)
-    th = bb.gen_tunnel_hint(f, sk_s, sk, g)
-    cts = bb.build_encrypt(sk)(she.pt_random(params, g, (40,)), g)
+    th = bb.gen_tunnel_hint(f, sk_s, sk, g())
+    cts = bb.build_encrypt(sk)(she.pt_random(params, rng, (40,), cuda), g())
     before = dict(tk.LAUNCHES)
     out = bb.build_tunnel(th)(*cts)
     nrns = len(params.qs)
@@ -429,14 +430,14 @@ def test_pt_round_on_card_equals_cpu(cuda):
     """build_pt_round Z_8 -> Z_2 at m = 512 over five primes, hints made on
     the card: the CPU's output bit for bit, and the rounded scalars."""
     params = she.SHEParams(m=512, p=8, qs=tuple(nt.ntt_primes(512, 30, 5)), var=2.0)
-    g = torch.Generator(device=cuda).manual_seed(3)
-    sk = she.gen_sk(params, g)
-    rh = she.pt_round_hints(sk, g, cuda)
+    g, rng = prng.KeyChain(3), np.random.default_rng(3)
+    sk = she.gen_sk(params, g())
+    rh = she.pt_round_hints(sk, gadget.RnsGad(), g(), cuda)
     bb = BatchedBGV(params, cuda)
-    vals = torch.randint(0, 8, (40,), generator=g, device=cuda, dtype=torch.int32)
+    vals = torch.from_numpy(rng.integers(0, 8, (40,)).astype(np.int32)).to(cuda)
     msgs = torch.zeros((256, 40), dtype=torch.int32, device=cuda)
     msgs[0] = vals
-    cts = bb.build_encrypt(sk)(msgs, g)
+    cts = bb.build_encrypt(sk)(msgs, g())
     run, bb_out, f_out = serving.build_pt_round(bb, rh)
     out = run(*cts)
     run_cpu = serving.build_pt_round(BatchedBGV(params, "cpu"), rh)[0]  # hints move with it
@@ -466,14 +467,14 @@ def test_ext_builders_on_card_equal_cpu(cuda, encoding):
     special primes, hints made on the card: the CPU's outputs."""
     all5 = tuple(nt.ntt_primes(4096, 30, 5))
     params = she.SHEParams(m=4096, p=257, qs=all5[:3], var=2.0)
-    g = torch.Generator(device=cuda).manual_seed(5)
+    g, rng = prng.KeyChain(5), np.random.default_rng(5)
     bb, bb_cpu = BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
-    sk, sk_new = she.gen_sk(params, g), she.gen_sk(params, g)
-    quad = bb.gen_ks_quad_hint_ext(sk, all5[3:], g)
-    lin = bb.gen_ks_linear_hint_ext(sk_new, sk, all5[3:], g)
+    sk, sk_new = she.gen_sk(params, g()), she.gen_sk(params, g())
+    quad = bb.gen_ks_quad_hint_ext(sk, all5[3:], g())
+    lin = bb.gen_ks_linear_hint_ext(sk_new, sk, all5[3:], g())
     e = bb.build_encrypt(sk, encoding)
-    a = e(she.pt_random(params, g, (40,)), g)
-    b = e(she.pt_random(params, g, (40,)), g)
+    a = e(she.pt_random(params, rng, (40,), cuda), g())
+    b = e(she.pt_random(params, rng, (40,), cuda), g())
     _same(bb.build_step_ext(quad, encoding)(*a, *b),
           bb_cpu.build_step_ext(quad, encoding)(*(c.cpu() for c in (*a, *b))))
     _same(bb.build_key_switch_linear_ext(lin)(*a),
@@ -512,12 +513,12 @@ def test_general_m_step_and_tunnel_on_card_equal_cpu(cuda, encoding):
 
     params = she.SHEParams(m=2304, p=7, qs=tuple(nt.ntt_primes(2304, 30, 3)), var=2.0)
     ps = she.SHEParams(m=1152, p=7, qs=params.qs, var=2.0)
-    g = torch.Generator(device=cuda).manual_seed(9)
+    g, rng = prng.KeyChain(9), np.random.default_rng(9)
     bb, bb_cpu = BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
-    sk, sk_s = she.gen_sk(params, g), she.gen_sk(ps, g)
-    hint = bb.gen_ks_quad_hint(sk, g)
+    sk, sk_s = she.gen_sk(params, g()), she.gen_sk(ps, g())
+    hint = bb.gen_ks_quad_hint(sk, g())
     e = bb.build_encrypt(sk, encoding)
-    a, b = (e(she.pt_random(params, g, (40,)), g) for _ in range(2))
+    a, b = (e(she.pt_random(params, rng, (40,), cuda), g()) for _ in range(2))
     before = dict(tk.LAUNCHES, **pw.LAUNCHES)
     out = bb.build_step(hint, encoding)(*a, *b)
     assert pw.LAUNCHES["ct_mul"] - before["ct_mul"] == 3
@@ -525,7 +526,7 @@ def test_general_m_step_and_tunnel_on_card_equal_cpu(cuda, encoding):
     _same(out, bb_cpu.build_step(hint, encoding)(*(c.cpu() for c in (*a, *b))))
     f = linear.linear_pow(ps.ctx, params.ctx, ps.ctx,
                           [np.random.default_rng(i).integers(-2, 3, ps.ctx.n) for i in range(2)])
-    th = bb.gen_tunnel_hint(f, sk_s, sk, g)
+    th = bb.gen_tunnel_hint(f, sk_s, sk, g())
     _same(bb.build_tunnel(th)(*a), bb_cpu.build_tunnel(th)(*(c.cpu() for c in a)))
 
 
@@ -534,11 +535,11 @@ def test_galois_on_card_equals_cpu(cuda, m):
     """build_galois and build_galois_many (k = 5, 7) on the card == on the
     CPU; at the 2-power m the hoisted outputs equal the separate ones."""
     params = she.SHEParams(m=m, p=7, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
-    g = torch.Generator(device=cuda).manual_seed(m)
+    g, rng = prng.KeyChain(m), np.random.default_rng(m)
     bb, bb_cpu = BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
-    sk = she.gen_sk(params, g)
-    hints = {k: bb.gen_galois_hint(k, sk, g) for k in (5, 7)}
-    cts = bb.build_encrypt(sk)(she.pt_random(params, g, (40,)), g)
+    sk = she.gen_sk(params, g())
+    hints = {k: bb.gen_galois_hint(k, sk, g()) for k in (5, 7)}
+    cts = bb.build_encrypt(sk)(she.pt_random(params, rng, (40,), cuda), g())
     many = bb.build_galois_many(hints)(*cts)
     ref = bb_cpu.build_galois_many(hints)(*(c.cpu() for c in cts))
     for k in hints:
@@ -557,20 +558,20 @@ def _mesh_setup(cuda, m=256, p=257):
 
     all5 = tuple(nt.ntt_primes(m, 30, 5))
     params = she.SHEParams(m=m, p=p, qs=all5[:3], var=2.0)
-    g = torch.Generator(device=cuda).manual_seed(m)
+    g, rng = prng.KeyChain(m), np.random.default_rng(m)
     bb = BatchedBGV(params, cuda)
-    sk, sk_new = she.gen_sk(params, g), she.gen_sk(params, g)
+    sk, sk_new = she.gen_sk(params, g()), she.gen_sk(params, g())
     enc = bb.build_encrypt(sk)
-    cts = [enc(she.pt_random(params, g, (40,)), g) for _ in range(2)]
+    cts = [enc(she.pt_random(params, rng, (40,), cuda), g()) for _ in range(2)]
     ps = she.SHEParams(m=m // 2, p=p, qs=params.qs, var=2.0)
     ys = [np.zeros(ps.ctx.n, dtype=np.int64), np.zeros(ps.ctx.n, dtype=np.int64)]
     ys[0][0] = 1
     th = bb.gen_tunnel_hint(linear.linear_pow(ps.ctx, params.ctx, ps.ctx, ys),
-                            she.gen_sk(ps, g), sk, g)
-    hints = dict(quad=bb.gen_ks_quad_hint(sk, g), lin=bb.gen_ks_linear_hint(sk_new, sk, g),
-                 quad_ext=bb.gen_ks_quad_hint_ext(sk, all5[3:], g),
-                 lin_ext=bb.gen_ks_linear_hint_ext(sk_new, sk, all5[3:], g), tunnel=th,
-                 galois={k: bb.gen_galois_hint(k, sk, g) for k in (3, 5)})
+                            she.gen_sk(ps, g()), sk, g())
+    hints = dict(quad=bb.gen_ks_quad_hint(sk, g()), lin=bb.gen_ks_linear_hint(sk_new, sk, g()),
+                 quad_ext=bb.gen_ks_quad_hint_ext(sk, all5[3:], g()),
+                 lin_ext=bb.gen_ks_linear_hint_ext(sk_new, sk, all5[3:], g()), tunnel=th,
+                 galois={k: bb.gen_galois_hint(k, sk, g()) for k in (3, 5)})
     return bb, hints, cts
 
 
@@ -664,14 +665,15 @@ def test_slot_map_homom_prf_on_card_equals_cpu(cuda):
     from lol_tpu_torch import gadget, linear
 
     qs = tuple(nt.ntt_primes(64, 30, 3))
-    g = torch.Generator(device=cuda).manual_seed(32)
-    sks = [she.gen_sk(she.SHEParams(m=r, p=257, qs=qs, var=2.0), g) for r in (32, 16)]
-    fam = prf.PRFFamily.random(ring_context(32, (257,)), gadget.BaseBGad(16), prf.balanced(2), g)
-    hints, sk_out = prf.make_eval_hints(fam, sks, [32, 16], [16], g, p_final=257, maps="slots",
+    g, rng = prng.KeyChain(32), np.random.default_rng(32)
+    sks = [she.gen_sk(she.SHEParams(m=r, p=257, qs=qs, var=2.0), g()) for r in (32, 16)]
+    fam = prf.PRFFamily.random(ring_context(32, (257,)), gadget.BaseBGad(16), prf.balanced(2), g(), cuda)
+    hints, sk_out = prf.make_eval_hints(fam, sks, [32, 16], [16], gadget.RnsGad(), g(),
+                                        p_final=257, maps="slots",
                                         device=cuda)
     bb = BatchedBGV(sks[0].params, cuda)
-    keys = torch.randint(0, 257, (16, 40), generator=g, device=cuda, dtype=torch.int32)
-    cts = bb.build_encrypt(sks[0])(keys, g)
+    keys = torch.from_numpy(rng.integers(0, 257, (16, 40)).astype(np.int32)).to(cuda)
+    cts = bb.build_encrypt(sks[0])(keys, g())
     lin = hints.tunnels[0].lin
     for i in range(gadget.num_digits(fam.spec, fam.ctx.basis)):
         bb_out, f_out, out = serving.batched_homom_prf_component(fam, hints, bb, *cts, (0, 1), i)
@@ -694,10 +696,10 @@ def test_io_reads_onto_the_card_and_writes_the_cpu_bytes(cuda):
     from lol_tpu_torch.proto import wire as pb
 
     params = she.SHEParams(m=64, p=257, qs=tuple(nt.ntt_primes(64, 30, 3)), var=2.0)
-    g = torch.Generator().manual_seed(3)
-    sk = she.gen_sk(params, g)
-    hint = she.ks_quad_circ_hint(sk, gadget.RnsGad(), g, cuda)
-    ct = she.encrypt(sk, she.pt_random(params, g).numpy(), g, cuda)
+    g, rng = prng.KeyChain(3), np.random.default_rng(3)
+    sk = she.gen_sk(params, g())
+    hint = she.ks_quad_circ_hint(sk, gadget.RnsGad(), g(), cuda)
+    ct = she.encrypt(sk, she.pt_random(params, rng, device="cpu").numpy(), g(), cuda)
     data = io.ks_hint_to_proto(hint).SerializeToString()
     cpu = she.KSHint(hint.params, hint.h0.cpu(), hint.h1.cpu(), hint.spec)
     assert io.ks_hint_to_proto(cpu).SerializeToString() == data
@@ -742,3 +744,31 @@ def test_ntt_cm_checked_on_card(cuda):
         bad[1, 2] = word
         with pytest.raises(dbg.ReductionError):
             dbg.ntt_cm_checked(bad, plan)
+
+
+@pytest.mark.parametrize("count", [1, 7, 1000, 4097, 1 << 20])
+def test_prng_kernel_matches_plain(cuda, count):
+    """Every mode of the draw kernel == its plain version, over one to
+    three channels and ragged counts, and one launch a draw."""
+    keys = list(prng.split(prng.PRNGKey(count), 3))
+    for mode, kw in (("bits", {}), ("randint", {"qs": [1073479681, 257, 2]}),
+                     ("float", {"pre": prng.SQRT2}), ("round", {"scale": prng.folded_scale(9.0)})):
+        before = pk.LAUNCHES["prng"]
+        got = pk.draw(keys, count, mode, device=cuda, **kw)
+        assert pk.LAUNCHES["prng"] == before + 1
+        want = pk.draw_ref(keys, count, mode, **kw)
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want), mode
+    got = prng.uniform(keys[0], (count,), -0.3, 2.7, device=cuda)
+    assert torch.equal(got.cpu().view(torch.int32),
+                       prng.uniform(keys[0], (count,), -0.3, 2.7).view(torch.int32))
+
+
+def test_prng_normals_match_plain_on_every_input(cuda):
+    """The kernel's erf_inv epilogue == the plain twin's on all 2^23 inputs
+    (the words i << 9), raw and rounded at var 2, 4 and 9."""
+    words = (torch.arange(1 << 23, dtype=torch.int64) << 9).to(torch.int32)
+    for mode, pre, scale in (("float", 1.0, 1.0), ("float", prng.SQRT2, 1.0),
+                             *(("round", 1.0, prng.folded_scale(v)) for v in (2.0, 4.0, 9.0))):
+        got = pk.map_words(words.to(cuda), mode, pre, scale).cpu()
+        want = pk.map_words(words, mode, pre, scale)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (mode, scale)

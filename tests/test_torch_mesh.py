@@ -33,6 +33,7 @@ from lol_tpu import she as jshe
 from lol_tpu.cyc import Cyc as JCyc, Rep as JRep
 from lol_tpu.ring import ring_context as j_ring_context
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import prng
 from lol_tpu_torch import gadget, linear, numtheory as nt, prf, serving, she
 from lol_tpu_torch.parallel import sharding as sh
 from lol_tpu_torch.ring import ring_context
@@ -90,15 +91,15 @@ def _state(m, p):
     random messages, and the JAX package's pipeline."""
     all4 = tuple(nt.ntt_primes(m, 30, 4))
     params = she.SHEParams(m=m, p=p, qs=all4[:2], var=2.0)
-    g = torch.Generator().manual_seed(m)
+    g, rng = prng.KeyChain(m), np.random.default_rng(m)
     bb = BatchedBGV(params, "cpu")
-    sk, sk_new = she.gen_sk(params, g), she.gen_sk(params, g)
-    cts = {e: [bb.build_encrypt(sk, e)(she.pt_random(params, g, (B,)), g) for _ in range(2)]
+    sk, sk_new = she.gen_sk(params, g(), "cpu"), she.gen_sk(params, g(), "cpu")
+    cts = {e: [bb.build_encrypt(sk, e)(she.pt_random(params, rng, (B,), "cpu"), g()) for _ in range(2)]
            for e in ("lsd", "msd")}
     return dict(params=params, bb=bb, sk=sk, special=all4[2:], cts=cts, g=g,
                 jbb=JBatchedBGV(jshe.SHEParams(m=m, p=p, qs=all4[:2], var=2.0),
                                 use_pallas=False),
-                quad=bb.gen_ks_quad_hint(sk, g), lin=bb.gen_ks_linear_hint(sk_new, sk, g))
+                quad=bb.gen_ks_quad_hint(sk, g()), lin=bb.gen_ks_linear_hint(sk_new, sk, g()))
 
 
 @pytest.fixture(scope="module")
@@ -137,11 +138,11 @@ def test_general_m_step_on_the_mesh():
     s36 = _state(36, 5)
     bb, params = s36["bb"], s36["params"]
     dropped = she.SHEParams(m=36, p=5, qs=params.qs[:1], var=2.0)
-    g = torch.Generator().manual_seed(7)
+    g, rng = prng.KeyChain(7), np.random.default_rng(7)
     for e in ("lsd", "msd"):
-        a, b = she.pt_random(params, g, (B,)), she.pt_random(params, g, (B,))
+        a, b = she.pt_random(params, rng, (B,), "cpu"), she.pt_random(params, rng, (B,), "cpu")
         enc = bb.build_encrypt(s36["sk"], e)
-        c = (*enc(a, g), *enc(b, g))
+        c = (*enc(a, g()), *enc(b, g()))
         want = bb.build_step(s36["quad"], e)(*c)
         got = bb.build_step(s36["quad"], e, MESH)(*_shard(*c))
         assert _equal(_unsharded(got), want)
@@ -160,9 +161,9 @@ def test_key_switches_on_the_mesh(st):
     special = st["special"]
     g = st["g"]
     for hint, build, jbuild, args in (
-            (bb.gen_ks_quad_hint_ext(st["sk"], special, g), "build_step_ext",
+            (bb.gen_ks_quad_hint_ext(st["sk"], special, g()), "build_step_ext",
              "build_step_ext", (c0, c1, d0, d1)),
-            (bb.gen_ks_linear_hint_ext(st["sk"], st["sk"], special, g),
+            (bb.gen_ks_linear_hint_ext(st["sk"], st["sk"], special, g()),
              "build_key_switch_linear_ext", "build_key_switch_linear_ext", (c0, c1))):
         jp = st["jbb"].params
         ctx_ext = j_ring_context(jp.m, hint.ext_qs)
@@ -176,7 +177,7 @@ def test_key_switches_on_the_mesh(st):
 def test_galois_on_the_mesh(st):
     bb, jbb = st["bb"], st["jbb"]
     c0, c1 = st["cts"]["lsd"][0]
-    hints = {k: bb.gen_galois_hint(k, st["sk"], st["g"]) for k in (3, 5)}
+    hints = {k: bb.gen_galois_hint(k, st["sk"], st["g"]()) for k in (3, 5)}
     jhints = {k: _jhint(st["params"], h) for k, h in hints.items()}
     k = 3
     _check(bb.build_galois(hints[k], k), bb.build_galois(hints[k], k, MESH),
@@ -194,7 +195,7 @@ def test_tunnel_on_the_mesh(st):
     ys = [np.zeros(S.n, dtype=np.int64) for _ in range(params.ctx.n // S.n)]
     ys[0][0] = 1
     f = linear.linear_pow(S, params.ctx, S, ys)
-    th = bb.gen_tunnel_hint(f, she.gen_sk(ps, st["g"]), st["sk"], st["g"])
+    th = bb.gen_tunnel_hint(f, she.gen_sk(ps, st["g"](), "cpu"), st["sk"], st["g"]())
     jS, jR = (j_ring_context(m, params.qs) for m in (ps.m, params.m))
     jf = jlinear.linear_pow(jS, jR, jS, [JCyc.from_ints(jS, y) for y in ys])
     jth = jshe.TunnelHint(jf, jgd.RnsGad(), tuple(_jhint(ps, h) for h in th.hints))
@@ -212,7 +213,7 @@ def test_elementwise_builders_on_the_mesh(st):
     encoding switches, the exact divide) == their unsharded runs."""
     bb = st["bb"]
     (c0, c1), (d0, d1) = st["cts"]["lsd"]
-    pub = she.pt_random(st["params"], st["g"], (B,))
+    pub = she.pt_random(st["params"], np.random.default_rng(B), (B,), "cpu")
     for name, args, extra in (("build_add", (1, 3, True), (c0, c1, d0, d1)),
                               ("build_add_public", (5, "msd"), (c0, c1, pub)),
                               ("build_mul_public", (), (c0, c1, pub[:, :1])),
@@ -229,9 +230,9 @@ def test_pt_round_on_the_mesh():
     `batched_pt_round` on the port's hints, and the mesh run == the
     unsharded one, LSD and MSD."""
     params = she.SHEParams(m=32, p=9, qs=tuple(nt.ntt_primes(32, 30, 3)), var=2.0)
-    g = torch.Generator().manual_seed(5)
-    sk = she.gen_sk(params, g)
-    rh = she.pt_round_hints(sk, g, "cpu")
+    g = prng.KeyChain(5)
+    sk = she.gen_sk(params, g(), "cpu")
+    rh = she.pt_round_hints(sk, gadget.RnsGad(), g(), "cpu")
     L0 = len(params.qs)
     jrh = jshe.PTRoundHints(tuple(
         _jhint(she.SHEParams(m=32, p=9, qs=params.qs[:L0 - i], var=2.0), h)
@@ -241,7 +242,7 @@ def test_pt_round_on_the_mesh():
     msgs = torch.zeros((16, B), dtype=torch.int32)
     msgs[0] = torch.arange(B) % 9
     for e in ("lsd", "msd"):
-        c = bb.build_encrypt(sk, e)(msgs, g)
+        c = bb.build_encrypt(sk, e)(msgs, g())
         _check(serving.build_pt_round(bb, rh, encoding=e)[0],
                serving.build_pt_round(bb, rh, encoding=e, mesh=MESH)[0],
                lambda c0, c1: jserving.batched_pt_round(jbb, jrh, c0, c1, encoding=e)[2], *c)
@@ -253,14 +254,14 @@ def test_homom_prf_on_the_mesh():
     run, and it decrypts to the clear PRF."""
     qs = tuple(nt.ntt_primes(32, 30, she.pt_round_mults(8) + 4))
     rings = [32, 16, 8, 4, 2]
-    g = torch.Generator().manual_seed(6)
-    sks = [she.gen_sk(she.SHEParams(m=r, p=8, qs=qs, var=2.0), g) for r in rings]
-    fam = prf.PRFFamily.random(ring_context(32, (8,)), gadget.BaseBGad(2), prf.balanced(2), g)
-    hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], g, homomorphic_round=True,
+    g, rng = prng.KeyChain(6), np.random.default_rng(6)
+    sks = [she.gen_sk(she.SHEParams(m=r, p=8, qs=qs, var=2.0), g(), "cpu") for r in rings]
+    fam = prf.PRFFamily.random(ring_context(32, (8,)), gadget.BaseBGad(2), prf.balanced(2), g(), "cpu")
+    hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], gadget.RnsGad(), g(), homomorphic_round=True,
                                         maps="project", device="cpu")
     bb = BatchedBGV(sks[0].params, "cpu")
-    s = torch.randint(0, 8, (16, 1), generator=g, dtype=torch.int32)
-    c = bb.build_encrypt(sks[0])(s.expand(16, B), g)
+    s = torch.from_numpy(rng.integers(0, 8, (16, 1)).astype(np.int32))
+    c = bb.build_encrypt(sks[0])(s.expand(16, B), g())
     bb_out, f_out, want = serving.batched_homom_prf_component(fam, hints, bb, *c, (1, 0), 0)
     *_, got = serving.batched_homom_prf_component(fam, hints, bb, *_shard(*c), (1, 0), 0,
                                                   mesh=MESH)

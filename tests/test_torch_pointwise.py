@@ -14,6 +14,7 @@ import torch
 
 from lol_tpu import zq as jzq
 from lol_tpu.ops.pallas import pointwise as jpw
+from lol_tpu_torch import prng
 from lol_tpu_torch import numtheory as nt, she
 from lol_tpu_torch import she_batched
 from lol_tpu_torch.ops.cuda import pointwise as pw
@@ -91,11 +92,11 @@ def test_step_computes_its_ct_mult_through_ct_mul_cm(monkeypatch):
     stacks equal the plain Hadamards."""
     m = 64
     params = she.SHEParams(m=m, p=257, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
-    g = torch.Generator().manual_seed(3)
+    g, rng = prng.KeyChain(3), np.random.default_rng(3)
     bb = she_batched.BatchedBGV(params, "cpu")
-    step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, g), g))
-    enc = bb.build_encrypt(she.gen_sk(params, g))
-    cts = (*enc(she.pt_random(params, g, (6,)), g), *enc(she.pt_random(params, g, (6,)), g))
+    step = bb.build_step(bb.gen_ks_quad_hint(she.gen_sk(params, g(), "cpu"), g()))
+    enc = bb.build_encrypt(she.gen_sk(params, g(), "cpu"))
+    cts = (*enc(she.pt_random(params, rng, (6,), "cpu"), g()), *enc(she.pt_random(params, rng, (6,), "cpu"), g()))
     calls = []
 
     def counting(*args, **kw):

@@ -20,6 +20,7 @@ from lol_tpu import gadget as jgd
 from lol_tpu import she as jshe
 from lol_tpu.cyc import Cyc as JCyc, Rep as JRep
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import prng
 from lol_tpu_torch import numtheory as nt, she
 from lol_tpu_torch.she_batched import BatchedBGV
 
@@ -34,13 +35,13 @@ def _u32(t: torch.Tensor):
                                             (18432, 7, "msd", 4)])
 def test_cpu_step_equals_the_jax_step_at_a_real_ring(m, p, encoding, B):
     params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
-    g = torch.Generator().manual_seed(m)
-    sk = she.gen_sk(params, g)
+    g, rng = prng.KeyChain(m), np.random.default_rng(m)
+    sk = she.gen_sk(params, g(), "cpu")
     bb = BatchedBGV(params, "cpu")
-    hint = bb.gen_ks_quad_hint(sk, g)
+    hint = bb.gen_ks_quad_hint(sk, g())
     enc = bb.build_encrypt(sk, encoding)
-    m1, m2 = she.pt_random(params, g, (B,)), she.pt_random(params, g, (B,))
-    cts = (*enc(m1, g), *enc(m2, g))
+    m1, m2 = she.pt_random(params, rng, (B,), "cpu"), she.pt_random(params, rng, (B,), "cpu")
+    cts = (*enc(m1, g()), *enc(m2, g()))
     got = bb.build_step(hint, encoding=encoding)(*cts)
 
     jp = jshe.SHEParams(m=m, p=p, qs=params.qs, var=2.0)

@@ -31,6 +31,7 @@ from lol_tpu.cyc import Cyc as JCyc, Rep as JRep
 from lol_tpu.ring import ring_context as j_ring_context
 from lol_tpu.rns import rns_basis as j_rns_basis
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import prng
 from lol_tpu_torch import convert, gadget, numtheory as nt, prf, serving, she
 from lol_tpu_torch.ring import ring_context
 from lol_tpu_torch.rns import rns_basis as port_rns_basis
@@ -79,9 +80,9 @@ def test_pt_round_refuses_other_moduli(p):
 
 def test_pt_round_hints_refuse_a_short_chain():
     params = she.SHEParams(m=16, p=8, qs=tuple(nt.ntt_primes(32, 30, 3)), var=2.0)
-    sk = she.gen_sk(params, torch.Generator().manual_seed(0))
+    sk = she.gen_sk(params, prng.PRNGKey(0), "cpu")
     with pytest.raises(ValueError, match="needs >= 4 RNS primes"):
-        she.pt_round_hints(sk, torch.Generator().manual_seed(1), "cpu")
+        she.pt_round_hints(sk, gadget.RnsGad(), prng.PRNGKey(1), "cpu")
 
 
 @pytest.mark.parametrize("q,b", [(257, 2), (257, 3), (12289, 16), (8, 2), (9, 3)])
@@ -164,8 +165,7 @@ def test_make_eval_hints_auto_is_project_at_even_p(monkeypatch):
                                    jax.random.PRNGKey(2), maps="auto")
     sks = [convert.sk_from_numpy(she.SHEParams(m=m, p=8, qs=qs, var=2.0), np.zeros(m // 2))
            for m in rings]
-    g = torch.Generator().manual_seed(3)
-
+    g = prng.KeyChain(3)
     def same_maps(port, ref):
         assert len(port.tunnels) == len(ref.tunnels)
         for th, lin in zip(port.tunnels, ref.tunnels):
@@ -175,11 +175,11 @@ def test_make_eval_hints_auto_is_project_at_even_p(monkeypatch):
                                           np.stack([y.lift_ints(rep=JRep.POW) for y in lin.ys]))
 
     for maps in ("auto", "project"):
-        same_maps(prf.make_eval_hints(None, sks, rings, e_rings, g, maps=maps, device="cpu")[0],
+        same_maps(prf.make_eval_hints(None, sks, rings, e_rings, gadget.RnsGad(), g(), maps=maps, device="cpu")[0],
                   auto)
     for mk in (lambda: jprf.make_eval_hints(None, jsks, rings, e_rings, jgd.RnsGad(),
                                             jax.random.PRNGKey(2), maps="slots"),
-               lambda: prf.make_eval_hints(None, sks, rings, e_rings, g, maps="slots",
+               lambda: prf.make_eval_hints(None, sks, rings, e_rings, gadget.RnsGad(), g(), maps="slots",
                                            device="cpu")):
         with pytest.raises(ValueError, match="coprime"):
             mk()
@@ -187,13 +187,13 @@ def test_make_eval_hints_auto_is_project_at_even_p(monkeypatch):
            for m in rings]
     jodd = [jshe.SK(jshe.SHEParams(m=m, p=257, qs=qs, var=2.0), np.zeros(m // 2, np.int64), 2.0)
             for m in rings]
-    same_maps(prf.make_eval_hints(None, odd, rings, e_rings, g, maps="auto", device="cpu")[0],
+    same_maps(prf.make_eval_hints(None, odd, rings, e_rings, gadget.RnsGad(), g(), maps="auto", device="cpu")[0],
               jprf.make_eval_hints(None, jodd, rings, e_rings, jgd.RnsGad(),
                                    jax.random.PRNGKey(2), maps="auto")[0])
     # where e_rings[i] != rings[i+1] both take the projection, as the reference does
-    prf.make_eval_hints(None, odd, [16, 8], [4], g, maps="auto", device="cpu")
+    prf.make_eval_hints(None, odd, [16, 8], [4], gadget.RnsGad(), g(), maps="auto", device="cpu")
     with pytest.raises(ValueError, match="maps must be"):
-        prf.make_eval_hints(None, sks, rings, e_rings, g, maps="dense", device="cpu")
+        prf.make_eval_hints(None, sks, rings, e_rings, gadget.RnsGad(), g(), maps="dense", device="cpu")
 
 
 # --- build_pt_round against the JAX package --------------------------------
@@ -340,9 +340,9 @@ def test_port_pt_round_hints_round_to_nearest(p):
     every scalar v."""
     qs = tuple(nt.ntt_primes(32, 30, she.pt_round_mults(p) + 2))
     params = she.SHEParams(m=16, p=p, qs=qs, var=2.0)
-    g = torch.Generator().manual_seed(p)
-    sk = she.gen_sk(params, g)
-    rh = she.pt_round_hints(sk, g, "cpu")
+    g = prng.KeyChain(p)
+    sk = she.gen_sk(params, g(), "cpu")
+    rh = she.pt_round_hints(sk, gadget.RnsGad(), g(), "cpu")
     assert [h.params.qs for h in rh.hints] == [qs[: len(qs) - i] for i in range(len(rh.hints))]
     bb = BatchedBGV(params, "cpu")
     vals = torch.arange(p)
@@ -351,7 +351,7 @@ def test_port_pt_round_hints_round_to_nearest(p):
     pr = she._pt_round_base(p)[0]
     for encoding in ("lsd", "msd"):
         run, bb_out, f_out = serving.build_pt_round(bb, rh, encoding=encoding)
-        out = run(*bb.build_encrypt(sk, encoding)(msgs, g))
+        out = run(*bb.build_encrypt(sk, encoding)(msgs, g()))
         got = bb_out.build_decrypt(she.SK(bb_out.params, sk.s_ints, 2.0), f=f_out,
                                    encoding=encoding)(*out).numpy()
         np.testing.assert_array_equal(got[0], _round_half_up(vals.numpy(), p, pr))
@@ -365,21 +365,21 @@ def test_port_homom_prf_down_a_halving_tower_to_n1():
     of the clear PRF of key b."""
     p, rings = 8, [16, 8, 4, 2]
     qs = tuple(nt.ntt_primes(32, 30, she.pt_round_mults(p) + 4))
-    g = torch.Generator().manual_seed(11)
-    sks = [she.gen_sk(she.SHEParams(m=m, p=p, qs=qs, var=2.0), g) for m in rings]
-    fam = prf.PRFFamily.random(ring_context(16, (p,)), gadget.BaseBGad(2), prf.balanced(2), g)
-    hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], g, homomorphic_round=True,
+    g, rng = prng.KeyChain(11), np.random.default_rng(11)
+    sks = [she.gen_sk(she.SHEParams(m=m, p=p, qs=qs, var=2.0), g(), "cpu") for m in rings]
+    fam = prf.PRFFamily.random(ring_context(16, (p,)), gadget.BaseBGad(2), prf.balanced(2), g(), "cpu")
+    hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], gadget.RnsGad(), g(), homomorphic_round=True,
                                         maps="project", device="cpu")
     assert len(hints.tunnels) == 3 and len(hints.rounds.hints) == she.pt_round_mults(p)
     bb = BatchedBGV(sks[0].params, "cpu")
-    keys = torch.randint(0, p, (8, 4), generator=g, dtype=torch.int32)
+    keys = torch.from_numpy(rng.integers(0, p, (8, 4)).astype(np.int32))
     bits = (0, 1)
     bb_out, f_out, out = serving.batched_homom_prf_component(
-        fam, hints, bb, *bb.build_encrypt(sks[0])(keys, g), bits, 0)
+        fam, hints, bb, *bb.build_encrypt(sks[0])(keys, g()), bits, 0)
     assert bb_out.params.m == 2 and bb_out.params.p == 2 and out[0].shape[1] == 1
     got = bb_out.build_decrypt(she.SK(bb_out.params, sk_out.s_ints, 2.0), f=f_out)(*out)
     want = [prf.prf_ints(fam, keys[:, b].numpy(), bits, 2)[0][0] for b in range(4)]
     np.testing.assert_array_equal(got[0].numpy(), want)
     with pytest.raises(ValueError, match="targets Z_2"):
-        prf.make_eval_hints(fam, sks, rings, rings[1:], g, p_final=4, homomorphic_round=True,
+        prf.make_eval_hints(fam, sks, rings, rings[1:], gadget.RnsGad(), g(), p_final=4, homomorphic_round=True,
                             maps="project", device="cpu")

@@ -22,6 +22,7 @@ from lol_tpu import gadget as jgd
 from lol_tpu import numtheory as jnt
 from lol_tpu import she as jshe
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import prng
 from lol_tpu_torch import convert, numtheory as nt, she
 from lol_tpu_torch.she_batched import BatchedBGV
 
@@ -105,10 +106,10 @@ def test_decrypt_matches_jax_pipeline(jax_state, after_step):
 def test_port_encryption_decrypts_in_jax_package():
     """Ciphertexts the port encrypts (its own sampler) are valid for the
     JAX package's decrypt under the same key."""
-    g = torch.Generator().manual_seed(5)
-    sk = she.gen_sk(PARAMS, g)
-    msgs = she.pt_random(PARAMS, g, (B,))
-    c0, c1 = BatchedBGV(PARAMS, "cpu").build_encrypt(sk)(msgs, g)
+    g, rng = prng.KeyChain(5), np.random.default_rng(5)
+    sk = she.gen_sk(PARAMS, g(), "cpu")
+    msgs = she.pt_random(PARAMS, rng, (B,), "cpu")
+    c0, c1 = BatchedBGV(PARAMS, "cpu").build_encrypt(sk)(msgs, g())
     jsk = jshe.SK(J_PARAMS, sk.s_ints.numpy(), sk.var)
     got = JBatchedBGV(J_PARAMS, use_pallas=False).build_decrypt(jsk)(
         jnp.asarray(c0.numpy().astype(np.uint32)),
@@ -118,14 +119,14 @@ def test_port_encryption_decrypts_in_jax_package():
 
 @pytest.mark.parametrize("seed", [1, 2])
 def test_port_keygen_encrypt_step_decrypt_round_trip(seed):
-    g = torch.Generator().manual_seed(seed)
-    sk = she.gen_sk(PARAMS, g)
+    g, rng = prng.KeyChain(seed), np.random.default_rng(seed)
+    sk = she.gen_sk(PARAMS, g(), "cpu")
     bb = BatchedBGV(PARAMS, "cpu")
-    hint = bb.gen_ks_quad_hint(sk, g)
+    hint = bb.gen_ks_quad_hint(sk, g())
     assert hint.h0.shape == hint.h1.shape == (len(QS), len(QS), M // 2)
     enc = bb.build_encrypt(sk)
-    m1, m2 = she.pt_random(PARAMS, g, (B,)), she.pt_random(PARAMS, g, (B,))
-    e0, e1 = bb.build_step(hint)(*enc(m1, g), *enc(m2, g))
+    m1, m2 = she.pt_random(PARAMS, rng, (B,), "cpu"), she.pt_random(PARAMS, rng, (B,), "cpu")
+    e0, e1 = bb.build_step(hint)(*enc(m1, g()), *enc(m2, g()))
     p2 = _dropped(PARAMS)
     got = BatchedBGV(p2, "cpu").build_decrypt(
         she.SK(p2, sk.s_ints, sk.var), f=bb.step_f())(e0, e1)
@@ -172,13 +173,15 @@ def test_unported_paths_raise():
     from lol_tpu_torch import gadget, prf
     from lol_tpu_torch.ring import ring_context
     qs = tuple(nt.ntt_primes(16, 30, 2))
-    g = torch.Generator().manual_seed(0)
-    sks = [she.gen_sk(she.SHEParams(m=m, p=8, qs=qs, var=2.0), g) for m in (16, 8)]
-    fam = prf.PRFFamily.random(ring_context(16, (8,)), gadget.BaseBGad(2), prf.balanced(2), g)
+    g = prng.KeyChain(0)
+    sks = [she.gen_sk(she.SHEParams(m=m, p=8, qs=qs, var=2.0), g(), "cpu") for m in (16, 8)]
+    fam = prf.PRFFamily.random(ring_context(16, (8,)), gadget.BaseBGad(2), prf.balanced(2), g(), "cpu")
     with pytest.raises(ValueError, match="coprime"):
-        prf.make_eval_hints(fam, sks, [16, 8], [8], g, maps="slots", device="cpu")
-    sks = [she.gen_sk(she.SHEParams(m=m, p=257, qs=qs, var=2.0), g) for m in (16, 8)]
-    hints, _ = prf.make_eval_hints(None, sks, [16, 8], [8], g, maps="slots", device="cpu")
+        prf.make_eval_hints(fam, sks, [16, 8], [8], gadget.RnsGad(), g(), maps="slots",
+                            device="cpu")
+    sks = [she.gen_sk(she.SHEParams(m=m, p=257, qs=qs, var=2.0), g(), "cpu") for m in (16, 8)]
+    hints, _ = prf.make_eval_hints(None, sks, [16, 8], [8], gadget.RnsGad(), g(), maps="slots",
+                                   device="cpu")
     want = jlinear.slot_projection(j_ring_context(16, qs), j_ring_context(8, qs), 257)
     np.testing.assert_array_equal(np.stack(hints.tunnels[0].lin.ys),
                                   np.stack([y.lift_ints(rep=JRep.POW) for y in want.ys]))
@@ -214,6 +217,7 @@ def test_port_never_imports_jax():
         sys.modules["jax"] = None
         sys.modules["lol_tpu"] = None
         sys.modules["google.protobuf"] = None
+        import numpy as np
         import torch
         torch.set_num_threads(1)
         import lol_tpu_torch
@@ -230,52 +234,53 @@ def test_port_never_imports_jax():
                 "lol_tpu_torch.complexfield", "lol_tpu_torch.io",
                 "lol_tpu_torch.proto.wire", "lol_tpu_torch.ops.debug",
                 "lol_tpu_torch.challenges.driver", "lol_tpu_torch.challenges.beacon",
-                "lol_tpu_torch.parallel.multihost"} <= set(mods)
-        from lol_tpu_torch import linear, numtheory as nt, serving, she
+                "lol_tpu_torch.parallel.multihost", "lol_tpu_torch.prng",
+                "lol_tpu_torch.ops.cuda.prng"} <= set(mods)
+        from lol_tpu_torch import gadget as gd, linear, numtheory as nt, prng, serving, she
         from lol_tpu_torch.ring import ring_context
         from lol_tpu_torch.she_batched import BatchedBGV
         qs = tuple(nt.ntt_primes(32, 30, 2))
         params = she.SHEParams(m=32, p=17, qs=qs, var=2.0)
-        g = torch.Generator().manual_seed(0)
-        sk = she.gen_sk(params, g)
+        g, rng = prng.KeyChain(0), np.random.default_rng(0)
+        sk = she.gen_sk(params, g(), "cpu")
         bb = BatchedBGV(params, "cpu")
         enc = bb.build_encrypt(sk)
-        m1, m2 = she.pt_random(params, g, (2,)), she.pt_random(params, g, (2,))
-        e0, e1 = bb.build_step(bb.gen_ks_quad_hint(sk, g))(*enc(m1, g), *enc(m2, g))
+        m1, m2 = she.pt_random(params, rng, (2,), "cpu"), she.pt_random(params, rng, (2,), "cpu")
+        e0, e1 = bb.build_step(bb.gen_ks_quad_hint(sk, g()))(*enc(m1, g()), *enc(m2, g()))
         assert e0.shape == (1, 16, 2)
         # a tunnel m = 32 -> 16 (E = S), decrypted against eval_lin
         ps = she.SHEParams(m=16, p=17, qs=qs, var=2.0)
-        sk_s = she.gen_sk(ps, g)
+        sk_s = she.gen_sk(ps, g(), "cpu")
         S = ring_context(16, qs)
         f = linear.linear_pow(S, params.ctx, S, [[1] + [0] * 7, [0, 2] + [0] * 6])
-        th = bb.gen_tunnel_hint(f, sk_s, sk, g)
-        t0, t1 = bb.build_tunnel(th)(*enc(m1, g))
+        th = bb.gen_tunnel_hint(f, sk_s, sk, g())
+        t0, t1 = bb.build_tunnel(th)(*enc(m1, g()))
         got = bb.target_pipeline(th).build_decrypt(sk_s)(t0, t1)
         for b in range(2):
             assert (got[:, b].numpy() == linear.eval_lin_ints(f, m1[:, b].numpy(), 17)).all()
         # a pt_round Z_4 -> Z_2 (one squaring) on its own hints
         p4 = she.SHEParams(m=16, p=4, qs=tuple(nt.ntt_primes(32, 30, 3)), var=2.0)
-        sk4 = she.gen_sk(p4, g)
+        sk4 = she.gen_sk(p4, g(), "cpu")
         bb4 = BatchedBGV(p4, "cpu")
-        run, bb_out, f_out = serving.build_pt_round(bb4, she.pt_round_hints(sk4, g, "cpu"))
+        run, bb_out, f_out = serving.build_pt_round(bb4, she.pt_round_hints(sk4, gd.RnsGad(), g(), "cpu"))
         msgs = torch.zeros((8, 4), dtype=torch.int32)
         msgs[0] = torch.arange(4)
         r = bb_out.build_decrypt(she.SK(bb_out.params, sk4.s_ints, 2.0), f=f_out)(
-            *run(*bb4.build_encrypt(sk4)(msgs, g)))
+            *run(*bb4.build_encrypt(sk4)(msgs, g())))
         assert r[0].tolist() == [0, 1, 1, 0] and not r[1:].any()  # round-half-up(v / 2) mod 2
         # a general-m step (m = 36 = 2^2 3^2) and a Galois rotation there
         q36 = tuple(nt.ntt_primes(36, 30, 3))
         p36 = she.SHEParams(m=36, p=5, qs=q36, var=2.0)
-        sk36 = she.gen_sk(p36, g)
+        sk36 = she.gen_sk(p36, g(), "cpu")
         bb36 = BatchedBGV(p36, "cpu")
-        a, b = she.pt_random(p36, g, (2,)), she.pt_random(p36, g, (2,))
+        a, b = she.pt_random(p36, rng, (2,), "cpu"), she.pt_random(p36, rng, (2,), "cpu")
         enc36 = bb36.build_encrypt(sk36)
-        y = bb36.build_step(bb36.gen_ks_quad_hint(sk36, g))(*enc36(a, g), *enc36(b, g))
+        y = bb36.build_step(bb36.gen_ks_quad_hint(sk36, g()))(*enc36(a, g()), *enc36(b, g()))
         p36d = she.SHEParams(m=36, p=5, qs=q36[:2], var=2.0)
         got = BatchedBGV(p36d, "cpu").build_decrypt(she.SK(p36d, sk36.s_ints, 2.0),
                                                      f=bb36.step_f())(*y)
         assert (got[:, 0].numpy() == she.pt_mul(p36, a[:, 0].numpy(), b[:, 0].numpy())).all()
-        rot = bb36.build_galois(bb36.gen_galois_hint(5, sk36, g), 5)(*enc36(a, g))
+        rot = bb36.build_galois(bb36.gen_galois_hint(5, sk36, g()), 5)(*enc36(a, g()))
         got = bb36.build_decrypt(sk36)(*rot)
         assert (got[:, 1].numpy() == she.galois_ints(36, a[:, 1].numpy(), 5, 5)).all()
         # a slot map 32 -> 16 at p = 257, and the m = 32 step over a mesh
@@ -283,20 +288,19 @@ def test_port_never_imports_jax():
         assert f.d == 2 and max(abs(int(v)) for y in f.ys for v in y) <= 128
         from lol_tpu_torch.parallel import sharding as sh
         mesh = sh.make_mesh({"rns": 2, "data": 2}, ["cpu"] * 4)
-        cs = (*enc(m1, g), *enc(m2, g))
-        hint = bb.gen_ks_quad_hint(sk, g)
+        cs = (*enc(m1, g()), *enc(m2, g()))
+        hint = bb.gen_ks_quad_hint(sk, g())
         got = bb.build_step(hint, mesh=mesh)(*(sh.shard_batch_rns(mesh, c) for c in cs))
         want = bb.build_step(hint)(*cs)
         assert all(torch.equal(sh.unshard_batch_rns(x), y) for x, y in zip(got, want))
         # the Quick start on the object path, m = 8192
-        from lol_tpu_torch import gadget as gd
         qs = tuple(nt.ntt_primes(8192, 30, 3))
         params = she.SHEParams(m=8192, p=257, qs=qs)
-        sk = she.gen_sk(params, torch.Generator().manual_seed(0))
-        m1 = she.pt_random(params, torch.Generator().manual_seed(1)).numpy()
-        ct = she.encrypt(sk, m1, torch.Generator().manual_seed(2), device="cpu")
+        sk = she.gen_sk(params, prng.PRNGKey(0), "cpu")
+        m1 = she.pt_random(params, np.random.default_rng(1), device="cpu").numpy()
+        ct = she.encrypt(sk, m1, prng.PRNGKey(2), device="cpu")
         assert (she.decrypt(sk, ct) == m1).all()
-        hint = she.ks_quad_circ_hint(sk, gd.RnsGad(), torch.Generator().manual_seed(3),
+        hint = she.ks_quad_circ_hint(sk, gd.RnsGad(), prng.PRNGKey(3),
                                      device="cpu")
         prod = she.mod_switch(she.key_switch_quad_circ(hint, she.ct_mul(ct, ct)))
         assert (she.decrypt(she.SK(prod.params, sk.s_ints, sk.var), prod)
@@ -304,7 +308,7 @@ def test_port_never_imports_jax():
         # an io round trip of a rounding-hint bundle, and the challenges at m = 64
         from lol_tpu_torch import io
         from lol_tpu_torch.proto import wire as pb
-        rh = she.pt_round_hints(sk4, g, "cpu")
+        rh = she.pt_round_hints(sk4, gd.RnsGad(), g(), "cpu")
         back = io.pt_round_hints_from_proto(pb.PTRoundHints.FromString(
             io.pt_round_hints_to_proto(rh).SerializeToString()), device="cpu")
         assert all(torch.equal(a.h0, b.h0) and torch.equal(a.h1, b.h1)

@@ -22,6 +22,7 @@ from lol_tpu import she as jshe
 from lol_tpu.cyc import Cyc as JCyc, Rep as JRep
 from lol_tpu.rns import rns_basis as j_rns_basis
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import prng
 from lol_tpu_torch import convert, numtheory as nt, she
 from lol_tpu_torch.she_batched import BatchedBGV
 
@@ -206,12 +207,13 @@ def test_div_d_matches_jax_pipeline(st, d):
 
 
 def test_div_d_divides_the_plaintext():
-    g = torch.Generator().manual_seed(3)
+    g = prng.KeyChain(3)
     params15 = she.SHEParams(m=M, p=15, qs=QS, var=2.0)
-    sk = she.gen_sk(params15, g)
-    m = she.pt_random(she.SHEParams(m=M, p=5, qs=QS, var=2.0), g, (B,))
+    sk = she.gen_sk(params15, g(), "cpu")
+    m = she.pt_random(she.SHEParams(m=M, p=5, qs=QS, var=2.0), np.random.default_rng(3), (B,),
+                      "cpu")
     bb = BatchedBGV(params15, "cpu")
-    ct = bb.build_div_d(3)(*bb.build_encrypt(sk)(3 * m, g))
+    ct = bb.build_div_d(3)(*bb.build_encrypt(sk)(3 * m, g()))
     p5 = she.SHEParams(m=M, p=5, qs=QS, var=2.0)
     got = BatchedBGV(p5, "cpu").build_decrypt(she.SK(p5, sk.s_ints, sk.var),
                                               f=bb.div_d_f(3, 1))(*ct)
@@ -256,16 +258,16 @@ def test_pack_unpack_round_trip(st):
 
 
 def test_port_msd_ciphertexts_decrypt_in_jax_package(st):
-    g = torch.Generator().manual_seed(11)
-    m = she.pt_random(PARAMS, g, (B,))
-    c0, c1 = st["bb"].build_encrypt(st["sk"], encoding="msd")(m, g)
+    g, rng = prng.KeyChain(11), np.random.default_rng(11)
+    m = she.pt_random(PARAMS, rng, (B,), "cpu")
+    c0, c1 = st["bb"].build_encrypt(st["sk"], encoding="msd")(m, g())
     got = st["jdec"]["msd"](_jax(c0), _jax(c1))
     np.testing.assert_array_equal(np.asarray(got), m.numpy())
 
 
 def test_port_linear_hint_switches_keys_in_jax_package(st):
-    g = torch.Generator().manual_seed(12)
-    hint = st["bb"].gen_ks_linear_hint(st["sk_new"], st["sk"], g)
+    g = prng.KeyChain(12)
+    hint = st["bb"].gen_ks_linear_hint(st["sk_new"], st["sk"], g())
     ctx = J_PARAMS.ctx
     jhint = jshe.KSHint(J_PARAMS, ctx, jgd.RnsGad(), *(
         tuple(JCyc(ctx, JRep.CRT, jnp.asarray(h[j].numpy().astype(np.uint32)))
@@ -276,4 +278,4 @@ def test_port_linear_hint_switches_keys_in_jax_package(st):
     got = st["jbb"].build_decrypt(st["jsk_new"])(e0, e1)
     np.testing.assert_array_equal(np.asarray(got), st["msgs"][0])
     with pytest.raises(ValueError, match="SK params"):
-        BatchedBGV(DROPPED, "cpu").gen_ks_linear_hint(st["sk_new"], st["sk"], g)
+        BatchedBGV(DROPPED, "cpu").gen_ks_linear_hint(st["sk_new"], st["sk"], g())

@@ -25,6 +25,7 @@ from lol_tpu import linear as jlinear
 from lol_tpu import she as jshe
 from lol_tpu.cyc import Cyc as JCyc
 from lol_tpu.ring import ring_context as j_ring_context
+from lol_tpu_torch import prng
 from lol_tpu_torch import convert, gadget as gd, linear, numtheory as nt, prf, she
 from lol_tpu_torch.cyc import Cyc, Rep
 from lol_tpu_torch.ring import ring_context
@@ -259,39 +260,39 @@ def test_port_keygen_encryption_and_hints_decrypt():
     for m, p in ((M, 257), (36, 5)):
         qs = QS if m == M else tuple(nt.ntt_primes(36, 30, 3))
         params = she.SHEParams(m=m, p=p, qs=qs, var=2.0)
-        g = torch.Generator().manual_seed(m)
-        sk, sk2 = she.gen_sk(params, g), she.gen_sk(params, g)
+        g, rng = prng.KeyChain(m), np.random.default_rng(m)
+        sk, sk2 = she.gen_sk(params, g(), "cpu"), she.gen_sk(params, g(), "cpu")
         n = params.ctx.n
-        m1, m2 = (torch.randint(0, p, (n,), generator=g).numpy() for _ in range(2))
-        a, b = she.encrypt(sk, m1, g, "cpu"), she.encrypt(sk, m2, g, "cpu")
+        m1, m2 = (rng.integers(0, p, n) for _ in range(2))
+        a, b = she.encrypt(sk, m1, g(), "cpu"), she.encrypt(sk, m2, g(), "cpu")
         assert a.cs[1].rep is Rep.CRT and a.cs[0].data.device.type == "cpu"
-        np.testing.assert_array_equal(she.decrypt(sk, she.encrypt_msd(sk, m1, g, "cpu")), m1)
+        np.testing.assert_array_equal(she.decrypt(sk, she.encrypt_msd(sk, m1, g(), "cpu")), m1)
         want = she.pt_mul(params, m1, m2)
         prod = she.ct_mul(a, b)
         for spec in (gd.RnsGad(), gd.BaseBGad(BASE)):
             out = she.mod_switch(she.key_switch_quad_circ(
-                she.ks_quad_circ_hint(sk, spec, g, "cpu"), prod))
+                she.ks_quad_circ_hint(sk, spec, g(), "cpu"), prod))
             np.testing.assert_array_equal(she.decrypt(she.SK(out.params, sk.s_ints, 2.0), out),
                                           want)
         out = she.key_switch_quad_circ_ext(she.ks_quad_circ_hint_ext(
-            sk, gd.RnsGad(), g, SPECIAL if m == M else tuple(nt.ntt_primes(36, 30, 4)[3:]),
+            sk, gd.RnsGad(), g(), SPECIAL if m == M else tuple(nt.ntt_primes(36, 30, 4)[3:]),
             "cpu"), prod)
         np.testing.assert_array_equal(she.decrypt(sk, out), want)
-        a2 = she.encrypt(sk2, m1, g, "cpu")
+        a2 = she.encrypt(sk2, m1, g(), "cpu")
         np.testing.assert_array_equal(she.decrypt(sk, she.key_switch_linear(
-            she.ks_linear_hint(sk, sk2, gd.RnsGad(), g, "cpu"), a2)), m1)
+            she.ks_linear_hint(sk, sk2, gd.RnsGad(), g(), "cpu"), a2)), m1)
         k = 5 if m == M else 7
         np.testing.assert_array_equal(she.decrypt(sk, she.ct_galois(
-            she.ks_galois_hint(k, sk, gd.RnsGad(), g, "cpu"), k, a)), she.galois_ints(m, m1, k, p))
+            she.ks_galois_hint(k, sk, gd.RnsGad(), g(), "cpu"), k, a)), she.galois_ints(m, m1, k, p))
     # the tunnel 64 -> 32 on the port's hint
     params = she.SHEParams(m=M, p=257, qs=QS, var=2.0)
-    g = torch.Generator().manual_seed(1)
-    sk, sk_s = she.gen_sk(params, g), she.gen_sk(replace(params, m=MS), g)
+    g, rng = prng.KeyChain(1), np.random.default_rng(1)
+    sk, sk_s = she.gen_sk(params, g(), "cpu"), she.gen_sk(replace(params, m=MS), g(), "cpu")
     S = ring_context(MS, QS)
     lin = linear.linear_pow(S, params.ctx, S, [np.eye(1, MS // 2, 0)[0], np.eye(1, MS // 2, 3)[0]])
-    th = she.tunnel_hint(lin, sk_s, sk, gd.RnsGad(), g, "cpu")
-    m1 = torch.randint(0, 257, (M // 2,), generator=g).numpy()
-    got = she.decrypt(sk_s, she.tunnel(th, she.encrypt(sk, m1, g, "cpu")))
+    th = she.tunnel_hint(lin, sk_s, sk, gd.RnsGad(), g(), "cpu")
+    m1 = rng.integers(0, 257, M // 2)
+    got = she.decrypt(sk_s, she.tunnel(th, she.encrypt(sk, m1, g(), "cpu")))
     np.testing.assert_array_equal(got, linear.eval_lin_ints(lin, m1, 257))
 
 
@@ -304,14 +305,14 @@ def test_one_hint_serves_both_paths(m):
     p = 257 if m == M else 5
     qs = QS if m == M else tuple(nt.ntt_primes(36, 30, 3))
     params = she.SHEParams(m=m, p=p, qs=qs, var=2.0)
-    g = torch.Generator().manual_seed(7)
-    sk = she.gen_sk(params, g)
+    g, rng = prng.KeyChain(7), np.random.default_rng(7)
+    sk = she.gen_sk(params, g(), "cpu")
     n = params.ctx.n
-    msgs = [torch.randint(0, p, (n,), generator=g).numpy() for _ in range(4)]
-    cts = [she.encrypt(sk, x, g, "cpu") for x in msgs]
+    msgs = [rng.integers(0, p, n) for _ in range(4)]
+    cts = [she.encrypt(sk, x, g(), "cpu") for x in msgs]
     bb = BatchedBGV(params, "cpu")
     params2 = replace(params, qs=qs[:-1])
-    for hint in (she.ks_quad_circ_hint(sk, gd.RnsGad(), g, "cpu"), bb.gen_ks_quad_hint(sk, g)):
+    for hint in (she.ks_quad_circ_hint(sk, gd.RnsGad(), g(), "cpu"), bb.gen_ks_quad_hint(sk, g())):
         e0, e1 = bb.build_step(hint)(*bb.pack(cts[:2]), *bb.pack(cts[2:]))
         outs = BatchedBGV(params2, "cpu").unpack((e0, e1), f=bb.step_f())
         for col in range(2):
@@ -323,14 +324,14 @@ def test_one_hint_serves_both_paths(m):
             np.testing.assert_array_equal(she.decrypt(she.SK(params2, sk.s_ints, 2.0), outs[col]),
                                           she.pt_mul(params, msgs[col], msgs[2 + col]))
     with pytest.raises(ValueError, match="RNS-gadget hints only"):
-        bb.build_step(she.ks_quad_circ_hint(sk, gd.BaseBGad(BASE), g, "cpu"))
+        bb.build_step(she.ks_quad_circ_hint(sk, gd.BaseBGad(BASE), g(), "cpu"))
     if m != M:
         return
-    sk_s = she.gen_sk(replace(params, m=MS), g)
+    sk_s = she.gen_sk(replace(params, m=MS), g(), "cpu")
     S = ring_context(MS, qs)
     lin = linear.linear_pow(S, params.ctx, S, [np.eye(1, MS // 2, 0)[0], np.eye(1, MS // 2, 1)[0]])
-    for th in (she.tunnel_hint(lin, sk_s, sk, gd.RnsGad(), g, "cpu"),
-               bb.gen_tunnel_hint(lin, sk_s, sk, g)):
+    for th in (she.tunnel_hint(lin, sk_s, sk, gd.RnsGad(), g(), "cpu"),
+               bb.gen_tunnel_hint(lin, sk_s, sk, g())):
         e0, e1 = bb.build_tunnel(th)(*bb.pack(cts[:2]))
         for col in range(2):
             ref = she.tunnel(th, cts[col])
@@ -347,13 +348,13 @@ def test_object_homom_prf_equals_batched():
 
     p, rings = 8, [32, 16, 8, 4, 2]
     qs = tuple(nt.ntt_primes(64, 30, she.pt_round_mults(p) + 5))
-    g = torch.Generator().manual_seed(5)
-    sks = [she.gen_sk(she.SHEParams(m=r, p=p, qs=qs, var=2.0), g) for r in rings]
-    fam = prf.PRFFamily.random(ring_context(32, (p,)), gd.BaseBGad(2), prf.balanced(2), g)
-    hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], g, homomorphic_round=True,
+    g, rng = prng.KeyChain(5), np.random.default_rng(5)
+    sks = [she.gen_sk(she.SHEParams(m=r, p=p, qs=qs, var=2.0), g(), "cpu") for r in rings]
+    fam = prf.PRFFamily.random(ring_context(32, (p,)), gd.BaseBGad(2), prf.balanced(2), g(), "cpu")
+    hints, sk_out = prf.make_eval_hints(fam, sks, rings, rings[1:], gd.RnsGad(), g(), homomorphic_round=True,
                                         maps="project", device="cpu")
-    keys = [torch.randint(0, p, (16,), generator=g).numpy() for _ in range(2)]
-    cts = [she.encrypt(sks[0], k, g, "cpu") for k in keys]
+    keys = [rng.integers(0, p, 16) for _ in range(2)]
+    cts = [she.encrypt(sks[0], k, g(), "cpu") for k in keys]
     bb = BatchedBGV(sks[0].params, "cpu")
     bits = (1, 0)
     bb_out, f_out, (e0, e1) = serving.batched_homom_prf_component(

@@ -23,6 +23,7 @@ from lol_tpu.cyc import Cyc as JCyc, Rep as JRep
 from lol_tpu.ops import general as jgen
 from lol_tpu.ring import ring_context as j_ring_context
 from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu_torch import prng
 from lol_tpu_torch import convert, linear, numtheory as nt, she
 from lol_tpu_torch.ops import general as gen
 from lol_tpu_torch.ring import ring_context
@@ -59,9 +60,9 @@ def keys():
 
 def _encrypt(sk_r, seed):
     """A port-encrypted batch over R: (messages, (c0, c1))."""
-    g = torch.Generator().manual_seed(seed)
-    msgs = she.pt_random(PR, g, (B,))
-    return msgs, BatchedBGV(PR, "cpu").build_encrypt(sk_r)(msgs, g)
+    g, rng = prng.KeyChain(seed), np.random.default_rng(seed)
+    msgs = she.pt_random(PR, rng, (B,), "cpu")
+    return msgs, BatchedBGV(PR, "cpu").build_encrypt(sk_r)(msgs, g())
 
 
 def _jax(t: torch.Tensor):
@@ -134,7 +135,7 @@ def test_port_tunnel_hint_decrypts_through_both_tunnels(keys):
     f = linear.linear_pow(*(ring_context(m, QS) for m in (M_S, M_R, M_S)),
                           [np.eye(1, M_S // 2, dtype=np.int64)[0], np.zeros(M_S // 2)])
     bb = BatchedBGV(PR, "cpu")
-    th = bb.gen_tunnel_hint(f, keys["sk_s"], keys["sk_r"], torch.Generator().manual_seed(4))
+    th = bb.gen_tunnel_hint(f, keys["sk_s"], keys["sk_r"], prng.PRNGKey(4))
     assert len(th.hints) == 2 and th.hints[0].h0.shape == (len(QS), len(QS), M_S // 2)
     msgs, (c0, c1) = _encrypt(keys["sk_r"], 5)
     want = np.stack([linear.eval_lin_ints(f, msgs[:, b], P) for b in range(B)], -1)
@@ -157,9 +158,9 @@ def test_port_tunnel_hint_decrypts_through_both_tunnels(keys):
 def test_tunnel_refuses_mismatched_rings(keys):
     f = linear.linear_pow(*(ring_context(m, QS) for m in (M_S, M_R, M_S)),
                           [np.zeros(M_S // 2)] * 2)
-    g = torch.Generator().manual_seed(0)
+    g = prng.KeyChain(0)
     with pytest.raises(ValueError, match="source ring"):
-        BatchedBGV(PS, "cpu").gen_tunnel_hint(f, keys["sk_s"], keys["sk_r"], g)
+        BatchedBGV(PS, "cpu").gen_tunnel_hint(f, keys["sk_s"], keys["sk_r"], g())
     with pytest.raises(ValueError, match="basis images"):
         linear.linear_pow(*(ring_context(m, QS) for m in (M_S, M_R, M_S)), [np.zeros(16)])
 
