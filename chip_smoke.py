@@ -24,9 +24,10 @@ then runs its phases and exits non-zero on the first failure:
    scatter pass) over D in {2, 4, 8}, n in {256, 4096, 16384, 65536}
    (D^2 | n), B in {1, 1000, 1024}, with 0, 1 and q - 1 planted; and the
    HomomPRF tower's tail, n in {1, 2, 4} (n = 1: the length-1 pass, one
-   round of no stages): forward with and without the prologue and the GS
-   inverse, route B refused at n = 1; and the 2-power axes of phase 3f's
-   general rings (n2 = 1024 and 512, the plans `axis_plan` gives them)
+   round of no stages): forward with and without the prologue, the GS
+   inverse, and route B at n = 1 (x itself, by that pass); and the
+   2-power axes of phase 3f's general rings (n2 = 1024 and 512, the
+   plans `axis_plan` gives them)
    over B' = 6144 columns: forward with and without the prologue, GS;
 3. the batched BGV slice at full width (m = 32768 so n = 2^14, three
    30-bit primes, p = 257, var = 2.0, B = 1024): keygen, encrypt, the
@@ -153,14 +154,20 @@ then runs its phases and exits non-zero on the first failure:
    the plain twin on the CPU bit for bit (`phase_3j`): (a) the kernel's
    erf_inv epilogue on all 2^23 inputs a normal can take, raw, as
    jax.random.normal and rounded at var 2, 4 and 9; (b) its threefry
-   words for two keys and randint over the three primes at (16384, 1024),
-   and every mode at ragged sizes; (c) gen_sk at m = 32768 and 18432,
-   build_encrypt LSD and MSD, gen_ks_quad_hint and gen_tunnel_hint
-   32768 -> 16384 at B = 1024 (the challenges' bytes are 3i(b)'s); (d)
+   words for two keys and randint at (16384, 1024) through both of its
+   instances (one hash over the three primes, two over three spans up
+   to 2^16), every mode at ragged sizes, and the 64-bit-index instance
+   on samples of a draw of 2^32 + 1029 words (counters whose high word
+   is 1) and of randint over three channels of 2^29 + 3; (c) gen_sk at
+   m = 32768 and 18432, build_encrypt LSD and MSD, gen_ks_quad_hint and
+   gen_tunnel_hint 32768 -> 16384 at B = 1024 (the challenges' bytes are
+   3i(b)'s); (d)
    the JAX package's known answers (`KNOWN`: words, splits, randint, a
    normal, and the digests of gen_sk(PRNGKey(0)) at m = 32768 and of a
    challenge directory) computed on the card; (e) the kernel's and its
-   plain version's times at (16384, 1024) beside its bound and
+   plain version's times at (16384, 1024) for each body beside its bound
+   (what the body needs a word by pipe, `roofline.PRNG_NEEDS`; this
+   build's SASS mix, `sass_diff.loop_mix`, printed beside it) and
    torch.randn's, and gen_sk, build_encrypt (B = 1024) and
    gen_ks_quad_hint at m = 32768 as their caller sees them;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
@@ -218,6 +225,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -301,18 +309,40 @@ def tree_digest(root) -> str:
     return h.hexdigest()
 
 
-def phase_3j(dev, m=32768, m_g=18432, B=1024, m_c=1024, every=1 << 23, time_it=True) -> dict:
+def prng_mix(lib) -> dict:
+    """Each draw body's main-loop instructions a word by pipe, from the
+    SASS of this build's narrow instances (`sass_diff.loop_mix` over their
+    4 words a thread), keyed as `roofline.PRNG_NEEDS`: what the build
+    issues, printed beside what the bound counts."""
+    from lol_tpu_torch.bench import sass_diff
+
+    bodies = {0: "prng_bits", 1: "prng_randint", 2: "prng_randint2", 4: "prng_normal"}
+    out = {}
+    for name, body in sass_diff.functions(sass_diff._dump(str(lib))).items():
+        inst = re.search(r"prng_drawILi(\d)ELb0ELb0E", name)
+        if inst and int(inst.group(1)) in bodies:
+            mix = sass_diff.loop_mix(body)
+            out[bodies[int(inst.group(1))]] = {k: v / 4 for k, v in mix.items()}
+    return out
+
+
+def phase_3j(dev, m=32768, m_g=18432, B=1024, m_c=1024, every=1 << 23, time_it=True,
+             wide=True) -> dict:
     """The randomness (`prng`, `csrc/prng.cu`) on the card, against the
     plain twin on the CPU, bit for bit: (a) the kernel's erf_inv epilogue
     on all 2^23 inputs, raw, as jax.random.normal, and rounded at var 2, 4
-    and 9; (b) its threefry words for two keys and randint over three
-    30-bit primes at (n, B), and every mode at ragged sizes; (c) gen_sk at
-    m and m_g, build_encrypt LSD and MSD and gen_ks_quad_hint at m, B, and
-    gen_tunnel_hint m -> m / 2, drawn on the card == drawn on the CPU;
-    (d) the known answers of the JAX package (KNOWN), computed on the card;
-    (e) the kernel's and its plain version's times at (n, B), beside its
-    bound and torch.randn's, and keygen's and encryption's times at m.
-    Returns the kernel row's numbers and the timings."""
+    and 9; (b) its threefry words for two keys, randint's one-hash
+    instance over three 30-bit primes and its two-hash one over three
+    spans up to 2^16 at (n, B), every mode at ragged sizes, and (wide) the
+    64-bit-index instance on samples of the words of one draw of 2^32 +
+    1029 elements (counters whose high word is 1) and of randint over
+    three channels of 2^29 + 3; (c) gen_sk at m and m_g, build_encrypt LSD
+    and MSD and gen_ks_quad_hint at m, B, and gen_tunnel_hint m -> m / 2,
+    drawn on the card == drawn on the CPU; (d) the known answers of the
+    JAX package (KNOWN), computed on the card; (e) the kernel's and its
+    plain version's times at (n, B), each body's beside its bound (what it
+    needs a word by pipe, `roofline.PRNG_NEEDS`) and torch.randn's, and keygen's and encryption's times at m.  Returns the
+    kernel row's numbers and the timings."""
     import hashlib
     import tempfile
 
@@ -350,15 +380,31 @@ def phase_3j(dev, m=32768, m_g=18432, B=1024, m_c=1024, every=1 << 23, time_it=T
         same(f"bits key {seed}", pk.draw([key], n * B, "bits", device=dev),
              pk.draw_ref([key], n * B, "bits"))
     keys3 = list(prng.split(prng.PRNGKey(13), 3))
-    same("randint 3 x 30-bit", pk.draw(keys3, n * B, "randint", qs=qs, device=dev),
-         pk.draw_ref(keys3, n * B, "randint", qs=qs))
+    qs2 = (257, 12289, 65535)  # spans up to 2^16: randint's two-hash instance
+    for qq in (qs, qs2):
+        same(f"randint 3 x {qq}", pk.draw(keys3, n * B, "randint", qs=qq, device=dev),
+             pk.draw_ref(keys3, n * B, "randint", qs=qq))
     for count in (1, 7, 1000, 4097, 1000003):
         kk = list(prng.split(prng.PRNGKey(count), 2))
         for mode, kw in (("bits", {}), ("randint", {"qs": [qs[0], 257]}),
+                         ("randint", {"qs": [qs[0], qs[1]]}),
                          ("float", {"pre": prng.SQRT2}), ("round", {"scale": 1.5})):
             same(f"{mode} x {count}", pk.draw(kk, count, mode, device=dev, **kw),
                  pk.draw_ref(kk, count, mode, **kw))
-    out["checks"] += 3 + 5 * 4
+    out["checks"] += 4 + 5 * 5
+    if wide:  # the 64-bit-index instance: nchan * count >= 2^31
+        torch.cuda.empty_cache()
+        for kk, count, mode, kw in (([prng.PRNGKey(14)], (1 << 32) + 1029, "bits", {}),
+                                    (keys3, (1 << 29) + 3, "randint", {"qs": qs})):
+            got = pk.draw(kk, count, mode, device=dev, **kw)
+            idx = torch.cat([torch.arange(0, 4099), torch.arange((1 << 31) - 4099, (1 << 31) + 4099),
+                             torch.arange(count - 8197, count)])
+            idx = idx[idx < count]
+            same(f"{mode} 64-bit index, {len(kk)} x {count}", got[:, idx.to(dev)],
+                 pk.draw_at_ref(kk, idx, mode, **kw))
+            del got
+            torch.cuda.empty_cache()
+        out["checks"] += 2
     # (c) full width: the entry points drawn on the card == drawn on the CPU
     params = she.SHEParams(m=m, p=257, qs=qs, var=2.0)
     for prm in (params, she.SHEParams(m=m_g, p=7, qs=tuple(nt.ntt_primes(m_g, 30, 3)), var=2.0)):
@@ -410,17 +456,19 @@ def phase_3j(dev, m=32768, m_g=18432, B=1024, m_c=1024, every=1 << 23, time_it=T
     # randint over three primes) and the bare words; each kernel call
     # checked == its plain version on the card first
     key = prng.PRNGKey(31)
-    legs = {"round": ([key], {"scale": prng.folded_scale(2.0)}, "prng_normal", 1),
-            "randint": (keys3, {"qs": qs}, "prng_randint", 3),
-            "bits": ([key], {}, "prng_bits", 1)}
-    for leg, (kk, kw, op, ch) in legs.items():
-        same(f"{leg} on the card", pk.draw(kk, n * B, leg, device=dev, **kw),
-             pk.draw_ref(kk, n * B, leg, device=dev, **kw))
-        out[f"{leg}_ms"] = time_ms(lambda: pk.draw(kk, n * B, leg, device=dev, **kw), 10,
+    legs = {"round": ([key], "round", {"scale": prng.folded_scale(2.0)}, "prng_normal"),
+            "randint": (keys3, "randint", {"qs": qs}, "prng_randint"),
+            "bits": ([key], "bits", {}, "prng_bits"),
+            "randint2": (keys3, "randint", {"qs": qs2}, "prng_randint2")}
+    for leg, (kk, mode, kw, op) in legs.items():
+        same(f"{leg} on the card", pk.draw(kk, n * B, mode, device=dev, **kw),
+             pk.draw_ref(kk, n * B, mode, device=dev, **kw))
+        out[f"{leg}_ms"] = time_ms(lambda: pk.draw(kk, n * B, mode, device=dev, **kw), 10,
                                    device_only=True)[0]
-        out[f"{leg}_plain_ms"] = time_ms(lambda: pk.draw_ref(kk, n * B, leg, device=dev, **kw),
+        out[f"{leg}_plain_ms"] = time_ms(lambda: pk.draw_ref(kk, n * B, mode, device=dev, **kw),
                                          2)[0]
-        out[f"{leg}_bound"] = roofline.bound(*roofline.work(op, n, ch * B))
+        out[f"{leg}_bound"] = roofline.bound(*roofline.work(op, n, len(kk) * B))
+        out[f"{leg}_pipe"] = roofline.prng_slots(roofline.PRNG_NEEDS[op])[1]
     out["randn_ms"] = time_ms(lambda: torch.randn((n, B), device=dev), 10, device_only=True)[0]
     out["randint_torch_ms"] = time_ms(lambda: torch.randint(0, qs[0], (3, n, B), device=dev,
                                                             dtype=torch.int32), 10,
@@ -615,13 +663,15 @@ def main() -> int:
             if not torch.equal(tk.ntt_cm(tk.ntt_cm(x, plan), plan, inverse=True), x):
                 raise AssertionError(f"round trip failed at n={n_t}, B={B_t}")
             checks += 6
-        if n_t == 1:
-            try:
-                tk.ntt_cm(x, plan, inverse=True, alg="dit")
-            except NotImplementedError:
-                pass
-            else:
-                raise AssertionError("route B ran at n = 1, where it has no kernel")
+            if n_t == 1:  # route B at n = 1: x itself, by the length-1 pass (one launch)
+                before = dict(tk.LAUNCHES)
+                got = tk.ntt_cm(x, plan, inverse=True, alg="dit")
+                ran = {k: tk.LAUNCHES[k] - before[k] for k in before}
+                if (not torch.equal(got, x) or ran != dict.fromkeys(before, 0) | {"ntt_inv": 1}
+                        or not torch.equal(got, tk.ntt_cm_ref(x, plan, inverse=True, alg="dit"))):
+                    raise AssertionError(f"route B at n = 1, B = {B_t}: {ran}, == x "
+                                         f"{torch.equal(got, x)}")
+                checks += 1
     # the 2-power axes of phase 3f's general rings, m = 18432 and 9216
     # (n2 = 1024, 512, the plans `axis_plan` gives them), over B' = 6 * 1024
     # columns: forward with and without the prologue, and the GS inverse
@@ -1931,16 +1981,25 @@ def main() -> int:
 
     # -- phase 3j: the randomness, the JAX package's bits on the card ------
     pk_before = pk.LAUNCHES["prng"]
+    from lol_tpu_torch.bench import roofline as rf
+
+    for op_, m_ in prng_mix(lib).items():  # what this build issues, beside what the bound counts
+        need_, pipe_ = rf.prng_slots(rf.PRNG_NEEDS[op_])
+        print(f"prng SASS a word, {op_}: {m_}, {m_['issue'] / 2:.2f} issue slots; the bound "
+              f"counts {need_:.2f} ({pipe_})", flush=True)
     rand = phase_3j(dev)
-    print(f"prng kernel at (n, B) = ({n}, {B}): rounded normal {rand['round_ms']:.4f} ms "
-          f"(plain {rand['round_plain_ms']:.3f}, bound {rand['round_bound'][0]:.4f}), randint "
-          f"over 3 primes {rand['randint_ms']:.4f} ms (plain {rand['randint_plain_ms']:.3f}, bound "
-          f"{rand['randint_bound'][0]:.4f}), words {rand['bits_ms']:.4f} ms; torch.randn "
-          f"{rand['randn_ms']:.4f} ms; on {card}", flush=True)
+    for leg_, what_ in (("round", "rounded normal"), ("randint", "randint over 3 primes (one hash)"),
+                        ("bits", "words"), ("randint2", "randint over 3 spans <= 2^16 (two hashes)")):
+        print(f"prng kernel at (n, B) = ({n}, {B}), {what_}: {rand[f'{leg_}_ms']:.4f} ms, plain "
+              f"{rand[f'{leg_}_plain_ms']:.3f}, bound {rand[f'{leg_}_bound'][0]:.4f} "
+              f"({rand[f'{leg_}_pipe']}, {100 * rand[f'{leg_}_bound'][0] / rand[f'{leg_}_ms']:.1f}%)"
+              f"; on {card}", flush=True)
+    print(f"torch.randn ({n}, {B}) {rand['randn_ms']:.4f} ms; on {card}", flush=True)
     for k_ in ("gen_sk", "encrypt_B1024", "gen_ks_quad_hint"):
         print(f"metric {k_}_ms_m{m} = {rand[f'{k_}_ms_m{m}']:.3f} on {card}", flush=True)
     mark(f"phase 3j: prng: {rand['checks']} checks card == plain bit for bit (every 2^23 "
-         f"normal input raw and rounded at var 2, 4, 9; words and randint at ({n}, {B}); "
+         f"normal input raw and rounded at var 2, 4, 9; words and randint's two instances at "
+         f"({n}, {B}); the 64-bit-index instance past 2^31 and 2^32 elements; "
          f"gen_sk at {m} and {m_g}, build_encrypt LSD / MSD, gen_ks_quad_hint and the tunnel "
          f"hint at {m}; the challenges' card bytes == CPU bytes in 3i(b)), known answers "
          f"{rand['known_answers']}; "
@@ -2353,9 +2412,11 @@ def main() -> int:
          "shape": f"({n}, {B}), the rounded normal; randint over 3 primes beside it",
          "ms": rand["round_ms"], "plain_ms": rand["round_plain_ms"],
          "bound_ms": rand["round_bound"][0], "bound_by": rand["round_bound"][1],
-         "library_ms": None, "randint_ms": rand["randint_ms"],
+         "library_ms": None, "pipe": rand["round_pipe"], "randint_ms": rand["randint_ms"],
          "randint_plain_ms": rand["randint_plain_ms"], "randint_bound_ms": rand["randint_bound"][0],
-         "bits_ms": rand["bits_ms"], "randn_ms": rand["randn_ms"]},
+         "randint_pipe": rand["randint_pipe"], "bits_ms": rand["bits_ms"],
+         "bits_bound_ms": rand["bits_bound"][0], "randint2_ms": rand["randint2_ms"],
+         "randint2_bound_ms": rand["randint2_bound"][0], "randn_ms": rand["randn_ms"]},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

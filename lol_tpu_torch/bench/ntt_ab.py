@@ -35,7 +35,13 @@ With `--keygen` it times keygen and encryption instead, as their caller
 sees them (each call ends in a synchronize): `gen_sk`, `build_encrypt`'s
 `enc` at B = 1024 and `gen_ks_quad_hint`, at m = 32768 over three 30-bit
 primes, from `prng` keys where the tree has them and from a
-`torch.Generator` in a tree that predates them.
+`torch.Generator` in a tree that predates them; and, where the tree has
+the draw kernel (`ops/cuda/prng`), its legs at (16384, 1024) on the
+device alone, each checked == its plain version on the card first: the
+rounded normal at var 2 (`round`), randint over the three primes
+(`randint`), the words (`bits`) and randint over three spans up to 2^16
+(`randint2`), and the number of the epilogue's words that differ from
+the plain version's over all 2^23 inputs (`prng_map_differ`).
 
 Times are `bench.time_ms` medians of 5 CUDA-event windows.  `ring_phase_b`
 builds the ring's timed phase-B calls for this script and `chip_smoke.py`.
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -159,6 +166,37 @@ def keygen(she, BatchedBGV, nt, bench, dev, out: dict) -> None:
     for name, fn in (("gen_sk", lambda: gen_sk(params)), ("encrypt_B1024", lambda: enc(msgs, key())),
                      ("gen_ks_quad_hint", lambda: bb.gen_ks_quad_hint(sk, key()))):
         out[f"{name}_ms_m{m}"] = bench.time_ms(synced(fn), 5)[0]
+    if importlib.util.find_spec("lol_tpu_torch.ops.cuda.prng"):
+        prng_legs(nt, bench, dev, out)
+
+
+def prng_legs(nt, bench, dev, out: dict, n: int = 16384, B: int = 1024) -> None:
+    """The draw kernel's legs at (n, B) into out (see the module
+    docstring), and `prng_map_differ`: the words of the epilogue that
+    differ from the plain version's over all 2^23 inputs, raw, as
+    jax.random.normal and rounded at var 2, 4, 9 (0 for a right kernel)."""
+    import torch
+
+    pk = importlib.import_module("lol_tpu_torch.ops.cuda.prng")
+    prng = importlib.import_module("lol_tpu_torch.prng")
+    keys3 = list(prng.split(prng.PRNGKey(13), 3))
+    legs = {"round": ([prng.PRNGKey(31)], "round", {"scale": prng.folded_scale(2.0)}),
+            "randint": (keys3, "randint", {"qs": tuple(nt.ntt_primes(2 * n, 30, 3))}),
+            "bits": ([prng.PRNGKey(31)], "bits", {}),
+            "randint2": (keys3, "randint", {"qs": (257, 12289, 65535)})}
+    for leg, (kk, mode, kw) in legs.items():
+        if not torch.equal(pk.draw(kk, n * B, mode, device=dev, **kw),
+                           pk.draw_ref(kk, n * B, mode, device=dev, **kw)):
+            raise AssertionError(f"prng {leg} != plain")
+        out[f"prng_{leg}_dev_ms_n{n}_B{B}"] = bench.time_ms(
+            lambda: pk.draw(kk, n * B, mode, device=dev, **kw), 10, device_only=True)[0]
+    words = (torch.arange(1 << 23, dtype=torch.int64) << 9).to(torch.int32)
+    out["prng_map_differ"] = 0
+    for mode, pre, scale in (("float", 1.0, 1.0), ("float", prng.SQRT2, 1.0),
+                             *(("round", 1.0, prng.folded_scale(v)) for v in (2.0, 4.0, 9.0))):
+        got = pk.map_words(words.to(dev), mode, pre, scale).cpu()
+        want = pk.map_words(words, mode, pre, scale)
+        out["prng_map_differ"] += int((got.view(torch.int32) != want.view(torch.int32)).sum())
 
 
 def run(tree: str, label: str, keygen_only: bool = False) -> dict:
@@ -265,7 +303,7 @@ def main() -> int:
     ap.add_argument("--tree", required=True, help="root of the tree whose port is timed")
     ap.add_argument("--label", default="")
     ap.add_argument("--keygen", action="store_true",
-                    help="time keygen and encryption at m = 32768 instead")
+                    help="time keygen and encryption at m = 32768 instead, and the draws")
     args = ap.parse_args()
     print(json.dumps(run(args.tree, args.label or args.tree, args.keygen)), flush=True)
     return 0

@@ -27,19 +27,31 @@ pass schedule, and `work` is the one place that states them:
   `ntt_inv_scatter`) read and write 8*n*B bytes for log2(n/D) of the
   transform's stages, 9*log2(n/D)*n/2*B u32 ops.
 - the random draws (`ops/cuda/prng`) over n*B words, each written once,
-  4*n*B bytes.  A threefry2x32 hash is 73 u32 ops: 2 key adds, 20 rounds
-  of add, rotate and xor, 5 key injections of 2 adds, the output xor.  Its
-  41 rotations and xors run only on the integer ALU pipe, 64 lanes a
-  clock an SM; its 32 adds may also run on the FMA pipe (as IMAD), which
-  issues beside it, so a hash takes at least max(41, 73 / 2) = 41 ALU
-  issue slots, and that is its count here (`PRNG_HASH_OPS`).  `prng_bits`
-  and `prng_normal` hash once a word (the normal's float32 epilogue, ~45
-  ops on the FP32 pipes, stays below that), `prng_randint` twice.
+  4*n*B bytes.  No u32 op count bounds them: a threefry2x32 hash is 20
+  rounds of add, rotate and xor for 4 bytes, and what binds is the pipe
+  its operations and the normal's float32 epilogue must issue on.  So
+  their count is the operations a word needs, by pipe (`PRNG_NEEDS`, the
+  function's, not any build's: one side of each of the normal's branches,
+  weighted by the share of words that take it): "alu" (rotations, logic,
+  compares and selects: 64 lanes a clock an SM), "add" (integer adds,
+  which issue on the ALU as IADD3 or on the FMA pipe as IMAD), "imad"
+  (integer multiplies, the FMA pipe's heavy half: 64), "fp32" (float
+  FMA, add, multiply and conversion, on either half: 128, the issue rate),
+  "xu" (MUFU and F2I: 16), and issue over all of them (4
+  warp-instructions a clock an SM: 128 lanes).  `prng_slots` puts the
+  adds where they balance the ALU and the FMA pipe and takes the busiest
+  pipe or issue, in 64-lane slots a word, and says which binds.
+  `prng_randint` is the one-hash body (every span above 2^16, the NTT
+  primes), `prng_randint2` the two-hash one (spans up to 2^16),
+  `prng_normal` the rounded normal.  `sass_diff.loop_mix` reads what a
+  build issues for the same words; `chip_smoke.py` prints it beside the
+  bound, which it does not change.
 
 `bound` turns a count into the least time the H100 could take: the
 larger of the bytes over the data sheet's 3.35 TB/s and the u32 ops
 over the card's integer issue peak, 132 SMs x 64 IMAD per clock x the
-1.98 GHz boost clock (16.7 T/s; the chain kernel measures ~93% of it).
+1.98 GHz boost clock (16.7 T/s; the chain kernel measures ~93% of it);
+the draws' slots at the same 64 lanes a clock.
 
 Ceilings are measured, not assumed: `chip_smoke.py` passes the chain
 kernel's u32 (mul+add)/s (`mxu_ntt.u32_ceiling`, one op per IMAD) and the
@@ -56,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import os
 
 import torch
@@ -68,7 +81,28 @@ from . import require_cuda, time_ms
 OPS = ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit", "ct_mul", "mul_mod", "add_mod")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 U32_OPS_PER_S = 132 * 64 * 1.98e9  # SMs x IMAD per clock per SM x boost clock
-PRNG_HASH_OPS = 41  # ALU issue slots of one threefry2x32 hash (see the module docstring)
+# A word's operations by pipe, as the draw functions need them (see the
+# module docstring).  The hash: 20 rotations (SHF.L.W) and 21 xors (LOP3),
+# the 20 round adds, 2 key adds and 10 key-injection adds.  Barrett's w mod
+# q: the high product and w - t q (2 IMAD), r - q and the unsigned min of r
+# and r - q (1 add, 1 ALU).  The normal (rounded) adds to the hash: u from
+# the word (1 ALU, 2 FP32), -u^2 (1), log1p's side chosen (1 ALU) and taken
+# (the rational, 22 FP32 and the divide's reciprocal, where |u| < sqrt(sqrt(2)
+# - 1); else the log, 19 FP32, 5 ALU, 1 add), erf_inv's polynomial chosen (1
+# ALU) and taken (10 FP32; 14 and the root's MUFU where |u| >= sqrt(1 -
+# e^-5)), the products by u, pre and scale (3) and the rounding (1 F2I).
+_P_RATIONAL = math.sqrt(math.sqrt(2) - 1)  # share of words on log1p's rational side
+_P_FAR = 1 - math.sqrt(1 - math.exp(-5))  # share on erf_inv's far polynomial
+PRNG_NEEDS = {
+    "prng_bits": {"alu": 41, "add": 32, "imad": 0, "fp32": 0, "xu": 0},
+    "prng_randint": {"alu": 41 + 1, "add": 32 + 1, "imad": 2, "fp32": 0, "xu": 0},
+    "prng_randint2": {"alu": 2 * 41 + 3, "add": 2 * 32 + 3, "imad": 3 * 2 + 1, "fp32": 0,
+                      "xu": 0},
+    "prng_normal": {"alu": 41 + 3 + 5 * (1 - _P_RATIONAL), "add": 32 + (1 - _P_RATIONAL),
+                    "imad": 0,
+                    "fp32": 6 + 22 * _P_RATIONAL + 19 * (1 - _P_RATIONAL) + 10 + 4 * _P_FAR,
+                    "xu": 1 + _P_RATIONAL + _P_FAR},
+}
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -77,7 +111,21 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def work(op: str, n: int, B: int, D: int = 1) -> tuple[int, int]:
+def prng_slots(need: dict) -> tuple[float, str]:
+    """(64-lane issue slots a word, the pipe that binds: "alu", "imad",
+    "xu" or "issue") of a draw body's needs (`PRNG_NEEDS`), its adds split
+    between the ALU and the FMA pipe where the busier of the two is least.
+    The float ops issue at 128 lanes a clock, the issue rate, and so weigh
+    on issue alone."""
+    alu, add, imad, fp32, xu = (need[k] for k in ("alu", "add", "imad", "fp32", "xu"))
+    on_alu = min(add, max(0, (imad + add - alu) / 2))
+    slots = {"alu": alu + on_alu, "imad": imad + add - on_alu, "xu": 4 * xu,
+             "issue": (alu + add + imad + fp32 + xu) / 2}
+    pipe = max(slots, key=slots.get)
+    return slots[pipe], pipe
+
+
+def work(op: str, n: int, B: int, D: int = 1) -> tuple[float, int]:
     """(u32 ops, least bytes moved) of one call of `op` on (n, B) int32;
     D: the ring ops' shard count."""
     k = n.bit_length() - 1
@@ -91,10 +139,8 @@ def work(op: str, n: int, B: int, D: int = 1) -> tuple[int, int]:
         return (9 * (k * n // 2) + 5 * n) * B, 8 * n * B
     if op == "ct_mul":
         return (4 * 9 + 2) * n * B, 28 * n * B
-    if op in ("prng_bits", "prng_normal"):
-        return PRNG_HASH_OPS * n * B, 4 * n * B
-    if op == "prng_randint":
-        return 2 * PRNG_HASH_OPS * n * B, 4 * n * B
+    if op in PRNG_NEEDS:
+        return prng_slots(PRNG_NEEDS[op])[0] * n * B, 4 * n * B
     if op == "mul_mod":
         return 9 * n * B, 12 * n * B
     if op == "add_mod":

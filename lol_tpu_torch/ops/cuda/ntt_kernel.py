@@ -269,11 +269,12 @@ def ntt_cm(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
 def _ntt_invb_cuda(x, plan):
     """Route B: the block pass (DFT_tS, then the twist; at tS = n the only
     pass, then the scale), then the cross pass (DFT_P, the scale and the
-    fold), in place after the first."""
+    fold), in place after the first.  At n = 1 every route is the identity
+    on residues (the reference returns x): the length-1 pass of the GS
+    inverse, one launch, gives it."""
     n = x.shape[0]
     if n == 1:
-        raise NotImplementedError("ntt_cm: route B (alg='dit') has no CUDA kernel for n = 1; "
-                                  "use the GS inverse (alg='gs')")
+        return _ntt_cuda(x, plan, True, None)
     passes = dit_schedule(n)[::-1]
     tab = plan.dit_tables(_dit_block_rows(n), x.device)
     y = torch.empty_like(x)

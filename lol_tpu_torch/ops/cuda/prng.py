@@ -7,7 +7,9 @@ fills nchan draws of `count` elements, channel c hashing its own key
 (`prng.py` says how each mode maps a word).  `draw` launches it for a
 CUDA device and raises on any build or launch error; for the CPU, and
 only then, it runs the plain version `draw_ref`, which composes the
-threefry twin of `lol_tpu_torch.prng`.
+threefry twin of `lol_tpu_torch.prng` (randint as the reference defines
+it, two words and `%`, which the kernel's one hash and Barrett
+reductions must equal).
 """
 
 from __future__ import annotations
@@ -61,6 +63,24 @@ def _check(keys, count: int, mode: str, qs) -> None:
         raise ValueError(f"prng draw: randint needs one modulus in (0, 2^31) a channel, got {qs}")
 
 
+def draw_at_ref(keys, idx: torch.Tensor, mode: str, qs=None, pre: float = 1.0,
+                scale: float = 1.0) -> torch.Tensor:
+    """The plain version's values at the flat element indices idx (int64,
+    on any device) of each key's draw: (nchan, len(idx)), as `draw_ref`."""
+    _check(keys, max(1, idx.numel()), mode, qs)
+    rows = []
+    for c, key in enumerate(keys):
+        if mode == "bits":
+            w = twin.bits_at(key, idx)
+            rows.append(torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32))
+        elif mode == "randint":
+            rows.append(twin.randint_at(key, idx, 0, int(qs[c])).to(torch.int32))
+        else:
+            v = twin.gaussian_from_bits(twin.bits_at(key, idx), pre, scale)
+            rows.append(v if mode == "float" else torch.round(v).to(torch.int32))
+    return torch.stack(rows)
+
+
 def draw_ref(keys, count: int, mode: str, qs=None, pre: float = 1.0, scale: float = 1.0,
              device="cpu") -> torch.Tensor:
     """Plain version of `draw`: (nchan, count), int32 words (bits as their
@@ -68,17 +88,7 @@ def draw_ref(keys, count: int, mode: str, qs=None, pre: float = 1.0, scale: floa
     on `device` (the CPU, where the port takes it; the card too, to time
     it beside the kernel)."""
     _check(keys, count, mode, qs)
-    rows = []
-    for c, key in enumerate(keys):
-        if mode == "bits":
-            w = twin.random_bits_ref(key, (count,), device)
-            rows.append(torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32))
-        elif mode == "randint":
-            rows.append(twin.randint_ref(key, (count,), 0, int(qs[c]), device).to(torch.int32))
-        else:
-            v = twin.gaussian_from_bits(twin.random_bits_ref(key, (count,), device), pre, scale)
-            rows.append(v if mode == "float" else torch.round(v).to(torch.int32))
-    return torch.stack(rows)
+    return draw_at_ref(keys, torch.arange(count, device=device), mode, qs, pre, scale)
 
 
 def draw(keys, count: int, mode: str, qs=None, pre: float = 1.0, scale: float = 1.0,

@@ -28,10 +28,11 @@ no JAX config):
   one of them.
 
 These are the plain versions (int64 words masked to 32 bits, since torch's
-CPU uint32 has no add or shift).  On a CUDA device the draws run the
-hand-written kernel of `csrc/prng.cu` (`ops/cuda/prng.py`), which must
-equal them bit for bit.  Keys themselves are tiny and stay on the host:
-`split` is always computed here.
+CPU uint32 has no add or shift).  The draws run on the card unless the
+caller passes `device="cpu"`: there they run the hand-written kernel of
+`csrc/prng.cu` (`ops/cuda/prng.py`), which must equal them bit for bit.
+Keys themselves are tiny and stay on the host: `split` is always
+computed here.
 """
 
 from __future__ import annotations
@@ -86,11 +87,6 @@ def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def _counters(count: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    i = torch.arange(count, dtype=torch.int64, device=device)
-    return i >> 32, i & MASK
-
-
 def _hash_words(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
     """`threefry2x32` of one counter pair on Python ints: a key operation
     hashes a few counters, where a tensor op's dispatch would dominate."""
@@ -127,18 +123,16 @@ class KeyChain:
         return sub
 
 
-def fold_words(key, count: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The two threefry output words of the counters 0 .. count - 1."""
-    return threefry2x32(*key_words(key), *_counters(count, device or "cpu"))
+def bits_at(key, idx: torch.Tensor) -> torch.Tensor:
+    """The words of the elements at flat indices idx (an int64 tensor, on
+    any device) of a `random_bits` draw under key: the xor of the two
+    threefry outputs of each counter (i >> 32, i mod 2^32)."""
+    b0, b1 = threefry2x32(*key_words(key), idx >> 32, idx & MASK)
+    return b0 ^ b1
 
 
 def _shape(shape) -> tuple[int, ...]:
     return (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)
-
-
-def _device(key, device) -> torch.device:
-    """Where a draw runs: the caller's device, else the key's."""
-    return torch.device(device) if device is not None else torch.as_tensor(key).device
 
 
 def _draw(keys, shape, mode, device, **kw) -> torch.Tensor:
@@ -155,14 +149,13 @@ def random_bits_ref(key, shape, device="cpu") -> torch.Tensor:
     """Plain `jax.random.bits(key, shape, uint32)`: u32 words as int64,
     computed on `device` (any)."""
     shape = _shape(shape)
-    b0, b1 = fold_words(key, math.prod(shape), device)
-    return (b0 ^ b1).reshape(shape)
+    return bits_at(key, torch.arange(math.prod(shape), device=device)).reshape(shape)
 
 
-def random_bits(key, shape, device=None) -> torch.Tensor:
-    """`jax.random.bits(key, shape, uint32)`: u32 words as int64 (the
-    kernel's on a CUDA device)."""
-    dev = _device(key, device)
+def random_bits(key, shape, device="cuda") -> torch.Tensor:
+    """`jax.random.bits(key, shape, uint32)`: u32 words as int64, on
+    `device` (the kernel's on a CUDA device)."""
+    dev = torch.device(device)
     if dev.type != "cpu":
         return _draw([key], shape, "bits", dev)[0].to(torch.int64) & MASK
     return random_bits_ref(key, shape)
@@ -175,26 +168,32 @@ def randint_multiplier(span: int) -> int:
     return (mult * mult & MASK) % span
 
 
-def randint_ref(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+def randint_at(key, idx: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
     """Plain `jax.random.randint(key, shape, minval, maxval)` for a 32-bit
-    integer dtype, as int64 on `device` (any): two words from `split(key)`,
-    each reduced mod the span, combined in wrapping u32 arithmetic."""
-    shape = _shape(shape)
+    integer dtype at the flat element indices idx (int64, on any device),
+    as int64: two words from `split(key)`, each reduced mod the span,
+    combined in wrapping u32 arithmetic."""
     span = maxval - minval if maxval > minval else 1
     if not (1 <= span <= MASK):
         raise ValueError(f"randint: span {span} out of the u32 range")
     k1, k2 = split(torch.as_tensor(key).cpu())
-    hi = random_bits_ref(k1, shape, device)
-    lo = random_bits_ref(k2, shape, device)
+    hi, lo = bits_at(k1, idx), bits_at(k2, idx)
     off = (((hi % span) * randint_multiplier(span)) & MASK) + lo % span
     return minval + (off & MASK) % span
 
 
-def randint(key, shape, minval: int, maxval: int, device=None) -> torch.Tensor:
+def randint_ref(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+    """`randint_at` over a whole draw of `shape`, on `device` (any)."""
+    shape = _shape(shape)
+    idx = torch.arange(math.prod(shape), device=device)
+    return randint_at(key, idx, minval, maxval).reshape(shape)
+
+
+def randint(key, shape, minval: int, maxval: int, device="cuda") -> torch.Tensor:
     """`jax.random.randint(key, shape, minval, maxval)` for int32 or uint32
     values: the plain int64 on the CPU; on a CUDA device the kernel's int32,
     for minval = 0 and 0 < maxval < 2^31."""
-    dev = _device(key, device)
+    dev = torch.device(device)
     if dev.type == "cpu":
         return randint_ref(key, shape, int(minval), int(maxval))
     if int(minval) != 0:
@@ -359,10 +358,11 @@ def gaussian_from_bits(bits: torch.Tensor, pre: float = SQRT2,
     return (r * torch.tensor(pre, dtype=torch.float32)) * torch.tensor(scale, dtype=torch.float32)
 
 
-def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0, device=None) -> torch.Tensor:
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device="cuda") -> torch.Tensor:
     """`jax.random.uniform(key, shape, float32, minval, maxval)` (the
-    scale-and-shift is one FMA, as XLA contracts it), on the caller's
-    device, else the key's (the words are the kernel's on a card)."""
+    scale-and-shift is one FMA, as XLA contracts it), on `device` (the
+    words are the kernel's on a card)."""
     lo = torch.tensor(minval, dtype=torch.float32)
     hi = torch.tensor(maxval, dtype=torch.float32)
     f = bits_to_unit(random_bits(key, shape, device))
@@ -370,16 +370,16 @@ def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0, device=None) -
 
 
 def gaussian(key, shape, scale: float = 1.0, pre: float = SQRT2, rounded: bool = False,
-             device=None) -> torch.Tensor:
+             device="cuda") -> torch.Tensor:
     """erf_inv(u) * pre * scale over `shape`, float32, or rounded half to
     even to int32: `jax.random.normal(key, shape) * scale` with the
     defaults' pre; where XLA compiles the product in one program it folds
     sqrt(2) into the scale (`folded_scale`, pre = 1)."""
-    return _draw([key], shape, "round" if rounded else "float", _device(key, device),
-                 pre=pre, scale=scale)[0]
+    return _draw([key], shape, "round" if rounded else "float", device, pre=pre,
+                 scale=scale)[0]
 
 
-def normal(key, shape, device=None) -> torch.Tensor:
+def normal(key, shape, device="cuda") -> torch.Tensor:
     """`jax.random.normal(key, shape, float32)`."""
     return gaussian(key, shape, device=device)
 

@@ -105,6 +105,95 @@ def test_sass_diff_compares_kernels_without_the_unit_hash():
     assert dict(sass_diff.compare(old, moved))["_ZN386_ntt_cu3oneE"] == "only in the old build"
 
 
+_SASS = """\t\tFunction : _ZN38_GLOBAL__N__875e145e_7_prng_cu_eb13b5059prng_drawILi0ELb0ELb0EEEvNS_8PrngArgsE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;            /* 0x00000a0000017a02 */
+                                                                     /* 0x000fe40000000f00 */
+        /*0010*/                   S2R R0, SR_TID.X ;                /* 0x0000000000007919 */
+        /*0020*/                   IADD3 R2, R0, 0x1, RZ ;           /* 0x0000000100027810 */
+        /*0030*/                   SHF.L.W.U32.HI R3, R2, 0xd, R2 ;  /* 0x0000000d02037819 */
+        /*0040*/                   LOP3.LUT R3, R3, R2, RZ, 0x3c, !PT ;
+        /*0050*/                   IMAD.IADD R2, R2, 0x1, R3 ;
+        /*0060*/                   FFMA R4, R4, R5, R6 ;
+        /*0070*/                   MUFU.RCP R7, R4 ;
+        /*0080*/                   STG.E.128 desc[UR4][R8.64], R12 ;
+        /*0090*/                   ISETP.GE.U32.AND P0, PT, R2, R9, PT ;
+        /*00a0*/              @!P0 BRA 0x20 ;
+        /*00b0*/                   EXIT ;
+        /*00c0*/                   BRA 0xc0 ;
+        /*00d0*/                   NOP ;
+"""
+
+
+def test_sass_loop_mix_counts_the_main_loop_by_pipe():
+    """The loop is the backward branch's span (the one with the 16-byte
+    store, not the trailing self-branch), each opcode on its pipe."""
+    funcs = sass_diff.functions(_SASS)
+    assert list(funcs) == ["_ZN387_prng_cu9prng_drawILi0ELb0ELb0EEEvNS_8PrngArgsE"]
+    mix = sass_diff.loop_mix(next(iter(funcs.values())))
+    assert mix == {"alu": 4, "imad": 1, "fp32": 1, "xu": 1, "issue": 9}
+    labelled = "\n".join(["        /*0000*/ S2R R0, SR_TID.X ;", ".L_x_0:",
+                          "        /*0010*/ LOP3.LUT R3, R3, R2, RZ, 0x3c, !PT ;",
+                          "        /*0020*/ IMAD.WIDE.U32 R4, R3, R5, RZ ;",
+                          "        /*0030*/ @P0 BRA `(.L_x_0) ;", "        /*0040*/ EXIT ;"])
+    assert sass_diff.loop_mix(labelled) == {"alu": 1, "imad": 1, "fp32": 0, "xu": 0, "issue": 3}
+    with pytest.raises(ValueError, match="no backward branch"):
+        sass_diff.loop_mix("        /*0000*/ EXIT ;")
+
+
+def test_sass_diff_mix_takes_a_library_and_a_name(monkeypatch, capsys):
+    """`--mix LIB NAME` prints the loop mix of LIB's kernels whose name
+    holds NAME; without it two libraries are compared, and one is refused."""
+    monkeypatch.setattr(sass_diff, "_dump", lambda lib: _SASS)
+    monkeypatch.setattr(sys, "argv", ["sass_diff", "--mix", "lib.so", "prng_draw"])
+    assert sass_diff.main() == 0
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 1 and out[0].startswith("_ZN387_prng_cu9prng_draw") and "'issue': 9" in out[0]
+    monkeypatch.setattr(sys, "argv", ["sass_diff", "--mix", "lib.so", "ntt_fwd"])
+    assert sass_diff.main() == 0 and capsys.readouterr().out == ""
+    monkeypatch.setattr(sys, "argv", ["sass_diff", "old.so", "new.so"])
+    assert sass_diff.main() == 0
+    monkeypatch.setattr(sys, "argv", ["sass_diff", "old.so"])
+    with pytest.raises(SystemExit):
+        sass_diff.main()
+
+
+def test_roofline_prng_counts_by_pipe():
+    """The draws' bound: what each body needs a word by pipe
+    (`PRNG_NEEDS`: the hash's 41 ALU ops and 32 adds, Barrett's 2 IMAD, 1
+    add and 1 ALU op, the normal's one side of each branch by its share),
+    the adds balanced between the ALU and the FMA pipe, the busiest pipe
+    or issue in 64-lane slots, 4 bytes a word."""
+    needs = roofline.PRNG_NEEDS
+    assert needs["prng_bits"] == {"alu": 41, "add": 32, "imad": 0, "fp32": 0, "xu": 0}
+    assert needs["prng_randint"] == {"alu": 42, "add": 33, "imad": 2, "fp32": 0, "xu": 0}
+    assert needs["prng_randint2"] == {"alu": 85, "add": 67, "imad": 7, "fp32": 0, "xu": 0}
+    p = (2 ** 0.5 - 1) ** 0.5  # |u| below it: log1p's rational side
+    normal = needs["prng_normal"]
+    assert normal["alu"] == pytest.approx(44 + 5 * (1 - p))
+    assert normal["add"] == pytest.approx(33 - p)
+    assert normal["fp32"] == pytest.approx(35 + 3 * p + 4 * 0.0033747, rel=1e-6)
+    assert normal["xu"] == pytest.approx(1 + p + 0.0033747, rel=1e-6)
+    pipes = {op: roofline.prng_slots(need) for op, need in needs.items()}
+    assert {op: pipe for op, (_, pipe) in pipes.items()} == {
+        "prng_bits": "alu", "prng_randint": "alu", "prng_randint2": "alu", "prng_normal": "issue"}
+    assert [pipes[op][0] for op in ("prng_bits", "prng_randint", "prng_randint2")] == [41, 42, 85]
+    assert pipes["prng_normal"][0] == pytest.approx(58.365, abs=1e-3)
+    slots = roofline.prng_slots
+    # the adds go to the ALU as far as it stays the less busy of the two
+    assert slots({"alu": 10, "add": 6, "imad": 30, "fp32": 0, "xu": 0}) == (30, "imad")
+    assert slots({"alu": 40, "add": 10, "imad": 2, "fp32": 0, "xu": 0}) == (40, "alu")
+    assert slots({"alu": 10, "add": 30, "imad": 2, "fp32": 0, "xu": 0})[0] == 21
+    assert slots({"alu": 30, "add": 4, "imad": 4, "fp32": 30, "xu": 1}) == (34.5, "issue")
+    assert slots({"alu": 3, "add": 0, "imad": 4, "fp32": 0, "xu": 5}) == (20, "xu")
+    n, B = 16384, 1024
+    for op, need in needs.items():
+        assert roofline.work(op, n, B) == (slots(need)[0] * n * B, 4 * n * B)
+        assert roofline.bound(*roofline.work(op, n, B))[1] == "operations"
+    ms, _ = roofline.bound(*roofline.work("prng_randint", n, 3 * B))
+    assert ms == pytest.approx(42 * 3 * n * B / (132 * 64 * 1.98e9) * 1e3)  # 0.1264 ms
+    assert roofline.bound(*roofline.work("prng_normal", n, B))[0] == pytest.approx(0.05854, rel=1e-3)
+
+
 def test_ptxas_report_reads_registers_stack_and_spills():
     log = ("nvcc -c -o remote_ntt.o remote_ntt.cu\n"
            "ptxas info    : 0 bytes gmem\n"

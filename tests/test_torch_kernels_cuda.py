@@ -203,7 +203,8 @@ def test_lazy_passes_match_plain_after_a_fold(cuda, n, inverse):
 def test_tower_tail_transforms_launch_once(cuda, n):
     """The HomomPRF tower's last rings (m = 8, 4, 2): forward with and
     without the digit prologue and the GS inverse, kernel == plain bit for
-    bit, one launch each; route B has no length-1 kernel and says so."""
+    bit, one launch each; route B at n = 1 is x itself, as in the JAX
+    package."""
     q_src, q = nt.ntt_primes(8, 30, 2)
     plan = ntt.ntt_plan(n, q)
     g = torch.Generator(device=cuda).manual_seed(n)
@@ -216,8 +217,23 @@ def test_tower_tail_transforms_launch_once(cuda, n):
         assert {k: tk.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 0) | {name: 1}
         assert torch.equal(got, tk.ntt_cm_ref(x, plan, **kw))
     if n == 1:
-        with pytest.raises(NotImplementedError, match="n = 1"):
-            tk.ntt_cm(x, plan, inverse=True, alg="dit")
+        assert torch.equal(tk.ntt_cm(x, plan, inverse=True, alg="dit"), x)
+
+
+@pytest.mark.parametrize("B", [1, 7, 1024])
+def test_route_b_at_n1_runs_the_length1_pass(cuda, B):
+    """Route B at n = 1 returns x (the reference's `if n == 1: return x`)
+    through the length-1 pass of the GS inverse: one kernel launch, no
+    route-B pass, no plain version."""
+    q = nt.ntt_primes(2, 30, 1)[0]
+    plan = ntt.ntt_plan(1, q)
+    x = torch.randint(0, q, (1, B), device=cuda, dtype=torch.int32)
+    x[0, :3] = torch.tensor([q - 1, 0, 1], device=cuda)[:B]
+    before = dict(tk.LAUNCHES)
+    got = tk.ntt_cm(x, plan, inverse=True, alg="dit")
+    assert {k: tk.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 0) | {"ntt_inv": 1}
+    assert got.device == x.device and torch.equal(got, x)
+    assert torch.equal(got.cpu(), tk.ntt_cm_ref(x.cpu(), plan, inverse=True, alg="dit"))
 
 
 def test_step_on_card_equals_step_on_cpu(cuda):
@@ -752,15 +768,32 @@ def test_prng_kernel_matches_plain(cuda, count):
     three channels and ragged counts, and one launch a draw."""
     keys = list(prng.split(prng.PRNGKey(count), 3))
     for mode, kw in (("bits", {}), ("randint", {"qs": [1073479681, 257, 2]}),
+                     ("randint", {"qs": nt.ntt_primes(32768, 30, 3)}),
                      ("float", {"pre": prng.SQRT2}), ("round", {"scale": prng.folded_scale(9.0)})):
         before = pk.LAUNCHES["prng"]
         got = pk.draw(keys, count, mode, device=cuda, **kw)
         assert pk.LAUNCHES["prng"] == before + 1
         want = pk.draw_ref(keys, count, mode, **kw)
         assert got.dtype == want.dtype and torch.equal(got.cpu(), want), mode
-    got = prng.uniform(keys[0], (count,), -0.3, 2.7, device=cuda)
+    got = prng.uniform(keys[0], (count,), -0.3, 2.7)  # on the card by default
+    assert got.device.type == "cuda"
     assert torch.equal(got.cpu().view(torch.int32),
-                       prng.uniform(keys[0], (count,), -0.3, 2.7).view(torch.int32))
+                       prng.uniform(keys[0], (count,), -0.3, 2.7, device="cpu").view(torch.int32))
+
+
+def test_prng_draws_default_to_the_card(cuda):
+    """random_bits / randint / uniform / normal with no device: on the
+    card, through the kernel (one launch each), == the CPU's draws."""
+    key = prng.PRNGKey(3)
+    for fn, args in ((prng.random_bits, ((5, 7),)), (prng.randint, ((5, 7), 0, 1073479681)),
+                     (prng.uniform, ((5, 7),)), (prng.normal, ((5, 7),))):
+        before = pk.LAUNCHES["prng"]
+        got = fn(key, *args)
+        assert got.device.type == "cuda" and pk.LAUNCHES["prng"] == before + 1, fn.__name__
+        want = fn(key, *args, device="cpu")
+        if want.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got.cpu().long(), want.long()), fn.__name__
 
 
 def test_prng_normals_match_plain_on_every_input(cuda):

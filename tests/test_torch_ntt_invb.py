@@ -161,6 +161,24 @@ def test_dit_inverse_really_runs_route_b(monkeypatch, rng):
                                   ntt.np_ntt_inverse(a.T, plan).T.astype(np.int32))
 
 
+@pytest.mark.parametrize("B", [128, 384])
+def test_dit_inverse_at_n1_is_the_identity_as_in_jax(B, rng):
+    """At n = 1 every route of the JAX `ntt_cm` returns x; the plain route
+    B and the wrapper on the CPU give the same (on the card the length-1
+    pass does)."""
+    q = nt.ntt_primes(2, 30, 1)[0]
+    plan, jplan = ntt.ntt_plan(1, q), jntt.ntt_plan(1, q)
+    a = rng.integers(0, q, (1, B), dtype=np.uint64).astype(np.uint32)
+    a[0, 0] = q - 1
+    x = torch.from_numpy(a.astype(np.int32))
+    want = np.asarray(pk.ntt_cm(jnp.asarray(a), jplan, inverse=True, alg="dit", interpret=True))
+    np.testing.assert_array_equal(want, a)
+    for got in (tk.ntt_cm_ref(x, plan, inverse=True, alg="dit"),
+                tk.ntt_cm(x, plan, inverse=True, alg="dit")):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+
+
 def test_dit_rejects_forward_and_unknown_alg():
     plan = ntt.ntt_plan(256, 12289)
     x = torch.zeros((256, 4), dtype=torch.int32)

@@ -74,7 +74,7 @@ def test_prngkey_and_split_match_jax(seed):
 def test_random_bits_match_jax(shape):
     jk, tk = _key(11)
     np.testing.assert_array_equal(_np(jax.random.bits(jk, shape, jnp.uint32)),
-                                  prng.random_bits(tk, shape).numpy())
+                                  prng.random_bits(tk, shape, device="cpu").numpy())
 
 
 @pytest.mark.parametrize("q", [*nt.ntt_primes(32768, 30, 2), *nt.ntt_primes(18432, 30, 2),
@@ -85,9 +85,9 @@ def test_randint_matches_jax(q):
     XLA's wrapping u32 multiplier makes it."""
     jk, tk = _key(3)
     np.testing.assert_array_equal(_np(jax.random.randint(jk, (40, 33), 0, q, dtype=jnp.uint32)),
-                                  prng.randint(tk, (40, 33), 0, q).numpy())
+                                  prng.randint(tk, (40, 33), 0, q, device="cpu").numpy())
     np.testing.assert_array_equal(_np(jax.random.randint(jk, (9,), -q, q)),
-                                  prng.randint(tk, (9,), -q, q).numpy())
+                                  prng.randint(tk, (9,), -q, q, device="cpu").numpy())
     assert prng.randint_multiplier(q) == (0 if q > 1 << 16 else (1 << 32) % q)
 
 
@@ -96,7 +96,7 @@ def test_uniform_matches_jax(lo, hi):
     jk, tk = _key(5)
     want = np.asarray(jax.random.uniform(jk, (1000,), minval=lo, maxval=hi))
     np.testing.assert_array_equal(want.view(np.uint32),
-                                  prng.uniform(tk, (1000,), lo, hi).numpy().view(np.uint32))
+                                  prng.uniform(tk, (1000,), lo, hi, "cpu").numpy().view(np.uint32))
 
 
 @pytest.fixture(scope="module")
@@ -120,7 +120,7 @@ def test_normal_matches_jax_on_every_input(all_inputs):
     assert np.count_nonzero(got.view(np.uint32) != want.view(np.uint32)) == 0
     jk, tk = _key(9)
     np.testing.assert_array_equal(np.asarray(jax.random.normal(jk, (4, 1000))).view(np.uint32),
-                                  prng.normal(tk, (4, 1000)).numpy().view(np.uint32))
+                                  prng.normal(tk, (4, 1000), "cpu").numpy().view(np.uint32))
 
 
 @pytest.mark.parametrize("var", VARS)
@@ -149,7 +149,7 @@ def test_draw_modes_and_refusals():
     bits = kernel.draw(keys, 10, "bits", device="cpu")
     for k, row in zip(keys, bits):
         np.testing.assert_array_equal(row.numpy().view(np.uint32),
-                                      prng.random_bits(k, (10,)).numpy().astype(np.uint32))
+                                      prng.random_bits(k, (10,), "cpu").numpy().astype(np.uint32))
     res = kernel.draw(keys, 10, "randint", qs=[7, 257, 2], device="cpu")
     assert res.dtype == torch.int32 and bool((res < torch.tensor([[7], [257], [2]])).all())
     with pytest.raises(ValueError, match="mode"):
@@ -159,6 +159,85 @@ def test_draw_modes_and_refusals():
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             prng.normal(prng.PRNGKey(0), (4,), device="cuda")
+
+
+def test_draws_default_to_the_card(monkeypatch):
+    """With no device every draw goes to the kernel's wrapper for the card,
+    as the port's other entry points do; "cpu" is asked for."""
+    seen = []
+
+    def record(keys, count, mode, qs=None, pre=1.0, scale=1.0, device="cuda"):
+        seen.append(torch.device(device).type)
+        return kernel.draw_ref(keys, count, mode, qs, pre, scale)
+
+    monkeypatch.setattr(kernel, "draw", record)
+    key = prng.PRNGKey(6)
+    for fn, args in ((prng.random_bits, ((3,),)), (prng.randint, ((3,), 0, 257)),
+                     (prng.uniform, ((3,),)), (prng.gaussian, ((3,), 2.0)),
+                     (prng.normal, ((3,),))):
+        fn(key, *args)
+    assert seen == ["cuda"] * 5
+    jk, _ = _key(6)
+    np.testing.assert_array_equal(_np(jax.random.bits(jk, (3,), jnp.uint32)),
+                                  prng.random_bits(key, (3,)).numpy())
+
+
+SPANS = (2, 257, 65535, 65536, 65537, 2**31 - 1, *nt.ntt_primes(32768, 30, 3))
+
+
+@pytest.mark.parametrize("q", SPANS)
+def test_draw_ref_randint_matches_jax(q):
+    """The kernel's plain version of randint (`randint_at` at the draw's
+    indices) == jax.random.randint, alone and as one channel of three,
+    over spans on both sides of 2^16, where the kernel hashes once a word
+    or twice."""
+    jk, tk = _key(17)
+    want = _np(jax.random.randint(jk, (1031,), 0, q, dtype=jnp.uint32))
+    np.testing.assert_array_equal(kernel.draw_ref([tk], 1031, "randint", qs=[q])[0].numpy(), want)
+    keys = [tk, *prng.split(prng.PRNGKey(18), 2)]
+    got = kernel.draw(keys, 1031, "randint", qs=[q, 257, SPANS[-1]], device="cpu")
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    for c in (1, 2):
+        np.testing.assert_array_equal(got[c].numpy(), prng.randint(keys[c], (1031,), 0,
+                                                                   [0, 257, SPANS[-1]][c], "cpu"))
+
+
+def _mod_q(w: int, q: int) -> int:
+    """csrc/prng.cu's `mod_q` on Python ints: Barrett with mu = floor((2^32
+    - 1) / q), the high word of w * mu, then one conditional subtract."""
+    r = w - ((w * ((1 << 32) - 1) // q) >> 32) * q
+    return r - q if r >= q else r
+
+
+@pytest.mark.parametrize("q", SPANS)
+def test_barrett_reduction_on_the_edge_words(q):
+    """The kernel's reduction (its exactness argument, `_mod_q`) == w mod
+    q on 0, q - 1, q, 2q - 1, multiples of q and their neighbours, 2^32 -
+    1 and random words, with its remainder before the subtract below 2q."""
+    mults = [k * q for k in (2, 3, (1 << 32) // q - 1, (1 << 32) // q) if k * q < 1 << 32]
+    edge = {w for w in [0, 1, q - 1, q, q + 1, 2 * q - 1, 2 * q, (1 << 32) - 1, (1 << 31) - 1,
+                        1 << 31, *mults, *(m - 1 for m in mults), *(m + 1 for m in mults)]
+            if 0 <= w < 1 << 32}
+    rand = np.random.default_rng(q).integers(0, 1 << 32, 4096).tolist()
+    for w in [*edge, *rand]:
+        assert _mod_q(w, q) == w % q, (w, q)
+        assert w - ((w * ((1 << 32) - 1) // q) >> 32) * q < 2 * q
+
+
+def test_draw_at_ref_is_the_draw_at_those_indices():
+    """The plain values at given element indices (the card check's sample
+    past 2^31 elements) == the whole draw's at them, in every mode."""
+    keys = list(prng.split(prng.PRNGKey(19), 2))
+    idx = torch.tensor([0, 1, 2, 517, 998, 999], dtype=torch.int64)
+    for mode, kw in (("bits", {}), ("randint", {"qs": [257, SPANS[-1]]}),
+                     ("float", {"pre": prng.SQRT2}), ("round", {"scale": 1.5})):
+        want = kernel.draw_ref(keys, 1000, mode, **kw)[:, idx]
+        got = kernel.draw_at_ref(keys, idx, mode, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), mode
+    far = torch.tensor([(1 << 32) - 1, 1 << 32, (1 << 32) + 5], dtype=torch.int64)
+    b0, b1 = prng.threefry2x32(*prng.key_words(keys[0]), far >> 32, far & prng.MASK)
+    assert torch.equal(prng.bits_at(keys[0], far), b0 ^ b1)
+    assert bool((prng.bits_at(keys[0], far) != prng.bits_at(keys[0], far & prng.MASK)).any())
 
 
 # --- the packages' samplers, from the same key ---------------------------------
@@ -354,6 +433,6 @@ def test_key_from_numpy_carries_a_jax_key():
     jk = jax.random.split(jax.random.PRNGKey(77))[1]
     k = convert.key_from_numpy(np.asarray(jk))
     np.testing.assert_array_equal(_np(jax.random.bits(jk, (5,), jnp.uint32)),
-                                  prng.random_bits(k, (5,)).numpy())
+                                  prng.random_bits(k, (5,), "cpu").numpy())
     with pytest.raises(ValueError, match="two u32 words"):
         convert.key_from_numpy(np.zeros(3, dtype=np.uint32))
