@@ -170,6 +170,28 @@ then runs its phases and exits non-zero on the first failure:
    build's SASS mix, `sass_diff.loop_mix`, printed beside it) and
    torch.randn's, and gen_sk, build_encrypt (B = 1024) and
    gen_ks_quad_hint at m = 32768 as their caller sees them;
+3k. the int8 tensor-core route and this slice's modules (`phase_3k`):
+   (a) the kernel `modmat_s8` (`csrc/modmat.cu`) == its plain version
+   `modmat_ref` bit for bit on the 17-axis of m = 34816 = 2^11 17 at full
+   width ((pre, b, post) = (1024, 16, 1024), each of the three primes, the
+   CRT matrix, its inverse and the four g matrices), on b in {6, 32, 33,
+   4096} at 30-, 17-, 14- and 8-bit moduli with ragged columns, and on
+   all-0 and all-(q - 1) inputs; (b) `bench.mxu_ntt` at n = 4096, P = 64,
+   B = 1024, two primes: its stage matrices (M_A shared, the M_B stack)
+   against the plain version and the transform == `ntt_cm`; (c) the
+   general-m step at m = 34816 (n = 2^14, p = 257, three 30-bit primes,
+   B = 1024), every count reset just before it and read just after: each
+   `crt_cm` call one `ntt_cm` pass over the 2-power axis and one
+   `modmat_s8` launch, exactly; decrypt of columns 0-7 == `pt_mul`; card
+   == CPU over columns 0-15; the int64 route's output == the kernel
+   route's; (d) the C++ host backend == the kernels (the NTT both ways at
+   n = 4096, `axis_matvec` on the 17-axis); (e) the kernel's time beside
+   its bound, the int64 route's, the plain version's and `torch._int_mm`'s
+   over the same limb products (a yardstick), `mxu_ntt` against `ntt_cm`,
+   and the step and its odd axes on each route in interleaved windows
+   (`metric bgv_m34816_ops_per_sec` / `..._int64_route_ops_per_sec`);
+   (f) each bench tool (`she_bench`, `micro`, `scaling`, `invgap`,
+   `smallb`, `mxu_ntt`) once at a small size;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -210,8 +232,8 @@ then runs its phases and exits non-zero on the first failure:
    write and read in MB/s, and the two-rank mesh step's ops/s beside the
    same layout's in one process; each printed on a `metric` line
    beside the card line.
-   Phase 1 also fails if ptxas gave a ring or route-B kernel a stack
-   frame or spills.
+   Phase 1 also fails if ptxas gave a ring, route-B or modmat kernel a
+   stack frame or spills.
 
 The last three lines of standard output are the card line, a JSON object
 with one entry per TPU kernel ported (the CUDA kernel that replaces it,
@@ -489,6 +511,238 @@ def phase_3j(dev, m=32768, m_g=18432, B=1024, m_c=1024, every=1 << 23, time_it=T
     return out
 
 
+M_3K = 34816  # 2^11 17: n = 2^14, the 17-axis phi = 16 = MXU_MIN_AXIS
+
+
+def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
+             b_big=4096) -> dict:
+    """The int8 tensor-core route (`ops/cuda/modmat.modmat_s8`, the kernel
+    of `csrc/modmat.cu`) and this slice's modules on the card: (a)
+    `modmat_s8` == `modmat_ref` bit for bit on the 17-axis of m at full
+    width ((pre, b, post) = (n2, 16, B), each prime, the CRT matrix, its
+    inverse and the four g matrices), on b in {6, 32, 33, b_big} at a
+    30-bit, a 14-bit (two limbs), a 17-bit (three) and an 8-bit (one)
+    modulus with ragged columns, and on all-0 and all-(q - 1) inputs;
+    (b) `mxu_ntt` at (n_ntt, B), P: its two stage matrices (M_A shared,
+    the M_B stack) each against `modmat_ref`, and the transform == `ntt_cm`;
+    (c) the general-m step at m (LSD, p = 257, three 30-bit primes, B),
+    its counts reset just before and read just after: every `crt_cm` call
+    one `ntt_cm` over the 2-power axis and one `modmat_s8` launch, exactly;
+    decrypt of columns 0-7 == `pt_mul`; card == CPU over 16 columns; the
+    step on the int64 route (`steptime.mxu_route(False)`) == on the kernel;
+    (d) the C++ host backend (`tensor/cpp_backend`) == the kernels: the NTT
+    both ways at n_ntt and `axis_matvec` on the 17-axis; (e) the kernel's
+    time at the 17-axis shape on the device alone beside its bound
+    (`roofline.modmat_work`), the int64 route's, the plain version's and
+    `torch._int_mm`'s on the same 16 limb products (a yardstick only), the
+    two stage matmuls and `mxu_ntt` against `ntt_cm`; the step and
+    `steptime.odd_axis` on each route in interleaved windows; (f) (tools)
+    each bench tool once at a small size.  Returns the kernel row's
+    numbers, the timings and the counts."""
+    from lol_tpu_torch import numtheory as nt, prng, she
+    from lol_tpu_torch.bench import mxu_ntt as mx, roofline, steptime, time_ms
+    from lol_tpu_torch.ops import general as gen, ntt
+    from lol_tpu_torch.ops.cuda import modmat as mm, ntt_kernel as tk, pointwise as pw
+    from lol_tpu_torch.ops.cuda import prng as pk, remote_ntt as rn
+    from lol_tpu_torch.she_batched import BatchedBGV
+    from lol_tpu_torch.tensor import cpp_backend as cpp
+
+    out = {"checks": 0}
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    counters = (tk.LAUNCHES, pw.LAUNCHES, mm.LAUNCHES, pk.LAUNCHES, rn.LAUNCHES, mx.LAUNCHES)
+
+    def reset():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def counts():
+        return {k: v for c in counters for k, v in c.items()}
+
+    def residues(shape, q):
+        x = torch.randint(0, q, shape, generator=g, device=dev, dtype=torch.int32)
+        x.view(-1)[:3] = torch.tensor([0, 1, q - 1], device=dev)[:x.numel()]
+        return x
+
+    def check(M, x, q, axis, what):
+        got = mm.modmat_s8(M, x, q, axis)
+        e = max_err(got, mm.modmat_ref(M, x, q, axis))
+        if e:
+            raise AssertionError(f"modmat_s8 != modmat_ref ({what}): max abs err {e}")
+        out["checks"] += 1
+        return got
+
+    # (a) the 17-axis at full width, each prime and each of its matrices
+    qs = tuple(nt.ntt_primes(m, 30, 3))
+    plans = [gen.general_plan(m, q) for q in qs]
+    n2, phi = plans[0].phi_shape
+    for q, plan in zip(qs, plans):
+        x = residues((n2, phi, B), q)
+        for i, M in enumerate((plan.axes[1].M, plan.axes[1].Minv, *gen._g_matrices(17, 1, q))):
+            check(M, x, q, 1, f"17-axis, q={q}, matrix {i}")
+    q0 = qs[0]
+    for fill in (0, q0 - 1):
+        Mf = np.full((phi, phi), fill, np.uint32)
+        check(Mf, torch.full((n2, phi, B), fill, dtype=torch.int32, device=dev), q0, 1,
+              f"17-axis, every entry {fill}")
+        Mf = np.full((16, b_big), fill, np.uint32)
+        check(Mf, torch.full((3, b_big, 96), fill, dtype=torch.int32, device=dev), q0, 1,
+              f"b={b_big}, every entry {fill}")
+    rng = np.random.default_rng(SEED + 11)
+    for q in (q0, 12289, 65537, 257):
+        for a, b, post in ((6, 6, 1000), (32, 32, 1000), (33, 33, 1000), (16, b_big, 96)):
+            M = rng.integers(0, q, (a, b)).astype(np.uint32)
+            M.flat[:2] = (0, q - 1)
+            check(M, residues((3, b, post), q), q, 1, f"(a, b) = ({a}, {b}), q={q}")
+    mark(f"phase 3k: modmat_s8 == modmat_ref on {out['checks']} shapes (the 17-axis at "
+         f"({n2}, {phi}, {B}), every prime and matrix; b in (6, 32, 33, {b_big}) at 8 to "
+         f"30-bit moduli; all 0 and all q - 1)")
+
+    # (b) mxu_ntt: its two stage matmuls, and the transform against ntt_cm
+    plans_n = [ntt.ntt_plan(n_ntt, q) for q in nt.ntt_primes(2 * n_ntt, 30, 2)]
+    tS = n_ntt // P
+    xn = [residues((n_ntt, B), pl.q) for pl in plans_n]
+    for x, pl in zip(xn, plans_n):
+        M_A, M_B = mx.stage_matrices(pl, P)
+        a_ = check(M_A, x.reshape(P, tS * B), pl.q, 0, f"mxu_ntt M_A, n={n_ntt}")
+        check(M_B, a_.view(P, tS, B), pl.q, 1, f"mxu_ntt M_B stack, n={n_ntt}")
+        if not torch.equal(mx.mxu_ntt(x, pl, P), tk.ntt_cm(x, pl)):
+            raise AssertionError(f"mxu_ntt != ntt_cm at n={n_ntt}, P={P}, q={pl.q}")
+        out["checks"] += 1
+    mark(f"phase 3k: mxu_ntt == ntt_cm at n = {n_ntt}, P = {P}, B = {B}, two primes")
+
+    # (c) the general-m step at m: the slice's path through the kernel
+    params = she.SHEParams(m=m, p=257, qs=qs, var=2.0)
+    nrns, n = len(qs), params.ctx.n
+    nk, prs = prng.KeyChain(SEED + 11), np.random.default_rng(SEED + 12)
+    sk = she.gen_sk(params, nk(), dev)
+    bb = BatchedBGV(params, dev)
+    hint = bb.gen_ks_quad_hint(sk, nk())
+    enc, step = bb.build_encrypt(sk), bb.build_step(hint)
+    m1, m2 = (she.pt_random(params, prs, (B,), dev) for _ in range(2))
+    cts = (*enc(m1, nk()), *enc(m2, nk()))
+    calls = {True: 0, False: 0}
+    real_crt = gen.crt_cm
+
+    def counted(plan_, x_, inverse=False, pre_digit_q=None):
+        calls[inverse] += 1
+        return real_crt(plan_, x_, inverse, pre_digit_q)
+
+    torch.cuda.synchronize()
+    reset()
+    gen.crt_cm = counted
+    try:
+        e0, e1 = step(*cts)
+        torch.cuda.synchronize()
+    finally:
+        gen.crt_cm = real_crt
+    got = counts()
+    passes = len(tk.cm_schedule(n2))
+    want = dict.fromkeys(got, 0)
+    want.update(ntt_fwd=calls[False] * passes, ntt_inv=calls[True] * passes, ct_mul=nrns,
+                modmat_s8=calls[False] + calls[True])
+    step_calls = {False: nrns * (nrns - 1) + 2 * (nrns - 1), True: nrns + 2}
+    if got != want or calls != step_calls:
+        raise AssertionError(f"phase 3k step m={m}: launches {got}, want {want}; crt_cm calls "
+                             f"{calls}, want {step_calls}")
+    out["launches"] = got["modmat_s8"]
+    out["step_launches"] = got
+    p2 = she.SHEParams(m=m, p=257, qs=qs[:-1], var=2.0)
+    dec = BatchedBGV(p2, dev).build_decrypt(she.SK(p2, sk.s_ints, sk.var), f=bb.step_f())
+    got_pt = dec(e0, e1)
+    for k in range(8):
+        want_pt = she.pt_mul(params, m1[:, k].cpu().numpy(), m2[:, k].cpu().numpy())
+        np.testing.assert_array_equal(got_pt[:, k].cpu().numpy(), want_pt,
+                                      err_msg=f"phase 3k step m={m}, column {k}")
+    cols = 16
+    cpu_out = BatchedBGV(params, "cpu").build_step(hint)(
+        *(c[..., :cols].cpu().contiguous() for c in cts))
+    for e, c in zip((e0, e1), cpu_out):
+        if not torch.equal(e[..., :cols].cpu(), c):
+            raise AssertionError(f"phase 3k step m={m}: card != CPU over columns 0-{cols - 1}")
+    with steptime.mxu_route(False):
+        i0, i1 = step(*cts)
+    if not (torch.equal(i0, e0) and torch.equal(i1, e1)):
+        raise AssertionError(f"phase 3k step m={m}: the int64 route != the int8 kernel route")
+    out["checks"] += 4
+    mark(f"phase 3k: step m = {m} (n = {n}, phi_shape ({n2}, {phi})), B = {B}: launches {got} "
+         f"({sum(calls.values())} crt_cm calls, one modmat_s8 each); decrypt of columns 0-7 "
+         f"== pt_mul; card == CPU over columns 0-{cols - 1}; int64 route == kernel route")
+
+    # (d) the C++ host backend against the kernels
+    pl = plans_n[0]
+    x = xn[0][:, :256].contiguous()
+    for inverse, fn in ((False, cpp.ntt_forward), (True, cpp.ntt_inverse)):
+        if not torch.equal(fn(x.t().cpu(), pl), tk.ntt_cm(x, pl, inverse=inverse).t().cpu()):
+            raise AssertionError(f"cpp_backend NTT (inverse={inverse}) != ntt_cm at n={n_ntt}")
+    M = plans[0].axes[1].M
+    x3 = residues((n2, phi, 64), q0)
+    if not torch.equal(cpp.axis_matvec(M, x3.movedim(1, -1).cpu(), q0),
+                       mm.modmat_s8(M, x3, q0, 1).movedim(1, -1).cpu()):
+        raise AssertionError("cpp_backend axis_matvec != modmat_s8 on the 17-axis")
+    out["checks"] += 3
+    mark(f"phase 3k: the C++ host backend == the kernels (NTT both ways at n = {n_ntt}; "
+         f"axis_matvec on the 17-axis)")
+
+    if time_it:
+        M, x = plans[0].axes[1].M, residues((n2, phi, B), q0)
+        out["ms"] = time_ms(lambda: mm.modmat_s8(M, x, q0, 1), 20, device_only=True)[0]
+        out["int64_ms"] = time_ms(lambda: gen.matvec_mod(M, x, q0, 1, use_mxu=False), 10,
+                                  device_only=True)[0]
+        out["plain_ms"] = time_ms(lambda: mm.modmat_ref(M, x, q0, 1), 2)[0]
+        out["bound"] = roofline.bound(*roofline.modmat_work(n2, phi, phi, B, q0),
+                                      roofline.INT8_OPS_PER_S)
+        # the yardstick: torch._int_mm over the same nl^2 limb products,
+        # (n2 B, b) @ (b, a) int8 each, the limbs made before timing
+        nl = mm.limbs_needed(q0)
+        xt = x.permute(0, 2, 1).reshape(-1, phi).long()
+        x_l = [(((xt >> (8 * j)) & 0xFF) - 128).to(torch.int8).contiguous() for j in range(nl)]
+        m_l = [torch.from_numpy(((M.astype(np.int64) >> (8 * i)) & 0xFF) - 128).to(
+            torch.int8).t().contiguous().to(dev) for i in range(nl)]
+        out["library_ms"] = time_ms(lambda: [torch._int_mm(xa, ma) for xa in x_l for ma in m_l],
+                                    10, device_only=True)[0]
+        pl = plans_n[0]
+        M_A, M_B = mx.stage_matrices(pl, P)
+        xv = xn[0]
+        av = mm.modmat_s8(M_A, xv.reshape(P, tS * B), pl.q, 0)
+        out["stage_a_ms"] = time_ms(lambda: mm.modmat_s8(M_A, xv.reshape(P, tS * B), pl.q, 0), 10,
+                                    device_only=True)[0]
+        out["stage_b_ms"] = time_ms(lambda: mm.modmat_s8(M_B, av.view(P, tS, B), pl.q, 1), 10,
+                                    device_only=True)[0]
+        out["stage_a_bound"] = roofline.bound(*roofline.modmat_work(1, P, P, tS * B, pl.q),
+                                              roofline.INT8_OPS_PER_S)
+        out["stage_b_bound"] = roofline.bound(*roofline.modmat_work(P, tS, tS, B, pl.q, False),
+                                              roofline.INT8_OPS_PER_S)
+        out["mxu_ntt_ms"] = time_ms(lambda: mx.mxu_ntt(xv, pl, P), 10, device_only=True)[0]
+        out["ntt_cm_ms"] = time_ms(lambda: tk.ntt_cm(xv, pl), 10, device_only=True)[0]
+
+        def step_int64():
+            with steptime.mxu_route(False):
+                return step(*cts)
+
+        med, wins = steptime.ab({"mxu": lambda: step(*cts), "int64": step_int64})
+        out["step_ms"], out["step_int64_ms"] = med["mxu"], med["int64"]
+        out["step_windows"] = wins
+        for route, use in (("mxu", None), ("int64", False)):
+            out[f"odd_axis_{route}"] = steptime.odd_axis(step, cts, plans[0], use_mxu=use)
+    if tools:
+        from lol_tpu_torch.bench import invgap, micro, scaling, she_bench, smallb
+
+        t = time.time()
+        she_bench.run(m=8192, nrns=3, batch=B, iters=2)
+        she_bench.homom_prf(m_top=1024, batch=256, iters=1)
+        micro.run(n=1024, batch=256, nrns=2, iters=2, host_iters=1)
+        scaling.run(iters=2)
+        scaling.run_bgv(iters=1)
+        invgap.run(B=4096, iters=2, windows=2)
+        smallb.run((B,), iters=2, windows=1)
+        mx.run(n_ntt, B, P)
+        out["tools_s"] = time.time() - t
+        mark(f"phase 3k: she_bench, micro, scaling, invgap, smallb and mxu_ntt ran "
+             f"({out['tools_s']:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -536,10 +790,11 @@ def main() -> int:
         print(f"ptxas: {r.get('registers')} registers, {r.get('stack')} B stack, "
               f"{r.get('spill_stores')}/{r.get('spill_loads')} B spilled: {name}", flush=True)
     spills = [k for k, r in ptxas.items() if any(name in k for name in (
-        "ntt_fwd_gather_pass", "ntt_inv_scatter_pass", "ntt_invb_pass")) and (
+        "ntt_fwd_gather_pass", "ntt_inv_scatter_pass", "ntt_invb_pass", "modmat_s8")) and (
         r.get("stack") or r.get("spill_stores") or r.get("spill_loads"))]
     if spills:
-        raise AssertionError(f"ring or route-B kernels with a stack frame or spills: {spills}")
+        raise AssertionError(f"ring, route-B or modmat kernels with a stack frame or spills: "
+                             f"{spills}")
 
     # -- phase 2: kernel vs plain, bit-exact ----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -2005,6 +2260,30 @@ def main() -> int:
          f"{rand['known_answers']}; "
          f"{pk.LAUNCHES['prng'] - pk_before} launches")
 
+    # -- phase 3k: the int8 tensor-core route, the C++ backend, the tools --
+    k3 = phase_3k(dev)
+    k3_bound_ms, k3_bound_by = k3["bound"]
+    print(f"modmat_s8 at (G, a, b, N) = (1024, 16, 16, {B}), the 17-axis of m = {M_3K}: "
+          f"{k3['ms']:.4f} ms on the device ({100 * k3_bound_ms / k3['ms']:.1f}% of its "
+          f"{k3_bound_ms:.4f} ms bound, {k3_bound_by}); the int64 route {k3['int64_ms']:.4f}; "
+          f"plain {k3['plain_ms']:.3f}; torch._int_mm over the 16 limb products "
+          f"{k3['library_ms']:.4f}; on {card}", flush=True)
+    print(f"mxu_ntt n = 4096, P = 64, B = {B}: {k3['mxu_ntt_ms']:.4f} ms (stage A "
+          f"{k3['stage_a_ms']:.4f}, bound {k3['stage_a_bound'][0]:.4f}; stage B "
+          f"{k3['stage_b_ms']:.4f}, bound {k3['stage_b_bound'][0]:.4f}) against ntt_cm "
+          f"{k3['ntt_cm_ms']:.4f}; on {card}", flush=True)
+    for route in ("mxu", "int64"):
+        oa = k3[f"odd_axis_{route}"]
+        print(f"odd axes of the step at m = {M_3K}, {route} route: "
+              f"{oa['matvec_mod_device_ms_per_call']:.3f} device ms of "
+              f"{oa['span_device_ms_per_call']:.3f} ({oa['matvec_mod_pct_of_span']:.1f}%); alone "
+              f"{oa['alone_device_ms']}; on {card}", flush=True)
+    for key, ms in (("bgv_m34816_ops_per_sec", k3["step_ms"]),
+                    ("bgv_m34816_int64_route_ops_per_sec", k3["step_int64_ms"])):
+        print(f"metric {key} = {B / (ms / 1e3)} on {card}", flush=True)
+    mark(f"phase 3k: {k3['checks']} checks; the step at m = {M_3K} launched modmat_s8 "
+         f"{k3['launches']} times")
+
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
     # n = 4096 ones in phase 2, one channel of the step's here.
@@ -2417,6 +2696,19 @@ def main() -> int:
          "randint_pipe": rand["randint_pipe"], "bits_ms": rand["bits_ms"],
          "bits_bound_ms": rand["bits_bound"][0], "randint2_ms": rand["randint2_ms"],
          "randint2_bound_ms": rand["randint2_bound"][0], "randn_ms": rand["randn_ms"]},
+        # no pallas_call: the reference's MXU route is XLA's int8 dot_general;
+        # torch._int_mm over the same limb products is a yardstick only
+        {"name": "modmat_s8", "route": "cuda", "source": "lol_tpu_torch/csrc/modmat.cu",
+         "replaces": "lol_tpu/ops/general.py:116 (matvec_mod_mxu: XLA int8 dot_general; "
+                     "no pallas_call)",
+         "also_replaces": "lol_tpu/bench/mxu_ntt.py:108 (mxu_modmat_apply)",
+         "path": f"the general-m step at m = {M_3K} (its 17-axis, phase 3k)",
+         "launches": k3["launches"], "max_abs_err": 0,
+         "shape": f"(G, a, b, N) = (1024, 16, 16, {B}), the 17-axis",
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3_bound_ms,
+         "bound_by": k3_bound_by, "library_ms": k3["library_ms"], "int64_route_ms": k3["int64_ms"],
+         "mxu_ntt_ms": k3["mxu_ntt_ms"], "ntt_cm_ms": k3["ntt_cm_ms"],
+         "stage_a_ms": k3["stage_a_ms"], "stage_b_ms": k3["stage_b_ms"]},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

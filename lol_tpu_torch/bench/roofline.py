@@ -47,11 +47,18 @@ pass schedule, and `work` is the one place that states them:
   build issues for the same words; `chip_smoke.py` prints it beside the
   bound, which it does not change.
 
+- the int8-limb modular matrix product (`ops/cuda/modmat.modmat_s8`,
+  `modmat_work`): Y (G, a, N) = M @ X (G, b, N) mod q with nl 8-bit limbs
+  does 2 a b N G nl^2 int8 tensor-core operations (a multiply and an add
+  each, over the real b), and reads X and M and writes Y once:
+  4 G N (a + b) + 4 a b bytes (M shared; G of them when stacked).
+
 `bound` turns a count into the least time the H100 could take: the
 larger of the bytes over the data sheet's 3.35 TB/s and the u32 ops
 over the card's integer issue peak, 132 SMs x 64 IMAD per clock x the
 1.98 GHz boost clock (16.7 T/s; the chain kernel measures ~93% of it);
-the draws' slots at the same 64 lanes a clock.
+the draws' slots at the same 64 lanes a clock; the int8 products at the
+data sheet's dense int8 tensor-core rate, 1979 TOP/s (`INT8_OPS_PER_S`).
 
 Ceilings are measured, not assumed: `chip_smoke.py` passes the chain
 kernel's u32 (mul+add)/s (`mxu_ntt.u32_ceiling`, one op per IMAD) and the
@@ -81,6 +88,7 @@ from . import require_cuda, time_ms
 OPS = ("ntt_fwd", "ntt_inv_gs", "ntt_inv_dit", "ct_mul", "mul_mod", "add_mod")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 U32_OPS_PER_S = 132 * 64 * 1.98e9  # SMs x IMAD per clock per SM x boost clock
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core rate, NVIDIA's data sheet
 # A word's operations by pipe, as the draw functions need them (see the
 # module docstring).  The hash: 20 rotations (SHF.L.W) and 21 xors (LOP3),
 # the 20 round adds, 2 key adds and 10 key-injection adds.  Barrett's w mod
@@ -105,9 +113,10 @@ PRNG_NEEDS = {
 }
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """(least ms on the H100, "bytes" or "operations", whichever bounds)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / U32_OPS_PER_S * 1e3
+def bound(ops: float, nbytes: float, ops_per_s: float = U32_OPS_PER_S) -> tuple[float, str]:
+    """(least ms on the H100, "bytes" or "operations", whichever bounds);
+    ops at ops_per_s (u32 ops by default, `INT8_OPS_PER_S` for int8)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -146,6 +155,13 @@ def work(op: str, n: int, B: int, D: int = 1) -> tuple[float, int]:
     if op == "add_mod":
         return 2 * n * B, 12 * n * B
     raise ValueError(f"roofline: unknown op {op!r}")
+
+
+def modmat_work(G: int, a: int, b: int, N: int, q: int, shared: bool = True) -> tuple[int, int]:
+    """(int8 tensor-core ops, least bytes moved) of one `modmat_s8` call:
+    Y (G, a, N) = M @ X (G, b, N) mod q, M shared or one per g."""
+    nl = ((q - 1).bit_length() + 7) // 8
+    return 2 * a * b * N * G * nl * nl, 4 * G * N * (a + b) + 4 * a * b * (1 if shared else G)
 
 
 @contextlib.contextmanager

@@ -36,7 +36,8 @@ against separate ones (`build_galois` per k) at m = 32768, k in {3, 5, 9},
 in interleaved windows (`galois_ab`), and --trace profiles five calls of
 each arm.  The two general legs also print the odd axes' share
 (`odd_axis`): `matvec_mod`'s device time inside the call, and alone on
-one channel.  --mesh times the step at m and the tunnel m -> m/2 over
+one channel (`use_mxu=False`: on the int64 route; `mxu_route` puts any
+call on either).  --mesh times the step at m and the tunnel m -> m/2 over
 `make_mesh({"rns": 3, "data": 4})` (the cards round-robin; on one card,
 twelve entries of it; the tunnel on the mesh's data-only view) against
 their unsharded runs on the same inputs, in interleaved windows
@@ -48,6 +49,8 @@ of each of the four arms.  --m overrides each leg's ring.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import statistics
 
@@ -156,17 +159,32 @@ def by_kernel(fn, args, trace_dir: str, steps: int = 5) -> dict:
     }
 
 
+@contextlib.contextmanager
+def mxu_route(use_mxu: bool | None):
+    """Every `ops.general.matvec_mod` call inside the block takes the given
+    route (True: the int8-limb kernel, False: int64; None: by the axis, the
+    default)."""
+    inner = gen.matvec_mod
+    gen.matvec_mod = functools.partial(inner, use_mxu=use_mxu)
+    try:
+        yield
+    finally:
+        gen.matvec_mod = inner
+
+
 def odd_axis(fn, args, plan: gen.GeneralPlan, calls: int = 5, iters: int = 5,
-             windows: int = 5) -> dict:
+             windows: int = 5, use_mxu: bool | None = None) -> dict:
     """The general-m transforms' odd axes on the card, device time only.
     In the call: a CUDA-event pair around each `ops.general.matvec_mod`
     over `calls` calls of fn(*args), each queued behind a device spin (so
     the pairs and the call's span hold no host gap); their sum against the
     spans.  Alone, on one (n, B) channel of `plan`'s ring: the forward
     `crt_cm`, its 2-power axis (`ntt_cm` on the (n2, rest B) reshape) and
-    its odd axes (`matvec_mod` and the int32 cast)."""
+    its odd axes (`matvec_mod`).  use_mxu: the odd axes' route
+    (`mxu_route`)."""
     dev = require_cuda()
-    inner, pairs, spans = gen.matvec_mod, [], []
+    outer = gen.matvec_mod
+    inner, pairs, spans = functools.partial(outer, use_mxu=use_mxu), [], []
 
     def bracketed(*a, **k):
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -189,7 +207,7 @@ def odd_axis(fn, args, plan: gen.GeneralPlan, calls: int = 5, iters: int = 5,
             spans.append((s0, s1))
         torch.cuda.synchronize()
     finally:
-        gen.matvec_mod = inner
+        gen.matvec_mod = outer
     odd = sum(a.elapsed_time(b) for a, b in pairs) / calls
     span = sum(a.elapsed_time(b) for a, b in spans) / calls
     shape, B = plan.phi_shape, args[0].shape[-1]
@@ -200,11 +218,14 @@ def odd_axis(fn, args, plan: gen.GeneralPlan, calls: int = 5, iters: int = 5,
     def odd_alone():
         y = x
         for i in odd_axes:
-            y = inner(plan.dense(i, False, dev), y.reshape(*shape, B), plan.q,
-                      axis=i).view(n, B).to(torch.int32)
+            y = inner(plan.axes[i].M, y.reshape(*shape, B), plan.q, axis=i).view(n, B)
         return y
 
-    alone = {"crt_cm": lambda: gen.crt_cm(plan, x),
+    def crt_alone():
+        with mxu_route(use_mxu):
+            return gen.crt_cm(plan, x)
+
+    alone = {"crt_cm": crt_alone,
              "axis2": lambda: ntt_cm(x.reshape(n2, (n // n2) * B).contiguous(),
                                      plan.axes[0].ntt2),
              "odd_axes": odd_alone}

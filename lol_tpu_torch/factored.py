@@ -51,6 +51,10 @@ class Factored:
         object.__setattr__(self, "pps", tuple(PrimePower(p, e) for p, e in nt.factorize(self.m)))
 
     @property
+    def value(self) -> int:
+        return self.m
+
+    @property
     def phi(self) -> int:
         return math.prod(pp.phi for pp in self.pps)
 
@@ -70,6 +74,15 @@ class Factored:
 
     def divides(self, other: "Factored") -> bool:
         return other.m % self.m == 0
+
+    def coprime(self, other: "Factored") -> bool:
+        return math.gcd(self.m, other.m) == 1
+
+    def gcd(self, other: "Factored") -> "Factored":
+        return Factored(math.gcd(self.m, other.m))
+
+    def lcm(self, other: "Factored") -> "Factored":
+        return Factored(math.lcm(self.m, other.m))
 
     @property
     def phi_shape(self) -> tuple[int, ...]:

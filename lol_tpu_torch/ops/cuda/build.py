@@ -58,14 +58,20 @@ def build() -> Path:
     Safe under concurrency: processes that build the same sources take
     turns on an advisory lock beside the library (released when its holder
     exits, however it exits), and the later ones find it built."""
-    lib = library_path()
+    return locked_build(library_path(), _compile)
+
+
+def locked_build(lib: Path, compile_fn) -> Path:
+    """lib, made by compile_fn(lib) unless it exists, under the advisory
+    lock `build.lock` beside it: concurrent processes take turns, and the
+    later ones find it built.  compile_fn writes lib atomically."""
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
     with open(lib.parent / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not lib.exists():
-            _compile(lib)
+            compile_fn(lib)
     return lib
 
 

@@ -266,6 +266,15 @@ def ntt_cm(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
     return _ntt_cuda(x, plan, inverse, pre_digit_q)
 
 
+def ntt_batched(x: torch.Tensor, plan: NTTPlan, inverse: bool = False) -> torch.Tensor:
+    """`ntt_cm` over the last axis of a row-major (..., n) tensor: a
+    transpose each way around it, two more passes over memory (hot paths
+    keep (n, B) and call `ntt_cm`)."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    y = ntt_cm(x.reshape(-1, n).t().contiguous(), plan, inverse)
+    return y.t().reshape(*lead, n)
+
+
 def _ntt_invb_cuda(x, plan):
     """Route B: the block pass (DFT_tS, then the twist; at tS = n the only
     pass, then the scale), then the cross pass (DFT_P, the scale and the

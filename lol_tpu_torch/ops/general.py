@@ -14,8 +14,11 @@ per-axis ones:
   (n2, rest * B) is a free reshape and the axis runs on the same
   `ntt_cm` kernels as the 2-power pipeline, the digit prologue included;
 - an odd p^e axis: a dense phi x phi matrix-vector product mod q
-  (`matvec_mod`, exact int64 torch; the reference's int8-limb MXU route
-  `matvec_mod_mxu` computes the same function and is not ported).
+  (`matvec_mod`): below MXU_MIN_AXIS exact int64 torch, from it on (as in
+  the reference's `matvec_mod_jnp`) the int8-limb route of
+  `ops/cuda/modmat.py`, the Hopper tensor-core kernel `modmat_s8` on the
+  card (the reference's `matvec_mod_mxu`).  Both routes are exact, so the
+  dispatch never changes a result.
 
 CRT slot order: slot multi-index (u_1, ..., u_k), axis i enumerating the
 units of Z_{p_i^{e_i}} (the 2-axis in NTT order, odd axes ascending);
@@ -30,7 +33,7 @@ Gaussian mixing factors of the decoding-basis sampler.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -39,6 +42,7 @@ import torch
 from .. import numtheory as nt
 from ..factored import Factored, PrimePower, fact
 from . import ntt
+from .cuda.modmat import modmat_s8, once_per_matrix
 from .cuda.ntt_kernel import ntt_cm, redigit
 
 # ---------------------------------------------------------------------------
@@ -71,19 +75,36 @@ def _mat_inv_mod(M: np.ndarray, q: int) -> np.ndarray:
 
 
 # products of two residues are below 2^60, so seven of them and a residue
-# sum below 2^63: `matvec_mod` reduces once per seven terms
+# sum below 2^63: the int64 route reduces once per seven terms
 _TERMS_PER_REDUCE = 7
+MXU_MIN_AXIS = 16  # from this axis on, the int8-limb route (as the reference)
 
 
-def matvec_mod(M, x: torch.Tensor, q: int, axis: int = -1) -> torch.Tensor:
+def _int64_matrix(M, device) -> torch.Tensor:
+    """M as int64 on `device`; a read-only numpy matrix (the plans') is
+    copied there once."""
+    if isinstance(M, torch.Tensor):
+        return M.to(device, torch.int64)
+    dev = torch.device(device)
+    return once_per_matrix(M, ("int64", dev),
+                           lambda: torch.from_numpy(np.asarray(M, dtype=np.int64)).to(dev))
+
+
+def matvec_mod(M, x: torch.Tensor, q: int, axis: int = -1,
+               use_mxu: bool | None = None) -> torch.Tensor:
     """(a, b) @ x along `axis` mod q, exact: x holds residues in [0, q)
-    with x.shape[axis] == b, and the result has a there (int64).  The
-    counterpart of the reference's `matvec_mod_jnp` (which takes the last
-    axis); no data moves: x is viewed as (pre, b, post) and the product
+    with x.shape[axis] == b, and the result (int32 residues) has a there.
+    The counterpart of the reference's `matvec_mod_jnp` (which takes the
+    last axis), with its dispatch: use_mxu=None takes the int8-limb route
+    (`modmat_s8`) where min(a, b) >= MXU_MIN_AXIS, the exact int64 one
+    below.  No data moves: x is viewed as (pre, b, post); the int64 route
     accumulates over b, reduced every seven terms."""
-    Mt = (M.to(x.device, torch.int64) if isinstance(M, torch.Tensor)
-          else torch.from_numpy(np.asarray(M, dtype=np.int64)).to(x.device))
-    a, b = Mt.shape
+    a, b = M.shape
+    if use_mxu is None:
+        use_mxu = min(a, b) >= MXU_MIN_AXIS
+    if use_mxu:
+        return modmat_s8(M, x, q, axis)
+    Mt = _int64_matrix(M, x.device)
     axis = axis % x.dim()
     if x.shape[axis] != b:
         raise ValueError(f"matvec_mod: axis of length {x.shape[axis]}, matrix {a}x{b}")
@@ -96,7 +117,13 @@ def matvec_mod(M, x: torch.Tensor, q: int, axis: int = -1) -> torch.Tensor:
             t = Mt[:, j].view(1, a, 1) * xv[:, j:j + 1, :]
             s = t if s is None else s + t
         acc = s % q
-    return acc.view(*x.shape[:axis], a, *x.shape[axis + 1:])
+    return acc.to(torch.int32).view(*x.shape[:axis], a, *x.shape[axis + 1:])
+
+
+def matvec_mod_mxu(M, x: torch.Tensor, q: int) -> torch.Tensor:
+    """(a, b) @ (..., b) -> (..., a) mod q by the int8-limb route, the
+    reference's signature (`modmat_s8` over the last axis)."""
+    return modmat_s8(M, x, q, -1)
 
 
 def _np_matvec_mod(M: np.ndarray, x: np.ndarray, q: int) -> np.ndarray:
@@ -168,21 +195,10 @@ class GeneralPlan:
     fm: Factored
     q: int
     axes: tuple[AxisPlan, ...]
-    _dev: dict = field(default_factory=dict, init=False, repr=False)
 
     @property
     def phi_shape(self) -> tuple[int, ...]:
         return self.fm.phi_shape
-
-    def dense(self, i: int, inverse: bool, device) -> torch.Tensor:
-        """Axis i's CRT matrix (or its inverse) as int64 on `device`, made
-        once per device."""
-        key = (i, inverse, torch.device(device))
-        if key not in self._dev:
-            ax = self.axes[i]
-            self._dev[key] = torch.from_numpy(
-                (ax.Minv if inverse else ax.M).astype(np.int64)).to(key[2])
-        return self._dev[key]
 
 
 @lru_cache(maxsize=512)
@@ -202,7 +218,8 @@ def crt_cm(plan: GeneralPlan, x: torch.Tensor, inverse: bool = False,
            pre_digit_q: int | None = None) -> torch.Tensor:
     """(n, B) int32 coefficient-major CRT (powerful -> CRT basis) or its
     inverse over one channel.  The 2-power axis runs `ntt_cm` on the free
-    (n2, rest * B) reshape, the odd axes `matvec_mod` in place.
+    (n2, rest * B) reshape, the odd axes `matvec_mod` in place (the
+    int8-limb kernel from MXU_MIN_AXIS on).
     pre_digit_q: the RNS-gadget digit re-expansion (forward only).  It is
     elementwise, so it runs before any axis transform: as the 2-axis
     kernel's prologue, or by `redigit` when the ring has no 2-axis."""
@@ -222,8 +239,8 @@ def crt_cm(plan: GeneralPlan, x: torch.Tensor, inverse: bool = False,
     for i, ax in enumerate(axes):
         if ax.ntt2 is not None or ax.phi == 1:
             continue
-        x = matvec_mod(plan.dense(i, inverse, x.device), x.reshape(*shape, B), plan.q,
-                       axis=i).view(n, B).to(torch.int32)
+        x = matvec_mod(ax.Minv if inverse else ax.M, x.reshape(*shape, B), plan.q,
+                       axis=i).view(n, B)
     return x
 
 
@@ -311,7 +328,7 @@ def _odd_axes_cm(plan: GeneralPlan, x: torch.Tensor, which: int) -> torch.Tensor
         if ax.pp.p == 2:
             continue
         M = _g_matrices(ax.pp.p, ax.pp.e, plan.q)[which]
-        x = matvec_mod(M, x.reshape(*shape, B), plan.q, axis=i).reshape(n, B)
+        x = matvec_mod(M, x.reshape(*shape, B), plan.q, axis=i).view(n, B)
     return x.to(torch.int32)
 
 

@@ -17,7 +17,9 @@ package's plan table for table) and hands out device copies through
 `ntt_forward_cm`/`ntt_inverse_cm` are the plain int64 torch networks
 along axis 0 of a coefficient-major (n, B) tensor (`dit_net_cm` and
 `gs_net_cm` over a twiddle base, which the ring-sharded blocks share), and
-`ntt_inverse_dit_cm` is the plain route-B inverse;
+`ntt_inverse_dit_cm` is the plain route-B inverse; `ntt_forward` /
+`ntt_inverse` (and their `_stages` names) run the same networks over the
+last axis of the reference's row-major (..., n) layout;
 `np_ntt_forward`/`np_ntt_inverse` are the numpy mirrors used for host
 keygen and plaintext products.
 
@@ -247,6 +249,25 @@ def ntt_inverse_cm(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
     """Inverse negacyclic NTT along axis 0 (brv in, natural out), int64."""
     q = plan.q
     return gs_net_cm(x.long() % q, plan.tables(x.device)[2].long(), q) * plan.n_inv % q
+
+
+def ntt_forward_stages(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+    """Forward negacyclic NTT over the last axis of (..., n) residues, the
+    reference's row-major layout (the `*_cm` forms take axis 0); int32."""
+    return ntt_forward_cm(x.movedim(-1, 0), plan).movedim(0, -1).to(torch.int32)
+
+
+def ntt_inverse_stages(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+    """Inverse negacyclic NTT over the last axis of (..., n); int32."""
+    return ntt_inverse_cm(x.movedim(-1, 0), plan).movedim(0, -1).to(torch.int32)
+
+
+def ntt_forward(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+    return ntt_forward_stages(x, plan)
+
+
+def ntt_inverse(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+    return ntt_inverse_stages(x, plan)
 
 
 def _dit_bitrev_net(x: torch.Tensor, table: torch.Tensor, q: int) -> torch.Tensor:

@@ -1343,3 +1343,8 @@ class GaloisMany(nn.Module):
         xc = blocks.gather(blocks.map(lambda k, b: k.bb._ntt(b, inverse=True), parts, c1))
         outs = blocks.map(lambda k, a, b, f: k.rotations(a, b, f), parts, c0, c1, xc)
         return {k: blocks.map(lambda o: o[k], outs) for k in parts[0, 0].ks}
+
+
+def gd_gadget_rns(basis) -> np.ndarray:
+    """The RNS gadget's (ell, nrns) residue table over `basis`."""
+    return gd.gadget_rns(gd.RnsGad(), basis)

@@ -7,6 +7,8 @@ rings m = 16 and 64 and the composite ones 36 = 2^2 3^2, 72 = 2^3 3^2 and
 moduli 2^8 (m = 16) and 2^4 (m = 36), the number theory, gadget,
 sampling, rrq, complexfield and rlwe pieces of the slice likewise.  The
 JAX object path reaches no Pallas kernel, so it runs as it is, op by op.
+The transforms and `Cyc` methods at the composite rings:
+test_torch_cyc_general.py (`check_ring_transforms`, `check_cyc_methods`).
 """
 
 import jax.numpy as jnp
@@ -34,6 +36,9 @@ from lol_tpu_torch.ops import general as gen
 torch.set_num_threads(2)
 
 RINGS = (16, 64, 36, 72, 90)
+# the transforms and Cyc methods at the composite rings run from
+# test_torch_cyc_general.py: the slowest comparisons, in a short file
+POW2_RINGS, GENERAL_RINGS = RINGS[:2], RINGS[2:]
 SUBS = {16: 8, 64: 16, 36: 12, 72: 36, 90: 30}  # a proper subring of each
 
 
@@ -70,8 +75,12 @@ def _pair(ctx, jctx, rep, a):
             JCyc(jctx, JRep(rep), jnp.asarray(a)))
 
 
-@pytest.mark.parametrize("m", RINGS)
+@pytest.mark.parametrize("m", POW2_RINGS)
 def test_ring_transforms_match_jax(m):
+    check_ring_transforms(m)
+
+
+def check_ring_transforms(m):
     """crt / crt_inv / l / l_inv, g multiplication and division in all three
     bases, the pointwise ops, the constructors, the lifts and the norm."""
     ctx, jctx = _ctxs(m)
@@ -134,8 +143,12 @@ def test_subring_ops_and_tables_match_jax(m):
     _eq(gen.coeffs_rel(ms, m, tx), jgen.coeffs_rel(ms, m, jx))
 
 
-@pytest.mark.parametrize("m", RINGS)
+@pytest.mark.parametrize("m", POW2_RINGS)
 def test_cyc_methods_match_jax(m):
+    check_cyc_methods(m)
+
+
+def check_cyc_methods(m):
     """Every Cyc method on the same element in both packages: the
     conversions, + - * (Cyc, int), the g ops per basis, lifts, the exact
     rescale in both bases, embed / twace / coeffs / rel_pow_basis, the

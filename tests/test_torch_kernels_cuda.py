@@ -805,3 +805,70 @@ def test_prng_normals_match_plain_on_every_input(cuda):
         got = pk.map_words(words.to(cuda), mode, pre, scale).cpu()
         want = pk.map_words(words, mode, pre, scale)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (mode, scale)
+
+
+MODMAT_QS = [nt.ntt_primes(34816, 30, 1)[0], 65537, 12289, 257]  # 4, 3, 2 and 1 limbs
+
+
+@pytest.mark.parametrize("q", MODMAT_QS)
+@pytest.mark.parametrize("a,b,pre,post", [(6, 6, 3, 1000), (16, 16, 1024, 1024), (32, 32, 2, 1000),
+                                          (33, 33, 3, 31), (64, 64, 2, 257), (70, 40, 1, 33),
+                                          (16, 4096, 2, 96)])
+def test_modmat_s8_matches_plain(cuda, q, a, b, pre, post):
+    """The int8 tensor-core kernel == its plain version over (pre, b, post)
+    (M shared; 0, 1 and q - 1 planted), and at every entry 0 and q - 1."""
+    from lol_tpu_torch.ops.cuda import modmat as mm
+
+    rng = np.random.default_rng(a * b + q % 1000)
+    M = rng.integers(0, q, (a, b)).astype(np.uint32)
+    M.flat[:2] = (0, q - 1)
+    g = torch.Generator(device=cuda).manual_seed(a + b)
+    x = torch.randint(0, q, (pre, b, post), generator=g, device=cuda, dtype=torch.int32)
+    x.view(-1)[:3] = torch.tensor([0, 1, q - 1], device=cuda)
+    before = mm.LAUNCHES["modmat_s8"]
+    got = mm.modmat_s8(M, x, q, 1)
+    assert mm.LAUNCHES["modmat_s8"] == before + 1 and got.shape == (pre, a, post)
+    assert torch.equal(got, mm.modmat_ref(M, x, q, 1))
+    for v in (0, q - 1):
+        Mv, xv = np.full((a, b), v, np.uint32), torch.full((1, b, 64), v, dtype=torch.int32,
+                                                          device=cuda)
+        assert torch.equal(mm.modmat_s8(Mv, xv, q, 1), mm.modmat_ref(Mv, xv, q, 1))
+
+
+def test_modmat_s8_stacks_and_mxu_ntt(cuda):
+    """One matrix per leading index (mxu_ntt's M_B), the shared M_A, and
+    the four-step NTT == ntt_cm, at n = 4096, P = 64, B = 1024."""
+    from lol_tpu_torch.ops.cuda import modmat as mm
+
+    n, P, B = 4096, 64, 1024
+    for q in nt.ntt_primes(2 * n, 30, 2):
+        plan = ntt.ntt_plan(n, q)
+        x = torch.randint(0, q, (n, B), device=cuda, dtype=torch.int32)
+        M_A, M_B = mx.stage_matrices(plan, P)
+        a = mm.modmat_s8(M_A, x.reshape(P, -1), q, 0)
+        assert torch.equal(a, mm.modmat_ref(M_A, x.reshape(P, -1), q, 0))
+        y = mm.modmat_s8(M_B, a.view(P, n // P, B), q, 1)
+        assert torch.equal(y, mm.modmat_ref(M_B, a.view(P, n // P, B), q, 1))
+        assert torch.equal(mx.mxu_ntt(x, plan, P), tk.ntt_cm(x, plan))
+
+
+def test_general_crt_on_the_kernel_route(cuda):
+    """crt_cm at m = 34816 (the 17-axis, phi = 16): one modmat_s8 launch a
+    call, == the int64 route on the card and == the CPU."""
+    from lol_tpu_torch.ops import general as gen
+    from lol_tpu_torch.ops.cuda import modmat as mm
+
+    m = 34816
+    q = nt.ntt_primes(m, 30, 1)[0]
+    plan = gen.general_plan(m, q)
+    x = torch.randint(0, q, (plan.fm.phi, 64), device=cuda, dtype=torch.int32)
+    for inverse in (False, True):
+        before = mm.LAUNCHES["modmat_s8"]
+        got = gen.crt_cm(plan, x, inverse=inverse)
+        assert mm.LAUNCHES["modmat_s8"] == before + 1
+        assert torch.equal(got, gen.crt_cm(plan, x.cpu(), inverse=inverse).to(cuda))
+        with steptime.mxu_route(False):
+            assert torch.equal(got, gen.crt_cm(plan, x, inverse=inverse))
+    with pytest.raises(ValueError, match="4096"):
+        mm.modmat_s8(np.zeros((16, 4097), np.uint32),
+                     torch.zeros((2, 4097, 8), dtype=torch.int32, device=cuda), q, 1)

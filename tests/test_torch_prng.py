@@ -5,11 +5,12 @@ The threefry twin's keys, splits, words, `randint` and `uniform` equal
 `jax.random`'s; its float32 normal equals `sqrt(2) * jax.lax.erf_inv(u)`
 on every one of the 2^23 values u can take, and the rounded samplers'
 maps (sqrt(2) folded into the scale where XLA compiles the product as one
-program, or not) equal XLA's at every variance the packages use.  Then,
-from the same key, each sampler of the port must give the JAX package's
+program, or not) equal XLA's at every variance the packages use.  From
+the same key each sampler of the port must give the JAX package's
 integers, keys, ciphertexts, hints, PRF families, RLWE samples and
-challenge files.  The JAX hint generators are jitted; the rest runs as
-the packages' own tests run it, on small rings.
+challenge files: test_torch_prng_samplers.py and test_torch_prng_object.py,
+on the helpers below.  The JAX hint generators are jitted; the rest runs
+as the packages' own tests run it, on small rings.
 """
 
 import math
@@ -240,35 +241,7 @@ def test_draw_at_ref_is_the_draw_at_those_indices():
     assert bool((prng.bits_at(keys[0], far) != prng.bits_at(keys[0], far & prng.MASK)).any())
 
 
-# --- the packages' samplers, from the same key ---------------------------------
-
-
-@pytest.mark.parametrize("m,p", [(32768, 257), (18432, 7)])
-def test_gen_sk_matches_jax(m, p):
-    qs = tuple(nt.ntt_primes(m, 30, 2))
-    for seed in (0, 5):
-        js = jshe.gen_sk(jshe.SHEParams(m=m, p=p, qs=qs, var=2.0), jax.random.PRNGKey(seed))
-        ts = she.gen_sk(she.SHEParams(m=m, p=p, qs=qs, var=2.0), prng.PRNGKey(seed), "cpu")
-        np.testing.assert_array_equal(np.asarray(js.s_ints), ts.s_ints.numpy())
-
-
-@pytest.mark.parametrize("m", [72, 90])
-def test_sampling_matches_jax_at_general_m(m):
-    """gaussian_dec_ints with a batch (the mixing's sums over the odd axes,
-    as XLA's dot takes them), uniform, gaussian_cyc, error_coset."""
-    qs = tuple(nt.ntt_primes(m, 30, 2))
-    jctx, ctx = j_ring_context(m, qs), ring_context(m, qs)
-    jk, tk = _key(13)
-    np.testing.assert_array_equal(_np(jsampling.gaussian_dec_ints(jctx, jk, 3.0, (5,))),
-                                  sampling.gaussian_dec_ints(ctx, tk, 3.0, (5,), "cpu").numpy())
-    for jc, c in ((jsampling.uniform(jctx, jk, (2,)), sampling.uniform(ctx, tk, (2,), "cpu")),
-                  (jsampling.gaussian_cyc(jctx, jk, 2.0), sampling.gaussian_cyc(ctx, tk, 2.0, device="cpu")),
-                  (jsampling.error_coset(jctx, jk, 2.0, np.arange(ctx.n) % 5, 5),
-                   sampling.error_coset(ctx, tk, 2.0, np.arange(ctx.n) % 5, 5, "cpu"))):
-        assert c.rep.value == jc.rep.value
-        np.testing.assert_array_equal(_np(jc.data), c.data.numpy())
-    np.testing.assert_array_equal(jsampling.gaussian_ints_np(jctx, jk, 2.0),
-                                  sampling.gaussian_ints_np(ctx, tk, 2.0, "cpu"))
+# --- helpers of the samplers' comparisons (test_torch_prng_*.py) -------------
 
 
 def _same_ct(ct, jct):
@@ -278,161 +251,6 @@ def _same_ct(ct, jct):
         np.testing.assert_array_equal(c.data.numpy(), _np(jc.data))
 
 
-def test_object_encrypt_matches_jax_at_8192():
-    m, qs = 8192, tuple(nt.ntt_primes(8192, 30, 2))
-    jp, tp = jshe.SHEParams(m=m, p=257, qs=qs, var=2.0), she.SHEParams(m=m, p=257, qs=qs, var=2.0)
-    jk, tk = _key(21)
-    jsk, sk = jshe.gen_sk(jp, jk), she.gen_sk(tp, tk, "cpu")
-    msg = jshe.pt_random(jp, np.random.default_rng(1))
-    np.testing.assert_array_equal(msg, she.pt_random(tp, np.random.default_rng(1), device="cpu"))
-    for jenc, enc in ((jshe.encrypt, she.encrypt), (jshe.encrypt_msd, she.encrypt_msd)):
-        jk, tk = _key(22)
-        _same_ct(enc(sk, msg, tk, "cpu"), jenc(jsk, msg, jk))
-
-
 def _hints_equal(h, jh):
     np.testing.assert_array_equal(h.h0.numpy(), np.stack([_np(c.data) for c in jh.h0]))
     np.testing.assert_array_equal(h.h1.numpy(), np.stack([_np(c.data) for c in jh.h1]))
-
-
-@pytest.fixture(scope="module")
-def small():
-    jp, tp = jshe.SHEParams(m=M, p=257, qs=QS, var=2.0), she.SHEParams(m=M, p=257, qs=QS, var=2.0)
-    jk, tk = _key(30)
-    jsks = [jshe.gen_sk(jp, k) for k in jax.random.split(jk, 2)]
-    sks = [she.gen_sk(tp, k, "cpu") for k in prng.split(tk, 2)]
-    for a, b in zip(jsks, sks):
-        np.testing.assert_array_equal(np.asarray(a.s_ints), b.s_ints.numpy())
-    return dict(jp=jp, tp=tp, jsks=jsks, sks=sks, jbb=JBatchedBGV(jp, use_pallas=False),
-                bb=BatchedBGV(tp, "cpu"))
-
-
-@pytest.mark.parametrize("encoding", ["lsd", "msd"])
-def test_batched_encrypt_matches_jax(small, encoding):
-    rng = np.random.default_rng(2)
-    msgs = rng.integers(0, 257, (small["tp"].ctx.n, 6)).astype(np.int32)
-    jk, tk = _key(31)
-    jc = small["jbb"].build_encrypt(small["jsks"][0], encoding)(jnp.asarray(msgs), jk)
-    c = small["bb"].build_encrypt(small["sks"][0], encoding)(torch.from_numpy(msgs), tk)
-    for a, b in zip(c, jc):
-        np.testing.assert_array_equal(a.numpy(), _np(b))
-
-
-def test_batched_hint_generators_match_jax(small):
-    jbb, bb = small["jbb"], small["bb"]
-    (jsk, jsk2), (sk, sk2) = small["jsks"], small["sks"]
-    jk, tk = _key(32)
-    _hints_equal(bb.gen_ks_quad_hint(sk, tk), jbb.gen_ks_quad_hint(jsk, jk))
-    _hints_equal(bb.gen_ks_linear_hint(sk2, sk, tk), jbb.gen_ks_linear_hint(jsk2, jsk, jk))
-    _hints_equal(bb.gen_galois_hint(5, sk, tk), jbb.gen_galois_hint(5, jsk, jk))
-    jx, x = jbb.gen_ks_quad_hint_ext(jsk, SPECIAL, jk), bb.gen_ks_quad_hint_ext(sk, SPECIAL, tk)
-    _hints_equal(x, jx)
-    jx = jbb.gen_ks_linear_hint_ext(jsk2, jsk, SPECIAL, jk)
-    _hints_equal(bb.gen_ks_linear_hint_ext(sk2, sk, SPECIAL, tk), jx)
-
-
-def test_batched_tunnel_hint_matches_jax(small):
-    """gen_tunnel_hint 64 -> 32 (E = S, ys = [1, 0])."""
-    jp, tp = small["jp"], small["tp"]
-    jps = jshe.SHEParams(m=M // 2, p=257, qs=QS, var=2.0)
-    ps = she.SHEParams(m=M // 2, p=257, qs=QS, var=2.0)
-    jk, tk = _key(33)
-    jsk_s, sk_s = jshe.gen_sk(jps, jk), she.gen_sk(ps, tk, "cpu")
-    jr, jsc = j_ring_context(M, QS), j_ring_context(M // 2, QS)
-    jf = jlinear.linear_pow(jsc, jr, jsc, [JCyc.scalar(jsc, 1), JCyc.zero(jsc)])
-    n_s = ps.ctx.n
-    f = linear.linear_pow(ps.ctx, tp.ctx, ps.ctx, [np.eye(1, n_s, dtype=np.int64)[0],
-                                                   np.zeros(n_s, dtype=np.int64)])
-    jk, tk = _key(34)
-    jth = small["jbb"].gen_tunnel_hint(jf, jsk_s, small["jsks"][0], jk)
-    th = small["bb"].gen_tunnel_hint(f, sk_s, small["sks"][0], tk)
-    for h, jh in zip(th.hints, jth.hints):
-        _hints_equal(h, jh)
-
-
-def test_object_hints_match_jax(small):
-    """The object path's hint makers (_ks_hint's split chain, the ext one,
-    pt_round_hints') from the same key."""
-    (jsk, jsk2), (sk, sk2) = small["jsks"], small["sks"]
-    jk, tk = _key(35)
-    _hints_equal(she.ks_quad_circ_hint(sk, gd.BaseBGad(1 << 16), tk, "cpu"),
-                 jshe.ks_quad_circ_hint(jsk, jgd.BaseBGad(1 << 16), jk))
-    _hints_equal(she.ks_linear_hint(sk2, sk, gd.RnsGad(), tk, "cpu"),
-                 jshe.ks_linear_hint(jsk2, jsk, jgd.RnsGad(), jk))
-    _hints_equal(she.ks_quad_circ_hint_ext(sk, gd.RnsGad(), tk, SPECIAL, "cpu"),
-                 jshe.ks_quad_circ_hint_ext(jsk, jgd.RnsGad(), jk, SPECIAL))
-
-
-def test_prf_family_and_eval_hints_match_jax():
-    """PRFFamily.random and make_eval_hints down 32 -> 2 (the project maps,
-    with the rounding's hints), from the same key."""
-    p, rings = 8, [32, 16, 8, 4, 2]
-    qs = tuple(nt.ntt_primes(64, 30, jshe.pt_round_mults(p) + 2))
-    jk, tk = _key(40)
-    jfam = jprf.PRFFamily.random(j_ring_context(32, (p,)), jgd.BaseBGad(2), jprf.balanced(2), jk)
-    fam = prf.PRFFamily.random(ring_context(32, (p,)), gd.BaseBGad(2), prf.balanced(2), tk, "cpu")
-    np.testing.assert_array_equal(fam.a0, np.stack([a.lift_ints(rep=JRep.POW) % p for a in jfam.a0]))
-    np.testing.assert_array_equal(fam.a1, np.stack([a.lift_ints(rep=JRep.POW) % p for a in jfam.a1]))
-    ks = jax.random.split(jk, len(rings))
-    jsks = [jshe.gen_sk(jshe.SHEParams(m=r, p=p, qs=qs, var=2.0), k) for r, k in zip(rings, ks)]
-    sks = [she.gen_sk(she.SHEParams(m=r, p=p, qs=qs, var=2.0), k, "cpu")
-           for r, k in zip(rings, prng.split(tk, len(rings)))]
-    jk, tk = _key(41)
-    jh, _ = jprf.make_eval_hints(jfam, jsks, rings, rings[1:], jgd.RnsGad(), jk,
-                                 homomorphic_round=True, maps="project")
-    h, _ = prf.make_eval_hints(fam, sks, rings, rings[1:], gd.RnsGad(), tk,
-                               homomorphic_round=True, maps="project", device="cpu")
-    assert len(h.tunnels) == len(jh.tunnels) == len(rings) - 1
-    for th, jth in zip(h.tunnels, jh.tunnels):
-        for a, b in zip(th.hints, jth.hints):
-            _hints_equal(a, b)
-    for a, b in zip(h.rounds.hints, jh.rounds.hints):
-        _hints_equal(a, b)
-
-
-def test_rlwe_samples_match_jax():
-    jctx, ctx = j_ring_context(M, QS[:1]), ring_context(M, QS[:1])
-    jk, tk = _key(50)
-    js, s = JCyc.from_ints(jctx, np.arange(ctx.n) % 3 - 1), Cyc.from_ints(ctx, np.arange(ctx.n) % 3 - 1,
-                                                                          device="cpu")
-    js, s = js.to_crt(), s.to_crt()
-    for jsamp, samp in ((jrlwe.sample_discrete(jctx, js, 2.0, jk),
-                         rlwe.sample_discrete(ctx, s, 2.0, tk)),
-                        (jrlwe.sample_rlwr(jctx, j_ring_context(M, (257,)), js, jk),
-                         rlwe.sample_rlwr(ctx, ring_context(M, (257,)), s, tk))):
-        for c, jc in ((samp.a, jsamp.a), (samp.b, jsamp.b)):
-            assert c.rep.value == jc.rep.value
-            np.testing.assert_array_equal(c.data.numpy(), _np(jc.data))
-    ja, jb = jrlwe.sample_continuous(jctx, js, 2.0, jk)
-    a, b = rlwe.sample_continuous(ctx, s, 2.0, tk)
-    np.testing.assert_array_equal(a.data.numpy(), _np(ja.data))
-    np.testing.assert_array_equal(b.view(np.uint64), np.asarray(jb).view(np.uint64))
-
-
-def test_challenge_directory_is_the_jax_packages(tmp_path):
-    """generate(seed) writes the JAX package's files, byte for byte."""
-    q64, q72 = nt.ntt_primes(64, 30, 1)[0], nt.ntt_primes(72, 30, 1)[0]
-
-    def params(P):
-        return [P(0, 64, q64, 4.0, 2, "disc", beacon_epoch=11),
-                P(1, 64, q64, 4.0, 2, "cont", beacon_epoch=12, beacon_offset=8),
-                P(2, 64, q64, 4.0, 2, "rlwr", qprime=257, beacon_epoch=13),
-                P(3, 72, q72, 4.0, 1, "disc", beacon_epoch=14)]
-
-    jdriver.generate(tmp_path / "jax", params(jdriver.ChallengeParams), seed=7)
-    generate(tmp_path / "port", params(ChallengeParams), seed=7, device="cpu")
-    jfiles = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*")
-                    if p.is_file())
-    assert jfiles == sorted(p.relative_to(tmp_path / "port") for p in (tmp_path / "port").rglob("*")
-                            if p.is_file())
-    for rel in jfiles:
-        assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes(), rel
-
-
-def test_key_from_numpy_carries_a_jax_key():
-    jk = jax.random.split(jax.random.PRNGKey(77))[1]
-    k = convert.key_from_numpy(np.asarray(jk))
-    np.testing.assert_array_equal(_np(jax.random.bits(jk, (5,), jnp.uint32)),
-                                  prng.random_bits(k, (5,), "cpu").numpy())
-    with pytest.raises(ValueError, match="two u32 words"):
-        convert.key_from_numpy(np.zeros(3, dtype=np.uint32))

@@ -10,8 +10,9 @@ where every wrapper takes its plain version.  Inputs come from numpy
 seeds and carry across as numpy; everything is exact mod q, so the
 tolerance is zero.
 
-Interpret mode takes 20-30 s per call here, so it runs once per
-direction on one input at each D.  Below a flattened batch of 128 the
+Interpret mode takes 20-50 s per call here, so it runs once per
+direction on one input at each D, each D in a file of its own
+(`check_interpret`; D = 2 and 8 in test_torch_ring_ntt_d2.py / _d8.py).  Below a flattened batch of 128 the
 JAX package's overlap=True is its two-call path (`remote_ntt.py:480`,
 `:511`), so at batch 2 or 3 one JAX run stands for both of its routes;
 the (3, 128, 256) batch (F = 384: three 128-wide slabs, a recycled
@@ -64,14 +65,9 @@ def _input(D, n, batch, seed):
     return q, x
 
 
-@pytest.mark.parametrize("D,n,batch,jax_overlap", [
-    (2, 256, (2,), False),
-    (8, 512, (3,), False),
-    (4, 256, (3, 128), True),
-])
-def test_ring_ntt_matches_jax_interpret(D, n, batch, jax_overlap):
+def check_interpret(D, n, batch, jax_overlap):
     """Both port routes, forward and inverse, == the JAX package's
-    interpret-mode Pallas kernels on the same input."""
+    interpret-mode Pallas kernels on the same input (each computed once)."""
     q, x = _input(D, n, batch, seed=D)
     jmesh, xj = _jax_ring(x, D)
     jplan = jntt.ntt_plan(n, q)
@@ -83,6 +79,13 @@ def test_ring_ntt_matches_jax_interpret(D, n, batch, jax_overlap):
     for overlap in (False, True):
         np.testing.assert_array_equal(_port_ring(x, D, plan, False, overlap), want_f)
         np.testing.assert_array_equal(_port_ring(x, D, plan, True, overlap), want_i)
+
+
+# the two two-call cases, ~100 s each, run from test_torch_ring_ntt_d2.py and
+# _d8.py: one file a case keeps each file short under --dist loadfile
+@pytest.mark.parametrize("D,n,batch,jax_overlap", [(4, 256, (3, 128), True)])
+def test_ring_ntt_matches_jax_interpret(D, n, batch, jax_overlap):
+    check_interpret(D, n, batch, jax_overlap)
 
 
 @pytest.mark.parametrize("D", [2, 4, 8])
