@@ -187,7 +187,8 @@ then runs its phases and exits non-zero on the first failure:
    route's; (d) the C++ host backend == the kernels (the NTT both ways at
    n = 4096, `axis_matvec` on the 17-axis); (e) the kernel's time beside
    its bound, the int64 route's, the plain version's and `torch._int_mm`'s
-   over the same limb products (a yardstick), `mxu_ntt` against `ntt_cm`,
+   over the reference's centred int8 limb products (a yardstick),
+   `mxu_ntt` against `ntt_cm`,
    and the step and its odd axes on each route in interleaved windows
    (`metric bgv_m34816_ops_per_sec` / `..._int64_route_ops_per_sec`);
    (f) each bench tool (`she_bench`, `micro`, `scaling`, `invgap`,
@@ -692,8 +693,9 @@ def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
         out["plain_ms"] = time_ms(lambda: mm.modmat_ref(M, x, q0, 1), 2)[0]
         out["bound"] = roofline.bound(*roofline.modmat_work(n2, phi, phi, B, q0),
                                       roofline.INT8_OPS_PER_S)
-        # the yardstick: torch._int_mm over the same nl^2 limb products,
-        # (n2 B, b) @ (b, a) int8 each, the limbs made before timing
+        # the yardstick: torch._int_mm over the reference's nl^2 centred
+        # limb products, (n2 B, b) @ (b, a) int8 each, the limbs made
+        # before timing
         nl = mm.limbs_needed(q0)
         xt = x.permute(0, 2, 1).reshape(-1, phi).long()
         x_l = [(((xt >> (8 * j)) & 0xFF) - 128).to(torch.int8).contiguous() for j in range(nl)]
@@ -2699,6 +2701,10 @@ def main() -> int:
         # no pallas_call: the reference's MXU route is XLA's int8 dot_general;
         # torch._int_mm over the same limb products is a yardstick only
         {"name": "modmat_s8", "route": "cuda", "source": "lol_tpu_torch/csrc/modmat.cu",
+         "design": "mma.sync m16n8k32 u8: the raw bytes of X's words against nl tables of M's "
+                   "bytes with 2^(8j) folded in (one weight class a limb of q, no centring), "
+                   "a persistent grid of independent warps streaming X through a 16-byte "
+                   "cp.async ring, 16-byte stores",
          "replaces": "lol_tpu/ops/general.py:116 (matvec_mod_mxu: XLA int8 dot_general; "
                      "no pallas_call)",
          "also_replaces": "lol_tpu/bench/mxu_ntt.py:108 (mxu_modmat_apply)",

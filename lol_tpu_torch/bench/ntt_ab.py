@@ -43,6 +43,18 @@ rounded normal at var 2 (`round`), randint over the three primes
 (`randint2`), and the number of the epilogue's words that differ from
 the plain version's over all 2^23 inputs (`prng_map_differ`).
 
+With `--modmat` it times the int8 tensor-core route instead, each kernel
+call on the device alone after a check == `modmat_ref` on its input:
+`modmat_s8` on the 17-axis of m = 34816 ((G, a, b, N) = (1024, 16, 16,
+1024), the CRT matrix of its first 30-bit prime), `mxu_ntt`'s stage A
+(64 x 64 shared over 65536 columns) and stage B (64 stacked 64 x 64 over
+1024) at n = 4096, P = 64, B = 1024, and the phi = 6 axis of m = 18432
+((1024, 6, 6, 1024), the kernel forced) beside the int64 `matvec_mod` on
+the same input; then the general-m step at m = 34816 (LSD, p = 257,
+three 30-bit primes, B = 1024) on the kernel route and the int64 route
+(`steptime.mxu_route(False)`), checked equal, each as its caller sees it;
+with each leg's bound (`roofline.modmat_work`).
+
 Times are `bench.time_ms` medians of 5 CUDA-event windows.  `ring_phase_b`
 builds the ring's timed phase-B calls for this script and `chip_smoke.py`.
 """
@@ -50,12 +62,14 @@ builds the ring's timed phase-B calls for this script and `chip_smoke.py`.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib
 import importlib.util
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 
 def card_line() -> str:
@@ -199,7 +213,76 @@ def prng_legs(nt, bench, dev, out: dict, n: int = 16384, B: int = 1024) -> None:
         out["prng_map_differ"] += int((got.view(torch.int32) != want.view(torch.int32)).sum())
 
 
-def run(tree: str, label: str, keygen_only: bool = False) -> dict:
+def modmat(nt, she, BatchedBGV, bench, roofline, dev, g, out: dict, B: int = 1024) -> None:
+    """The int8 tensor-core route's timings into out (see the module
+    docstring; B columns where it says 1024)."""
+    import torch
+
+    gen = importlib.import_module("lol_tpu_torch.ops.general")
+    mm = importlib.import_module("lol_tpu_torch.ops.cuda.modmat")
+    mx = importlib.import_module("lol_tpu_torch.bench.mxu_ntt")
+    ntt = importlib.import_module("lol_tpu_torch.ops.ntt")
+    steptime = importlib.import_module("lol_tpu_torch.bench.steptime")
+
+    def leg(key, M, x, q, axis, work):
+        if not torch.equal(mm.modmat_s8(M, x, q, axis), mm.modmat_ref(M, x, q, axis)):
+            raise AssertionError(f"modmat_s8 != modmat_ref ({key})")
+        out[f"{key}_dev_ms"] = bench.time_ms(lambda: mm.modmat_s8(M, x, q, axis), 20,
+                                             device_only=True)[0]
+        out[f"{key}_bound_ms"] = roofline.bound(*work, roofline.INT8_OPS_PER_S)[0]
+
+    def residues(shape, q):
+        return torch.randint(0, q, shape, generator=g, device=dev, dtype=torch.int32)
+
+    m = 34816
+    qs = tuple(nt.ntt_primes(m, 30, 3))
+    plan = gen.general_plan(m, qs[0])
+    n2, phi = plan.phi_shape
+    leg("modmat_axis17", plan.axes[1].M, residues((n2, phi, B), qs[0]), qs[0], 1,
+        roofline.modmat_work(n2, phi, phi, B, qs[0]))
+    n, P = 4096, 64
+    pl = ntt.ntt_plan(n, nt.ntt_primes(2 * n, 30, 1)[0])
+    M_A, M_B = mx.stage_matrices(pl, P)
+    tS = n // P
+    xa = residues((P, tS * B), pl.q)
+    leg("mxu_stage_a", M_A, xa, pl.q, 0, roofline.modmat_work(1, P, P, tS * B, pl.q))
+    leg("mxu_stage_b", M_B, residues((P, tS, B), pl.q), pl.q, 1,
+        roofline.modmat_work(P, tS, tS, B, pl.q, False))
+    q6 = nt.ntt_primes(18432, 30, 1)[0]
+    plan6 = gen.general_plan(18432, q6)
+    M6, (n6, phi6) = plan6.axes[1].M, plan6.phi_shape
+    x6 = residues((n6, phi6, B), q6)
+    if not torch.equal(gen.matvec_mod(M6, x6, q6, 1, use_mxu=False),
+                       mm.modmat_ref(M6, x6, q6, 1)):
+        raise AssertionError("matvec_mod (int64) != modmat_ref on the phi = 6 axis")
+    leg("modmat_phi6", M6, x6, q6, 1, roofline.modmat_work(n6, phi6, phi6, B, q6))
+    out["int64_phi6_dev_ms"] = bench.time_ms(
+        lambda: gen.matvec_mod(M6, x6, q6, 1, use_mxu=False), 20, device_only=True)[0]
+
+    gen_sk, key, pt, _ = draws(she, dev, 4)
+    params = she.SHEParams(m=m, p=257, qs=qs, var=2.0)
+    bb = BatchedBGV(params, dev)
+    sk = gen_sk(params)
+    enc = bb.build_encrypt(sk)
+    step = bb.build_step(bb.gen_ks_quad_hint(sk, key()))
+    cts = (*enc(pt(params, B), key()), *enc(pt(params, B), key()))
+    with steptime.mxu_route(False):
+        want = step(*cts)
+    if not all(torch.equal(a, b) for a, b in zip(step(*cts), want)):
+        raise AssertionError("the m = 34816 step: kernel route != int64 route")
+
+    def step_int64():
+        with steptime.mxu_route(False):
+            return step(*cts)
+    for route, fn in (("mxu", lambda: step(*cts)), ("int64", step_int64)):
+        ms, wins = bench.time_ms(fn, 5)
+        out[f"step_m{m}_{route}_ops_per_s"] = B / (ms / 1e3)
+        out[f"step_m{m}_{route}_ms_windows"] = wins
+    out["modmat_source_sha"] = hashlib.sha256(
+        (Path(mm.__file__).parents[2] / "csrc" / "modmat.cu").read_bytes()).hexdigest()[:12]
+
+
+def run(tree: str, label: str, keygen_only: bool = False, modmat_only: bool = False) -> dict:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
     import torch
@@ -221,6 +304,9 @@ def run(tree: str, label: str, keygen_only: bool = False) -> dict:
     out = {"label": label, "tree": root, "card": card_line()}
     if keygen_only:
         keygen(she, BatchedBGV, nt, bench, dev, out)
+        return out
+    if modmat_only:
+        modmat(nt, she, BatchedBGV, bench, roofline, dev, g, out)
         return out
     ring(rn, tk, sh, ntt, nt, bench, dev, g, out)
 
@@ -304,8 +390,11 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--keygen", action="store_true",
                     help="time keygen and encryption at m = 32768 instead, and the draws")
+    ap.add_argument("--modmat", action="store_true",
+                    help="time the int8 tensor-core route and the m = 34816 step instead")
     args = ap.parse_args()
-    print(json.dumps(run(args.tree, args.label or args.tree, args.keygen)), flush=True)
+    print(json.dumps(run(args.tree, args.label or args.tree, args.keygen, args.modmat)),
+          flush=True)
     return 0
 
 

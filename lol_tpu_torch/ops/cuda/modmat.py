@@ -1,4 +1,4 @@
-"""Exact modular matrix products through int8 limbs: `modmat_s8`.
+"""Exact modular matrix products through 8-bit limbs: `modmat_s8`.
 
 Counterpart of the JAX package's MXU route, `matvec_mod_mxu`
 (`lol_tpu/ops/general.py:116`) and `mxu_modmat_apply`
@@ -7,21 +7,26 @@ Counterpart of the JAX package's MXU route, `matvec_mod_mxu`
 as (pre, b, post), `modmat_s8(M, x, q, axis)` computes M @ x along that axis
 mod q; M may also be a (pre, a, b) stack, one matrix per leading index.
 
-The algorithm (both versions, and the reference's): residues below q < 2^30
-split into nl = ceil(bitlength(q - 1) / 8) limbs of 8 bits, centred to int8
-(limb - 128); each limb pair's product accumulated exactly; the centring
-undone with the row sums of M's centred limbs and the column sums of x's raw
-limbs; the pairs of each weight class k = i + j summed into S_k
-(`class_sums`, kept observable); and sum_k S_k 2^(8k) folded mod q
-(`fold`).  Each S_k lies in [0, 2^31) for b <= 4096, the reference's
-range proof, so b > 4096 is refused on both paths.
+The algorithm (both versions): the reference centres its limbs to int8 for
+the MXU; Hopper multiplies unsigned bytes, so the raw bytes X_j of x's
+words (j < 4) are contracted against M's class tables,
+
+    M x = sum_j (M 2^(8j) mod q) X_j = sum_{i < nl} 2^(8i) S_i  (mod q),
+    S_i = A_i @ Xbytes,  A_i[r, 4c + j] = byte i of (M[r, c] 2^(8j) mod q),
+
+nl = ceil(bitlength(q - 1) / 8) (`_prepare`'s `words`: A_i as (a, b) u32
+words, byte j at bits 8j, the layout of x).  `class_sums` gives the S_i,
+`fold` sum_i S_i 2^(8i) mod q.  Each S_i is at most 4 b 255^2 < 2^31 for
+b <= 8256, so int32 accumulation is exact; b > 4096 is refused on both
+paths, as the reference refuses it.
 
 For a CUDA tensor `modmat_s8` launches the hand-written Hopper kernel of
-`csrc/modmat.cu` (`mma.sync` m16n8k32 int8 tensor-core products, one launch
+`csrc/modmat.cu` (`mma.sync` m16n8k32 u8 tensor-core products, one launch
 a call) on the int32 (pre, b, post) view and raises on any build or launch
-error; M's centred limb planes and row corrections are made on the host,
-once per read-only matrix and device (`prepare`).  For a CPU tensor, and only then,
-it runs the plain torch version `modmat_ref`.
+error; M's tables are made on the host, once per read-only matrix and
+device (`prepare`), the kernel reading them in its fragment order
+(`_fragments`).  For a CPU tensor, and only then, it runs the plain torch
+version `modmat_ref`, which contracts the same tables exactly in int64.
 """
 
 from __future__ import annotations
@@ -38,18 +43,13 @@ from . import build
 
 # One per kernel launch.  Reset by callers that check which kernels a path ran.
 LAUNCHES = {"modmat_s8": 0}
-MAX_B = 4096  # int32-exact classes (lol_tpu/ops/general.py:130-133)
-ROW_TILE, K_CHUNK = 16, 32  # the instruction's m and k: M is padded to them
+MAX_B = 4096  # the reference's refusal (lol_tpu/ops/general.py:130-133)
+ROW_TILE, K_ROWS = 16, 8  # the instruction's m, and the rows of x in its k of 32 bytes
 
 
 def limbs_needed(q: int) -> int:
     """8-bit limbs of a residue below q."""
     return ((q - 1).bit_length() + 7) // 8
-
-
-def _class_pairs(k: int, nl: int) -> range:
-    """The limbs i of M whose pairs (i, k - i) make weight class k."""
-    return range(max(0, k - nl + 1), min(nl, k + 1))
 
 
 def _as_u32(M) -> np.ndarray:
@@ -94,41 +94,37 @@ def _int_dot(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _bytes(w: torch.Tensor, axis: int) -> torch.Tensor:
+    """The 4 bytes of the u32 words w (int64) along a new axis after
+    `axis`, merged into it: index 4 c + j holds byte j of word c."""
+    shift = 8 * torch.arange(4, device=w.device).view(4, *[1] * (w.dim() - axis - 1))
+    out = (w.unsqueeze(axis + 1) >> shift) & 0xFF
+    return out.flatten(axis, axis + 1)
+
+
 def class_sums(M, x3: torch.Tensor, q: int) -> list[torch.Tensor]:
-    """The weight-class sums S_k, k < 2 nl - 1, of M (a, b) or (G, a, b)
-    against residues x3 (G, b, N), as the kernel forms them: (G, a, N)
-    int64 each, S_k = sum over i + j = k of (centred limb i of M) @
-    (centred limb j of x3) + 128 (row sum of M's) + 128 (column sum of
-    x3's raw limb j), which is the exact product of the raw limbs."""
-    nl = limbs_needed(q)
-    Mu = torch.from_numpy(_as_u32(M).astype(np.int64)).to(x3.device)
-    if Mu.dim() == 2:
-        Mu = Mu[None]
-    X = x3.long() & 0xFFFFFFFF
-    m_c = [((Mu >> (8 * i)) & 0xFF) - 128 for i in range(nl)]
-    m_rowsum = [c.sum(-1, keepdim=True) for c in m_c]  # (G', a, 1)
-    x_raw = [(X >> (8 * j)) & 0xFF for j in range(nl)]
-    x_c = [r - 128 for r in x_raw]
-    x_colsum = [r.sum(-2, keepdim=True) for r in x_raw]  # (G, 1, N), raw limbs
-    S = [None] * (2 * nl - 1)
-    for i in range(nl):
-        for j in range(nl):
-            p = _int_dot(m_c[i], x_c[j]) + 128 * x_colsum[j] + 128 * m_rowsum[i]
-            S[i + j] = p if S[i + j] is None else S[i + j] + p
-    return S
+    """The class sums S_i, i < nl, of M (a, b) or (G, a, b) against residues
+    x3 (G, b, N), as the kernel forms them: (G, a, N) int64 each, S_i =
+    A_i @ Xbytes over `_prepare`'s tables, contracted exactly."""
+    prep = prepare(M, q, x3.device)
+    Gm, nl, a, b = prep.words.shape
+    A = _bytes(prep.words, 3).view(Gm, nl * a, 4 * b)
+    X = _bytes(x3.long() & 0xFFFFFFFF, 1)
+    S = _int_dot(A, X)
+    return list(S.view(S.shape[0], nl, a, -1).unbind(1))
 
 
 def fold(S: list[torch.Tensor], q: int) -> torch.Tensor:
-    """sum_k S_k 2^(8k) mod q, int32."""
+    """sum_i S_i 2^(8i) mod q, int32."""
     res = 0
-    for k, Sk in enumerate(S):
-        res = (res + Sk % q * pow(2, 8 * k, q)) % q
+    for i, Si in enumerate(S):
+        res = (res + Si % q * pow(2, 8 * i, q)) % q
     return res.to(torch.int32)
 
 
 def modmat_ref(M, x: torch.Tensor, q: int, axis: int = -1) -> torch.Tensor:
-    """Plain torch version of `modmat_s8` (exact int64 limb products), int32
-    residues with a at `axis`."""
+    """Plain torch version of `modmat_s8` (the same tables, exact int64
+    products), int32 residues with a at `axis`."""
     x3, out_shape = _view(_as_u32(M).shape, x, axis, "modmat_ref")
     return fold(class_sums(M, x3, q), q).view(out_shape)
 
@@ -140,42 +136,48 @@ def modmat_ref(M, x: torch.Tensor, q: int, axis: int = -1) -> torch.Tensor:
 
 @dataclass(frozen=True, eq=False)
 class Prepared:
-    """M's tables for the kernel on one device: centred limb planes
-    (G', nl, a_pad, b_pad) int8, zero-padded, and the row corrections
-    (G', 2 nl - 1, a_pad) int32, 128 x the centred row sums of each class's
-    limbs of M; G' = 1 for one shared matrix."""
+    """M's tables on one device, G' = 1 for one shared matrix: `words`
+    (G', nl, a, b) int64, W_i[r, c] = sum_j (byte i of (M[r, c] 2^(8j) mod
+    q)) 2^(8j), the u8 matrix A_i as u32 words; `frag`, the same words
+    zero-padded to (16 RT, 8 KS) and laid out as the kernel's A fragments
+    (`_fragments`)."""
 
     M: np.ndarray
     nl: int
     a: int
-    planes: torch.Tensor
-    rowcorr: torch.Tensor
-    w: tuple[int, ...]
-    wsh: tuple[int, ...]
+    words: torch.Tensor
+    frag: torch.Tensor
 
     @property
     def shared(self) -> bool:
         return self.M.ndim == 2
 
 
+def _fragments(words: np.ndarray) -> np.ndarray:
+    """(G', nl, a, b) u32 words -> (G', RT, KS, nl, 32, 4) int32: for row
+    tile rt, chunk ks (x's rows 8 ks to 8 ks + 7) and class i, lane
+    4 gid + tig's A fragment of mma.m16n8k32, rows 16 rt + gid (+ 8) and
+    words 8 ks + tig (+ 4): (W[gid, tig], W[gid + 8, tig], W[gid, tig + 4],
+    W[gid + 8, tig + 4]), zero past a and b."""
+    G, nl, a, b = words.shape
+    RT, KS = -(-a // ROW_TILE), -(-b // K_ROWS)
+    W = np.zeros((G, nl, RT * ROW_TILE, KS * K_ROWS), np.uint32)
+    W[:, :, :a, :b] = words
+    # row = 16 rt + 8 h + gid, column = 8 ks + 4 kh + tig -> (.., gid, tig, kh, h)
+    W = W.reshape(G, nl, RT, 2, 8, KS, 2, 4).transpose(0, 2, 5, 1, 4, 7, 6, 3)
+    return np.ascontiguousarray(W).reshape(G, RT, KS, nl, 32, 4).view(np.int32)
+
+
 def _prepare(M: np.ndarray, q: int, device: torch.device) -> Prepared:
-    Mu = M[None] if M.ndim == 2 else M
+    Mu = (M[None] if M.ndim == 2 else M).astype(np.int64)
     if Mu.size and int(Mu.max()) >= q:
         raise ValueError("modmat_s8: matrix entries must be residues below q")
-    G, a, b = Mu.shape
     nl = limbs_needed(q)
-    a_pad, b_pad = -(-a // ROW_TILE) * ROW_TILE, -(-b // K_CHUNK) * K_CHUNK
-    planes = np.zeros((G, nl, a_pad, b_pad), np.int8)
-    rowcorr = np.zeros((G, 2 * nl - 1, a_pad), np.int64)
-    limbs = [((Mu.astype(np.int64) >> (8 * i)) & 0xFF) - 128 for i in range(nl)]
-    for i, c in enumerate(limbs):
-        planes[:, i, :a, :b] = c
-    for k in range(2 * nl - 1):
-        rowcorr[:, k, :a] = 128 * sum(limbs[i].sum(-1) for i in _class_pairs(k, nl))
-    w = tuple(pow(2, 8 * k, q) for k in range(2 * nl - 1))
-    return Prepared(M, nl, a, torch.from_numpy(planes).to(device),
-                    torch.from_numpy(rowcorr.astype(np.int32)).to(device), w,
-                    tuple(zq.shoup(v, q) for v in w))
+    c = [(Mu << (8 * j)) % q for j in range(4)]  # M 2^(8j) mod q < 2^30
+    words = np.stack([sum(((c[j] >> (8 * i)) & 0xFF) << (8 * j) for j in range(4))
+                      for i in range(nl)], 1)
+    return Prepared(M, nl, Mu.shape[1], torch.from_numpy(words).to(device),
+                    torch.from_numpy(_fragments(words.astype(np.uint32))).to(device))
 
 
 _ONCE: dict = {}
@@ -204,10 +206,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load()
     if lib.lol_modmat_s8.argtypes is None:
         lib.lol_modmat_s8.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
-            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
-            + [ctypes.c_uint32, ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
-               ctypes.c_void_p])
+            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_uint32, ctypes.c_void_p])
         lib.lol_modmat_s8.restype = ctypes.c_int
     return lib
 
@@ -230,14 +230,10 @@ def modmat_s8(M, x: torch.Tensor, q: int, axis: int = -1) -> torch.Tensor:
     y = torch.empty((G, prep.a, N), dtype=torch.int32, device=x.device)
     if y.numel() == 0:
         return y.view(out_shape)
-    nk = 2 * prep.nl - 1
-    a_pad, b_pad = prep.planes.shape[-2:]
-    w, wsh = (ctypes.c_uint32 * nk)(*prep.w), (ctypes.c_uint32 * nk)(*prep.wsh)
     with torch.cuda.device(x.device):
         err = _lib().lol_modmat_s8(
-            prep.planes.data_ptr(), prep.rowcorr.data_ptr(),
-            0 if prep.shared else prep.nl * a_pad * b_pad, 0 if prep.shared else nk * a_pad,
-            x3.data_ptr(), y.data_ptr(), G, N, prep.a, b, a_pad, b_pad, prep.nl, q, w, wsh,
+            prep.frag.data_ptr(), 0 if prep.shared else prep.frag[0].numel(), x3.data_ptr(),
+            y.data_ptr(), G, N, prep.a, b, prep.nl, q,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"modmat_s8 ((G, a, b, N) = ({G}, {prep.a}, {b}, {N}), q={q})")
     LAUNCHES["modmat_s8"] += 1

@@ -24,7 +24,8 @@ from jax.experimental import pallas as pl
 from lol_tpu.bench import mxu_ntt as jmx
 from lol_tpu_torch import prng
 from lol_tpu_torch import numtheory as nt, prf, sampling, serving, she
-from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, sass_diff, steptime
+from lol_tpu_torch.bench import modmat_variants, mxu_ntt as mx, ntt_ab, roofline, sass_diff
+from lol_tpu_torch.bench import steptime
 from lol_tpu_torch.ops.cuda import build
 from lol_tpu_torch.she_batched import BatchedBGV
 
@@ -157,6 +158,22 @@ def test_sass_diff_mix_takes_a_library_and_a_name(monkeypatch, capsys):
         sass_diff.main()
 
 
+def test_modmat_variants_probes_guard_one_statement_each():
+    """`modmat_variants.probe` on this tree's csrc/modmat.cu: `reads`
+    guards the 16-byte store of Y and `writes` the 16-byte copy of X, each
+    once, behind a condition that never holds, and changes nothing else;
+    a source without the statement is refused."""
+    src = (build.CSRC / "modmat.cu").read_text()
+    for name, kept in (("reads", "__stwb("), ("writes", "cp_async16(dst,")):
+        out = modmat_variants.probe(src, name)
+        changed = [(a, b) for a, b in zip(src.splitlines(), out.splitlines()) if a != b]
+        assert len(changed) == 1 and out.count("\n") == src.count("\n"), name
+        before, after = changed[0]
+        assert after == before.replace(kept, "if (p.q == 0) " + kept), name
+    with pytest.raises(ValueError, match="writes"):
+        modmat_variants.probe("int main() {}", "writes")
+
+
 def test_roofline_prng_counts_by_pipe():
     """The draws' bound: what each body needs a word by pipe
     (`PRNG_NEEDS`: the hash's 41 ALU ops and 32 adds, Barrett's 2 IMAD, 1
@@ -234,7 +251,10 @@ def test_measurements_refuse_to_run_without_a_card(monkeypatch):
                lambda: steptime.odd_axis(None, (), None),
                lambda: steptime.mesh_inputs(64, 3, 4, 0), lambda: steptime.ab({}),
                lambda: steptime.copies(None, ()),
-               lambda: ntt_ab.run(str(Path(__file__).resolve().parents[1]), "this tree")):
+               lambda: ntt_ab.run(str(Path(__file__).resolve().parents[1]), "this tree"),
+               lambda: ntt_ab.run(str(Path(__file__).resolve().parents[1]), "this tree",
+                                  modmat_only=True),
+               lambda: modmat_variants.run("unused", [])):
         with pytest.raises(RuntimeError, match="CUDA device"):
             fn()
     for leg in ("--pt-round", "--homom-prf", "--general-m", "--tunnel-general", "--galois",

@@ -12,6 +12,8 @@ route), and `bench.mxu_ntt`'s stage matrices and four-step NTT.  Inputs
 from seeded numpy; every comparison is bit for bit.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,21 +81,151 @@ def test_mxu_route_at_the_extremes(fill):
 
 @pytest.mark.parametrize("q", [Q30, 65537, Q8])
 def test_class_sums_are_the_raw_limb_products(q):
-    """S_k == sum over i + j = k of (raw limb i of M) @ (raw limb j of x),
-    exactly, and the fold of the S_k is M @ x mod q."""
+    """S_i == A_i @ Xbytes over exact Python ints, A_i[r, 4 c + j] = byte i
+    of (M[r, c] 2^(8 j) mod q) and Xbytes[4 c + j] = byte j of x's words,
+    each below 2^31, for a random stack and at b = 4096 with every entry
+    q - 1; and the fold of the S_i is M @ x mod q."""
     rng = np.random.default_rng(q % 1000)
+    nl = mm.limbs_needed(q)
     M = rng.integers(0, q, (2, 18, 42)).astype(np.uint32)  # a stack: one matrix a row
     x = rng.integers(0, q, (2, 42, 9)).astype(np.uint32)
-    nl = mm.limbs_needed(q)
-    S = mm.class_sums(M, torch.from_numpy(x.astype(np.int64)), q)
-    assert len(S) == 2 * nl - 1
-    limb = lambda a, i: (a.astype(np.int64) >> (8 * i)) & 0xFF  # noqa: E731
-    for k, Sk in enumerate(S):
-        want = sum(limb(M, i) @ limb(x, k - i) for i in range(nl) if 0 <= k - i < nl)
-        np.testing.assert_array_equal(Sk.numpy(), want)
-        assert int(Sk.max()) < 1 << 31
-    np.testing.assert_array_equal(_u32(mm.fold(S, q)), np.stack(
-        [(M[g].astype(object) @ x[g].astype(object)) % q for g in range(2)]).astype(np.uint32))
+    Mf, xf = np.full((1, 2, 4096), q - 1, np.uint32), np.full((1, 4096, 2), q - 1, np.uint32)
+    for Mc, xc in ((M, x), (Mf, xf)):
+        S = mm.class_sums(Mc, torch.from_numpy(xc.astype(np.int64)), q)
+        assert len(S) == nl
+        xb = np.array([[[(int(v) >> (8 * j)) & 0xFF for v in row] for row in xg for j in range(4)]
+                       for xg in xc], dtype=object)  # (G, 4 b, N)
+        for i, Si in enumerate(S):
+            A = np.array([[[(((int(v) << (8 * j)) % q) >> (8 * i)) & 0xFF for v in row
+                            for j in range(4)] for row in Mg] for Mg in Mc], dtype=object)
+            want = np.stack([A[g] @ xb[g] for g in range(len(Mc))])
+            np.testing.assert_array_equal(Si.numpy(), want.astype(np.int64))
+            assert int(Si.max()) < 1 << 31
+        np.testing.assert_array_equal(_u32(mm.fold(S, q)), np.stack(
+            [(Mc[g].astype(object) @ xc[g].astype(object)) % q for g in range(len(Mc))]
+        ).astype(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's schedule, emulated in numpy
+# ---------------------------------------------------------------------------
+
+_LANE = np.arange(32)
+_GID, _TIG = _LANE >> 2, _LANE & 3
+_PI = np.where(_GID & 1, 4 + (_GID >> 1), _GID >> 1)  # a loader lane's 4-column group
+_MASK = np.uint64(0xFFFFFFFF)
+
+
+def _byte(w: np.ndarray, j: int) -> np.ndarray:
+    return (w.astype(np.int64) >> (8 * j)) & 0xFF
+
+
+def _emu_mma(af: np.ndarray, b0: np.ndarray, b1: np.ndarray) -> np.ndarray:
+    """mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 on the lanes' words in
+    the PTX fragment layouts, for each class's A (nl, 32, 4) against each
+    virtual tile's two B registers (4, 32): the (nl, 4, 32, 4) C
+    registers' addends."""
+    A = np.zeros((af.shape[0], 16, 32), np.int64)
+    B = np.zeros((b0.shape[0], 32, 8), np.int64)
+    for reg in range(4):  # a0: row gid, k 4 tig + j; a1: row + 8; a2, a3: k + 16
+        for j in range(4):
+            A[:, _GID + 8 * (reg & 1), 4 * _TIG + j + 16 * (reg >> 1)] = _byte(af[..., reg], j)
+    for reg, w in enumerate((b0, b1)):  # column gid, k 4 tig + j (+ 16)
+        for j in range(4):
+            B[:, 4 * _TIG + j + 16 * reg, _GID] = _byte(w, j)
+    C = A[:, None] @ B[None]
+    return np.stack([C[..., _GID + 8 * (i >> 1), 2 * _TIG + (i & 1)] for i in range(4)], -1)
+
+
+def _emu_kernel(prep: mm.Prepared, x3: np.ndarray, q: int) -> np.ndarray:
+    """csrc/modmat.cu's work items over x3 (G, b, N) u32 words, each as the
+    kernel runs it: per chunk of 8 rows, lane (gid, tig)'s words of rows
+    tig and 4 + tig at columns 4 pi(gid) + e (zero past b and N) as the B
+    registers of virtual tile e, `prep.frag`'s A fragments, one mma a class
+    and tile; the fold's 64-bit sum and its two Shoup products in u32; each
+    accumulator stored where the kernel stores it."""
+    G, b, N = x3.shape
+    frag = prep.frag.numpy().view(np.uint32)
+    RT, KS, nl = frag.shape[1:4]
+    y = np.full((G, prep.a, N), 0xFFFFFFFF, np.uint32)
+    w = np.array([pow(2, 8 * i, q) for i in range(nl)], np.uint64)
+    q64, w32 = np.uint64(q), np.uint64((1 << 32) % q)
+    w32sh, onesh = np.uint64((int(w32) << 32) // q), np.uint64((1 << 32) // q)
+    for g in range(G):
+        fg = frag[0 if prep.shared else g]
+        for rt in range(RT):
+            for cg in range(-(-N // 32)):
+                acc = np.zeros((nl, 4, 32, 4), np.int64)
+                for ks in range(KS):
+                    xw = np.zeros((2, 4, 32), np.uint32)
+                    for h in range(2):
+                        for e in range(4):
+                            r, c = 8 * ks + 4 * h + _TIG, 32 * cg + 4 * _PI + e
+                            ok = (r < b) & (c < N)
+                            xw[h, e][ok] = x3[g, r[ok], c[ok]]
+                    acc += _emu_mma(fg[rt, ks], xw[0], xw[1])
+                assert 0 <= acc.min() and acc.max() < 1 << 31
+                t = sum(acc[i].astype(np.uint64) * w[i] for i in range(nl))  # < 2^63
+                hi, lo = t >> np.uint64(32), t & _MASK
+                res = (hi * w32 - ((hi * w32sh) >> np.uint64(32)) * q64) & _MASK
+                res = (res + lo - ((lo * onesh) >> np.uint64(32)) * q64) & _MASK
+                res = np.minimum(res, (res - 2 * q64) & _MASK)
+                res = np.minimum(res, (res - q64) & _MASK)
+                for e in range(4):
+                    for r in range(4):
+                        row = 16 * rt + _GID + 8 * (r >> 1)
+                        col = 32 * cg + 16 * (r & 1) + 4 * _TIG + e
+                        ok = (row < prep.a) & (col < N)
+                        y[g, row[ok], col[ok]] = res[e, :, r][ok]
+    return y
+
+
+_EMU_BS, _EMU_AS, _EMU_G, _EMU_N = (6, 16, 33, 64), (16, 18), 2, 40
+
+
+@functools.lru_cache(maxsize=None)
+def _emu_reference(q: int):
+    """The operands of every (b, a, shared / stacked) case at q, and the
+    reference's `matvec_mod_mxu` on them, in one compiled call: each
+    case's matrix is a block of rows of one (18 len(_EMU_BS), 64) matrix,
+    zero past its b, whose rows 0-15 are the a = 16 case; the stack
+    through `jax.vmap`."""
+    rng = np.random.default_rng(q % 997)
+    bmax, amax = max(_EMU_BS), max(_EMU_AS)
+    M = np.zeros((_EMU_G, amax * len(_EMU_BS), bmax), np.uint32)  # [shared: 0, stacked]
+    for v, b in enumerate(_EMU_BS):
+        M[:, amax * v:amax * (v + 1), :b] = rng.integers(0, q, (_EMU_G, amax, b))
+        M[:, amax * v, :2] = (0, q - 1)
+    x = rng.integers(0, q, (_EMU_G, bmax, _EMU_N)).astype(np.uint32)
+    x[0, :3, 0] = (0, 1, q - 1)
+    shared, stacked = jax.jit(lambda M_, x_: (
+        jgen.matvec_mod_mxu(M_[0], jnp.swapaxes(x_, 1, 2), q),
+        jax.vmap(lambda m, v: jgen.matvec_mod_mxu(m, v.T, q))(M_, x_)))(M, x)
+    return M, x, np.swapaxes(np.asarray(shared), 1, 2), np.swapaxes(np.asarray(stacked), 1, 2)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("a", _EMU_AS)
+@pytest.mark.parametrize("b", _EMU_BS)
+@pytest.mark.parametrize("q", [251, 257, 65537, Q30])  # nl = 1, 2, 3, 4
+def test_kernel_schedule_emulated_matches_the_reference(q, b, a, stacked):
+    """The kernel's u8 m16n8k32 tiles over x's words read as little-endian
+    bytes (k = 4 row + j), `_prepare`'s tables in the kernel's fragment
+    order, its column order, ragged b and N (40 columns: a full tile and 8
+    of 32) and its fold == the reference's matvec_mod_mxu bit for bit, for
+    one shared matrix and a stack of two."""
+    assert mm.limbs_needed(q) == [251, 257, 65537, Q30].index(q) + 1
+    M, x, want_shared, want_stacked = _emu_reference(q)
+    v = _EMU_BS.index(b)
+    rows = slice(max(_EMU_AS) * v, max(_EMU_AS) * v + a)
+    Mc = M[:, rows, :b] if stacked else M[0, rows, :b]
+    Mc.flags.writeable = False
+    want = (want_stacked if stacked else want_shared)[:, rows]
+    prep = mm._prepare(Mc, q, torch.device("cpu"))
+    assert prep.frag.shape == (_EMU_G if stacked else 1, -(-a // 16), -(-b // 8), prep.nl, 32, 4)
+    np.testing.assert_array_equal(_emu_kernel(prep, x[:, :b], q), want)
+    np.testing.assert_array_equal(_u32(mm.modmat_ref(Mc, torch.from_numpy(x[:, :b].astype(
+        np.int64)), q, 1)), want)
 
 
 def test_route_choice_matches_the_reference(monkeypatch):
