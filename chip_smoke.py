@@ -193,6 +193,15 @@ then runs its phases and exits non-zero on the first failure:
    (`metric bgv_m34816_ops_per_sec` / `..._int64_route_ops_per_sec`);
    (f) each bench tool (`she_bench`, `micro`, `scaling`, `invgap`,
    `smallb`, `mxu_ntt`) once at a small size;
+3l. every NTT route at a non-canonical root (`phase_3l`): plans
+   `ntt_plan(n, q, psi=psi^3)` at the step's three primes (n = 4096, 8192,
+   2^14) and at 2^16, B = 1024: the forward and GS kernels == plain with
+   exact launch counts, the inverse of the forward == its input, the
+   forward's rows == a(psi'^e(i)) by exact host evaluation and unequal to
+   the canonical plan's; route B at 4096, 2^14 and 2^16 and the digit
+   prologue at 2^14 == plain; the ring-sharded NTT over D = 4 shards at
+   2^14 (both routes, both ways), `mxu_ntt` at n = 4096, P = 64 and the
+   C++ host backend == the kernels at the same plan;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -742,6 +751,155 @@ def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
         out["tools_s"] = time.time() - t
         mark(f"phase 3k: she_bench, micro, scaling, invgap, smallb and mxu_ntt ran "
              f"({out['tools_s']:.1f} s)")
+    return out
+
+
+def _horner(coeffs: np.ndarray, z: np.ndarray, q: int) -> np.ndarray:
+    """a(z) mod q for each point of z, exactly on the host (int64: the
+    products stay below 2^60)."""
+    acc = np.zeros_like(z)
+    for c in coeffs[::-1]:
+        acc = (acc * z + int(c)) % q
+    return acc
+
+
+def phase_3l(dev, B=1024, D=4, n_mxu=4096, P=64) -> dict:
+    """Every NTT route of the card at a non-canonical root: for each plan
+    `ntt_plan(n, q, psi=psi')`, psi' = psi^3 for the canonical psi (an odd
+    power of a principal 2n-th root is one again, and differs from psi for
+    n >= 2), at the step's three primes for n in {4096, 8192, 2^14} and
+    phase 3b's prime at 2^16, B columns: the forward and the GS inverse
+    kernels (single pass, 4- and 8-CTA cluster, cross + block passes) ==
+    their plain versions bit for bit, with each call's launches exactly
+    its schedule's passes; inverse o forward == identity; the forward's
+    rows == a(psi'^e(i)) (`crt_output_exponents`) by exact host evaluation
+    on two columns; the output != the canonical plan's; route B at 4096,
+    2^14 and 2^16 == its plain version and == the GS kernel; the forward
+    with the digit prologue at 2^14; the ring-sharded transform over D
+    shards at 2^14, both routes, both directions, == `ntt_cm` at the same
+    plan with phase 3b's launch counts; `mxu_ntt` at (n_mxu, P) == the
+    forward; the C++ host backend's NTT both ways == the kernels.  Returns
+    the number of checks and the phase's seconds."""
+    from collections import Counter
+
+    from lol_tpu_torch import numtheory as nt
+    from lol_tpu_torch.bench import mxu_ntt as mx
+    from lol_tpu_torch.ops import ntt
+    from lol_tpu_torch.ops.cuda import modmat as mm, ntt_kernel as tk, remote_ntt as rn
+    from lol_tpu_torch.parallel import sharding as sh
+    from lol_tpu_torch.tensor import cpp_backend as cpp
+
+    t0 = time.time()
+    out = {"checks": 0}
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    counters = (tk.LAUNCHES, rn.LAUNCHES, mm.LAUNCHES)
+
+    def launched(fn, want, what):
+        """fn() with every count reset just before and read just after;
+        the counts must be exactly `want` (the others 0)."""
+        torch.cuda.synchronize()
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        y = fn()
+        torch.cuda.synchronize()
+        got = {k: v for c in counters for k, v in c.items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"phase 3l {what}: launches {got}, want {want}")
+        return y
+
+    def same(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 3l {what}: max abs err {max_err(got, want)}")
+        out["checks"] += 1
+
+    def residues(n, q):
+        x = torch.randint(0, q, (n, B), generator=g, device=dev, dtype=torch.int32)
+        x.view(-1)[:3] = torch.tensor([0, 1, q - 1], device=dev)
+        return x
+
+    step_qs = nt.ntt_primes(32768, 30, 3)
+    cases = [(n, q) for n in (4096, 8192, 16384) for q in step_qs]
+    cases.append((65536, nt.ntt_primes(2 * 65536, 30, 1)[0]))
+    kept = {}
+    for n, q in cases:
+        canon = ntt.ntt_plan(n, q)
+        plan = ntt.ntt_plan(n, q, psi=pow(canon.psi, 3, q))
+        if plan is canon or plan.psi != pow(canon.psi, 3, q) or \
+                ntt.ntt_plan(n, q, psi=canon.psi) is not canon:
+            raise AssertionError(f"phase 3l: ntt_plan's identity rule fails at n={n}, q={q}")
+        what = f"n={n}, q={q}, psi'={plan.psi}"
+        x = residues(n, q)
+        passes = len(tk.cm_schedule(n))
+        fwd = launched(lambda: tk.ntt_cm(x, plan), {"ntt_fwd": passes}, f"forward {what}")
+        same(fwd, tk.ntt_cm_ref(x, plan), f"forward {what}")
+        if torch.equal(fwd, tk.ntt_cm(x, canon)):
+            raise AssertionError(f"phase 3l forward {what}: equal to the canonical plan's")
+        gs = launched(lambda: tk.ntt_cm(x, plan, inverse=True), {"ntt_inv": passes},
+                      f"GS inverse {what}")
+        same(gs, tk.ntt_cm_ref(x, plan, inverse=True), f"GS inverse {what}")
+        same(tk.ntt_cm(fwd, plan, inverse=True), x, f"inverse o forward {what}")
+        rows = np.unique(np.r_[0, n - 1, np.arange(0, n, n // 32)])
+        z = np.array([pow(plan.psi, int(e), q) for e in ntt.crt_output_exponents(n)[rows]],
+                     dtype=np.int64)
+        a_host, f_host = x[:, :2].cpu().numpy().astype(np.int64), fwd[rows, :2].cpu().numpy()
+        for col in range(2):
+            if not np.array_equal(_horner(a_host[:, col], z, q), f_host[:, col]):
+                raise AssertionError(f"phase 3l forward {what}: rows != a(psi'^e(i)), "
+                                     f"column {col}")
+        out["checks"] += 1
+        if n in (4096, 16384, 65536):
+            stages = Counter("ntt_invb_cross" if st == "cross" else "ntt_invb_block"
+                             for _, st in zip(tk.dit_schedule(n), ("blk", "cross")))
+            invb = launched(lambda: tk.ntt_cm(x, plan, inverse=True, alg="dit"), stages,
+                            f"route B {what}")
+            same(invb, tk.ntt_cm_ref(x, plan, inverse=True, alg="dit"), f"route B {what}")
+            same(invb, gs, f"route B == GS {what}")
+        if n == 16384 and q == step_qs[0]:
+            src = step_qs[1]
+            xd = residues(n, src)
+            pre = launched(lambda: tk.ntt_cm(xd, plan, pre_digit_q=src), {"ntt_fwd": passes},
+                           f"forward with the prologue from {src}, {what}")
+            same(pre, tk.ntt_cm_ref(xd, plan, pre_digit_q=src),
+                 f"forward with the prologue from {src}, {what}")
+        if q == cases[0][1] or n == 65536:
+            kept[n] = (plan, x, fwd, gs)
+    mark(f"phase 3l: ntt_cm forward / GS at n = 4096, 8192, 2^14 (3 primes) and 2^16, route B "
+         f"at 4096, 2^14, 2^16, the prologue at 2^14, all at psi' = psi^3, B = {B}: == plain, "
+         f"launches exact, inverse o forward == x, rows == a(psi'^e(i)), != canonical")
+
+    # the ring-sharded transform at psi' over D shards, both routes
+    plan, x, fwd, gs = kept[16384]
+    mesh = sh.make_mesh({"ring": D})
+    pb = len(rn.phase_b_passes(plan.n // D, D, 0))
+    for overlap in (False, True):
+        route = "fused" if overlap else "two-call"
+        want_f = (dict(a2a=D, ntt_fwd=D * pb, ntt_fwd_gather=D) if overlap
+                  else dict(a2a=2 * D, ntt_fwd=D * (1 + pb)))
+        want_i = (dict(a2a=D, ntt_inv=D * pb, ntt_inv_scatter=D) if overlap
+                  else dict(a2a=2 * D, ntt_inv=D * (1 + pb)))
+        shards = sh.ring_shard(x, mesh)
+        f = launched(lambda: rn.ntt_ring_sharded_cm(mesh, shards, plan, overlap=overlap), want_f,
+                     f"ring {route} forward n={plan.n}")
+        same(sh.ring_unshard(f), fwd, f"ring {route} forward n={plan.n}, psi'={plan.psi}")
+        i = launched(lambda: rn.intt_ring_sharded_cm(mesh, shards, plan, overlap=overlap),
+                     want_i, f"ring {route} inverse n={plan.n}")
+        same(sh.ring_unshard(i), gs, f"ring {route} inverse n={plan.n}, psi'={plan.psi}")
+    mark(f"phase 3l: ring-sharded NTT at n = 2^14, psi', D = {D}, both routes, both ways "
+         f"== ntt_cm, launches exact")
+
+    # mxu_ntt and the C++ host backend at psi'
+    plan, x, fwd, gs = kept[n_mxu]
+    got = launched(lambda: mx.mxu_ntt(x, plan, P), {"modmat_s8": 2}, f"mxu_ntt n={n_mxu}")
+    same(got, fwd, f"mxu_ntt n={n_mxu}, P={P}, psi'={plan.psi}")
+    cols = slice(0, 256)
+    same(cpp.ntt_forward(x[:, cols].t().cpu(), plan), fwd[:, cols].t().cpu(),
+         f"cpp_backend forward n={n_mxu}")
+    same(cpp.ntt_inverse(x[:, cols].t().cpu(), plan), gs[:, cols].t().cpu(),
+         f"cpp_backend inverse n={n_mxu}")
+    out["seconds"] = time.time() - t0
+    mark(f"phase 3l: mxu_ntt (n = {n_mxu}, P = {P}) and the C++ host backend at psi' == the "
+         f"kernels; {out['checks']} checks in {out['seconds']:.1f} s")
     return out
 
 
@@ -2285,6 +2443,9 @@ def main() -> int:
         print(f"metric {key} = {B / (ms / 1e3)} on {card}", flush=True)
     mark(f"phase 3k: {k3['checks']} checks; the step at m = {M_3K} launched modmat_s8 "
          f"{k3['launches']} times")
+
+    # -- phase 3l: the NTT routes at a non-canonical root ----------------
+    phase_3l(dev)
 
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the

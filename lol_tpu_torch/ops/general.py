@@ -9,7 +9,7 @@ per-axis ones:
 - the 2-power axis (axis 0): the negacyclic NTT of `ops/ntt.py`.  Its
   root omega^(m / 2^e), for the canonical principal m-th root omega
   = g^((q-1)/m), is g^((q-1)/2^e), the canonical 2^e-th root, so the
-  axis runs `ntt_plan(2^(e-1), q)` itself.  In
+  axis's `ntt_plan(2^(e-1), q, psi=root)` is the canonical plan object.  In
   the coefficient-major (n, B) layout the axis is the leading one, so
   (n2, rest * B) is a free reshape and the axis runs on the same
   `ntt_cm` kernels as the 2-power pipeline, the digit prologue included;
@@ -178,10 +178,7 @@ def axis_plan(p: int, e: int, q: int, m: int) -> AxisPlan:
             return AxisPlan(pp, q, _frozen(np.array([1], np.int64)), one, one, None)
         n2 = pe // 2
         units = (ntt.crt_output_exponents(n2) % pe).astype(np.int64)
-        plan = ntt.ntt_plan(n2, q)
-        if plan.psi != w:
-            raise ArithmeticError(f"axis_plan: root {w} of m={m} is not ntt_plan's {plan.psi}")
-        return AxisPlan(pp, q, _frozen(units), None, None, plan)
+        return AxisPlan(pp, q, _frozen(units), None, None, ntt.ntt_plan(n2, q, psi=w))
     units = np.array([u for u in range(pe) if u % p], dtype=np.int64)
     M = np.array([[pow(w, int(u) * j, q) for j in range(pp.phi)] for u in units],
                  dtype=np.uint32)

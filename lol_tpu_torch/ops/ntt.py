@@ -12,7 +12,8 @@ forward(a)[i] = a(psi^(2*brv_k(i)+1)), exactly as in the JAX package,
 whose hints and ciphertexts are stored in that order.
 
 `NTTPlan` keeps its tables as host numpy (u32, identical to the JAX
-package's plan table for table) and hands out device copies through
+package's plan table for table, at the canonical root or at any root
+`ntt_plan(n, q, psi=)` is given) and hands out device copies through
 `tables(device)` and, for the route-B inverse, `dit_tables(tS, device)`.
 `ntt_forward_cm`/`ntt_inverse_cm` are the plain int64 torch networks
 along axis 0 of a coefficient-major (n, B) tensor (`dit_net_cm` and
@@ -115,17 +116,33 @@ class NTTPlan:
 
 
 @lru_cache(maxsize=256)
-def ntt_plan(n: int, q: int) -> NTTPlan:
-    """The negacyclic NTT plan for x^n+1 over Z_q (q prime, 2n | q-1),
-    with the canonical principal 2n-th root (from the smallest primitive
-    root), so plans agree with the JAX package's."""
+def _canonical_psi(n: int, q: int) -> int:
+    """The canonical principal 2n-th root of Z_q (from the smallest
+    primitive root); ValueError where q is not prime."""
+    return nt.principal_root_of_unity(2 * n, q)
+
+
+def ntt_plan(n: int, q: int, psi: int | None = None) -> NTTPlan:
+    """The negacyclic NTT plan for x^n+1 over Z_q (q prime, 2n | q-1).
+
+    psi: the principal 2n-th root the plan uses, kept as given; None takes
+    the canonical one (from the smallest primitive root), so plans agree
+    with the JAX package's.  Plans are cached, and the canonical root
+    given explicitly names the same plan object as None, so its device
+    tables and the caches keyed on plans are not duplicated."""
     if n & (n - 1) or n < 1:
         raise ValueError(f"ntt_plan: n={n} must be a power of 2")
     if (q - 1) % (2 * n) != 0:
         raise ValueError(f"ntt_plan: need 2n={2 * n} | q-1={q - 1}")
     if not (2 <= q < (1 << zq.MAX_MODULUS_BITS)):
         raise ValueError(f"ntt_plan: modulus {q} out of range [2, 2^30)")
-    psi = nt.principal_root_of_unity(2 * n, q)
+    if psi is None:
+        psi = _canonical_psi(n, q)
+    return _plan(n, q, int(psi))  # keyed by the root: the canonical one given is None's plan
+
+
+@lru_cache(maxsize=256)
+def _plan(n: int, q: int, psi: int) -> NTTPlan:
     rev = _bit_reverse_perm(n)
     psi_rev = _pow_table(psi, rev, q)
     ipsi_rev = _pow_table(nt.modinv(psi, q), rev, q)

@@ -88,10 +88,12 @@ class RnsBasis:
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return zq.mul_mod(a, b, self.qv(a.device)).to(torch.int32)
 
-    def rescale_drop_last(self, a: torch.Tensor) -> torch.Tensor:
+    def rescale_drop_last(self, a: torch.Tensor, dec_basis: bool = False) -> torch.Tensor:
         """Exact modulus switch Q -> Q / q_last of (..., nrns, n) residues:
         b_i = (a_i - [a]_last) q_last^-1 mod q_i, [a]_last the centered
-        residue mod q_last, so b = round(a / q_last) exactly."""
+        residue mod q_last, so b = round(a / q_last) exactly.  The map is
+        the same in every basis: dec_basis changes nothing, as in the JAX
+        package."""
         ql = self.qs[-1]
         last = a[..., -1:, :].long()
         centered = torch.where(last >= (ql + 1) // 2, last - ql, last)

@@ -27,6 +27,7 @@ from . import prng
 from .cyc import Cyc, Rep
 from .factored import fact
 from .ops import general as gen
+from .ring import RingContext
 
 
 def gaussian_ints(shape, var: float, key, device="cuda", how: str = "f32") -> torch.Tensor:
@@ -118,9 +119,12 @@ def gaussian_cyc(ctx, key, var: float, batch: tuple[int, ...] = (), device="cuda
     return Cyc(ctx, Rep.DEC, _ints_to_rns(ctx, gaussian_dec_ints(ctx, key, var, batch, device)))
 
 
-def gaussian_ints_np(ctx, key, var: float, device="cuda") -> np.ndarray:
-    """The sampled integers on the host, int64 (secrets kept as ints)."""
-    return gaussian_dec_ints(ctx, key, var, device=device).cpu().numpy()
+def gaussian_ints_np(ctx_or_n, key, var: float, device="cuda") -> np.ndarray:
+    """The sampled integers on the host, int64 (secrets kept as ints).
+    ctx_or_n must be a `RingContext`, as in the JAX package."""
+    if not isinstance(ctx_or_n, RingContext):
+        raise TypeError(f"gaussian_ints_np: need a RingContext, got {type(ctx_or_n).__name__}")
+    return gaussian_dec_ints(ctx_or_n, key, var, device=device).cpu().numpy()
 
 
 def error_coset(ctx, key, var: float, coset_ints, p: int, device="cuda") -> Cyc:

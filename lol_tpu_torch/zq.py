@@ -105,9 +105,26 @@ def neg_mod(a: torch.Tensor, q) -> torch.Tensor:
     return (-a.long()) % q
 
 
-def mul_mod(a: torch.Tensor, b: torch.Tensor, q) -> torch.Tensor:
-    """(a * b) mod q for residues a, b in [0, q), q < 2^30 (exact in int64)."""
-    return (a.long() * b.long()) % q
+def mul_mod(a: torch.Tensor, b: torch.Tensor, q, mu: int | None = None) -> torch.Tensor:
+    """(a * b) mod q for residues a, b in [0, q), q < 2^30 (exact in int64).
+
+    mu: the Barrett constant of the JAX package's `zq.mul_mod`.  None or
+    `barrett_mu(q)` gives the exact product; any other u32 mu (q a Python
+    int) runs that function's u32 Barrett steps with it and returns the
+    same words, whatever they are."""
+    if mu is None or mu == barrett_mu(int(q)):
+        return (a.long() * b.long()) % q
+    mu = int(mu)
+    if not 0 <= mu < 1 << 32:
+        raise OverflowError(f"mul_mod: mu={mu} out of bounds for u32")
+    k = q.bit_length()
+    hi, lo = mul32_wide(a, b)
+    t = ((hi << (33 - k)) | (lo >> (k - 1))) & _MASK32  # floor(a b / 2^(k-1))
+    qhi, qlo = mul32_wide(t, mu)
+    quot = ((qhi << (31 - k)) | (qlo >> (k + 1))) & _MASK32
+    r = (lo - quot * q) & _MASK32
+    r = torch.where(r >= q, r - q, r)
+    return torch.where(r >= q, r - q, r)
 
 
 def reduce_mod(x: torch.Tensor, q) -> torch.Tensor:

@@ -245,15 +245,19 @@ def test_route_choice_matches_the_reference(monkeypatch):
         np.testing.assert_array_equal(_u32(got), (M.astype(object) @ x.T.astype(object)).T % Q30)
 
 
-@pytest.mark.parametrize("m", [68, 136])
+@pytest.mark.parametrize("m", [68, 136, 76, 900, 323])
 def test_crt_and_g_ops_on_a_phi16_axis_match_the_reference(m):
-    """crt_cm / its inverse and the six g ops at m = 4 17 and 8 17, whose
-    17-axis (phi = 16) takes the int8-limb route in both packages (the
-    reference's eight in one compiled program)."""
+    """crt_cm / its inverse and the six g ops on rings whose last odd axis
+    (phi >= 16) takes the int8-limb route in both packages (the
+    reference's eight in one compiled program): m = 4 17 and 8 17 (the
+    17-axis, phi = 16), 4 19 (phi = 18), 4 9 25 (the 25-axis, phi = 20,
+    beside a phi = 6 axis on the int64 route) and 17 19 (two such axes).
+    The 2-power axes of the first four run the plan `axis_plan` builds at
+    the axis root (`ntt_plan(n2, q, psi=w)`)."""
     q = nt.ntt_primes(m, 30, 1)[0]
     plan, jplan = gen.general_plan(m, q), jgen.general_plan(m, q)
     n = plan.fm.phi
-    assert plan.phi_shape[-1] == 16
+    assert plan.phi_shape[-1] >= gen.MXU_MIN_AXIS
     rng = np.random.default_rng(m)
     x = rng.integers(0, q, (n, 3)).astype(np.uint32)
     xt = torch.from_numpy(x.astype(np.int64)).to(torch.int32)

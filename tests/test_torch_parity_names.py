@@ -1,12 +1,14 @@
 """Name parity: every public function, class and method of each module of
 the JAX package has a same-named counterpart in the port's matching
-module, so "the port does all that the JAX package does" is a checked
-fact.
+module, and every parameter of it a same-named parameter there, so "the
+port does all that the JAX package does" is a checked fact down to the
+arguments a caller passes.
 
 Both trees are parsed, not imported.  A module's names are its top-level
 functions, classes and assignments; a class's are its methods and its
 annotated fields, and the attributes its `__init__` assigns on self.  The
-exceptions are one table, each with its reason.
+exceptions are two tables, names and arguments, each entry with its
+reason.
 """
 
 import ast
@@ -36,6 +38,35 @@ RENAMED = {
         ("intt_ring_sharded_cm", "the same, inverse"),
     ("bench/mxu_ntt.py", "vpu_u32_ceiling"):
         ("u32_ceiling", "the card's integer ceiling: there is no VPU"),
+}
+
+
+# (module of the JAX package, function or method) -> (its parameters the
+# port's counterpart does not take, why)
+_PALLAS_KNOBS = ("the Pallas kernel's tiling and compile knobs: the CUDA kernels take "
+                 "their schedule from `cm_schedule` / `dit_schedule`, and a CPU tensor runs "
+                 "the plain version where the reference runs interpret mode")
+_SHARDS = ("the port takes the shards (or blocks), one tensor a device of the mesh, in "
+           "place of one sharded array x; interpret as for the other Pallas wrappers")
+ARG_EXCEPTIONS = {
+    ("ops/pallas/ntt_kernel.py", "ntt_cm"): (
+        ("lanes", "interpret", "radix", "lazy", "full_tables", "window", "scale"),
+        _PALLAS_KNOBS + "; scale (no 1/n) serves only invgap's wrong-result legs, which "
+        "the port's invgap does not carry over"),
+    ("ops/pallas/ntt_kernel.py", "ntt_batched"): (("interpret",), _PALLAS_KNOBS),
+    ("ops/pallas/pointwise.py", "ct_mul_cm"): (("interpret",), _PALLAS_KNOBS),
+    ("ops/pallas/remote_ntt.py", "ntt_ring_sharded_pallas"): (("x", "interpret"), _SHARDS),
+    ("ops/pallas/remote_ntt.py", "intt_ring_sharded_pallas"): (("x", "interpret"), _SHARDS),
+    ("parallel/sharding.py", "ntt_ring_sharded"): (("x",), _SHARDS),
+    ("parallel/sharding.py", "batched_ntt_sharded"): (("x",), _SHARDS),
+    ("bench/micro.py", "run"): (("use_tpu",), "the tool runs on the card; there is no TPU "
+                                              "to choose"),
+    ("bench/scaling.py", "run"): (("platform",), "the tool runs over the visible cards; "
+                                                 "there is no JAX platform to choose"),
+    ("bench/scaling.py", "run_bgv"): (("platform",), "the same"),
+    ("ops/general.py", "crt_cm"): (("use_pallas",), "the port's 2-power axis is always "
+                                   "`ntt_cm`: the kernel on the card and the plain version "
+                                   "on the CPU, so the knob would do nothing"),
 }
 
 
@@ -99,6 +130,34 @@ def _public(path: Path) -> set[str]:
     return out
 
 
+def _arg_names(fn) -> list[str]:
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+
+
+def params(path: Path) -> dict[str, list[str]]:
+    """Each function's and method's parameter names; a name assigned from a
+    factory of the module (`mul_g_pow = _g_op(gen.mul_g_pow)`) takes those
+    of the function the factory returns."""
+    tree = ast.parse(path.read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    out = {name: _arg_names(fn) for name, fn in fns.items()}
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef):
+            out.update((f"{node.name}.{s.name}", _arg_names(s)) for s in node.body
+                       if isinstance(s, (ast.FunctionDef, ast.AsyncFunctionDef)))
+        elif (isinstance(node, ast.Assign) and isinstance(node.value, ast.Call)
+              and isinstance(node.value.func, ast.Name) and node.value.func.id in fns):
+            factory = fns[node.value.func.id]
+            returned = {r.value.id for r in ast.walk(factory)
+                        if isinstance(r, ast.Return) and isinstance(r.value, ast.Name)}
+            inner = [f for f in factory.body if isinstance(f, ast.FunctionDef) and f.name in returned]
+            for t in _targets(node):
+                if inner:
+                    out[t] = _arg_names(inner[0])
+    return out
+
+
 REF_MODULES = sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py"))
 
 
@@ -119,12 +178,41 @@ def test_every_public_name_has_a_counterpart(module):
                         f"lol_tpu_torch/{port_module}: {missing}"
 
 
+@pytest.mark.parametrize("module", REF_MODULES)
+def test_every_public_argument_has_a_counterpart(module):
+    """Every parameter of every public function and method of the
+    reference (self aside) is a parameter of the port's counterpart, so a
+    caller of the reference that passes it by keyword runs unchanged.  A
+    reference property has no parameter to ask for."""
+    port_module = MODULE_MAP.get(module, module)
+    ref_params, port_params = params(REF / module), params(PORT / port_module)
+    missing = []
+    for name in sorted(_public(REF / module)):
+        if _jnp_form(name) or name not in ref_params:
+            continue
+        want = [a for a in ref_params[name] if a not in ("self", "cls")]
+        excused = ARG_EXCEPTIONS.get((module, name), ((), None))[0]
+        have = port_params.get(RENAMED.get((module, name), (name, None))[0], [])
+        missing += [f"{name}({a})" for a in want if a not in have and a not in excused]
+    assert not missing, f"lol_tpu/{module} parameters with no counterpart in " \
+                        f"lol_tpu_torch/{port_module}: {missing}"
+
+
 def test_the_exception_table_is_live():
     """Every renamed entry names a reference name that exists and a port
-    name that exists: the table holds no stale exception."""
+    name that exists, and every argument exception names a parameter the
+    reference takes and its counterpart does not: the tables hold no stale
+    exception."""
     for (module, name), (port_name, why) in RENAMED.items():
         assert name in _public(REF / module), (module, name)
         assert port_name in names(PORT / MODULE_MAP.get(module, module)), (module, port_name)
         assert why
     for module, port_module in MODULE_MAP.items():
         assert (REF / module).exists() and (PORT / port_module).exists()
+    for (module, name), (args, why) in ARG_EXCEPTIONS.items():
+        port_name = RENAMED.get((module, name), (name, None))[0]
+        ref_args = params(REF / module)[name]
+        port_args = params(PORT / MODULE_MAP.get(module, module))[port_name]
+        for a in args:
+            assert a in ref_args and a not in port_args, (module, name, a)
+        assert why
