@@ -202,6 +202,18 @@ then runs its phases and exits non-zero on the first failure:
    prologue at 2^14 == plain; the ring-sharded NTT over D = 4 shards at
    2^14 (both routes, both ways), `mxu_ntt` at n = 4096, P = 64 and the
    C++ host backend == the kernels at the same plan;
+3m. the user surface (`phase_3m`): the port's five demos
+   (`lol_tpu_torch.examples.*.main`) on the card, each one's standard
+   output equal line for line to its run on the CPU (the plain versions)
+   and its launches (every NTT pass, ct_mul, prng_draw, modmat_s8 and
+   ring kernel) exactly those the CPU run's plain calls stand for;
+   `BatchedBGV(params, use_pallas=False)` against `BatchedBGV(params)` at
+   m = 32768, B = 1024 (the same outputs and launches); `entry()`'s step
+   on the card == its CPU run; `dryrun_multichip(4)` on a mesh of four
+   entries of the card (its ring leg through `ntt_ring_sharded_cm` at
+   n = 64, both overlap settings); `serving_demo.pipeline` at full width:
+   m = 32768, p = 257, B = 1024, LSD and MSD, and m = 18432, p = 7, LSD,
+   each decrypting OK, with its time;
 4. timings with CUDA events (warm-up, then the median of 5 windows),
    each op timed once, on inputs checked kernel == plain (one channel of
    the step's is checked first); every kernel's time (`ms` in the
@@ -900,6 +912,187 @@ def phase_3l(dev, B=1024, D=4, n_mxu=4096, P=64) -> dict:
     out["seconds"] = time.time() - t0
     mark(f"phase 3l: mxu_ntt (n = {n_mxu}, P = {P}) and the C++ host backend at psi' == the "
          f"kernels; {out['checks']} checks in {out['seconds']:.1f} s")
+    return out
+
+
+def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 7, "lsd")),
+             B=1024, D=4, m_knob=32768, card="") -> dict:
+    """The port's user surface on the card: the five demos, the use_pallas
+    knob, the entry points and `serving_demo.pipeline` at full width.
+
+    Each demo's `main(device=dev)` prints what its `main(device="cpu")`
+    prints, line for line, and launches exactly what the CPU run's plain
+    calls stand for: while the CPU run goes, the plain versions the
+    wrappers fall back to there (`ntt_cm_ref`, `ct_mul_cm_ref`, `draw_ref`
+    and the twin's `random_bits_ref` / `randint_ref`, `modmat_ref`) are
+    wrapped to count, per call, the launches the card makes in its place
+    (a transform: its `cm_schedule` passes, route B its `dit_schedule`
+    passes; one for the rest); the card run sits between a reset and a
+    read of every count.  `entry()` (setup and step) and
+    `dryrun_multichip(D)` are held the same way, the dry run's ring leg
+    adding phase 3b's per-route counts at n = max(64, 8 D).  Returns the
+    checks, each path's launches, the pipelines' seconds and the phase's."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    from lol_tpu_torch import entry, numtheory as nt, prng, she
+    from lol_tpu_torch import prng as twin
+    from lol_tpu_torch.examples import (homomprf_demo, khprf_demo, serving_demo, she_demo,
+                                        tunnel_demo)
+    from lol_tpu_torch.ops.cuda import (modmat as mm, ntt_kernel as tk, pointwise as pw,
+                                        prng as pk, remote_ntt as rn)
+    from lol_tpu_torch.she_batched import BatchedBGV
+
+    t0 = time.time()
+    out = {"checks": 0, "launches": {}, "pipeline_s": {}}
+    counters = (tk.LAUNCHES, pw.LAUNCHES, pk.LAUNCHES, rn.LAUNCHES, mm.LAUNCHES)
+    on_cuda = torch.device(dev).type == "cuda"
+
+    def reset():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    @contextlib.contextmanager
+    def cpu_shadow():
+        """A Counter of the launches the card would make for the plain
+        calls made inside the block."""
+        want = Counter()
+        real = (tk.ntt_cm_ref, pw.ct_mul_cm_ref, pk.draw_ref, twin.random_bits_ref,
+                twin.randint_ref, mm.modmat_ref)
+
+        def ntt_ref(x, plan, inverse=False, pre_digit_q=None, alg="gs"):
+            n_ = x.shape[0]
+            if inverse and alg == "dit" and n_ > 1:
+                want.update("ntt_invb_cross" if st == "cross" else "ntt_invb_block"
+                            for _, st in zip(tk.dit_schedule(n_), ("blk", "cross")))
+            else:
+                want["ntt_inv" if inverse else "ntt_fwd"] += len(tk.cm_schedule(n_))
+            return real[0](x, plan, inverse, pre_digit_q, alg)
+
+        def one(key, fn):
+            def counted(*a, **k):
+                want[key] += 1
+                return fn(*a, **k)
+            return counted
+
+        tk.ntt_cm_ref = ntt_ref
+        pw.ct_mul_cm_ref = one("ct_mul", real[1])
+        pk.draw_ref, twin.random_bits_ref, twin.randint_ref = (one("prng", f) for f in real[2:5])
+        mm.modmat_ref = one("modmat_s8", real[5])
+        try:
+            yield want
+        finally:
+            (tk.ntt_cm_ref, pw.ct_mul_cm_ref, pk.draw_ref, twin.random_bits_ref,
+             twin.randint_ref, mm.modmat_ref) = real
+
+    def captured(fn, *a, **k):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a, **k)
+        return res, buf.getvalue().splitlines()
+
+    def on_card(fn, *a, **k):
+        """fn(*a, **k) on the card between a reset and a read of the counts."""
+        torch.cuda.synchronize()
+        reset()
+        res, lines = captured(fn, *a, **k)
+        torch.cuda.synchronize()
+        return res, lines, {k_: v for c in counters for k_, v in c.items() if v}
+
+    def held(name, got, want, lines, cpu_lines, what=None):
+        """The card run printed what the CPU run printed (and no failure),
+        and launched exactly `want`."""
+        if lines != cpu_lines:
+            raise AssertionError(f"phase 3m {name}: card printed {lines}, CPU {cpu_lines}")
+        if any(w in s_ for s_ in lines for w in ("FAIL", "MISMATCH", "False")):
+            raise AssertionError(f"phase 3m {name}: {lines}")
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"phase 3m {name}: launches {got}, want {dict(want)}")
+        out["launches"][name] = got
+        out["checks"] += 2
+        print(f"phase 3m {name}: {what or f'{len(lines)} lines'} card == CPU, launches {got}",
+              flush=True)
+
+    # (a) the five demos: card == CPU, launches exact
+    for mod in (she_demo, khprf_demo, tunnel_demo, homomprf_demo, serving_demo):
+        name = mod.__name__.rsplit(".", 1)[-1]
+        with cpu_shadow() as want:
+            _, cpu_lines = captured(mod.main, device="cpu")
+        _, lines, got = on_card(mod.main, device=dev)
+        if not cpu_lines:
+            raise AssertionError(f"phase 3m {name} printed nothing")
+        held(name, got, want, lines, cpu_lines)
+    mark(f"phase 3m: the five demos on the card == their CPU runs, launches exact: "
+         f"{out['launches']}")
+
+    # (b) use_pallas selects nothing: the same outputs, the same launches
+    m, p = m_knob, 257
+    params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
+    sk = she.gen_sk(params, prng.PRNGKey(0), device=dev)
+    msgs = torch.randint(0, p, (params.ctx.n, B), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(SEED + 13)).to(dev)
+    dev_kw = {} if on_cuda else {"device": dev}  # the card is the default
+
+    def knob_run(**kw):
+        bb = BatchedBGV(params, **kw, **dev_kw)
+        hint = bb.gen_ks_quad_hint(sk, prng.PRNGKey(1))
+        enc = bb.build_encrypt(sk)
+        c0, c1 = enc(msgs, prng.PRNGKey(2))
+        d0, d1 = enc(msgs, prng.PRNGKey(3))
+        return bb.build_step(hint)(c0, c1, d0, d1)
+
+    (e_knob, lines_knob, got_knob) = on_card(knob_run, use_pallas=False)
+    (e_dflt, lines_dflt, got_dflt) = on_card(knob_run)
+    if got_knob != got_dflt or not got_knob.get("ntt_fwd") or not got_knob.get("ct_mul"):
+        raise AssertionError(f"phase 3m use_pallas=False launches {got_knob}, default {got_dflt}")
+    if not all(torch.equal(a, b) for a, b in zip(e_knob, e_dflt)):
+        raise AssertionError("phase 3m: BatchedBGV(params, use_pallas=False) != BatchedBGV(params)")
+    out["checks"] += 2
+    out["launches"]["use_pallas=False"] = got_knob
+    print(f"phase 3m BatchedBGV(params, use_pallas=False) == BatchedBGV(params) at m = {m}, "
+          f"B = {B} (keygen, two encryptions, the step): launches {got_knob} both", flush=True)
+
+    # (c) entry(): setup and step on the card == on the CPU, launches exact
+    def entry_run(device):
+        fn_, args_ = entry.entry(device=device)
+        return args_, fn_(*args_)
+
+    with cpu_shadow() as want:
+        args_c, e_cpu = entry_run("cpu")
+    (args_d, e_dev), _, got = on_card(entry_run, dev)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip((*args_d, *e_dev), (*args_c, *e_cpu))):
+        raise AssertionError("phase 3m entry(): card inputs or step != CPU")
+    held("entry", got, want, [], [], what="setup (keys, hint, 8 encryptions) and step")
+
+    # (d) dryrun_multichip(D) on D entries of the card
+    with cpu_shadow() as want:
+        _, cpu_lines = captured(entry.dryrun_multichip, D, device="cpu")
+    n_ring = max(64, 8 * D)
+    pb = len(rn.phase_b_passes(n_ring // D, D, 0))
+    want.update({"a2a": 3 * D, "ntt_fwd": D * (1 + pb) + D * pb, "ntt_fwd_gather": D})
+    _, lines, got = on_card(entry.dryrun_multichip, D, device=dev)
+    held(f"dryrun_multichip({D})", got, want, lines, cpu_lines)
+    if not got.get("a2a") or not got.get("ntt_fwd_gather"):
+        raise AssertionError(f"phase 3m dry run: no ring kernel launched: {got}")
+
+    # (e) serving_demo.pipeline at full width
+    for m_, p_, enc_ in full_width:
+        t = time.time()
+        res, lines, got = on_card(serving_demo.pipeline, m_, p_, enc_, B=B, device=dev)
+        secs = time.time() - t
+        if len(lines) != 1 or not lines[0].endswith("decrypt: OK") or not got.get("ntt_fwd") \
+                or not got.get("ct_mul") or not got.get("prng"):
+            raise AssertionError(f"phase 3m pipeline m={m_}, {enc_}: {lines}, launches {got}")
+        key = f"pipeline m={m_} p={p_} {enc_}"
+        out["launches"][key], out["pipeline_s"][key] = got, secs
+        out["checks"] += 1
+        print(f"phase 3m {lines[0].strip()}; serving_demo.pipeline({m_}, {p_}, {enc_!r}, B={B}) "
+              f"{secs:.3f} s on the host clock (keygen, encrypt, step, decrypt and the host "
+              f"check of all {B} columns); launches {got}; on {card}", flush=True)
+    out["seconds"] = time.time() - t0
+    mark(f"phase 3m: {out['checks']} checks in {out['seconds']:.1f} s")
     return out
 
 
@@ -2447,6 +2640,13 @@ def main() -> int:
     # -- phase 3l: the NTT routes at a non-canonical root ----------------
     phase_3l(dev)
 
+    # -- phase 3m: the demos, the entry points, the pipeline at full width --
+    m3 = phase_3m(dev, card=card)
+
+    def launches_3m(kind):
+        """Phase 3m's launches of one kernel counter, by path (nonzero only)."""
+        return {path: c[kind] for path, c in m3["launches"].items() if c.get(kind)}
+
     # -- phase 4: timings -----------------------------------------------
     # Each op is timed once, on an input checked kernel == plain: the
     # n = 4096 ones in phase 2, one channel of the step's here.
@@ -2752,6 +2952,7 @@ def main() -> int:
          "launches_slots": path_launches["3g_slots"]["ntt_fwd"],
          "launches_object": path_launches["3h"]["ntt_fwd"],
          "launches_3i": path_launches["3i"]["ntt_fwd"],
+         "launches_3m": launches_3m("ntt_fwd"),
          "ms": timings["ntt_fwd_ms"], "plain_ms": timings["ntt_fwd_plain_ms"],
          **bound("ntt_fwd", n, B), "library_ms": None},
         {"name": "ntt_inv_pass", "route": "cuda", "source": ntt_src,
@@ -2768,6 +2969,7 @@ def main() -> int:
          "launches_slots": path_launches["3g_slots"]["ntt_inv"],
          "launches_object": path_launches["3h"]["ntt_inv"],
          "launches_3i": path_launches["3i"]["ntt_inv"],
+         "launches_3m": launches_3m("ntt_inv"),
          "ms": timings["ntt_inv_ms"], "plain_ms": timings["ntt_inv_plain_ms"],
          **bound("ntt_inv_gs", n, B), "library_ms": None},
         # one kernel in two geometries, as the reference's two bodies: the
@@ -2779,6 +2981,7 @@ def main() -> int:
          "path": "route-B inverse A/B (ntt_cm alg='dit')",
          "launches": invb["ntt_invb_block"], "max_abs_err": err["ntt_invb"],
          "launches_3i": path_launches["3i"]["ntt_invb_block"],
+         "launches_3m": launches_3m("ntt_invb_block"),
          "shape": f"n={n}, B={B}, one cluster pass",
          "ms": timings["ntt_invb_ms"], "plain_ms": timings["ntt_invb_plain_ms"],
          **bound("ntt_inv_dit", n, B), "library_ms": None,
@@ -2790,6 +2993,7 @@ def main() -> int:
          "path": "route-B inverse A/B (ntt_cm alg='dit')",
          "launches": invb["ntt_invb_cross"], "max_abs_err": err["ntt_invb"],
          "launches_3i": path_launches["3i"]["ntt_invb_cross"],
+         "launches_3m": launches_3m("ntt_invb_cross"),
          "shape": f"n=65536, B={B}, block + cross passes",
          "ms": timings["ntt_invb_n65536_ms"], "plain_ms": timings["ntt_invb_n65536_plain_ms"],
          **bound("ntt_inv_dit", 65536, B), "library_ms": None},
@@ -2805,6 +3009,7 @@ def main() -> int:
          "launches_slots": path_launches["3g_slots"]["ct_mul"],
          "launches_object": path_launches["3h"]["ct_mul"],
          "launches_3i": path_launches["3i"]["ct_mul"],
+         "launches_3m": launches_3m("ct_mul"),
          "ms": timings["ct_mul_ms"], "plain_ms": timings["ct_mul_plain_ms"],
          **bound("ct_mul", n, B), "library_ms": None},
         {"name": "u32_chain", "route": "cuda", "source": "lol_tpu_torch/csrc/chain.cu",
@@ -2821,12 +3026,14 @@ def main() -> int:
          "replaces": "lol_tpu/ops/pallas/remote_ntt.py:61", "path": ring_path,
          "launches": ring_launches["two-call"]["a2a"] + ring_launches["fused"]["a2a"],
          "max_abs_err": err["a2a"], "shape": ring_shape + ", one exchange",
+         "launches_3m": launches_3m("a2a"),
          "ms": timings["a2a_ms"], "plain_ms": timings["a2a_plain_ms"],
          **bound("a2a", n_r, B, D), "library_ms": timings["a2a_library_ms"]},
         {"name": "ntt_fwd_gather_pass", "route": "cuda", "source": ring_src,
          "replaces": "lol_tpu/ops/pallas/remote_ntt.py:111", "path": ring_path + ", overlap=True",
          "launches": ring_launches["fused"]["ntt_fwd_gather"],
          "max_abs_err": err["ntt_fwd_gather"], "shape": ring_shape + ", phase B",
+         "launches_3m": launches_3m("ntt_fwd_gather"),
          "ms": timings["ntt_fwd_gather_ms"], "plain_ms": timings["ntt_fwd_gather_plain_ms"],
          **bound("ntt_fwd_gather", n_r, B, D), "library_ms": None,
          "copy_ms": timings["ring_copy_ms"], "unfused_ms": timings["phase_b_unfused_ms"],
@@ -2837,6 +3044,7 @@ def main() -> int:
          "replaces": "lol_tpu/ops/pallas/remote_ntt.py:283", "path": ring_path + ", overlap=True",
          "launches": ring_launches["fused"]["ntt_inv_scatter"],
          "max_abs_err": err["ntt_inv_scatter"], "shape": ring_shape + ", phase B'",
+         "launches_3m": launches_3m("ntt_inv_scatter"),
          "ms": timings["ntt_inv_scatter_ms"], "plain_ms": timings["ntt_inv_scatter_plain_ms"],
          **bound("ntt_inv_scatter", n_r, B, D), "library_ms": None,
          "copy_ms": timings["ring_copy_ms"], "unfused_ms": timings["phase_b_inv_unfused_ms"],
@@ -2850,7 +3058,7 @@ def main() -> int:
         {"name": "prng_draw", "route": "cuda", "source": "lol_tpu_torch/csrc/prng.cu",
          "replaces": "lol_tpu/sampling.py:102 (jax.random.normal: XLA threefry2x32 + erf_inv; "
                      "no pallas_call)", "path": "build_encrypt's error and c1 draws (phase 3)",
-         "launches": prng_launches, "max_abs_err": 0,
+         "launches": prng_launches, "max_abs_err": 0, "launches_3m": launches_3m("prng"),
          "shape": f"({n}, {B}), the rounded normal; randint over 3 primes beside it",
          "ms": rand["round_ms"], "plain_ms": rand["round_plain_ms"],
          "bound_ms": rand["round_bound"][0], "bound_by": rand["round_bound"][1],
@@ -2870,7 +3078,7 @@ def main() -> int:
                      "no pallas_call)",
          "also_replaces": "lol_tpu/bench/mxu_ntt.py:108 (mxu_modmat_apply)",
          "path": f"the general-m step at m = {M_3K} (its 17-axis, phase 3k)",
-         "launches": k3["launches"], "max_abs_err": 0,
+         "launches": k3["launches"], "max_abs_err": 0, "launches_3m": launches_3m("modmat_s8"),
          "shape": f"(G, a, b, N) = (1024, 16, 16, {B}), the 17-axis",
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3_bound_ms,
          "bound_by": k3_bound_by, "library_ms": k3["library_ms"], "int64_route_ms": k3["int64_ms"],

@@ -58,10 +58,14 @@ class Linear:
 
 
 def linear_pow(e_ctx: RingContext, r_ctx: RingContext, s_ctx: RingContext, ys) -> Linear:
-    """The map with images ys (integer coefficients over S) of the
-    relative powerful basis monomials."""
-    return Linear(e_ctx, r_ctx, s_ctx,
-                  tuple(np.array(y, dtype=np.int64) for y in ys))
+    """The map with images ys of the relative powerful basis monomials:
+    integer coefficients over S, or `Cyc`s of S as the reference gives
+    them (taken by their centred powerful-basis lifts)."""
+    from .cyc import Cyc, Rep
+
+    return Linear(e_ctx, r_ctx, s_ctx, tuple(
+        np.array(y.lift_ints(rep=Rep.POW) if isinstance(y, Cyc) else y, dtype=np.int64)
+        for y in ys))
 
 
 def rel_basis_elements(r_ctx: RingContext, e_ctx: RingContext, device="cuda"):

@@ -95,11 +95,21 @@ def balanced(n: int) -> Tree:
 # ---------------------------------------------------------------------------
 
 
-@dataclass
+def _coeff_rows(a) -> np.ndarray:
+    """Public vectors as (ell, n) int64 coefficients: an array as given,
+    a sequence of `Cyc` over R_p by their powerful-basis residues."""
+    if isinstance(a, np.ndarray):
+        return a
+    return np.stack([c.to_pow().data[0].cpu().numpy() for c in a]).astype(np.int64)
+
+
+@dataclass(init=False)
 class PRFFamily:
     """Public params + tree + per-assignment node cache (Lol PRFState):
     ring index m (2-power), PRF modulus p, the base-b gadget, and a0 / a1
-    as (ell, n) int64 coefficient arrays mod p."""
+    as (ell, n) int64 coefficient arrays mod p.  The ring may be given as
+    the reference gives it, `ctx` (R_p) in place of m and p, and a0 / a1
+    as its tuples of `Cyc`."""
 
     m: int
     p: int
@@ -109,7 +119,16 @@ class PRFFamily:
     a1: np.ndarray
     _cache: dict = field(default_factory=dict)
 
-    def __post_init__(self):
+    def __init__(self, m: int | None = None, p: int | None = None, spec: gd.BaseBGad = None,
+                 tree: Tree = None, a0=None, a1=None, _cache: dict | None = None, *,
+                 ctx: RingContext | None = None):
+        if ctx is not None:
+            if ctx.nrns != 1 or (m, p) not in ((None, None), (ctx.m, ctx.basis.qs[0])):
+                raise ValueError(f"PRFFamily: ctx {ctx} is not R_p at m={m}, p={p}")
+            m, p = ctx.m, ctx.basis.qs[0]
+        self.m, self.p, self.spec, self.tree = m, p, spec, tree
+        self.a0, self.a1 = _coeff_rows(a0), _coeff_rows(a1)
+        self._cache = {} if _cache is None else _cache
         shape = (gd.num_digits(self.spec, rns_basis((self.p,))), self.m // 2)
         for a in (self.a0, self.a1):
             if a.shape != shape:

@@ -110,6 +110,15 @@ def split(key, num: int = 2) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.int64).view(int(num), 2).to(k.device)
 
 
+def fold_in(key, data: int) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)`: the key hashed with the counter
+    (0, data mod 2^32), the threefry seed of a u32 datum; on the key's
+    device, hashed on the host."""
+    k = torch.as_tensor(key)
+    words = _hash_words(*key_words(k), 0, int(data) & MASK)
+    return torch.tensor(words, dtype=torch.int64).to(k.device)
+
+
 class KeyChain:
     """Fresh keys from one seed (or key), for callers that draw many times:
     each call splits the chain's key into (next, sub) and returns sub."""

@@ -41,13 +41,21 @@ from .ops.cuda.ntt_kernel import ntt_cm
 from .rns import RnsBasis, rns_basis
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, init=False)
 class RingContext:
     """(cyclotomic index m, RNS chain): two ring elements interoperate iff
-    their contexts are equal."""
+    their contexts are equal.  The index is given as `m` or, as the
+    reference gives it, as `fm` (a `Factored`, also taken in m's place)."""
 
     m: int
     basis: RnsBasis
+
+    def __init__(self, m: int | Factored | None = None, basis: RnsBasis | None = None, *,
+                 fm: Factored | None = None):
+        if (m is None) == (fm is None) or basis is None:
+            raise TypeError("RingContext: give a basis and exactly one of m, fm")
+        object.__setattr__(self, "m", int(getattr(m if fm is None else fm, "m", m)))
+        object.__setattr__(self, "basis", basis)
 
     @property
     def fm(self) -> Factored:

@@ -24,13 +24,19 @@ from . import numtheory as nt
 from . import zq
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, init=False)
 class RnsBasis:
-    """An ordered chain of distinct, pairwise coprime moduli q_i < 2^30."""
+    """An ordered chain of distinct, pairwise coprime moduli q_i < 2^30.
+    Built from `qs` (ints) or, as the reference builds it, from `moduli`
+    (`zq.Modulus` descriptors or ints); either way it holds the ints."""
 
     qs: tuple[int, ...]
 
-    def __post_init__(self):
+    def __init__(self, qs=None, *, moduli=None):
+        if (qs is None) == (moduli is None):
+            raise TypeError("RnsBasis: give exactly one of qs, moduli")
+        object.__setattr__(self, "qs", tuple(int(getattr(q, "q", q))
+                                             for q in (qs if moduli is None else moduli)))
         for i, a in enumerate(self.qs):
             if not (2 <= a < (1 << zq.MAX_MODULUS_BITS)):
                 raise ValueError(f"RnsBasis: modulus {a} out of [2, 2^30)")

@@ -77,30 +77,51 @@ class SK:
         return Cyc.from_ints(ctx, self.s_ints, device=device).to_crt()
 
 
-@dataclass(frozen=True, eq=False)
+def _hint_rows(h) -> torch.Tensor:
+    """A hint's rows as one (ell, nrns, n) int32 CRT tensor: a tensor as
+    given, the reference's tuple of `Cyc` stacked in the CRT basis."""
+    return h if isinstance(h, torch.Tensor) else torch.stack([c.to_crt().data for c in h])
+
+
+def _set_fields(obj, **fields) -> None:
+    for name, value in fields.items():
+        object.__setattr__(obj, name, value)
+
+
+@dataclass(frozen=True, eq=False, init=False)
 class KSHint:
     """Gadget-encoded encryptions of a target t under s, in the CRT domain:
     h0[j] = p e_j + g_j t - a_j s and h1[j] = a_j, each an (ell, nrns, n)
     int32 tensor, g the gadget of `spec` over params' chain.  The batched
-    pipeline takes RNS-gadget hints; the object path takes any gadget."""
+    pipeline takes RNS-gadget hints; the object path takes any gadget.
+    The ring is params' own: the reference's `ctx` is taken by keyword and
+    must be it, and its tuples of `Cyc` are taken for h0 / h1."""
 
     params: SHEParams
     h0: torch.Tensor
     h1: torch.Tensor
     spec: gd.GadgetSpec = gd.RnsGad()
 
+    def __init__(self, params: SHEParams, h0, h1, spec: gd.GadgetSpec = gd.RnsGad(), *,
+                 ctx: RingContext | None = None):
+        if ctx is not None and ctx != params.ctx:
+            raise ValueError(f"KSHint: ctx {ctx} is not params' ring {params.ctx}")
+        _set_fields(self, params=params, h0=_hint_rows(h0), h1=_hint_rows(h1), spec=spec)
+
     @property
     def ctx(self) -> RingContext:
         return self.params.ctx
 
 
-@dataclass(frozen=True, eq=False)
+@dataclass(frozen=True, eq=False, init=False)
 class KSHintExt:
     """Extended-modulus (hybrid) key-switch hint: gadget encryptions of
     P * target over the chain ext_qs = Q * P (P the product of the last
     n_special primes), with the BASE chain's RNS gadget, so ell = the base
     chain's length.  h0 / h1 are (ell, nrns_ext, n) int32 CRT tensors;
-    params is the base chain's."""
+    params is the base chain's.  The chain may be given as the reference
+    gives it, `ctx_ext` (the ring over Q * P), and h0 / h1 as tuples of
+    `Cyc`."""
 
     params: SHEParams
     ext_qs: tuple[int, ...]
@@ -108,6 +129,19 @@ class KSHintExt:
     h0: torch.Tensor
     h1: torch.Tensor
     spec: gd.GadgetSpec = gd.RnsGad()
+
+    def __init__(self, params: SHEParams, ext_qs: tuple[int, ...] | None = None,
+                 n_special: int | None = None, h0=None, h1=None,
+                 spec: gd.GadgetSpec = gd.RnsGad(), *, ctx_ext: RingContext | None = None):
+        if ctx_ext is not None:
+            if ctx_ext.m != params.m or ext_qs is not None and tuple(ext_qs) != ctx_ext.basis.qs:
+                raise ValueError(f"KSHintExt: ctx_ext {ctx_ext} is not m={params.m} over "
+                                 f"ext_qs={ext_qs}")
+            ext_qs = ctx_ext.basis.qs
+        if ext_qs is None or n_special is None or h0 is None or h1 is None:
+            raise TypeError("KSHintExt: needs ext_qs (or ctx_ext), n_special, h0 and h1")
+        _set_fields(self, params=params, ext_qs=tuple(ext_qs), n_special=n_special,
+                    h0=_hint_rows(h0), h1=_hint_rows(h1), spec=spec)
 
     @property
     def ctx_ext(self) -> RingContext:

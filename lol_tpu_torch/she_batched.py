@@ -179,10 +179,19 @@ class BatchedBGV:
     """Batched BGV pipeline for one SHEParams on one device (the card
     unless the caller names another).  chans: the channels this pipeline
     holds, a range of the chain (all by default); a mesh block's view
-    holds its block's, and its stacks have len(chans) channels."""
+    holds its block's, and its stacks have len(chans) channels.
 
-    def __init__(self, params: SHEParams, device="cuda", chans: range | None = None):
+    use_pallas: the reference's knob, taken and kept as given so that its
+    callers (`BatchedBGV(params, use_pallas=False)`) run unchanged.  It
+    selects nothing: the port has one route a device, the hand-written
+    kernels on the card and their plain versions on the CPU, so it neither
+    puts the plain versions on the card nor moves work off it; the device
+    alone decides."""
+
+    def __init__(self, params: SHEParams, device="cuda", chans: range | None = None, *,
+                 use_pallas: bool | None = None):
         self.params = params
+        self.use_pallas = use_pallas
         self.device = torch.device(device)
         self.ctx = params.ctx
         self.qs = params.qs

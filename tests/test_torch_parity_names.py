@@ -7,8 +7,8 @@ arguments a caller passes.
 Both trees are parsed, not imported.  A module's names are its top-level
 functions, classes and assignments; a class's are its methods and its
 annotated fields, and the attributes its `__init__` assigns on self.  The
-exceptions are two tables, names and arguments, each entry with its
-reason.
+exceptions are three tables, names, arguments and constructor arguments,
+each entry with its reason.
 """
 
 import ast
@@ -68,6 +68,13 @@ ARG_EXCEPTIONS = {
                                    "`ntt_cm`: the kernel on the card and the plain version "
                                    "on the CPU, so the knob would do nothing"),
 }
+
+
+# (module of the JAX package, class) -> (its constructor arguments the port's
+# class does not take, why).  Empty: every reference constructor argument has
+# a counterpart (`BatchedBGV(use_pallas)`, `RingContext(fm)`, `RnsBasis(moduli)`,
+# `PRFFamily(ctx)`, `KSHint(ctx)`, `KSHintExt(ctx_ext)` are taken by keyword).
+CTOR_EXCEPTIONS: dict[tuple[str, str], tuple[tuple[str, ...], str]] = {}
 
 
 def _jnp_form(name: str) -> bool:
@@ -158,6 +165,32 @@ def params(path: Path) -> dict[str, list[str]]:
     return out
 
 
+def _is_dataclass(cls: ast.ClassDef) -> bool:
+    for d in cls.decorator_list:
+        f = d.func if isinstance(d, ast.Call) else d
+        if (f.id if isinstance(f, ast.Name) else getattr(f, "attr", None)) == "dataclass":
+            return True
+    return False
+
+
+def ctor_params(path: Path) -> dict[str, list[str]]:
+    """Each public class's constructor arguments: its `__init__`'s
+    parameters (self aside) where it writes one, else the fields of a
+    dataclass or NamedTuple.  A class with neither (an enum, an abstract
+    base, an exception) takes none the parity asks for."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if not isinstance(node, ast.ClassDef) or node.name.startswith("_"):
+            continue
+        init = [s for s in node.body if isinstance(s, ast.FunctionDef) and s.name == "__init__"]
+        if init:
+            out[node.name] = [a for a in _arg_names(init[0]) if a != "self"]
+        elif _is_dataclass(node) or any(getattr(b, "id", None) == "NamedTuple" for b in node.bases):
+            out[node.name] = [s.target.id for s in node.body
+                              if isinstance(s, ast.AnnAssign) and isinstance(s.target, ast.Name)]
+    return out
+
+
 REF_MODULES = sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py"))
 
 
@@ -198,6 +231,23 @@ def test_every_public_argument_has_a_counterpart(module):
                         f"lol_tpu_torch/{port_module}: {missing}"
 
 
+@pytest.mark.parametrize("module", REF_MODULES)
+def test_every_constructor_argument_has_a_counterpart(module):
+    """Every argument of every public class's constructor in the reference
+    (dataclass fields or `__init__` parameters) is one the port's class
+    takes, so `BatchedBGV(params, use_pallas=False)` and the other
+    reference constructions by keyword run unchanged."""
+    port_module = MODULE_MAP.get(module, module)
+    ref_ctors, port_ctors = ctor_params(REF / module), ctor_params(PORT / port_module)
+    missing = []
+    for cls, args in sorted(ref_ctors.items()):
+        excused = CTOR_EXCEPTIONS.get((module, cls), ((), None))[0]
+        have = port_ctors.get(RENAMED.get((module, cls), (cls, None))[0], [])
+        missing += [f"{cls}({a})" for a in args if a not in have and a not in excused]
+    assert not missing, f"lol_tpu/{module} constructor arguments with no counterpart in " \
+                        f"lol_tpu_torch/{port_module}: {missing}"
+
+
 def test_the_exception_table_is_live():
     """Every renamed entry names a reference name that exists and a port
     name that exists, and every argument exception names a parameter the
@@ -215,4 +265,11 @@ def test_the_exception_table_is_live():
         port_args = params(PORT / MODULE_MAP.get(module, module))[port_name]
         for a in args:
             assert a in ref_args and a not in port_args, (module, name, a)
+        assert why
+    for (module, cls), (args, why) in CTOR_EXCEPTIONS.items():
+        port_cls = RENAMED.get((module, cls), (cls, None))[0]
+        ref_args = ctor_params(REF / module)[cls]
+        port_args = ctor_params(PORT / MODULE_MAP.get(module, module)).get(port_cls, [])
+        for a in args:
+            assert a in ref_args and a not in port_args, (module, cls, a)
         assert why

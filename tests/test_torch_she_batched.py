@@ -204,8 +204,9 @@ def test_step_module_moves_with_its_buffers(jax_state):
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter where importing jax, lol_tpu or
-    google.protobuf fails, every module of the port imports (the package
+    """In a fresh interpreter where importing jax, lol_tpu,
+    google.protobuf, the JAX tree's examples or __graft_entry__ fails,
+    every module of the port imports (the package
     walked with pkgutil), and the port still builds a pipeline and runs a
     step, a tunnel, a pt_round, a general-m step, a Galois rotation, a
     slot map and a step over an rns x data mesh on the CPU, the README's
@@ -217,6 +218,8 @@ def test_port_never_imports_jax():
         sys.modules["jax"] = None
         sys.modules["lol_tpu"] = None
         sys.modules["google.protobuf"] = None
+        sys.modules["examples"] = None
+        sys.modules["__graft_entry__"] = None
         import numpy as np
         import torch
         torch.set_num_threads(1)
@@ -235,7 +238,10 @@ def test_port_never_imports_jax():
                 "lol_tpu_torch.proto.wire", "lol_tpu_torch.ops.debug",
                 "lol_tpu_torch.challenges.driver", "lol_tpu_torch.challenges.beacon",
                 "lol_tpu_torch.parallel.multihost", "lol_tpu_torch.prng",
-                "lol_tpu_torch.ops.cuda.prng"} <= set(mods)
+                "lol_tpu_torch.ops.cuda.prng", "lol_tpu_torch.entry",
+                "lol_tpu_torch.examples.she_demo", "lol_tpu_torch.examples.khprf_demo",
+                "lol_tpu_torch.examples.tunnel_demo", "lol_tpu_torch.examples.homomprf_demo",
+                "lol_tpu_torch.examples.serving_demo"} <= set(mods)
         from lol_tpu_torch import gadget as gd, linear, numtheory as nt, prng, serving, she
         from lol_tpu_torch.ring import ring_context
         from lol_tpu_torch.she_batched import BatchedBGV
