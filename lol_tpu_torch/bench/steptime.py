@@ -35,9 +35,10 @@ m = 18432 = 2^11 3^2 (n = 6144, p = 7), --tunnel-general times the tunnel
 against separate ones (`build_galois` per k) at m = 32768, k in {3, 5, 9},
 in interleaved windows (`galois_ab`), and --trace profiles five calls of
 each arm.  The two general legs also print the odd axes' share
-(`odd_axis`): `matvec_mod`'s device time inside the call, and alone on
-one channel (`use_mxu=False`: on the int64 route; `mxu_route` puts any
-call on either).  --mesh times the step at m and the tunnel m -> m/2 over
+(`odd_axis`): the device time of the program's `crt.odd` spans inside
+the call (`lol_tpu_torch.trace`), and alone on one channel
+(`use_mxu=False`: on the int64 route; `mxu_route` puts any call on
+either).  --mesh times the step at m and the tunnel m -> m/2 over
 `make_mesh({"rns": 3, "data": 4})` (the cards round-robin; on one card,
 twelve entries of it; the tunnel on the mesh's data-only view) against
 their unsharded runs on the same inputs, in interleaved windows
@@ -147,7 +148,7 @@ def by_kernel(fn, args, trace_dir: str, steps: int = 5) -> dict:
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0 and ev.device_type.name == "CUDA":
+        if us > 0 and ev.device_type.name == "CUDA" and not ev.is_user_annotation:
             rows.append((ev.key, us / 1e3, ev.count))
     total = sum(ms for _, ms, _ in rows)
     rows.sort(key=lambda r: -r[1])
@@ -175,41 +176,31 @@ def mxu_route(use_mxu: bool | None):
 def odd_axis(fn, args, plan: gen.GeneralPlan, calls: int = 5, iters: int = 5,
              windows: int = 5, use_mxu: bool | None = None) -> dict:
     """The general-m transforms' odd axes on the card, device time only.
-    In the call: a CUDA-event pair around each `ops.general.matvec_mod`
-    over `calls` calls of fn(*args), each queued behind a device spin (so
-    the pairs and the call's span hold no host gap); their sum against the
-    spans.  Alone, on one (n, B) channel of `plan`'s ring: the forward
-    `crt_cm`, its 2-power axis (`ntt_cm` on the (n2, rest B) reshape) and
-    its odd axes (`matvec_mod`).  use_mxu: the odd axes' route
-    (`mxu_route`)."""
+    In the call: `calls` calls of fn(*args) under a profile of the host and
+    the device; the device time of the operations launched inside the
+    program's `crt.odd` spans (`lol_tpu_torch.trace`, one span an odd
+    axis) against that of every operation of the calls.  Alone, on one
+    (n, B) channel of `plan`'s ring: the forward `crt_cm`, its 2-power
+    axis (`ntt_cm` on the (n2, rest B) reshape) and its odd axes
+    (`matvec_mod`).  use_mxu: the odd axes' route (`mxu_route`)."""
     dev = require_cuda()
-    outer = gen.matvec_mod
-    inner, pairs, spans = functools.partial(outer, use_mxu=use_mxu), [], []
+    from torch.profiler import ProfilerActivity, profile
 
-    def bracketed(*a, **k):
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        out = inner(*a, **k)
-        t1.record()
-        pairs.append((t0, t1))
-        return out
-
-    fn(*args)
-    torch.cuda.synchronize()
-    gen.matvec_mod = bracketed
-    try:
-        for _ in range(calls):
-            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
-            s0.record()
-            fn(*args)
-            s1.record()
-            spans.append((s0, s1))
+    with mxu_route(use_mxu):
+        fn(*args)
         torch.cuda.synchronize()
-    finally:
-        gen.matvec_mod = outer
-    odd = sum(a.elapsed_time(b) for a, b in pairs) / calls
-    span = sum(a.elapsed_time(b) for a, b in spans) / calls
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+    n_odd, odd_us, all_us = 0, 0.0, 0.0
+    for ev in prof.key_averages():
+        if ev.key == "crt.odd" and ev.device_type.name == "CPU":
+            n_odd, odd_us = ev.count, ev.device_time_total
+        elif ev.device_type.name == "CUDA" and not ev.is_user_annotation:
+            all_us += ev.self_device_time_total
+    odd, span = odd_us / 1e3 / calls, all_us / 1e3 / calls
+    inner = functools.partial(gen.matvec_mod, use_mxu=use_mxu)
     shape, B = plan.phi_shape, args[0].shape[-1]
     n, n2 = plan.fm.phi, shape[0]
     x = sampling.uniform_residues((plan.q,), (n, B), prng.PRNGKey(0), dev)[0]
@@ -230,7 +221,7 @@ def odd_axis(fn, args, plan: gen.GeneralPlan, calls: int = 5, iters: int = 5,
                                      plan.axes[0].ntt2),
              "odd_axes": odd_alone}
     return {"metric": f"odd axes of m={plan.fm.m}, phi_shape={shape}, B={B}",
-            "matvec_mod_calls_per_call": len(pairs) / calls,
+            "matvec_mod_calls_per_call": n_odd / calls,
             "matvec_mod_device_ms_per_call": odd, "span_device_ms_per_call": span,
             "matvec_mod_pct_of_span": 100 * odd / span,
             "alone_device_ms": {k: time_ms(f, iters, windows, device_only=True)[0]

@@ -39,7 +39,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import numtheory as nt
+from .. import numtheory as nt, trace
 from ..factored import Factored, PrimePower, fact
 from . import ntt
 from .cuda.modmat import modmat_s8, once_per_matrix
@@ -102,6 +102,7 @@ def matvec_mod(M, x: torch.Tensor, q: int, axis: int = -1,
     a, b = M.shape
     if use_mxu is None:
         use_mxu = min(a, b) >= MXU_MIN_AXIS
+    trace.tag("modmat_s8" if use_mxu else "int64")
     if use_mxu:
         return modmat_s8(M, x, q, axis)
     Mt = _int64_matrix(M, x.device)
@@ -236,8 +237,9 @@ def crt_cm(plan: GeneralPlan, x: torch.Tensor, inverse: bool = False,
     for i, ax in enumerate(axes):
         if ax.ntt2 is not None or ax.phi == 1:
             continue
-        x = matvec_mod(ax.Minv if inverse else ax.M, x.reshape(*shape, B), plan.q,
-                       axis=i).view(n, B)
+        with trace.span("crt.odd"):  # matvec_mod tags it with its route
+            x = matvec_mod(ax.Minv if inverse else ax.M, x.reshape(*shape, B), plan.q,
+                           axis=i).view(n, B)
     return x
 
 

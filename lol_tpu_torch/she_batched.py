@@ -21,7 +21,10 @@ leaves the Hadamards to XLA, which overlaps them with its NTT calls
 (`she_batched.py:828-837` there); eager PyTorch overlaps nothing, so
 the port fuses them.  The hint inner products, the rescale and the
 arithmetic of every other `build_*` function are plain int64 torch
-elementwise ops.
+elementwise ops.  While torch's profiler records, the step's layers are
+spans of `trace` (`bgv.step`, `bgv.ct_mul`, `bgv.ks.intt`,
+`bgv.ks.digits`, `bgv.ks.inner`, `bgv.rescale`), and the inner products
+and the rescale count the bytes they take and give (`glue_io_bytes`).
 
 Both encodings: "lsd" keeps c(s) = f*m + p*e, "msd" c(s) = Delta*m + e
 with Delta = Q // p (encrypt, the exact scaled-rounding decrypt through
@@ -71,7 +74,7 @@ from torch import nn
 
 from . import gadget as gd
 from . import numtheory as nt
-from . import prng, sampling, zmstar, zq
+from . import prng, sampling, trace, zmstar, zq
 from .linear import Linear
 from .ops import general as gen
 from .ops import ntt as ntt_mod
@@ -324,7 +327,10 @@ class BatchedBGV:
         CRT domain: only the dropped channel is inverse-transformed; the
         correction is forward-transformed into each surviving channel.
         int32 (nrns-1, n, B)."""
-        return self._rescale_apply(comp, self._rescale_v(comp[-1], encoding), encoding)
+        with trace.span("bgv.rescale"):
+            out = self._rescale_apply(comp, self._rescale_v(comp[-1], encoding), encoding)
+            trace.count("glue_io_bytes", comp, out)
+            return out
 
     # --- batched encryption / decryption --------------------------------
     def _s_crt(self, sk: SK) -> torch.Tensor:
@@ -1025,8 +1031,12 @@ class KeySwitchLinear(nn.Module):
     def inner_product(self, e0, e1, di, i):
         """(e0 + di h0[i], e1 + di h1[i]) mod q for digit i's CRT stack
         di: the key switch's hint inner products, int64 out."""
-        di = di.long()
-        return (e0 + di * self.h0[i]) % self.qv, (e1 + di * self.h1[i]) % self.qv
+        with trace.span("bgv.ks.inner"):
+            trace.count("glue_io_bytes", e0, e1, di)
+            d = di.long()
+            out = (e0 + d * self.h0[i]) % self.qv, (e1 + d * self.h1[i]) % self.qv
+            trace.count("glue_io_bytes", *out)
+            return out
 
     @torch.no_grad()
     def digits(self, e0, e1, xc, x):
@@ -1035,7 +1045,9 @@ class KeySwitchLinear(nn.Module):
         gathered stack), x the pipeline's channels of the CRT stack; int64
         out."""
         for i in range(len(self.bb.qs)):
-            e0, e1 = self.inner_product(e0, e1, self.bb._digit_crt(xc[i], i, x), i)
+            with trace.span("bgv.ks.digits"):
+                di = self.bb._digit_crt(xc[i], i, x)
+            e0, e1 = self.inner_product(e0, e1, di, i)
         return e0, e1
 
     @torch.no_grad()
@@ -1062,7 +1074,8 @@ class BGVStep(KeySwitchLinear):
     @torch.no_grad()
     def ct_mul(self, c0, c1, d0, d1):
         """(c0 + c1 s)(d0 + d1 s) as CRT Hadamards (`_ct_mul`)."""
-        return _ct_mul(self.bb.cqs, c0, c1, d0, d1)
+        with trace.span("bgv.ct_mul"):
+            return _ct_mul(self.bb.cqs, c0, c1, d0, d1)
 
     @torch.no_grad()
     def front(self, c0, c1, d0, d1):
@@ -1071,15 +1084,17 @@ class BGVStep(KeySwitchLinear):
         if self.encoding == "msd":
             d0, d1 = _lsd_operand(self.qv, self.bb.params.p, d0, d1)
         e0, e1, e2 = self.ct_mul(c0, c1, d0, d1)
-        return e0, e1, e2, self.bb._ntt(e2, inverse=True)
+        with trace.span("bgv.ks.intt"):
+            return e0, e1, e2, self.bb._ntt(e2, inverse=True)
 
     @torch.no_grad()
     def forward(self, c0, c1, d0, d1):
-        bb = self.bb
-        e0, e1, e2, xc = self.front(c0, c1, d0, d1)
-        e0, e1 = self.digits(e0, e1, xc, e2)  # key switch e2
-        return (bb._rescale_crt(e0.to(torch.int32), self.encoding),
-                bb._rescale_crt(e1.to(torch.int32), self.encoding))
+        with trace.span("bgv.step"):
+            bb = self.bb
+            e0, e1, e2, xc = self.front(c0, c1, d0, d1)
+            e0, e1 = self.digits(e0, e1, xc, e2)  # key switch e2
+            return (bb._rescale_crt(e0.to(torch.int32), self.encoding),
+                    bb._rescale_crt(e1.to(torch.int32), self.encoding))
 
     @staticmethod
     def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1, d0, d1):
