@@ -225,7 +225,9 @@ then runs its phases and exits non-zero on the first failure:
    also gives both inverses' times at one step channel (route B's
    cluster pass) and at n = 2^16 (its block and cross passes); the
    forward NTT and ct_mul kernels there, every plain version, and route
-   B's single pass at n = 4096; the u32 ceiling (the chain kernel's
+   B's single pass at n = 4096; the key switch's inner products
+   (`ks_inner`, 3 digits over (3, 2^14, 1024) and over n = 6144) against
+   the int64 torch chain and casts they replaced, in turns; the u32 ceiling (the chain kernel's
    path); a device copy's bandwidth; the roofline rows from those times
    against both; the steptime breakdown of the step, whose step leg
    gives the ops/s at n = 2^14; the ops/s at n = 4096; the ring-sharded
@@ -662,7 +664,7 @@ def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
     passes = len(tk.cm_schedule(n2))
     want = dict.fromkeys(got, 0)
     want.update(ntt_fwd=calls[False] * passes, ntt_inv=calls[True] * passes, ct_mul=nrns,
-                modmat_s8=calls[False] + calls[True])
+                ks_inner=1, modmat_s8=calls[False] + calls[True])
     step_calls = {False: nrns * (nrns - 1) + 2 * (nrns - 1), True: nrns + 2}
     if got != want or calls != step_calls:
         raise AssertionError(f"phase 3k step m={m}: launches {got}, want {want}; crt_cm calls "
@@ -960,7 +962,7 @@ def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 
         calls made inside the block."""
         want = Counter()
         real = (tk.ntt_cm_ref, pw.ct_mul_cm_ref, pk.draw_ref, twin.random_bits_ref,
-                twin.randint_ref, mm.modmat_ref)
+                twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref)
 
         def ntt_ref(x, plan, inverse=False, pre_digit_q=None, alg="gs"):
             n_ = x.shape[0]
@@ -981,11 +983,17 @@ def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 
         pw.ct_mul_cm_ref = one("ct_mul", real[1])
         pk.draw_ref, twin.random_bits_ref, twin.randint_ref = (one("prng", f) for f in real[2:5])
         mm.modmat_ref = one("modmat_s8", real[5])
+
+        def ks_ref(e0, e1, digits, hint, qs):
+            want["ks_inner"] += -(-len(digits) // pw.KS_MAX_DIGITS)
+            return real[6](e0, e1, digits, hint, qs)
+
+        pw.ks_inner_cm_ref = ks_ref
         try:
             yield want
         finally:
             (tk.ntt_cm_ref, pw.ct_mul_cm_ref, pk.draw_ref, twin.random_bits_ref,
-             twin.randint_ref, mm.modmat_ref) = real
+             twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref) = real
 
     def captured(fn, *a, **k):
         buf = io.StringIO()
@@ -1094,6 +1102,64 @@ def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 
     out["seconds"] = time.time() - t0
     mark(f"phase 3m: {out['checks']} checks in {out['seconds']:.1f} s")
     return out
+
+
+def int64_chain(e0, e1, digits, h0, h1, qv):
+    """The key switch's inner products as the port computed them before
+    `ks_inner`: per digit i, (e + d_i h[i]) mod q in int64 torch ops on
+    the (nrns, k, n) hints h0, h1 and the (k, 1, 1) moduli qv, then the
+    casts back to int32."""
+    for i, d in enumerate(digits):
+        d = d.long()
+        e0, e1 = (e0 + d * h0[i, ..., None]) % qv, (e1 + d * h1[i, ..., None]) % qv
+    return e0.to(torch.int32), e1.to(torch.int32)
+
+
+def check_ks_inner(dev, g) -> tuple[int, int]:
+    """`ks_inner_cm` (csrc/keyswitch.cu) against `ks_inner_cm_ref` at the
+    step's width (3 digits, (3, 16384, 1024)), n = 6144, a ragged B, a
+    view 4 bytes off (the scalar kernel), 7 digits, past the one-launch
+    limit and without e1, q - 1 and 0 planted in every operand and both
+    hints; each call's launches exact and its inputs unwritten.  Returns
+    (max abs error, checks)."""
+    from lol_tpu_torch import numtheory as nt
+    from lol_tpu_torch.ops.cuda import pointwise as pw
+
+    worst = checks = 0
+    lim = pw.KS_MAX_DIGITS
+    for nd, k, n, B, with_e1, off in ((3, 3, 16384, 1024, True, 0), (3, 3, 6144, 1024, True, 0),
+                                      (3, 3, 256, 1000, True, 0), (3, 3, 256, 1024, True, 1),
+                                      (7, 7, 512, 256, True, 0), (lim + 1, 2, 256, 64, True, 0),
+                                      (2 * lim + 1, 1, 64, 36, False, 0)):
+        qs = tuple(nt.ntt_primes(2 ** 15, 30, max(nd, k)))[-k:]
+        qv = torch.tensor(qs, device=dev).view(-1, 1, 1)
+
+        def res():
+            x = torch.randint(0, 1 << 62, (k, n, B), generator=g, device=dev) % qv
+            x[:, :, 0], x[:, 0, :] = qv[..., 0] - 1, 0
+            out = torch.empty(x.numel() + off, dtype=torch.int32, device=dev)[off:].view(k, n, B)
+            out.copy_(x)
+            return out
+
+        e0, e1, ds = res(), res() if with_e1 else None, [res() for _ in range(nd)]
+        hq = qv.view(1, -1, 1)
+        h0, h1 = (torch.randint(0, 1 << 62, (nd, k, n), generator=g, device=dev) % hq
+                  for _ in range(2))
+        h0[..., 0], h1[..., 1] = (hq - 1)[..., 0], (hq - 1)[..., 0]
+        hint = pw.ks_hint(h0, h1, qs)
+        keep = [t.clone() for t in (e0, *ds)]
+        before = pw.LAUNCHES["ks_inner"]
+        got = pw.ks_inner_cm(e0, e1, ds, hint, qs)
+        torch.cuda.synchronize()
+        if pw.LAUNCHES["ks_inner"] - before != -(-nd // lim):
+            raise AssertionError(f"ks_inner: {pw.LAUNCHES['ks_inner'] - before} launches for "
+                                 f"{nd} digits")
+        if not all(torch.equal(a, b) for a, b in zip(keep, (e0, *ds))):
+            raise AssertionError("ks_inner wrote into an input")
+        want = pw.ks_inner_cm_ref(e0, e1, ds, hint, qs)
+        worst = max(worst, *(max_err(a, b) for a, b in zip(got, want)))
+        checks += 1
+    return worst, checks
 
 
 def main() -> int:
@@ -1296,6 +1362,8 @@ def main() -> int:
         err["ntt_fwd"] = max(err["ntt_fwd"], max_err(tk.ntt_cm(xs, pl_g, pre_digit_q=12289),
                                                      tk.ntt_cm_ref(xs, pl_g, pre_digit_q=12289)))
         checks += 3
+    err["ks_inner"], ks_checks = check_ks_inner(dev, g)
+    checks += ks_checks
     torch.cuda.synchronize()
     if any(err.values()):
         raise AssertionError(f"kernel != plain: max abs err {err}")
@@ -1337,7 +1405,7 @@ def main() -> int:
     step_calls = {"ntt_fwd": nrns * (nrns - 1) + 2 * (nrns - 1), "ntt_inv": nrns + 2}
     want_step = {k: v * passes for k, v in step_calls.items()}
     want_step.update(dict.fromkeys(rn.LAUNCHES, 0), ntt_invb_block=0, ntt_invb_cross=0,
-                     ct_mul=nrns, chain=0)
+                     ct_mul=nrns, ks_inner=1, chain=0)
     want_path = dict(want_step, ntt_fwd=want_step["ntt_fwd"] + 2 * nrns * passes,
                      ntt_inv=want_step["ntt_inv"] + (nrns - 1) * passes)
     for k in launches:
@@ -1420,14 +1488,16 @@ def main() -> int:
                      for ph in ("3c", "3d", "3e", "3e_ext", "3f", "3f_galois", "3g", "3g_slots",
                                 "3h", "3i")}
 
-    def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, n_fwd=None, n_inv=None):
+    def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, ks=0, n_fwd=None, n_inv=None):
         return run_by_n(phase, name, fn, *args, fwd={n_fwd: fwd} if fwd else {},
-                        inv={n_inv: inv} if inv else {}, ct_mul=ct_mul)
+                        inv={n_inv: inv} if inv else {}, ct_mul=ct_mul, ks=ks)
 
-    def run_by_n(phase, name, fn, *args, fwd, inv, ct_mul=0):
+    def run_by_n(phase, name, fn, *args, fwd, inv, ct_mul=0, ks=0):
         """fn(*args) between a reset and a read of the counts, which must
         be fwd[n] forward and inv[n] GS ntt_cm calls at each n, each
-        `cm_schedule(n)`'s passes, ct_mul ct_mul launches, and nothing else."""
+        `cm_schedule(n)`'s passes, ct_mul ct_mul launches, ks ks_inner
+        launches (one a key switch: every chain here has at most
+        KS_MAX_DIGITS primes), and nothing else."""
         reset_counts()
         out = fn(*args)
         torch.cuda.synchronize()
@@ -1435,7 +1505,7 @@ def main() -> int:
         want = dict.fromkeys(got, 0)
         want.update(ntt_fwd=sum(k * len(tk.cm_schedule(n_)) for n_, k in fwd.items()),
                     ntt_inv=sum(k * len(tk.cm_schedule(n_)) for n_, k in inv.items()),
-                    ct_mul=ct_mul)
+                    ct_mul=ct_mul, ks_inner=ks)
         if got != want:
             raise AssertionError(f"phase {phase} {name}: launches {got}, want {want}")
         for k, v in got.items():
@@ -1496,7 +1566,7 @@ def main() -> int:
     dm = run("3c", "encrypt msd n16384", enc_msd, m2, nk(), fwd=nrns, n_fwd=n)
     step_msd = bb.build_step(hint, encoding="msd")
     em = run("3c", "step msd n16384", step_msd, *cm, *dm, fwd=step_calls["ntt_fwd"],
-             inv=step_calls["ntt_inv"], ct_mul=nrns, n_fwd=n, n_inv=n)
+             inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1, n_fwd=n, n_inv=n)
     dec_msd = BatchedBGV(p2, dev).build_decrypt(
         she.SK(p2, sk.s_ints, sk.var), f=bb.step_f(1, 1, "msd"), encoding="msd")
     decrypts_to("step msd n16384", run("3c", "decrypt msd n16384", dec_msd, *em,
@@ -1529,7 +1599,7 @@ def main() -> int:
 
     st8 = bb8.build_step(hint8, encoding="msd")
     e8 = run("3c", "step msd", st8, *c8["msd"][0], *c8["msd"][1], fwd=step_calls["ntt_fwd"],
-             inv=step_calls["ntt_inv"], ct_mul=nrns, n_fwd=n8, n_inv=n8)
+             inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1, n_fwd=n8, n_inv=n8)
     decrypts_to("step msd", dec("msd", e8, "step msd", bb8.step_f(1, 1, "msd"), bb8d, sk8d),
                 pt_muls(a8, b8, params8))
     same_on_cpu("step msd", e8, bb8_cpu.build_step(hint8, encoding="msd"),
@@ -1549,7 +1619,7 @@ def main() -> int:
                    fwd=nrns, n_fwd=n8)
     ksl = bb8.build_key_switch_linear(lin_hint)
     out = run("3c", "key_switch_linear", ksl, *c8["lsd"][0], fwd=nrns * (nrns - 1), inv=nrns,
-              n_fwd=n8, n_inv=n8)
+              ks=1, n_fwd=n8, n_inv=n8)
     decrypts_to("key_switch_linear", dec("lsd", out, "key_switch_linear", key=sk8_new), a8.cpu())
     same_on_cpu("key_switch_linear", out, bb8_cpu.build_key_switch_linear(lin_hint),
                 *c8["lsd"][0])
@@ -1651,14 +1721,15 @@ def main() -> int:
     def pt_round_calls(L, n_):
         """serving.build_pt_round at p = 8 = 2^3 over L primes: the 2^{k-2}
         pre-add, two squarings (at L, L - 1), y switched down twice, one
-        squaring at L - 2, y switched once more: {n: calls} and ct_mul."""
+        squaring at L - 2, y switched once more: {n: calls}, ct_mul and the
+        chain lengths of the key switches (one a step)."""
         steps = switches = (L, L - 1, L - 2)
         fwd = L + sum(step_fi(Ls)[0] for Ls in steps) + sum(2 * (Ls - 1) for Ls in switches)
         inv = sum(step_fi(Ls)[1] for Ls in steps) + 2 * len(switches)
-        return {n_: fwd}, {n_: inv}, sum(steps)
+        return {n_: fwd}, {n_: inv}, sum(steps), steps
 
-    fw, iv, cm_ = pt_round_calls(L_pr, n)
-    y_pr = run_by_n("3e", "pt_round", run_pr, *ct_pr, fwd=fw, inv=iv, ct_mul=cm_)
+    fw, iv, cm_, ks_ = pt_round_calls(L_pr, n)
+    y_pr = run_by_n("3e", "pt_round", run_pr, *ct_pr, fwd=fw, inv=iv, ct_mul=cm_, ks=len(ks_))
     got = run("3e", "decrypt pt_round", bb_pr_out.build_decrypt(
         she.SK(bb_pr_out.params, sk_pr.s_ints, sk_pr.var), f=f_pr), *y_pr,
         inv=len(bb_pr_out.qs), n_inv=n)
@@ -1686,16 +1757,16 @@ def main() -> int:
     s_key = torch.randint(0, pr_p, (n, 1), generator=g, device=dev, dtype=torch.int32)
     ct_prf = run("3e", "encrypt key", bb_top.build_encrypt(sks[0]), s_key.expand(n, B), nk(),
                  fwd=L_prf, n_fwd=n)
-    fw, iv, cm_ = pt_round_calls(L_prf, 1)
+    fw, iv, cm_, ks_ = pt_round_calls(L_prf, 1)
     add_by_n(fw, n, L_prf)  # mul_public
     for n_r, n_s in zip(ns, ns[1:]):  # each hop: d = 2 relative coefficients
         add_by_n(fw, n_s, 2 * L_prf + 2 * L_prf ** 2)
         add_by_n(iv, n_r, 2 * L_prf)
-    prf_calls = (dict(fw), dict(iv), cm_)
+    prf_calls = (dict(fw), dict(iv), cm_, ks_)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bb_prf_out, f_prf, y_prf = run_by_n("3e", "homom_prf", lambda: serving.batched_homom_prf_component(
-        fam, hints, bb_top, *ct_prf, bits, 0), fwd=fw, inv=iv, ct_mul=cm_)
+        fam, hints, bb_top, *ct_prf, bits, 0), fwd=fw, inv=iv, ct_mul=cm_, ks=len(ks_))
     prf_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     got = run("3e", "decrypt homom_prf", bb_prf_out.build_decrypt(
         she.SK(bb_prf_out.params, sk_out.s_ints, sk_out.var), f=f_prf), *y_prf,
@@ -1745,9 +1816,9 @@ def main() -> int:
     # (counted with this phase) against the ext ones
     base = {"step": run("3e_ext", "step lsd (noise baseline)", bb8.build_step(hint8),
                         *c8["lsd"][0], *c8["lsd"][1], fwd=step_calls["ntt_fwd"],
-                        inv=step_calls["ntt_inv"], ct_mul=nrns, n_fwd=n8, n_inv=n8),
+                        inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1, n_fwd=n8, n_inv=n8),
             "ks_linear": run("3e_ext", "key_switch_linear (noise baseline)", ksl, *c8["lsd"][0],
-                             fwd=nrns * (nrns - 1), inv=nrns, n_fwd=n8, n_inv=n8)}
+                             fwd=nrns * (nrns - 1), inv=nrns, ks=1, n_fwd=n8, n_inv=n8)}
     noise = {}
     for key, pipe, sk_, x in (("step", bb8d, sk8d, base["step"]),
                               ("step_ext", bb8d, sk8d, ext["lsd"]),
@@ -1790,7 +1861,7 @@ def main() -> int:
                    for x in (a_g, b_g)]
         step_g[e] = bb_g.build_step(hint_g, encoding=e)
         out = run("3f", f"step {e} m=18432", step_g[e], *ct_g[e][0], *ct_g[e][1],
-                  fwd=step_calls["ntt_fwd"], inv=step_calls["ntt_inv"], ct_mul=nrns,
+                  fwd=step_calls["ntt_fwd"], inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1,
                   n_fwd=n2_g, n_inv=n2_g)
         got = run("3f", f"decrypt {e} m=18432", bb_gd.build_decrypt(
             sk_gd, f=bb_g.step_f(1, 1, e), encoding=e), *out, inv=nrns - 1, n_inv=n2_g)
@@ -1842,7 +1913,7 @@ def main() -> int:
     dec_gal = bb.build_decrypt(sk)
     for k in ks:
         out = run("3f_galois", f"galois k={k}", gal_one[k], *ct_gal, fwd=rot_fwd, inv=rot_inv,
-                  n_fwd=n, n_inv=n)
+                  ks=1, n_fwd=n, n_inv=n)
         if not all(torch.equal(a, b) for a, b in zip(out, outs_many[k])):
             raise AssertionError(f"galois_many != build_galois at k={k} over all {B} columns")
         decrypts_to(f"galois k={k}", run("3f_galois", f"decrypt galois k={k}", dec_gal, *out,
@@ -1855,7 +1926,7 @@ def main() -> int:
                fwd=nrns, n_fwd=n2_g)
     gal_g = bb_g.build_galois(gh_g, 5)
     out = run("3f_galois", "galois k=5 m=18432", gal_g, *ct_g["lsd"][0], fwd=rot_fwd,
-              inv=rot_inv, n_fwd=n2_g, n_inv=n2_g)
+              inv=rot_inv, ks=1, n_fwd=n2_g, n_inv=n2_g)
     decrypts_to("galois k=5 m=18432", run("3f_galois", "decrypt galois m=18432",
                                           bb_g.build_decrypt(sk_g), *out, inv=nrns, n_inv=n2_g),
                 np.stack([she.galois_ints(m_g, a_g[:, c].cpu().numpy(), 5, p_g)
@@ -1894,12 +1965,15 @@ def main() -> int:
             return sorted(a_) == sorted(b_) and all(equal(a_[k], b_[k]) for k in a_)
         return all(torch.equal(x_, y_) for x_, y_ in zip(a_, b_))
 
-    def run_mesh(name, fn, args, want, fwd, inv, ct_mul=0):
+    def run_mesh(name, fn, args, want, fwd, inv, ct_mul=0, ks=()):
         """fn(*args) on the mesh between a reset and a read of the counts,
-        which must be Dd times the unsharded call's ({n: calls}); its
-        output unsharded == want over every column."""
+        which must be Dd times the unsharded call's ({n: calls}), and for
+        each key switch over an L-prime chain (ks, the chain lengths) one
+        ks_inner a block: Dd rns_rows(L); its output unsharded == want
+        over every column."""
         got = unshard(run_by_n("3g", name, fn, *args, fwd={k: Dd * v for k, v in fwd.items()},
-                               inv={k: Dd * v for k, v in inv.items()}, ct_mul=Dd * ct_mul))
+                               inv={k: Dd * v for k, v in inv.items()}, ct_mul=Dd * ct_mul,
+                               ks=sum(Dd * sh.rns_rows(rd_mesh, L_) for L_ in ks)))
         if not equal(got, want):
             raise AssertionError(f"phase 3g {name}: mesh != unsharded over all {B} columns")
         return got
@@ -1907,12 +1981,13 @@ def main() -> int:
     sf, si = step_calls["ntt_fwd"], step_calls["ntt_inv"]
     step_mesh = bb.build_step(hint, mesh=rd_mesh)
     step_blocks = shard(c0, c1, d0, d1)
-    out = run_mesh("step lsd n16384", step_mesh, step_blocks, (e0, e1), {n: sf}, {n: si}, nrns)
+    out = run_mesh("step lsd n16384", step_mesh, step_blocks, (e0, e1), {n: sf}, {n: si}, nrns,
+                   (nrns,))
     decrypts_to("mesh step lsd", BatchedBGV(p2, dev).build_decrypt(
         she.SK(p2, sk.s_ints, sk.var), f=bb.step_f())(*out), pt_muls(m1, m2, params))
     cm, dm = enc_msd(m1, nk()), enc_msd(m2, nk())
     out = run_mesh("step msd n16384", bb.build_step(hint, "msd", rd_mesh), shard(*cm, *dm),
-                   step_msd(*cm, *dm), {n: sf}, {n: si}, nrns)
+                   step_msd(*cm, *dm), {n: sf}, {n: si}, nrns, (nrns,))
     decrypts_to("mesh step msd", dec_msd(*out), pt_muls(m1, m2, params))
     del cm, dm
     for e in ("lsd", "msd"):
@@ -1931,7 +2006,7 @@ def main() -> int:
                     bb8.build_decrypt(sk8_new, encoding=e)(*out), a8.cpu())
     out = run_mesh("key_switch_linear", bb8.build_key_switch_linear(lin_hint, rd_mesh),
                    shard(*c8["lsd"][0]), ksl(*c8["lsd"][0]), {n8: nrns * (nrns - 1)},
-                   {n8: nrns})
+                   {n8: nrns}, ks=(nrns,))
     decrypts_to("mesh key_switch_linear", bb8.build_decrypt(sk8_new)(*out), a8.cpu())
     outs_mesh = run_mesh("galois_many", bb.build_galois_many(ghints, rd_mesh), shard(*ct_gal),
                          gal_many(*ct_gal), {n: rot_fwd}, {n: rot_inv})
@@ -1950,12 +2025,11 @@ def main() -> int:
     for e in ("lsd", "msd"):
         out = run_mesh(f"step {e} m=18432", bb_g.build_step(hint_g, e, rd_mesh),
                        shard(*ct_g[e][0], *ct_g[e][1]), step_g[e](*ct_g[e][0], *ct_g[e][1]),
-                       {n2_g: sf}, {n2_g: si}, nrns)
+                       {n2_g: sf}, {n2_g: si}, nrns, (nrns,))
         decrypts_to(f"mesh step {e} m=18432", bb_gd.build_decrypt(
             sk_gd, f=bb_g.step_f(1, 1, e), encoding=e)(*out), pt_muls(a_g, b_g, params_g))
-    fw, iv, cm_ = pt_round_calls(L_pr, n)
     out = run_mesh("pt_round", serving.build_pt_round(bb_pr, rh, mesh=rd_mesh)[0], shard(*ct_pr),
-                   y_pr, fw, iv, cm_)
+                   y_pr, *pt_round_calls(L_pr, n))
     got = bb_pr_out.build_decrypt(she.SK(bb_pr_out.params, sk_pr.s_ints, sk_pr.var), f=f_pr)(*out)
     if not torch.equal(got[0, :8].long(), (2 * vals[:8].long() * 2 + pr_p) // (2 * pr_p) % 2):
         raise AssertionError(f"mesh pt_round: decrypt {got[0, :8].tolist()}")
@@ -2379,7 +2453,7 @@ def main() -> int:
     cols8 = [t_[..., first8].contiguous() for t_ in (c0, c1, d0, d1)]
     out = run_3i("step (reloaded hint)", lambda: bb.build_step(loaded["step_hint"])(*cols8),
                  {"ntt_fwd": step_calls["ntt_fwd"] * passes(n),
-                  "ntt_inv": step_calls["ntt_inv"] * passes(n), "ct_mul": nrns})
+                  "ntt_inv": step_calls["ntt_inv"] * passes(n), "ct_mul": nrns, "ks_inner": 1})
     if not all(torch.equal(a_, b_[..., first8]) for a_, b_ in zip(out, (e0, e1))):
         raise AssertionError("phase 3i: the step on the reloaded hint != the original's")
     cx = [t_[..., first8].contiguous() for t_ in (*c8["lsd"][0], *c8["lsd"][1])]
@@ -2662,6 +2736,23 @@ def main() -> int:
     for a, b in zip(pw.ct_mul_cm(*ops, q0), pw.ct_mul_cm_ref(*ops, q0)):
         err["ct_mul"] = max(err["ct_mul"], max_err(a, b))
     checks += 2
+    # the key switch's inner products at the step's width (nrns digits over
+    # (nrns, n, B)) and at m = 18432's n = 6144: the kernel == its plain
+    # version == the int64 torch chain and casts it replaced (`int64_chain`)
+    ks_in = {}
+    for n_k in (n, 6144):
+        qk = params.qs
+        kv = torch.tensor(qk, device=dev).view(-1, 1, 1)
+        ke0, ke1, *kds = ((torch.randint(0, 1 << 62, (nrns, n_k, B), generator=g, device=dev)
+                           % kv).to(torch.int32) for _ in range(2 + nrns))
+        kh = [torch.randint(0, 1 << 62, (nrns, nrns, n_k), generator=g, device=dev)
+              % kv.view(1, -1, 1) for _ in range(2)]
+        ks_in[n_k] = (ke0, ke1, kds, pw.ks_hint(*kh, qk), qk), (kh, kv)
+        args = ks_in[n_k][0]
+        got = pw.ks_inner_cm(*args)
+        for want in (pw.ks_inner_cm_ref(*args), int64_chain(*args[:3], *kh, kv)):
+            err["ks_inner"] = max(err["ks_inner"], *(max_err(a, b) for a, b in zip(got, want)))
+            checks += 1
     if any(err.values()):
         raise AssertionError(f"kernel != plain on the timed inputs: max abs err {err}")
     mark(f"phase 4: {checks} kernel-vs-plain checks on the step channel bit-exact")
@@ -2729,7 +2820,19 @@ def main() -> int:
         timings[f"{name}_ms"], _ = time_ms(fn, 20, device_only=True)
     for name, fn in plain.items():
         timings[f"{name}_plain_ms"], _ = time_ms(fn, 3)
-    del x4, x65
+    # the inner products on the device alone, each shape's kernel and the
+    # int64 chain in turns (kernel, chain, chain, kernel)
+    for n_k, (args, (kh, kv)) in ks_in.items():
+        runs = {"ks_inner": [], "chain": []}
+        for arm in ("ks_inner", "chain", "chain", "ks_inner"):
+            fn = (lambda: pw.ks_inner_cm(*args)) if arm == "ks_inner" else (
+                lambda: int64_chain(*args[:3], *kh, kv))
+            runs[arm].append(time_ms(fn, 20 if arm == "ks_inner" else 3, device_only=True)[0])
+        sfx = "" if n_k == n else f"_n{n_k}"
+        timings[f"ks_inner_ms{sfx}"] = statistics.mean(runs["ks_inner"])
+        timings[f"ks_inner_plain_ms{sfx}"] = statistics.mean(runs["chain"])
+        timings[f"ks_inner_ms_runs{sfx}"] = runs
+    del x4, x65, ks_in
     # the u32 ceiling (the chain kernel's path; its input was checked in
     # phase 2) and a copy's bandwidth
     reset_counts()
@@ -2933,6 +3036,15 @@ def main() -> int:
 
     chain_bound_ms, chain_bound_by = roofline.bound(
         mx.GRID * mx.ROWS * mx.LANES * mx.ITERS, 8 * mx.GRID * mx.ROWS * mx.LANES)
+    ks_bound = {n_k: roofline.bound(*roofline.ks_inner_work(nrns, nrns, n_k, B))
+                for n_k in (n, 6144)}
+    print(f"ks_inner at ({nrns}, {n}, {B}), {nrns} digits: {timings['ks_inner_ms']:.4f} ms on the "
+          f"device ({100 * ks_bound[n][0] / timings['ks_inner_ms']:.1f}% of its "
+          f"{ks_bound[n][0]:.4f} ms bound, {ks_bound[n][1]}); the int64 chain and "
+          f"casts {timings['ks_inner_plain_ms']:.4f}; n = 6144: "
+          f"{timings['ks_inner_ms_n6144']:.4f} "
+          f"({100 * ks_bound[6144][0] / timings['ks_inner_ms_n6144']:.1f}%), "
+          f"chain {timings['ks_inner_plain_ms_n6144']:.4f} on {card}", flush=True)
     ntt_src = "lol_tpu_torch/csrc/ntt.cu"
     ring_src = "lol_tpu_torch/csrc/remote_ntt.cu"
     ring_path = "ring-sharded NTT (ntt_/intt_ring_sharded_cm), D=4 shards on one card"
@@ -3084,6 +3196,28 @@ def main() -> int:
          "bound_by": k3_bound_by, "library_ms": k3["library_ms"], "int64_route_ms": k3["int64_ms"],
          "mxu_ntt_ms": k3["mxu_ntt_ms"], "ntt_cm_ms": k3["ntt_cm_ms"],
          "stage_a_ms": k3["stage_a_ms"], "stage_b_ms": k3["stage_b_ms"]},
+        # no pallas_call: the reference's inner products are XLA u32 code;
+        # no torch call computes a product mod q.  plain_ms: the
+        # int64 chain and its casts back to int32 on the same inputs
+        {"name": "ks_inner", "route": "cuda", "source": "lol_tpu_torch/csrc/keyswitch.cu",
+         "replaces": "lol_tpu/she_batched.py:782-783 (XLA's u32 chain of _addmod_ch and "
+                     "_mulmod_sh_ch; no pallas_call)",
+         "path": "the key switch's hint inner products (KeySwitchLinear.inner_product)",
+         "launches": launches["ks_inner"], "max_abs_err": err["ks_inner"],
+         "launches_builders": path_launches["3c"]["ks_inner"],
+         "launches_serving": path_launches["3e"]["ks_inner"],
+         "launches_ext": path_launches["3e_ext"]["ks_inner"],
+         "launches_general": path_launches["3f"]["ks_inner"],
+         "launches_galois": path_launches["3f_galois"]["ks_inner"],
+         "launches_mesh": path_launches["3g"]["ks_inner"],
+         "launches_3i": path_launches["3i"]["ks_inner"],
+         "launches_3m": launches_3m("ks_inner"),
+         "shape": f"({nrns}, {n}, {B}), {nrns} digits",
+         "ms": timings["ks_inner_ms"], "plain_ms": timings["ks_inner_plain_ms"],
+         "bound_ms": ks_bound[n][0], "bound_by": ks_bound[n][1], "library_ms": None,
+         "ms_n6144": timings["ks_inner_ms_n6144"],
+         "plain_ms_n6144": timings["ks_inner_plain_ms_n6144"],
+         "bound_ms_n6144": ks_bound[6144][0]},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

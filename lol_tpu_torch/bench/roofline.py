@@ -52,6 +52,11 @@ pass schedule, and `work` is the one place that states them:
   does 2 a b N G nl^2 int8 tensor-core operations (a multiply and an add
   each, over the real b), and reads X and M and writes Y once:
   4 G N (a + b) + 4 a b bytes (M shared; G of them when stacked).
+- the key switch's hint inner products (`ops/cuda/pointwise.ks_inner_cm`,
+  `ks_inner_work`) over nd digits and k (n, B) channels: per word two
+  modmuls and two modadds a digit, and e0, e1 and the nd digit stacks
+  read and e0, e1 written once, 4 (4 + nd) k n B bytes (the hint, read
+  once a row, not counted: 16 nd k n bytes, under 0.2% at B = 1024).
 
 `bound` turns a count into the least time the H100 could take: the
 larger of the bytes over the data sheet's 3.35 TB/s and the u32 ops
@@ -162,6 +167,13 @@ def modmat_work(G: int, a: int, b: int, N: int, q: int, shared: bool = True) -> 
     Y (G, a, N) = M @ X (G, b, N) mod q, M shared or one per g."""
     nl = ((q - 1).bit_length() + 7) // 8
     return 2 * a * b * N * G * nl * nl, 4 * G * N * (a + b) + 4 * a * b * (1 if shared else G)
+
+
+def ks_inner_work(nd: int, k: int, n: int, B: int) -> tuple[int, int]:
+    """(u32 ops, least bytes moved) of one key switch's inner products:
+    nd digits over k (n, B) channels."""
+    words = k * n * B
+    return 2 * nd * (9 + 2) * words, 4 * (4 + nd) * words
 
 
 @contextlib.contextmanager

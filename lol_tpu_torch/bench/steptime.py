@@ -6,8 +6,8 @@ nrns = 3, B = 1024 by default), with the reference's legs:
   intt      the key switch's per-channel inverse stack (nrns GS inverses)
   digits    the RNS-digit forward transforms with the re-expansion
             prologue (nrns digits x (nrns - 1) forward NTTs)
-  hadamard  ct_mul (nrns `ct_mul_cm` launches) and the 2*nrns^2 hint
-            inner-product multiply-accumulates (plain int64 torch)
+  hadamard  ct_mul (nrns `ct_mul_cm` launches) and the hint inner
+            products of every digit (one `ks_inner_cm` call)
   rescale   the exact CRT-domain drop-last rescale of both components
   step      the whole step
 
@@ -78,11 +78,9 @@ def build_legs(step: BGVStep, c0, c1, d0, d1) -> dict:
 
     def hadamard():
         e0, e1, _ = step.ct_mul(c0, c1, d0, d1)
-        for i, di in enumerate(ds):
-            e0, e1 = step.inner_product(e0, e1, di, i)
-        return e0, e1
+        return step.inner_product(e0, e1, ds)
 
-    he0, he1 = (e.to(torch.int32) for e in hadamard())
+    he0, he1 = hadamard()
     return {
         "intt": lambda: bb._ntt(c1, inverse=True),
         "digits": lambda: [bb._digit_crt(c1c[i], i, c1) for i in range(nrns)],

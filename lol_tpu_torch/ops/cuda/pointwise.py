@@ -1,4 +1,5 @@
-"""Fused elementwise ring ops: the degree-2 ciphertext product of one channel.
+"""Fused elementwise ring ops: the degree-2 ciphertext product of one
+channel, and the key switch's hint inner products.
 
 Counterpart of `lol_tpu/ops/pallas/pointwise.py`.  `ct_mul_cm` keeps the
 reference's signature and arithmetic; the reference's `128 | B`, `8 | n`
@@ -12,23 +13,39 @@ or launch error.  For CPU tensors, and only then, it runs the plain int64
 torch version `ct_mul_cm_ref`.  Unlike the JAX step, the port's BGV step
 calls it: eager PyTorch overlaps nothing, so the fused kernel replaces
 the int64 glue that the plain Hadamards were (see PERF.md).
+
+`ks_inner_cm` is the RNS-gadget key switch's inner products of every
+digit with a constant hint (`ks_hint`: the hint and its Shoup
+companions), which the reference leaves to XLA (`she_batched.py`'s
+`_mulmod_sh_ch` chain); on the card one launch of `csrc/keyswitch.cu`
+per `KS_MAX_DIGITS` digits, on the CPU its plain int64 version
+`ks_inner_cm_ref`.  It tags the innermost open `trace` span with the
+route that ran ("ks_inner" or "int64").
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ... import zq
+from ... import trace, zq
 from . import build
 
 # One per kernel launch.  Reset by callers that check which kernels a path ran.
-LAUNCHES = {"ct_mul": 0}
+LAUNCHES = {"ct_mul": 0, "ks_inner": 0}
+KS_MAX_DIGITS = 8  # digits one ks_inner launch takes (csrc/keyswitch.cu)
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint32,
                              ctypes.c_int, ctypes.c_void_p]
+)
+
+
+_KS_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 
@@ -37,6 +54,8 @@ def _lib() -> ctypes.CDLL:
     if lib.lol_ct_mul.argtypes is None:
         lib.lol_ct_mul.argtypes = _ARGTYPES
         lib.lol_ct_mul.restype = ctypes.c_int
+        lib.lol_ks_inner.argtypes = _KS_ARGTYPES
+        lib.lol_ks_inner.restype = ctypes.c_int
     return lib
 
 
@@ -94,3 +113,109 @@ def ct_mul_cm(c0, c1, d0, d1, q: int, out=None):
     build.check(err, f"ct_mul (shape {tuple(c0.shape)}, q={q})")
     LAUNCHES["ct_mul"] += 1
     return tuple(out)
+
+
+# --- the key switch's hint inner products ---------------------------------
+
+
+def _signed32(x: torch.Tensor) -> torch.Tensor:
+    """int64 u32 words -> the int32 tensor of the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def ks_hint(h0: torch.Tensor, h1: torch.Tensor, qs) -> torch.Tensor:
+    """The key switch's constant hint as `ks_inner_cm` takes it: a
+    (4, nrns, k, n) int32 tensor of the planes h0, floor(h0 2^32 / q_j),
+    h1, floor(h1 2^32 / q_j) (u32 words, the Shoup companions), from the
+    (nrns, k, n) residues h0 and h1 of k channels with the moduli qs, on
+    their device."""
+    if h0.shape != h1.shape or h0.dim() != 3 or h0.shape[1] != len(qs):
+        raise ValueError(f"ks_hint: need two (nrns, k, n) hints over k = {len(qs)} "
+                         f"channels, got {tuple(h0.shape)} and {tuple(h1.shape)}")
+    qv = torch.tensor(list(qs), dtype=torch.int64, device=h0.device).view(1, -1, 1)
+    h0, h1 = h0.long(), h1.long()
+    return torch.stack([_signed32(p) for p in (h0, (h0 << 32) // qv, h1, (h1 << 32) // qv)])
+
+
+def ks_inner_cm_ref(e0, e1, digits, hint, qs):
+    """Plain torch version of `ks_inner_cm` (int64 products), int32 out:
+    for each digit i in turn, e = (e + d_i h[i]) mod q."""
+    qv = torch.tensor(list(qs), dtype=torch.int64, device=e0.device).view(-1, 1, 1)
+    a0, a1 = e0.long(), 0 if e1 is None else e1.long()
+    for i, d in enumerate(digits):
+        d = d.long()
+        a0 = (a0 + d * hint[0, i, ..., None].long()) % qv
+        a1 = (a1 + d * hint[2, i, ..., None].long()) % qv
+    return a0.to(torch.int32), a1.to(torch.int32)
+
+
+def _check_ks_args(e0, e1, digits, hint, qs):
+    if e0.dim() != 3:
+        raise ValueError(f"ks_inner_cm: e0 must be a (k, n, B) stack, got {tuple(e0.shape)}")
+    if len(digits) < 1:
+        raise ValueError("ks_inner_cm: no digit stacks")
+    for t in (e0, *(() if e1 is None else (e1,)), *digits):
+        if t.dtype != torch.int32 or t.shape != e0.shape or t.device != e0.device:
+            raise ValueError(
+                f"ks_inner_cm: need int32 stacks of one shape on one device, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device} beside "
+                f"{e0.dtype} {tuple(e0.shape)} on {e0.device}")
+    k, n, _ = e0.shape
+    want = (4, len(digits), k, n)
+    if hint.dtype != torch.int32 or tuple(hint.shape) != want or hint.device != e0.device:
+        raise ValueError(f"ks_inner_cm: need an int32 hint of shape {want} on {e0.device} "
+                         f"(ks_hint), got {hint.dtype} {tuple(hint.shape)} on {hint.device}")
+    if len(qs) != k:
+        raise ValueError(f"ks_inner_cm: {len(qs)} moduli for {k} channels")
+    if e0.numel() < 1:
+        raise ValueError("ks_inner_cm: empty operands")
+    for q in qs:
+        if not (2 <= q < (1 << zq.MAX_MODULUS_BITS)):
+            raise ValueError(f"ks_inner_cm: modulus {q} out of range [2, 2^30)")
+
+
+@functools.lru_cache(maxsize=None)
+def _moduli(qs: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The moduli as a (k,) int32 tensor on device, made once."""
+    return torch.tensor(qs, dtype=torch.int32, device=device)
+
+
+def ks_inner_cm(e0, e1, digits, hint, qs):
+    """The key switch's hint inner products over k channels:
+    (e0 + sum_i d_i h0[i], e1 + sum_i d_i h1[i]) mod q_j, for int32 (k, n, B)
+    stacks e0, e1 and digits d_i with residues in [0, q_j) and the hint of
+    `ks_hint` (4, len(digits), k, n).  e1 None stands for zeros.  Returns
+    two new int32 stacks; the inputs are not written.  On the card one
+    launch of `csrc/keyswitch.cu` per KS_MAX_DIGITS digits (later ones
+    accumulate through the outputs), over contiguous copies of strided
+    inputs."""
+    qs = tuple(int(q) for q in qs)
+    digits = tuple(digits)
+    _check_ks_args(e0, e1, digits, hint, qs)
+    if e0.device.type == "cpu":
+        trace.tag("int64")
+        return ks_inner_cm_ref(e0, e1, digits, hint, qs)
+    if e0.device.type != "cuda":
+        raise ValueError(f"ks_inner_cm: unsupported device {e0.device}")
+    e0, hint = e0.contiguous(), hint.contiguous()  # copies only where a view is strided
+    e1 = None if e1 is None else e1.contiguous()
+    digits = tuple(d.contiguous() for d in digits)
+    trace.tag("ks_inner")
+    k, n, B = e0.shape
+    o0, o1 = torch.empty_like(e0), torch.empty_like(e0)
+    plane, words = hint[0].numel(), k * n
+    with torch.cuda.device(e0.device):
+        lib, stream = _lib(), torch.cuda.current_stream(e0.device).cuda_stream
+        q_ptr = _moduli(qs, e0.device).data_ptr()
+        a0, a1 = e0.data_ptr(), None if e1 is None else e1.data_ptr()
+        for lo in range(0, len(digits), KS_MAX_DIGITS):
+            chunk = digits[lo:lo + KS_MAX_DIGITS]
+            ptrs = (ctypes.c_void_p * len(chunk))(*(d.data_ptr() for d in chunk))
+            err = lib.lol_ks_inner(a0, a1, ptrs, len(chunk),
+                                   hint.data_ptr() + 4 * lo * words, plane, q_ptr,
+                                   o0.data_ptr(), o1.data_ptr(), k, n, B, stream)
+            build.check(err, f"ks_inner (shape {tuple(e0.shape)}, digits {lo}.."
+                             f"{lo + len(chunk) - 1} of {len(digits)})")
+            LAUNCHES["ks_inner"] += 1
+            a0, a1 = o0.data_ptr(), o1.data_ptr()
+    return o0, o1

@@ -55,14 +55,16 @@ SEED = 20261017
 
 
 def step_launches(L: int, n: int) -> dict[str, int]:
-    """Launches of one unsharded BGV step at L primes over n (`cm_schedule`
-    passes per transform): L (L - 1) + 2 (L - 1) forwards, L + 2 GS
-    inverses, L ct_mul."""
+    """Launches of one BGV step at L primes over one data column of the
+    mesh (`cm_schedule` passes per transform): L (L - 1) + 2 (L - 1)
+    forwards, L + 2 GS inverses, L ct_mul, and L `ks_inner`: the mesh's
+    rns axis has one row a prime, and each block makes one inner-product
+    launch."""
     from ..ops.cuda import ntt_kernel as tk
 
     passes = len(tk.cm_schedule(n))
     return {"ntt_fwd": (L * (L - 1) + 2 * (L - 1)) * passes, "ntt_inv": (L + 2) * passes,
-            "ct_mul": L}
+            "ct_mul": L, "ks_inner": L}
 
 
 def ext_step_launches(Lb: int, nsp: int, n: int) -> dict[str, int]:

@@ -19,12 +19,14 @@ digit's re-expansion fused into the forward NTT kernel as its
 prologue), and on the CPU their plain torch versions.  The JAX step
 leaves the Hadamards to XLA, which overlaps them with its NTT calls
 (`she_batched.py:828-837` there); eager PyTorch overlaps nothing, so
-the port fuses them.  The hint inner products, the rescale and the
-arithmetic of every other `build_*` function are plain int64 torch
-elementwise ops.  While torch's profiler records, the step's layers are
-spans of `trace` (`bgv.step`, `bgv.ct_mul`, `bgv.ks.intt`,
-`bgv.ks.digits`, `bgv.ks.inner`, `bgv.rescale`), and the inner products
-and the rescale count the bytes they take and give (`glue_io_bytes`).
+the port fuses them.  The key switch's hint inner products go through
+`ops.cuda.pointwise.ks_inner_cm`, one launch for all its digits on the
+card.  The rescale and the arithmetic of every other `build_*` function
+are plain int64 torch elementwise ops.  While torch's profiler records,
+the step's layers are spans of `trace` (`bgv.step`, `bgv.ct_mul`,
+`bgv.ks.intt`, `bgv.ks.digits`, `bgv.ks.inner`, `bgv.rescale`), and the
+inner products and the rescale count the bytes they take and give
+(`glue_io_bytes`).
 
 Both encodings: "lsd" keeps c(s) = f*m + p*e, "msd" c(s) = Delta*m + e
 with Delta = Q // p (encrypt, the exact scaled-rounding decrypt through
@@ -79,7 +81,7 @@ from .linear import Linear
 from .ops import general as gen
 from .ops import ntt as ntt_mod
 from .ops.cuda.ntt_kernel import ntt_cm
-from .ops.cuda.pointwise import ct_mul_cm
+from .ops.cuda.pointwise import ct_mul_cm, ks_hint, ks_inner_cm
 from .parallel import sharding as sh
 from .ring import RingContext
 from . import she
@@ -1007,12 +1009,13 @@ class Sharded(nn.Module):
 
 class KeySwitchLinear(nn.Module):
     """The RNS-gadget key switch with a hint (`build_key_switch_linear`):
-    the hint and the per-channel moduli of the pipeline's channels are
-    buffers, so `.to(device)` moves it.  Its digit path, which the step
-    and the rotations share: an inverse NTT per channel, then `digits`
-    (on a mesh, on the gathered inverse): each digit's re-expansion as
-    the prologue of its forward NTTs, the free diagonal, and the hint
-    inner products."""
+    the hint of the pipeline's channels (`hint_sh`: h0 and h1 with their
+    Shoup companions, `ks_hint`'s planes) and their moduli are buffers,
+    so `.to(device)` moves it.  Its digit path, which the step and the
+    rotations share: an inverse NTT per channel, then `digits` (on a
+    mesh, on the gathered inverse): each digit's re-expansion as the
+    prologue of its forward NTTs, the free diagonal, and the hint inner
+    products of all digits in one call."""
 
     def __init__(self, bb: BatchedBGV, hint: KSHint):
         super().__init__()
@@ -1024,42 +1027,41 @@ class KeySwitchLinear(nn.Module):
         self.bb = bb
         lo, hi = bb.chans.start, bb.chans.stop
         self.register_buffer("qv", bb._consts(lambda q: q))
-        self.register_buffer("h0", hint.h0[:, lo:hi].to(bb.device, torch.int64)[..., None])
-        self.register_buffer("h1", hint.h1[:, lo:hi].to(bb.device, torch.int64)[..., None])
+        self.register_buffer("hint_sh", ks_hint(hint.h0[:, lo:hi].to(bb.device),
+                                                hint.h1[:, lo:hi].to(bb.device), bb.cqs))
 
     @torch.no_grad()
-    def inner_product(self, e0, e1, di, i):
-        """(e0 + di h0[i], e1 + di h1[i]) mod q for digit i's CRT stack
-        di: the key switch's hint inner products, int64 out."""
+    def inner_product(self, e0, e1, ds):
+        """(e0 + sum_i ds[i] h0[i], e1 + sum_i ds[i] h1[i]) mod q over the
+        digits' CRT stacks ds, e1 None for zeros: the key switch's hint
+        inner products (`ks_inner_cm`), int32 out."""
         with trace.span("bgv.ks.inner"):
-            trace.count("glue_io_bytes", e0, e1, di)
-            d = di.long()
-            out = (e0 + d * self.h0[i]) % self.qv, (e1 + d * self.h1[i]) % self.qv
+            trace.count("glue_io_bytes", e0, *(() if e1 is None else (e1,)), *ds)
+            out = ks_inner_cm(e0, e1, ds, self.hint_sh, self.bb.cqs)
             trace.count("glue_io_bytes", *out)
             return out
 
     @torch.no_grad()
     def digits(self, e0, e1, xc, x):
-        """(e0, e1) plus the inner products of x's digits with the hint:
-        xc is iNTT(x) over every channel of the chain (on a mesh, the
-        gathered stack), x the pipeline's channels of the CRT stack; int64
-        out."""
+        """(e0, e1) plus the inner products of x's digits with the hint,
+        e1 None for zeros: xc is iNTT(x) over every channel of the chain
+        (on a mesh, the gathered stack), x the pipeline's channels of the
+        CRT stack.  Every digit's stack first, then one `inner_product`;
+        int32 out."""
+        ds = []
         for i in range(len(self.bb.qs)):
             with trace.span("bgv.ks.digits"):
-                di = self.bb._digit_crt(xc[i], i, x)
-            e0, e1 = self.inner_product(e0, e1, di, i)
-        return e0, e1
+                ds.append(self.bb._digit_crt(xc[i], i, x))
+        return self.inner_product(e0, e1, ds)
 
     @torch.no_grad()
     def forward(self, c0, c1):
-        return _i32(*self.digits(c0.long(), torch.zeros_like(c1, dtype=torch.int64),
-                                 self.bb._ntt(c1, inverse=True), c1))
+        return self.digits(c0, None, self.bb._ntt(c1, inverse=True), c1)
 
     @staticmethod
     def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1):
         xc = blocks.gather(blocks.map(lambda k, c: k.bb._ntt(c, inverse=True), parts, c1))
-        return blocks.map(lambda k, a, b, f: _i32(*k.digits(
-            a.long(), torch.zeros_like(b, dtype=torch.int64), f, b)), parts, c0, c1, xc)
+        return blocks.map(lambda k, a, b, f: k.digits(a, None, f, b), parts, c0, c1, xc)
 
 
 class BGVStep(KeySwitchLinear):
@@ -1093,13 +1095,12 @@ class BGVStep(KeySwitchLinear):
             bb = self.bb
             e0, e1, e2, xc = self.front(c0, c1, d0, d1)
             e0, e1 = self.digits(e0, e1, xc, e2)  # key switch e2
-            return (bb._rescale_crt(e0.to(torch.int32), self.encoding),
-                    bb._rescale_crt(e1.to(torch.int32), self.encoding))
+            return bb._rescale_crt(e0, self.encoding), bb._rescale_crt(e1, self.encoding)
 
     @staticmethod
     def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1, d0, d1):
         e0, e1, e2, xc = blocks.map(lambda k, *a: k.front(*a), parts, c0, c1, d0, d1)
-        e0, e1 = blocks.map(lambda k, a, b, f, x: _i32(*k.digits(a, b, f, x)),
+        e0, e1 = blocks.map(lambda k, a, b, f, x: k.digits(a, b, f, x),
                             parts, e0, e1, blocks.gather(xc), e2)
         views, enc = blocks.map(lambda k: k.bb, parts), parts[0, 0].encoding
         return blocks.rescale(views, e0, enc), blocks.rescale(views, e1, enc)

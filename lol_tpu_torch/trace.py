@@ -28,7 +28,8 @@ loose to tell which span a launch belongs to.)
 The program's spans, by name (per BGV step at nrns channels):
 `bgv.step` (`BGVStep.forward`, 1), `bgv.ct_mul` (1), `bgv.ks.intt` (the
 inverse of e2, 1), `bgv.ks.digits` (each digit's forward transforms,
-nrns), `bgv.ks.inner` (the hint inner products, nrns), `bgv.rescale`
+nrns), `bgv.ks.inner` (the hint inner products of every digit, 1, tagged
+with its route, "ks_inner" or "int64"), `bgv.rescale`
 (`BatchedBGV._rescale_crt`, 2), and `crt.odd` (each odd axis of a
 general-m `ops.general.crt_cm`, tagged with its route, "int64" or
 "modmat_s8").  The one counter, `glue_io_bytes`, is added in

@@ -73,6 +73,21 @@ def test_roofline_work_counts(n, B):
     assert roofline.work("ct_mul", 16384, 1024)[1] == 448 * 2 ** 20
 
 
+@pytest.mark.parametrize("nd,k,n", [(3, 3, 16384), (3, 3, 6144), (7, 2, 512)])
+def test_roofline_ks_inner_work(nd, k, n):
+    """The inner products: e0, e1 and nd digits in, e0 and e1 out, 4 B a
+    word each; two modmuls and two modadds a word and digit.  At the
+    step's width (3 digits, (3, 16384, 1024)) 28 B a word, 1,409,286,144 B,
+    which bytes bound."""
+    B = 1024
+    ops, nbytes = roofline.ks_inner_work(nd, k, n, B)
+    assert (ops, nbytes) == (22 * nd * k * n * B, 4 * (4 + nd) * k * n * B)
+    ms, by = roofline.bound(ops, nbytes)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    if (nd, k, n) == (3, 3, 16384):
+        assert nbytes == 1_409_286_144 and round(ms, 3) == 0.421
+
+
 @pytest.mark.parametrize("D", [2, 4, 8])
 def test_roofline_ring_work_and_bound(D):
     n, B = 16384, 1024
@@ -313,9 +328,11 @@ def test_steptime_legs_on_cpu_and_step_leg_equals_the_step():
     c0, c1, d0, d1 = (t.long() for t in cts)
     e0, e1 = c0 * d0 % qv, (c0 * d1 + c1 * d0) % qv
     for i, di in enumerate(out["digits"]):
-        e0 = (e0 + di.long() * step.h0[i]) % qv
-        e1 = (e1 + di.long() * step.h1[i]) % qv
-    assert torch.equal(out["hadamard"][0], e0) and torch.equal(out["hadamard"][1], e1)
+        e0 = (e0 + di.long() * step.hint_sh[0, i, ..., None].long()) % qv
+        e1 = (e1 + di.long() * step.hint_sh[2, i, ..., None].long()) % qv
+    assert all(h.dtype == torch.int32 for h in out["hadamard"])
+    assert torch.equal(out["hadamard"][0].long(), e0)
+    assert torch.equal(out["hadamard"][1].long(), e1)
 
 
 def test_steptime_summary():

@@ -145,6 +145,51 @@ def test_ct_mul_matches_plain(cuda, shape):
         assert torch.equal(a, b)
 
 
+KS_SHAPES = {  # name -> (digits, k, n, B, e1 given, offset of every operand in words)
+    "m32768": (3, 3, 16384, 1024, True, 0),
+    "n6144": (3, 3, 6144, 1024, True, 0),
+    "ragged_B": (3, 3, 256, 1000, True, 0),
+    "misaligned": (3, 3, 256, 1024, True, 1),  # 4 bytes off: the scalar kernel
+    "nrns7": (7, 7, 512, 256, True, 0),
+    "past_the_limit": (pw.KS_MAX_DIGITS + 1, 2, 256, 64, True, 0),
+    "two_chunks_and_a_tail": (2 * pw.KS_MAX_DIGITS + 1, 1, 64, 36, False, 0),
+    "channel_subset": (3, 2, 1024, 512, False, 0),  # a mesh block's two channels
+}
+
+
+@pytest.mark.parametrize("name", sorted(KS_SHAPES))
+def test_ks_inner_matches_plain(cuda, name):
+    nd, k, n, B, with_e1, off = KS_SHAPES[name]
+    qs = tuple(nt.ntt_primes(2 ** 15, 30, max(nd, k)))[-k:]
+    g = torch.Generator(device=cuda).manual_seed(nd * 1000 + n + B)
+    qv = torch.tensor(qs, device=cuda).view(-1, 1, 1)
+
+    def res():  # (k, n, B) residues, q - 1 and 0 planted, `off` words into storage
+        x = torch.randint(0, 1 << 62, (k, n, B), generator=g, device=cuda) % qv
+        x[:, :, 0], x[:, 0, :] = qv[..., 0] - 1, 0
+        flat = torch.empty(x.numel() + off, dtype=torch.int32, device=cuda)
+        out = flat[off:].view(k, n, B)
+        out.copy_(x)
+        return out
+
+    e0, e1, ds = res(), res() if with_e1 else None, [res() for _ in range(nd)]
+    hq = qv.view(1, -1, 1)
+    h0, h1 = (torch.randint(0, 1 << 62, (nd, k, n), generator=g, device=cuda) % hq
+              for _ in range(2))
+    h0[..., 0], h1[..., 1] = (hq - 1)[..., 0], (hq - 1)[..., 0]
+    hint = pw.ks_hint(h0, h1, qs)
+    keep = [t.clone() for t in (e0, *ds)]
+    before = pw.LAUNCHES["ks_inner"]
+    got = pw.ks_inner_cm(e0, e1, ds, hint, qs)
+    torch.cuda.synchronize()
+    assert pw.LAUNCHES["ks_inner"] - before == -(-nd // pw.KS_MAX_DIGITS)
+    assert all(torch.equal(a, b) for a, b in zip(keep, (e0, *ds)))  # inputs untouched
+    want = pw.ks_inner_cm_ref(e0.cpu(), None if e1 is None else e1.cpu(),
+                              [d.cpu() for d in ds], hint.cpu(), qs)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("shape,iters", [((1,), 0), ((33, 7), 5), ((512, 512), 64),
                                          ((mx.GRID * mx.ROWS, mx.LANES), mx.ITERS)])
 def test_chain_matches_plain(cuda, shape, iters):
@@ -246,9 +291,10 @@ def test_step_on_card_equals_step_on_cpu(cuda):
     enc = bb.build_encrypt(sk)
     cts = (*enc(she.pt_random(params, rng, (40,), cuda), g()),
            *enc(she.pt_random(params, rng, (40,), cuda), g()))
-    before = pw.LAUNCHES["ct_mul"]
+    before = dict(pw.LAUNCHES)
     e_gpu = bb.build_step(hint)(*cts)
-    assert pw.LAUNCHES["ct_mul"] - before == len(params.qs)
+    assert pw.LAUNCHES["ct_mul"] - before["ct_mul"] == len(params.qs)
+    assert pw.LAUNCHES["ks_inner"] - before["ks_inner"] == 1  # every digit in one launch
     e_cpu = BatchedBGV(params, "cpu").build_step(hint)(*(c.cpu() for c in cts))
     for a, b in zip(e_gpu, e_cpu):
         assert torch.equal(a.cpu(), b)
@@ -538,6 +584,7 @@ def test_general_m_step_and_tunnel_on_card_equal_cpu(cuda, encoding):
     before = dict(tk.LAUNCHES, **pw.LAUNCHES)
     out = bb.build_step(hint, encoding)(*a, *b)
     assert pw.LAUNCHES["ct_mul"] - before["ct_mul"] == 3
+    assert pw.LAUNCHES["ks_inner"] - before["ks_inner"] == 1
     assert tk.LAUNCHES["ntt_inv"] - before["ntt_inv"] == 5
     _same(out, bb_cpu.build_step(hint, encoding)(*(c.cpu() for c in (*a, *b))))
     f = linear.linear_pow(ps.ctx, params.ctx, ps.ctx,
@@ -629,7 +676,8 @@ def _same_any(a, b):
 def test_mesh_builders_on_card_equal_unsharded(cuda, builder):
     """Each mesh builder over make_mesh({"rns": 3, "data": 2}) at m = 256,
     three primes, B = 40: unsharded, the card's unsharded output, its
-    launches exactly twice the unsharded call's (one per data column)."""
+    launches exactly twice the unsharded call's (one per data column),
+    but the key switch's inner products, one launch a block (six)."""
     bb, hints, cts = _mesh_setup(cuda)
     mesh = sh.make_mesh({"rns": 3, "data": 2})
     make, k = _mesh_builders(bb, hints)[builder]
@@ -642,7 +690,7 @@ def test_mesh_builders_on_card_equal_unsharded(cuda, builder):
     before = dict(tk.LAUNCHES, **pw.LAUNCHES)
     got = make(mesh)(*blocks)
     mesh_launches = {key: v - before[key] for key, v in dict(tk.LAUNCHES, **pw.LAUNCHES).items()}
-    assert mesh_launches == {key: 2 * v for key, v in one.items()}
+    assert mesh_launches == {key: (6 if key == "ks_inner" else 2) * v for key, v in one.items()}
     _same_any(_unshard_all(got), want)
 
 

@@ -1,10 +1,14 @@
-"""The port's fused ct-mult (`ops/cuda/pointwise.py`) against the JAX package.
+"""The port's fused ct-mult and key-switch inner products
+(`ops/cuda/pointwise.py`) against the JAX package.
 
 On the CPU `ct_mul_cm` runs its plain int64 version; it must equal the
 Pallas `ct_mul_cm` in interpret mode (and the JAX `zq` channel math where
 the Pallas kernel's `128 | B` restriction excludes the shape), bit for
 bit, at the largest 30-bit primes with the extremal residues 0, 1 and
-q - 1 in every operand.
+q - 1 in every operand.  `ks_inner_cm`'s plain version must equal the
+step's former per-digit int64 chain, the reference's Shoup chain
+(`_addmod_ch(e, _mulmod_sh_ch(d_i, h_i, hs_i))`) and the kernel's own u32
+steps run plainly.
 """
 
 import jax.numpy as jnp
@@ -12,10 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from lol_tpu import she_batched as jsb
 from lol_tpu import zq as jzq
 from lol_tpu.ops.pallas import pointwise as jpw
 from lol_tpu_torch import prng
-from lol_tpu_torch import numtheory as nt, she
+from lol_tpu_torch import numtheory as nt, she, zq
 from lol_tpu_torch import she_batched
 from lol_tpu_torch.ops.cuda import pointwise as pw
 
@@ -111,3 +116,130 @@ def test_step_computes_its_ct_mult_through_ct_mul_cm(monkeypatch):
     want = (c0 * d0 % qv, (c0 * d1 + c1 * d0) % qv, c1 * d1 % qv)
     for e, w in zip(step.ct_mul(*cts), want):
         assert e.dtype == torch.int32 and torch.equal(e.long(), w)
+
+
+# --- the key switch's hint inner products (ks_inner_cm) ----------------------
+
+
+def _ks_operands(rng, qs, nrns, n, B, with_e1=True):
+    """(e0, e1, digits, h0, h1) over the channels qs: uniform residues with
+    0 and q - 1 planted in every operand and in both hints."""
+    def res(shape, plant):  # channels on axis -3
+        qv = torch.tensor(qs).view(-1, 1, 1)
+        x = torch.from_numpy(rng.integers(0, 1 << 40, shape)) % qv
+        x[..., plant % shape[-1]] = (qv - 1)[..., 0]
+        x[..., (plant + 1) % shape[-1]] = 0
+        return x
+
+    e0, e1 = res((len(qs), n, B), 0), res((len(qs), n, B), 1) if with_e1 else None
+    ds = [res((len(qs), n, B), i + 2) for i in range(nrns)]
+    hq = torch.tensor(qs).view(1, -1, 1)
+    h0, h1 = (torch.from_numpy(rng.integers(0, 1 << 40, (nrns, len(qs), n))) % hq
+              for _ in range(2))
+    h0[..., 0], h1[..., 1] = (hq - 1)[..., 0], (hq - 1)[..., 0]
+    h0[..., 1], h1[..., 0] = 0, 0
+    return (e0.to(torch.int32), None if e1 is None else e1.to(torch.int32),
+            [d.to(torch.int32) for d in ds], h0, h1)
+
+
+def _kernel_words(e0, e1, ds, hint, qs):
+    """csrc/keyswitch.cu's u32 steps, plainly: lazy Shoup products added
+    into accumulators kept in [0, 2q), then one subtraction of q."""
+    qv = torch.tensor(qs).view(-1, 1, 1)
+    a0, a1 = e0.long(), torch.zeros_like(e0, dtype=torch.int64) if e1 is None else e1.long()
+    u = hint.long() & 0xFFFFFFFF
+    for i, d in enumerate(ds):
+        for p, a in ((0, a0), (2, a1)):
+            w, wsh = u[p, i, ..., None], u[p + 1, i, ..., None]
+            r = zq.mul_shoup_lazy(d, w, wsh >> 16, wsh & 0xFFFF, qv)
+            assert bool((r < 2 * qv).all())
+            s = a + r
+            assert bool((s < 1 << 32).all())
+            a.copy_(torch.where(s >= 2 * qv, s - 2 * qv, s))
+    return tuple(torch.where(a >= qv, a - qv, a).to(torch.int32) for a in (a0, a1))
+
+
+KS_CASES = {  # name -> (nrns, channels of the chain, n, B, e1 given)
+    "nrns1": (1, slice(None), 8, 8, True),
+    "nrns3": (3, slice(None), 16, 12, True),
+    "nrns7": (7, slice(None), 8, 4, True),
+    "channel_subset": (3, slice(1, 3), 16, 8, True),  # a mesh block's channels
+    "ragged_B": (3, slice(None), 8, 5, True),
+    "no_e1": (3, slice(None), 8, 8, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KS_CASES))
+def test_ks_inner_ref_matches_the_chain_and_the_reference(case, rng):
+    nrns, chans, n, B, with_e1 = KS_CASES[case]
+    qs = tuple(nt.ntt_primes(2 ** 15, 30, nrns))[chans]
+    e0, e1, ds, h0, h1 = _ks_operands(rng, qs, nrns, n, B, with_e1)
+    hint = pw.ks_hint(h0, h1, qs)
+    keep = [t.clone() for t in (e0, *ds)]
+    got = pw.ks_inner_cm(e0, e1, ds, hint, qs)
+    assert all(torch.equal(a, b) for a, b in zip(keep, (e0, *ds)))  # inputs untouched
+    assert all(g.dtype == torch.int32 and g.shape == e0.shape for g in got)
+    assert all(g is not e0 for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, pw.ks_inner_cm_ref(e0, e1, ds, hint, qs)))
+    # the per-digit int64 chain the step ran before
+    qv = torch.tensor(qs).view(-1, 1, 1)
+    c0, c1 = e0.long(), torch.zeros_like(e0, dtype=torch.int64) if e1 is None else e1.long()
+    for i, d in enumerate(ds):
+        c0 = (c0 + d.long() * h0[i, ..., None]) % qv
+        c1 = (c1 + d.long() * h1[i, ..., None]) % qv
+    assert torch.equal(got[0].long(), c0) and torch.equal(got[1].long(), c1)
+    # the reference: _addmod_ch(e, _mulmod_sh_ch(d_i, h_i, hs_i)) over u32
+    j = lambda t: jnp.asarray(t.numpy().astype(np.uint32))  # noqa: E731
+    r0, r1 = j(e0), j(torch.zeros_like(e0) if e1 is None else e1)
+
+    def sh(h):  # the companions of one digit's (k, n) hint, as _hint_const_sh makes them
+        return [jnp.asarray(jzq.shoup_np(h.numpy()[k], q))[:, None] for k, q in enumerate(qs)]
+
+    for i, d in enumerate(ds):
+        r0 = jsb._addmod_ch(qs, r0, jsb._mulmod_sh_ch(qs, j(d), j(h0[i])[..., None], sh(h0[i])))
+        r1 = jsb._addmod_ch(qs, r1, jsb._mulmod_sh_ch(qs, j(d), j(h1[i])[..., None], sh(h1[i])))
+    for g, r in zip(got, (r0, r1)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r).astype(np.int32))
+    # the kernel's own u32 steps give the same words
+    assert all(torch.equal(a, b) for a, b in zip(got, _kernel_words(e0, e1, ds, hint, qs)))
+
+
+def test_ks_hint_is_the_hint_and_its_shoup_companions(rng):
+    qs = tuple(nt.ntt_primes(2 ** 15, 30, 3))
+    *_, h0, h1 = _ks_operands(rng, qs, 3, 8, 1)
+    hint = pw.ks_hint(h0, h1, qs)
+    assert hint.dtype == torch.int32 and hint.shape == (4, 3, 3, 8)
+    for p, h in ((0, h0), (2, h1)):
+        assert torch.equal(hint[p].long(), h)
+        for k, q in enumerate(qs):
+            want = jzq.shoup_np(h[:, k].numpy().astype(np.uint32), q)
+            np.testing.assert_array_equal(hint[p + 1, :, k].numpy().view(np.uint32), want)
+    with pytest.raises(ValueError, match="channels"):
+        pw.ks_hint(h0, h1, qs[:2])
+
+
+def test_ks_inner_rejects_bad_arguments(rng):
+    qs = tuple(nt.ntt_primes(2 ** 15, 30, 3))
+    e0, e1, ds, h0, h1 = _ks_operands(rng, qs, 3, 8, 4)
+    hint = pw.ks_hint(h0, h1, qs)
+    before = pw.LAUNCHES["ks_inner"]
+    with pytest.raises(ValueError, match="int32"):
+        pw.ks_inner_cm(e0, e1.long(), ds, hint, qs)
+    with pytest.raises(ValueError, match="one shape"):
+        pw.ks_inner_cm(e0, e1, [*ds[:2], ds[2][:, :4]], hint, qs)
+    with pytest.raises(ValueError, match=r"\(k, n, B\)"):
+        pw.ks_inner_cm(e0[0], e1[0], [d[0] for d in ds], hint, qs)
+    with pytest.raises(ValueError, match="no digit"):
+        pw.ks_inner_cm(e0, e1, [], hint[:, :0], qs)
+    with pytest.raises(ValueError, match="hint of shape"):
+        pw.ks_inner_cm(e0, e1, ds[:2], hint, qs)  # three digits' hint, two digits
+    with pytest.raises(ValueError, match="hint of shape"):
+        pw.ks_inner_cm(e0, e1, ds, hint.long(), qs)
+    with pytest.raises(ValueError, match="moduli"):
+        pw.ks_inner_cm(e0, e1, ds, hint, qs[:2])
+    with pytest.raises(ValueError, match="out of range"):
+        pw.ks_inner_cm(e0, e1, ds, hint, (*qs[:2], 1 << 30))
+    with pytest.raises(ValueError, match="out of range"):
+        pw.ks_inner_cm(e0, e1, ds, hint, (*qs[:2], 1))
+    pw.ks_inner_cm(e0, e1, ds, hint, qs)
+    assert pw.LAUNCHES["ks_inner"] == before  # a CPU tensor never reaches the kernel

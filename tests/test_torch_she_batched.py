@@ -21,7 +21,7 @@ import torch
 from lol_tpu import gadget as jgd
 from lol_tpu import numtheory as jnt
 from lol_tpu import she as jshe
-from lol_tpu.she_batched import BatchedBGV as JBatchedBGV
+from lol_tpu.she_batched import BatchedBGV as JBatchedBGV, _hint_const_sh
 from lol_tpu_torch import prng
 from lol_tpu_torch import convert, numtheory as nt, she
 from lol_tpu_torch.she_batched import BatchedBGV
@@ -198,9 +198,14 @@ def test_pack_matches_jax_pack(jax_state):
 def test_step_module_moves_with_its_buffers(jax_state):
     sk, hint, cts = _carry(jax_state)
     step = BatchedBGV(PARAMS, "cpu").build_step(hint)
-    assert {name for name, _ in step.named_buffers()} == {"qv", "h0", "h1"}
+    assert {name for name, _ in step.named_buffers()} == {"qv", "hint_sh"}
     assert all(b.device.type == "cpu" for b in step.buffers())
-    assert torch.equal(step.h0[..., 0].to(torch.int32), hint.h0)
+    assert torch.equal(step.hint_sh[0], hint.h0) and torch.equal(step.hint_sh[2], hint.h1)
+    # the Shoup form: the JAX package's constant-hint values and companions
+    for plane, h in ((0, jax_state["hint"].h0), (2, jax_state["hint"].h1)):
+        w, wsh = (np.asarray(a)[..., 0] for a in _hint_const_sh(h, QS))
+        np.testing.assert_array_equal(step.hint_sh[plane].numpy(), w.astype(np.int32))
+        np.testing.assert_array_equal(step.hint_sh[plane + 1].numpy().view(np.uint32), wsh)
 
 
 def test_port_never_imports_jax():

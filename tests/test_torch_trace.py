@@ -20,7 +20,7 @@ torch.set_num_threads(2)
 NRNS, B = 3, 4
 RINGS = {64: 17, 72: 5}  # m -> p
 STEP_SPANS = {"bgv.step": 1, "bgv.ct_mul": 1, "bgv.ks.intt": 1, "bgv.ks.digits": NRNS,
-              "bgv.ks.inner": NRNS, "bgv.rescale": 2}
+              "bgv.ks.inner": 1, "bgv.rescale": 2}
 # the odd-axis transforms of a step: the inverse of e2 (nrns), each digit's
 # forward transforms (nrns - 1 a digit), each rescale's inverse and forwards
 ODD_PER_STEP = NRNS + NRNS * (NRNS - 1) + 2 * NRNS
@@ -69,8 +69,9 @@ def test_off_a_site_is_one_flag_read_and_records_nothing(step, monkeypatch):
     fn(*cts)
     odd = ODD_PER_STEP if m == 72 else 0
     spans = sum(STEP_SPANS.values()) + odd
-    counts = 2 * NRNS + 2  # each inner product's in and out, each rescale's one
-    assert flag.reads == spans + counts + odd  # + matvec_mod's route tag
+    counts = 2 + 2  # the inner product's in and out, each rescale's one
+    tags = odd + 1  # matvec_mod's route tag, ks_inner_cm's
+    assert flag.reads == spans + counts + tags
     assert trace.records() == [] and trace.anchor() is None and trace.dropped() == 0
 
 
@@ -94,7 +95,8 @@ def test_the_step_records_its_span_tree(step):
             assert parent.name in ("bgv.ks.intt", "bgv.ks.digits", "bgv.rescale")
             assert r.tag == "int64"  # phi = 6, below the int8-limb route's axis
         else:
-            assert parent is root and r.tag is None
+            assert parent is root
+            assert r.tag == ("int64" if r.name == "bgv.ks.inner" else None)  # the CPU's route
     assert trace.anchor() is None  # no card in use: no anchor event
 
 
@@ -116,11 +118,12 @@ def test_glue_io_bytes_is_the_formula_from_shapes(step):
     _, recs, _ = traced(fn, cts)
     N = NRNS * cts[0].shape[1] * B  # words of one (nrns, n, B) stack
     inner = [r.counters["glue_io_bytes"] for r in recs if r.name == "bgv.ks.inner"]
-    # digit 0 reads int32 e0 / e1 from ct_mul, digits 1-2 int64; di int32, out int64
-    assert inner == [(4 + 4 + 4 + 16) * N, (8 + 8 + 4 + 16) * N, (8 + 8 + 4 + 16) * N]
+    # one call over every digit: int32 e0 / e1 from ct_mul and the NRNS digit
+    # stacks in, int32 (e0, e1) out
+    assert inner == [(4 + 4 + 4 * NRNS + 4 + 4) * N]
     resc = [r.counters["glue_io_bytes"] for r in recs if r.name == "bgv.rescale"]
     assert resc == [4 * N + 4 * N * (NRNS - 1) // NRNS] * 2  # int32 comp in, int32 out
-    assert sum(inner) + sum(resc) == 100 * N + 2 * (4 * N + 8 * N // 3)
+    assert sum(inner) + sum(resc) == 28 * N + 2 * (4 * N + 8 * N // 3)
     assert all(not r.counters for r in recs if r.name not in ("bgv.ks.inner", "bgv.rescale"))
 
 
