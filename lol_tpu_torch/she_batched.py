@@ -1266,24 +1266,45 @@ class Tunnel(nn.Module):
     @torch.no_grad()
     def combine(self, c0p, c1p):
         """The tunnel's output from the inverse-transformed components:
-        c0p over the pipeline's channels, c1p over every channel."""
+        c0p over the pipeline's channels, c1p over every channel.  Spans:
+        `tunnel.forward` around each stack of forward transforms over S
+        (with its gather and embed), `tunnel.inner` around each int64
+        product that consumes one, d (1 + nrns) of each; the second holds
+        the int32 casts of the output and counts `glue_io_bytes`, the
+        int32 stacks in and (e0, e1) out."""
         bb, qv = self.bb, self.qv
         e0 = e1 = 0
+        last = (len(self.coeff) - 1, len(bb.qs) - 1)
         for i, rows in enumerate(self.coeff):
-            a0 = self._embed(c0p[:, rows, :])
-            t0 = torch.stack([self._ntt_s(a0[k], ch) for k, ch in enumerate(bb.chans)])
-            e0 = (e0 + t0.long() * self.ys[i]) % qv
-            a1 = self._embed(c1p[:, rows, :])
+            with trace.span("tunnel.forward"):
+                a0 = self._embed(c0p[:, rows, :])
+                t0 = torch.stack([self._ntt_s(a0[k], ch) for k, ch in enumerate(bb.chans)])
+            with trace.span("tunnel.inner"):
+                trace.count("glue_io_bytes", t0)
+                e0 = (e0 + t0.long() * self.ys[i]) % qv
+            a1 = None
             for j, qj in enumerate(bb.qs):
-                dj = torch.stack([self._ntt_s(a1[j], ch, pre_digit_q=qj)
-                                  for ch in bb.chans]).long()
-                e0 = (e0 + dj * self.h0[i, j]) % qv
-                e1 = (e1 + dj * self.h1[i, j]) % qv
-        return e0.to(torch.int32), e1.to(torch.int32)
+                with trace.span("tunnel.forward"):
+                    if a1 is None:
+                        a1 = self._embed(c1p[:, rows, :])
+                    dj = torch.stack([self._ntt_s(a1[j], ch, pre_digit_q=qj)
+                                      for ch in bb.chans])
+                with trace.span("tunnel.inner"):
+                    trace.count("glue_io_bytes", dj)
+                    dj = dj.long()
+                    e0 = (e0 + dj * self.h0[i, j]) % qv
+                    e1 = (e1 + dj * self.h1[i, j]) % qv
+                    if (i, j) == last:
+                        e0, e1 = e0.to(torch.int32), e1.to(torch.int32)
+                        trace.count("glue_io_bytes", e0, e1)
+        return e0, e1
 
     @torch.no_grad()
     def forward(self, c0, c1):
-        return self.combine(self.bb._ntt(c0, inverse=True), self.bb._ntt(c1, inverse=True))
+        with trace.span("tunnel"):
+            with trace.span("tunnel.intt"):
+                c0p, c1p = self.bb._ntt(c0, inverse=True), self.bb._ntt(c1, inverse=True)
+            return self.combine(c0p, c1p)
 
     @staticmethod
     def sharded(blocks: _Blocks, parts: np.ndarray, c0, c1):

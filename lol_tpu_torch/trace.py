@@ -32,9 +32,16 @@ nrns), `bgv.ks.inner` (the hint inner products of every digit, 1, tagged
 with its route, "ks_inner" or "int64"), `bgv.rescale`
 (`BatchedBGV._rescale_crt`, 2), and `crt.odd` (each odd axis of a
 general-m `ops.general.crt_cm`, tagged with its route, "int64" or
-"modmat_s8").  The one counter, `glue_io_bytes`, is added in
-`bgv.ks.inner` and `bgv.rescale`: the bytes of their tensor arguments
-and results, what a fused kernel at that boundary must move at least.
+"modmat_s8").  Per ring tunnel R -> S (`Tunnel`, d relative basis
+elements): `tunnel` (`Tunnel.forward`, 1), `tunnel.intt` (both inverse
+transforms over R, 1), `tunnel.forward` (each stack of forward
+transforms over S with its gather and embed, d (1 + nrns)) and
+`tunnel.inner` (each int64 product with ys_i or a hint, the output's
+int32 casts in the last, d (1 + nrns)).  The one counter,
+`glue_io_bytes`, is added in `bgv.ks.inner`, `bgv.rescale` and
+`tunnel.inner`: the bytes of their tensor arguments and results (the
+hints not counted), what a fused kernel at that boundary must move at
+least.
 """
 
 from __future__ import annotations

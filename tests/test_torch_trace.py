@@ -4,14 +4,16 @@ Off (no profiler recording) a span site costs one read of the profiler's
 flag and records nothing; under `torch.profiler` a BGV step at m = 64
 (2-power) and at m = 72 (2^3 3^2, one odd axis) records the span tree
 the benchmark's readers expect, with the exact glue byte count, and
-computes the same words as without it.
+computes the same words as without it; so does the ring tunnel
+m = 64 -> 32.
 """
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from lol_tpu_torch import numtheory as nt, prng, sampling, she, trace
+from lol_tpu_torch import linear, numtheory as nt, prng, sampling, she, trace
 from lol_tpu_torch.ops import general as gen
 from lol_tpu_torch.she_batched import BatchedBGV
 
@@ -172,3 +174,64 @@ def test_the_odd_axis_route_is_the_one_that_ran():
             gen.matvec_mod(plan.axes[1].M, x.view(4, 6, 2), plan.q, axis=1, use_mxu=True)
     assert [(r.name, r.tag) for r in trace.records()] == [("crt.odd", "int64"),
                                                           ("forced", "modmat_s8")]
+
+
+# the ring tunnel m = 64 -> 32, E = S (d = 2 relative basis elements)
+M_R, M_T = 64, 32
+D = 2
+TUNNEL_SPANS = {"tunnel": 1, "tunnel.intt": 1, "tunnel.forward": D * (1 + NRNS),
+                "tunnel.inner": D * (1 + NRNS)}
+
+
+@pytest.fixture(scope="module")
+def tunnel():
+    qs = tuple(nt.ntt_primes(M_R, 30, NRNS))
+    pr, ps = (she.SHEParams(m=m, p=257, qs=qs, var=2.0) for m in (M_R, M_T))
+    g = prng.KeyChain(M_R + 1)
+    ys = [np.eye(1, M_T // 2, dtype=np.int64)[0], np.zeros(M_T // 2, dtype=np.int64)]
+    lin = linear.linear_pow(ps.ctx, pr.ctx, ps.ctx, ys)
+    bb = BatchedBGV(pr, "cpu")
+    th = bb.gen_tunnel_hint(lin, she.gen_sk(ps, g(), "cpu"), she.gen_sk(pr, g(), "cpu"), g())
+    cts = [sampling.uniform_residues(qs, (pr.ctx.n, B), g(), "cpu") for _ in range(2)]
+    return bb.build_tunnel(th), cts
+
+
+def test_the_tunnel_records_its_span_tree(tunnel):
+    fn, cts = tunnel
+    _, recs, _ = traced(fn, cts)
+    names = [r.name for r in recs]
+    assert {n: names.count(n) for n in set(names)} == TUNNEL_SPANS
+    root = recs[0]
+    assert root.name == "tunnel" and root.parent is None and root.request == root.id
+    assert names[1:3] == ["tunnel.intt", "tunnel.forward"]
+    assert names[3:] == ["tunnel.inner", "tunnel.forward"] * (D * (1 + NRNS) - 1) + [
+        "tunnel.inner"]  # combine's order: each stack, then the products that consume it
+    for r in recs[1:]:
+        assert r.parent == root.id and r.request == root.id
+        assert root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns
+
+
+def test_the_tunnel_glue_io_bytes_is_the_formula_from_shapes(tunnel):
+    fn, cts = tunnel
+    _, recs, _ = traced(fn, cts)
+    S = NRNS * (M_T // 2) * B * 4  # bytes of one int32 (nrns, n_s, B) stack over S
+    inner = [r.counters["glue_io_bytes"] for r in recs if r.name == "tunnel.inner"]
+    # each transformed stack in once; the last also (e0, e1) out
+    assert inner == [S] * (D * (1 + NRNS) - 1) + [3 * S]
+    assert sum(inner) == (D * (1 + NRNS) + 2) * S
+    assert all(not r.counters for r in recs if r.name != "tunnel.inner")
+
+
+def test_the_tunnel_off_records_nothing_and_computes_the_same(tunnel, monkeypatch):
+    fn, cts = tunnel
+    got, recs, _ = traced(fn, cts)
+    trace.clear()
+    flag = Flag()
+    monkeypatch.setattr(trace, "_profiler", flag)
+    monkeypatch.setattr(trace, "_Span", None)
+    want = fn(*cts)
+    spans = sum(TUNNEL_SPANS.values())
+    counts = D * (1 + NRNS) + 1  # each stack consumed, and the output
+    assert flag.reads == spans + counts
+    assert trace.records() == [] and trace.anchor() is None and trace.dropped() == 0
+    assert recs and all(torch.equal(a, b) for a, b in zip(want, got))
