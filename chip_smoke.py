@@ -29,13 +29,19 @@ then runs its phases and exits non-zero on the first failure:
    2-power axes of phase 3f's general rings (n2 = 1024 and 512, the
    plans `axis_plan` gives them)
    over B' = 6144 columns: forward with and without the prologue, GS;
+   the GS inverse with a factor folded into its n^-1 (on phase 4's
+   inputs); the key switch's inner products (`ks_inner`) and the
+   rescale's epilogue (`rescale_out`: the step's width, n = 6144 with a
+   ragged B and one channel, the scalar kernel, past its channel limit;
+   LSD and MSD constants);
 3. the batched BGV slice at full width (m = 32768 so n = 2^14, three
    30-bit primes, p = 257, var = 2.0, B = 1024): keygen, encrypt, the
    ct-mult + key-switch + rescale step, decrypt, every draw from `prng`
    keys (the JAX package's threefry bits).  It checks the kernels'
    launch counts over that run (the NTT kernels, one per pass of
    `ntt_cm`'s schedule: one cluster pass per n = 2^14 transform; one
-   ct_mul per channel; no route-B launch; two prng draws per encryption,
+   ct_mul per channel; one ks_inner and two rescale_out (one a rescaled
+   component) a step; no route-B launch; two prng draws per encryption,
    its error's and its c1's), decrypts columns 0-7 against the exact
    plaintext product, and reruns the step on the CPU over columns 0-63,
    which must equal the card's output bit for bit;
@@ -227,7 +233,9 @@ then runs its phases and exits non-zero on the first failure:
    forward NTT and ct_mul kernels there, every plain version, and route
    B's single pass at n = 4096; the key switch's inner products
    (`ks_inner`, 3 digits over (3, 2^14, 1024) and over n = 6144) against
-   the int64 torch chain and casts they replaced, in turns; the u32 ceiling (the chain kernel's
+   the int64 torch chain and casts they replaced, in turns; the rescale's
+   epilogue (`rescale_out` over (2, 2^14, 1024) and n = 6144) against its
+   plain int64 version, in turns, beside its bound; the u32 ceiling (the chain kernel's
    path); a device copy's bandwidth; the roofline rows from those times
    against both; the steptime breakdown of the step, whose step leg
    gives the ops/s at n = 2^14; the ops/s at n = 4096; the ring-sharded
@@ -648,9 +656,9 @@ def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
     calls = {True: 0, False: 0}
     real_crt = gen.crt_cm
 
-    def counted(plan_, x_, inverse=False, pre_digit_q=None):
+    def counted(plan_, x_, inverse=False, pre_digit_q=None, factor=1):
         calls[inverse] += 1
-        return real_crt(plan_, x_, inverse, pre_digit_q)
+        return real_crt(plan_, x_, inverse, pre_digit_q, factor)
 
     torch.cuda.synchronize()
     reset()
@@ -664,7 +672,7 @@ def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
     passes = len(tk.cm_schedule(n2))
     want = dict.fromkeys(got, 0)
     want.update(ntt_fwd=calls[False] * passes, ntt_inv=calls[True] * passes, ct_mul=nrns,
-                ks_inner=1, modmat_s8=calls[False] + calls[True])
+                ks_inner=1, rescale_out=2, modmat_s8=calls[False] + calls[True])
     step_calls = {False: nrns * (nrns - 1) + 2 * (nrns - 1), True: nrns + 2}
     if got != want or calls != step_calls:
         raise AssertionError(f"phase 3k step m={m}: launches {got}, want {want}; crt_cm calls "
@@ -962,16 +970,16 @@ def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 
         calls made inside the block."""
         want = Counter()
         real = (tk.ntt_cm_ref, pw.ct_mul_cm_ref, pk.draw_ref, twin.random_bits_ref,
-                twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref)
+                twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref, pw.rescale_out_ref)
 
-        def ntt_ref(x, plan, inverse=False, pre_digit_q=None, alg="gs"):
+        def ntt_ref(x, plan, inverse=False, pre_digit_q=None, alg="gs", factor=1):
             n_ = x.shape[0]
             if inverse and alg == "dit" and n_ > 1:
                 want.update("ntt_invb_cross" if st == "cross" else "ntt_invb_block"
                             for _, st in zip(tk.dit_schedule(n_), ("blk", "cross")))
             else:
                 want["ntt_inv" if inverse else "ntt_fwd"] += len(tk.cm_schedule(n_))
-            return real[0](x, plan, inverse, pre_digit_q, alg)
+            return real[0](x, plan, inverse, pre_digit_q, alg, factor)
 
         def one(key, fn):
             def counted(*a, **k):
@@ -989,11 +997,17 @@ def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 
             return real[6](e0, e1, digits, hint, qs)
 
         pw.ks_inner_cm_ref = ks_ref
+
+        def rs_ref(comp, nd, qs, a, b):
+            want["rescale_out"] += -(-len(qs) // pw.RESCALE_MAX_CHANNELS)
+            return real[7](comp, nd, qs, a, b)
+
+        pw.rescale_out_ref = rs_ref
         try:
             yield want
         finally:
             (tk.ntt_cm_ref, pw.ct_mul_cm_ref, pk.draw_ref, twin.random_bits_ref,
-             twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref) = real
+             twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref, pw.rescale_out_ref) = real
 
     def captured(fn, *a, **k):
         buf = io.StringIO()
@@ -1162,6 +1176,58 @@ def check_ks_inner(dev, g) -> tuple[int, int]:
     return worst, checks
 
 
+def rescale_inputs(dev, g, k, n, B, off=0, encoding="lsd"):
+    """The rescale epilogue's operands over the k largest 30-bit primes
+    below the dropped one: comp (k + 1, n, B) with the dropped channel,
+    k (n, B) forward transforms, the moduli, ql^-1 and p ql^-1 at p = 257
+    (ql^-1 again for MSD); residues uniform with q - 1 and 0 planted,
+    every tensor `off` words into its storage."""
+    from lol_tpu_torch import numtheory as nt
+
+    chain = tuple(nt.ntt_primes(2 ** 15, 30, k + 1))
+    qs, ql = chain[:k], chain[-1]
+    a = tuple(nt.modinv(ql % q, q) for q in qs)
+    b = a if encoding == "msd" else tuple(257 * x % q for x, q in zip(a, qs))
+
+    def res(mods):
+        qv = torch.tensor(mods, device=dev).view(-1, 1, 1)
+        x = torch.randint(0, 1 << 62, (len(mods), n, B), generator=g, device=dev) % qv
+        x[:, :, 0], x[:, 0, :] = qv[..., 0] - 1, 0
+        out = torch.empty(x.numel() + off, dtype=torch.int32, device=dev)[off:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    return res(chain), list(res(qs).unbind(0)), qs, a, b
+
+
+def check_rescale_out(dev, g) -> tuple[int, int]:
+    """`rescale_out` (csrc/rescale.cu) against `rescale_out_ref` at the
+    step's width ((2, 16384, 1024)), at n = 6144 (m = 18432's ring) with
+    B = 1000 off the 4-word tile and k = 1, a view 4 bytes off and 7 words
+    a channel (the scalar kernel), and past the one-launch channel limit,
+    LSD and MSD constants; each call's launches exact and its inputs
+    unwritten.  Returns (max abs error, checks)."""
+    from lol_tpu_torch.ops.cuda import pointwise as pw
+
+    worst = checks = 0
+    for k, n, B, off in ((2, 16384, 1024, 0), (2, 6144, 1024, 0), (1, 6144, 1000, 0),
+                         (2, 256, 1024, 1), (3, 1, 7, 0), (pw.RESCALE_MAX_CHANNELS + 1, 64, 8, 0)):
+        for enc in ("lsd", "msd"):
+            comp, nd, qs, a, b = rescale_inputs(dev, g, k, n, B, off, encoding=enc)
+            keep = [t.clone() for t in (comp, *nd)]
+            before = pw.LAUNCHES["rescale_out"]
+            got = pw.rescale_out(comp, nd, qs, a, b)
+            torch.cuda.synchronize()
+            if pw.LAUNCHES["rescale_out"] - before != -(-k // pw.RESCALE_MAX_CHANNELS):
+                raise AssertionError(f"rescale_out: {pw.LAUNCHES['rescale_out'] - before} "
+                                     f"launches for {k} channels")
+            if not all(torch.equal(x, y) for x, y in zip(keep, (comp, *nd))):
+                raise AssertionError("rescale_out wrote into an input")
+            worst = max(worst, max_err(got, pw.rescale_out_ref(comp, nd, qs, a, b)))
+            checks += 1
+    return worst, checks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1223,16 +1289,23 @@ def main() -> int:
 
     def check_ntt(x, plan):
         """The forward, GS and route-B inverse kernels on x against their
-        plain versions, and route B against the GS kernel; folds the
-        errors into err.  Four checks."""
+        plain versions, route B against the GS kernel, and the GS kernel
+        with a factor (p^-1 mod q, folded into its n^-1) against the plain
+        version and the unscaled kernel's output times it; folds the
+        errors into err.  Six checks."""
         got = tk.ntt_cm(x, plan)
         err["ntt_fwd"] = max(err["ntt_fwd"], max_err(got, tk.ntt_cm_ref(x, plan)))
         gs = tk.ntt_cm(x, plan, inverse=True)
         err["ntt_inv"] = max(err["ntt_inv"], max_err(gs, tk.ntt_cm_ref(x, plan, inverse=True)))
+        f = nt.modinv(257, plan.q)
+        got = tk.ntt_cm(x, plan, inverse=True, factor=f)
+        err["ntt_inv"] = max(err["ntt_inv"], max_err(got, tk.ntt_cm_ref(x, plan, inverse=True,
+                                                                         factor=f)),
+                             max_err(got.long(), gs.long() * f % plan.q))
         got = tk.ntt_cm(x, plan, inverse=True, alg="dit")
         err["ntt_invb"] = max(err["ntt_invb"], max_err(got, gs), max_err(
             got, tk.ntt_cm_ref(x, plan, inverse=True, alg="dit")))
-        return 4
+        return 6
 
     def words(shape, hi, plant):
         """int32 tensor of u32 words uniform in [0, hi), `plant` first."""
@@ -1363,7 +1436,8 @@ def main() -> int:
                                                      tk.ntt_cm_ref(xs, pl_g, pre_digit_q=12289)))
         checks += 3
     err["ks_inner"], ks_checks = check_ks_inner(dev, g)
-    checks += ks_checks
+    err["rescale_out"], rs_checks = check_rescale_out(dev, g)
+    checks += ks_checks + rs_checks
     torch.cuda.synchronize()
     if any(err.values()):
         raise AssertionError(f"kernel != plain: max abs err {err}")
@@ -1405,7 +1479,7 @@ def main() -> int:
     step_calls = {"ntt_fwd": nrns * (nrns - 1) + 2 * (nrns - 1), "ntt_inv": nrns + 2}
     want_step = {k: v * passes for k, v in step_calls.items()}
     want_step.update(dict.fromkeys(rn.LAUNCHES, 0), ntt_invb_block=0, ntt_invb_cross=0,
-                     ct_mul=nrns, ks_inner=1, chain=0)
+                     ct_mul=nrns, ks_inner=1, rescale_out=2, chain=0)
     want_path = dict(want_step, ntt_fwd=want_step["ntt_fwd"] + 2 * nrns * passes,
                      ntt_inv=want_step["ntt_inv"] + (nrns - 1) * passes)
     for k in launches:
@@ -1488,16 +1562,19 @@ def main() -> int:
                      for ph in ("3c", "3d", "3e", "3e_ext", "3f", "3f_galois", "3g", "3g_slots",
                                 "3h", "3i")}
 
-    def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, ks=0, n_fwd=None, n_inv=None):
+    def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, ks=0, rs=0, n_fwd=None,
+            n_inv=None):
         return run_by_n(phase, name, fn, *args, fwd={n_fwd: fwd} if fwd else {},
-                        inv={n_inv: inv} if inv else {}, ct_mul=ct_mul, ks=ks)
+                        inv={n_inv: inv} if inv else {}, ct_mul=ct_mul, ks=ks, rs=rs)
 
-    def run_by_n(phase, name, fn, *args, fwd, inv, ct_mul=0, ks=0):
+    def run_by_n(phase, name, fn, *args, fwd, inv, ct_mul=0, ks=0, rs=0):
         """fn(*args) between a reset and a read of the counts, which must
         be fwd[n] forward and inv[n] GS ntt_cm calls at each n, each
         `cm_schedule(n)`'s passes, ct_mul ct_mul launches, ks ks_inner
         launches (one a key switch: every chain here has at most
-        KS_MAX_DIGITS primes), and nothing else."""
+        KS_MAX_DIGITS primes), rs rescale_out launches (one a rescaled
+        component: every chain here has at most RESCALE_MAX_CHANNELS
+        surviving primes), and nothing else."""
         reset_counts()
         out = fn(*args)
         torch.cuda.synchronize()
@@ -1505,7 +1582,7 @@ def main() -> int:
         want = dict.fromkeys(got, 0)
         want.update(ntt_fwd=sum(k * len(tk.cm_schedule(n_)) for n_, k in fwd.items()),
                     ntt_inv=sum(k * len(tk.cm_schedule(n_)) for n_, k in inv.items()),
-                    ct_mul=ct_mul, ks_inner=ks)
+                    ct_mul=ct_mul, ks_inner=ks, rescale_out=rs)
         if got != want:
             raise AssertionError(f"phase {phase} {name}: launches {got}, want {want}")
         for k, v in got.items():
@@ -1518,9 +1595,9 @@ def main() -> int:
         cm_schedule(n) passes, and nothing else."""
         rec, real = Counter(), ring_mod.ntt_cm
 
-        def shim(x_, plan_, inverse=False, pre_digit_q=None, alg="gs"):
+        def shim(x_, plan_, inverse=False, pre_digit_q=None, alg="gs", factor=1):
             rec["ntt_inv" if inverse else "ntt_fwd"] += len(tk.cm_schedule(x_.shape[0]))
-            return real(x_, plan_, inverse, pre_digit_q, alg)
+            return real(x_, plan_, inverse, pre_digit_q, alg, factor)
 
         reset_counts()
         ring_mod.ntt_cm = gen.ntt_cm = shim
@@ -1566,7 +1643,7 @@ def main() -> int:
     dm = run("3c", "encrypt msd n16384", enc_msd, m2, nk(), fwd=nrns, n_fwd=n)
     step_msd = bb.build_step(hint, encoding="msd")
     em = run("3c", "step msd n16384", step_msd, *cm, *dm, fwd=step_calls["ntt_fwd"],
-             inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1, n_fwd=n, n_inv=n)
+             inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1, rs=2, n_fwd=n, n_inv=n)
     dec_msd = BatchedBGV(p2, dev).build_decrypt(
         she.SK(p2, sk.s_ints, sk.var), f=bb.step_f(1, 1, "msd"), encoding="msd")
     decrypts_to("step msd n16384", run("3c", "decrypt msd n16384", dec_msd, *em,
@@ -1599,7 +1676,7 @@ def main() -> int:
 
     st8 = bb8.build_step(hint8, encoding="msd")
     e8 = run("3c", "step msd", st8, *c8["msd"][0], *c8["msd"][1], fwd=step_calls["ntt_fwd"],
-             inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1, n_fwd=n8, n_inv=n8)
+             inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1, rs=2, n_fwd=n8, n_inv=n8)
     decrypts_to("step msd", dec("msd", e8, "step msd", bb8.step_f(1, 1, "msd"), bb8d, sk8d),
                 pt_muls(a8, b8, params8))
     same_on_cpu("step msd", e8, bb8_cpu.build_step(hint8, encoding="msd"),
@@ -1609,7 +1686,7 @@ def main() -> int:
     same_on_cpu("decrypt msd", out, bb8_cpu.build_decrypt(sk8, encoding="msd"), *c8["msd"][0])
     for e in ("lsd", "msd"):
         ms = bb8.build_mod_switch(e)
-        out = run("3c", f"mod_switch {e}", ms, *c8[e][0], fwd=2 * (nrns - 1), inv=2,
+        out = run("3c", f"mod_switch {e}", ms, *c8[e][0], fwd=2 * (nrns - 1), inv=2, rs=2,
                   n_fwd=n8, n_inv=n8)
         decrypts_to(f"mod_switch {e}", dec(e, out, f"mod_switch {e}",
                                            bb8.mod_switch_f(1) if e == "lsd" else 1,
@@ -1692,8 +1769,9 @@ def main() -> int:
 
     # -- phase 3e: the serving layer and extended-modulus key switching --
     # Launches, per n: a step at L primes runs L(L-1) + 2(L-1) forwards
-    # (the digits, the rescale's corrections), L + 2 GS inverses and L
-    # ct_mul; a modulus switch 2(L-1) and 2; an add / mul_public L forwards.
+    # (the digits, the rescale's corrections), L + 2 GS inverses, L ct_mul
+    # and 2 rescale_out; a modulus switch 2(L-1), 2 and 2; an add /
+    # mul_public L forwards.
     def step_fi(L):
         return L * (L - 1) + 2 * (L - 1), L + 2
 
@@ -1721,15 +1799,17 @@ def main() -> int:
     def pt_round_calls(L, n_):
         """serving.build_pt_round at p = 8 = 2^3 over L primes: the 2^{k-2}
         pre-add, two squarings (at L, L - 1), y switched down twice, one
-        squaring at L - 2, y switched once more: {n: calls}, ct_mul and the
-        chain lengths of the key switches (one a step)."""
+        squaring at L - 2, y switched once more: {n: calls}, ct_mul, the
+        chain lengths of the key switches (one a step) and of the rescaled
+        components (two a step and a switch)."""
         steps = switches = (L, L - 1, L - 2)
         fwd = L + sum(step_fi(Ls)[0] for Ls in steps) + sum(2 * (Ls - 1) for Ls in switches)
         inv = sum(step_fi(Ls)[1] for Ls in steps) + 2 * len(switches)
-        return {n_: fwd}, {n_: inv}, sum(steps), steps
+        return {n_: fwd}, {n_: inv}, sum(steps), steps, 2 * (*steps, *switches)
 
-    fw, iv, cm_, ks_ = pt_round_calls(L_pr, n)
-    y_pr = run_by_n("3e", "pt_round", run_pr, *ct_pr, fwd=fw, inv=iv, ct_mul=cm_, ks=len(ks_))
+    fw, iv, cm_, ks_, rs_ = pt_round_calls(L_pr, n)
+    y_pr = run_by_n("3e", "pt_round", run_pr, *ct_pr, fwd=fw, inv=iv, ct_mul=cm_, ks=len(ks_),
+                    rs=len(rs_))
     got = run("3e", "decrypt pt_round", bb_pr_out.build_decrypt(
         she.SK(bb_pr_out.params, sk_pr.s_ints, sk_pr.var), f=f_pr), *y_pr,
         inv=len(bb_pr_out.qs), n_inv=n)
@@ -1757,16 +1837,17 @@ def main() -> int:
     s_key = torch.randint(0, pr_p, (n, 1), generator=g, device=dev, dtype=torch.int32)
     ct_prf = run("3e", "encrypt key", bb_top.build_encrypt(sks[0]), s_key.expand(n, B), nk(),
                  fwd=L_prf, n_fwd=n)
-    fw, iv, cm_, ks_ = pt_round_calls(L_prf, 1)
+    fw, iv, cm_, ks_, rs_ = pt_round_calls(L_prf, 1)
     add_by_n(fw, n, L_prf)  # mul_public
     for n_r, n_s in zip(ns, ns[1:]):  # each hop: d = 2 relative coefficients
         add_by_n(fw, n_s, 2 * L_prf + 2 * L_prf ** 2)
         add_by_n(iv, n_r, 2 * L_prf)
-    prf_calls = (dict(fw), dict(iv), cm_, ks_)
+    prf_calls = (dict(fw), dict(iv), cm_, ks_, rs_)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bb_prf_out, f_prf, y_prf = run_by_n("3e", "homom_prf", lambda: serving.batched_homom_prf_component(
-        fam, hints, bb_top, *ct_prf, bits, 0), fwd=fw, inv=iv, ct_mul=cm_, ks=len(ks_))
+        fam, hints, bb_top, *ct_prf, bits, 0), fwd=fw, inv=iv, ct_mul=cm_, ks=len(ks_),
+        rs=len(rs_))
     prf_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     got = run("3e", "decrypt homom_prf", bb_prf_out.build_decrypt(
         she.SK(bb_prf_out.params, sk_out.s_ints, sk_out.var), f=f_prf), *y_prf,
@@ -1793,21 +1874,22 @@ def main() -> int:
     lin_ext = run("3e_ext", "gen_ks_linear_hint_ext", bb8.gen_ks_linear_hint_ext, sk8_new, sk8,
                   special, nk(), fwd=Lx, n_fwd=n8)
     # the digits into every extended channel but their own, then one
-    # rescale pair per special prime; the step adds its own rescale
+    # rescale pair per special prime; the step adds its own rescale (one
+    # rescale_out a rescaled component)
     ks_fwd = Lb * (Lx - 1) + sum(2 * (Lb + k - 1) for k in range(1, len(special) + 1))
     ks_inv = Lb + 2 * len(special)
     ext, ksl_ext = {}, {}
     for e in ("lsd", "msd"):
         ext[e] = run("3e_ext", f"step_ext {e}", bb8.build_step_ext(quad_ext, e), *c8[e][0],
                      *c8[e][1], fwd=ks_fwd + 2 * (Lb - 1), inv=ks_inv + 2, ct_mul=Lb,
-                     n_fwd=n8, n_inv=n8)
+                     rs=2 * len(special) + 2, n_fwd=n8, n_inv=n8)
         decrypts_to(f"step_ext {e}", dec(e, ext[e], f"step_ext {e}", bb8.step_f(1, 1, e), bb8d,
                                          sk8d, phase="3e_ext"), pt_muls(a8, b8, params8))
         same_on_cpu(f"step_ext {e}", ext[e], bb8_cpu.build_step_ext(quad_ext, e),
                     *c8[e][0], *c8[e][1])
         ksl_ext[e] = run("3e_ext", f"key_switch_linear_ext {e}",
                          bb8.build_key_switch_linear_ext(lin_ext), *c8[e][0], fwd=ks_fwd,
-                         inv=ks_inv, n_fwd=n8, n_inv=n8)
+                         inv=ks_inv, rs=2 * len(special), n_fwd=n8, n_inv=n8)
         decrypts_to(f"key_switch_linear_ext {e}", dec(e, ksl_ext[e], "ksl_ext", key=sk8_new,
                                                       phase="3e_ext"), a8.cpu())
         same_on_cpu(f"key_switch_linear_ext {e}", ksl_ext[e],
@@ -1816,7 +1898,8 @@ def main() -> int:
     # (counted with this phase) against the ext ones
     base = {"step": run("3e_ext", "step lsd (noise baseline)", bb8.build_step(hint8),
                         *c8["lsd"][0], *c8["lsd"][1], fwd=step_calls["ntt_fwd"],
-                        inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1, n_fwd=n8, n_inv=n8),
+                        inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1, rs=2, n_fwd=n8,
+                        n_inv=n8),
             "ks_linear": run("3e_ext", "key_switch_linear (noise baseline)", ksl, *c8["lsd"][0],
                              fwd=nrns * (nrns - 1), inv=nrns, ks=1, n_fwd=n8, n_inv=n8)}
     noise = {}
@@ -1862,7 +1945,7 @@ def main() -> int:
         step_g[e] = bb_g.build_step(hint_g, encoding=e)
         out = run("3f", f"step {e} m=18432", step_g[e], *ct_g[e][0], *ct_g[e][1],
                   fwd=step_calls["ntt_fwd"], inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1,
-                  n_fwd=n2_g, n_inv=n2_g)
+                  rs=2, n_fwd=n2_g, n_inv=n2_g)
         got = run("3f", f"decrypt {e} m=18432", bb_gd.build_decrypt(
             sk_gd, f=bb_g.step_f(1, 1, e), encoding=e), *out, inv=nrns - 1, n_inv=n2_g)
         decrypts_to(f"step {e} m=18432", got, pt_muls(a_g, b_g, params_g))
@@ -1965,15 +2048,29 @@ def main() -> int:
             return sorted(a_) == sorted(b_) and all(equal(a_[k], b_[k]) for k in a_)
         return all(torch.equal(x_, y_) for x_, y_ in zip(a_, b_))
 
-    def run_mesh(name, fn, args, want, fwd, inv, ct_mul=0, ks=()):
+    def rescale_blocks(L):
+        """The blocks of one data column that keep a surviving channel of
+        an L-prime chain, so launch rescale_out for its rescale: the one
+        block of a data-only layout, else every rns row but where the last
+        row holds the dropped channel alone."""
+        R = sh.rns_rows(rd_mesh, L)
+        return 1 if R == 1 else R - (L // R == 1)
+
+    def run_mesh(name, fn, args, want, fwd, inv, ct_mul=0, ks=(), rs=(), rs_drops=()):
         """fn(*args) on the mesh between a reset and a read of the counts,
         which must be Dd times the unsharded call's ({n: calls}), and for
         each key switch over an L-prime chain (ks, the chain lengths) one
-        ks_inner a block: Dd rns_rows(L); its output unsharded == want
-        over every column."""
+        ks_inner a block: Dd rns_rows(L); for each rescaled component of an
+        L-prime chain (rs, the chain lengths) one rescale_out a block that
+        keeps a surviving channel: Dd rescale_blocks(L), and for each
+        special prime's drop over an Lb-prime base chain (rs_drops, the
+        base chain lengths; the specials ride the last row) one a row:
+        Dd rns_rows(Lb); its output unsharded == want over every column."""
         got = unshard(run_by_n("3g", name, fn, *args, fwd={k: Dd * v for k, v in fwd.items()},
                                inv={k: Dd * v for k, v in inv.items()}, ct_mul=Dd * ct_mul,
-                               ks=sum(Dd * sh.rns_rows(rd_mesh, L_) for L_ in ks)))
+                               ks=sum(Dd * sh.rns_rows(rd_mesh, L_) for L_ in ks),
+                               rs=sum(Dd * rescale_blocks(L_) for L_ in rs)
+                               + sum(Dd * sh.rns_rows(rd_mesh, L_) for L_ in rs_drops)))
         if not equal(got, want):
             raise AssertionError(f"phase 3g {name}: mesh != unsharded over all {B} columns")
         return got
@@ -1982,26 +2079,28 @@ def main() -> int:
     step_mesh = bb.build_step(hint, mesh=rd_mesh)
     step_blocks = shard(c0, c1, d0, d1)
     out = run_mesh("step lsd n16384", step_mesh, step_blocks, (e0, e1), {n: sf}, {n: si}, nrns,
-                   (nrns,))
+                   (nrns,), (nrns,) * 2)
     decrypts_to("mesh step lsd", BatchedBGV(p2, dev).build_decrypt(
         she.SK(p2, sk.s_ints, sk.var), f=bb.step_f())(*out), pt_muls(m1, m2, params))
     cm, dm = enc_msd(m1, nk()), enc_msd(m2, nk())
     out = run_mesh("step msd n16384", bb.build_step(hint, "msd", rd_mesh), shard(*cm, *dm),
-                   step_msd(*cm, *dm), {n: sf}, {n: si}, nrns, (nrns,))
+                   step_msd(*cm, *dm), {n: sf}, {n: si}, nrns, (nrns,), (nrns,) * 2)
     decrypts_to("mesh step msd", dec_msd(*out), pt_muls(m1, m2, params))
     del cm, dm
     for e in ("lsd", "msd"):
         out = run_mesh(f"mod_switch {e}", bb8.build_mod_switch(e, rd_mesh), shard(*c8[e][0]),
-                       bb8.build_mod_switch(e)(*c8[e][0]), {n8: 2 * (nrns - 1)}, {n8: 2})
+                       bb8.build_mod_switch(e)(*c8[e][0]), {n8: 2 * (nrns - 1)}, {n8: 2},
+                       rs=(nrns,) * 2)
         decrypts_to(f"mesh mod_switch {e}", bb8d.build_decrypt(
             sk8d, f=bb8.mod_switch_f(1) if e == "lsd" else 1, encoding=e)(*out), a8.cpu())
         out = run_mesh(f"step_ext {e}", bb8.build_step_ext(quad_ext, e, rd_mesh),
                        shard(*c8[e][0], *c8[e][1]), ext[e], {n8: ks_fwd + 2 * (Lb - 1)},
-                       {n8: ks_inv + 2}, Lb)
+                       {n8: ks_inv + 2}, Lb, rs=(Lb,) * 2, rs_drops=(Lb,) * 2 * len(special))
         decrypts_to(f"mesh step_ext {e}", bb8d.build_decrypt(
             sk8d, f=bb8.step_f(1, 1, e), encoding=e)(*out), pt_muls(a8, b8, params8))
         out = run_mesh(f"key_switch_linear_ext {e}", bb8.build_key_switch_linear_ext(
-            lin_ext, rd_mesh), shard(*c8[e][0]), ksl_ext[e], {n8: ks_fwd}, {n8: ks_inv})
+            lin_ext, rd_mesh), shard(*c8[e][0]), ksl_ext[e], {n8: ks_fwd}, {n8: ks_inv},
+            rs_drops=(Lb,) * 2 * len(special))
         decrypts_to(f"mesh key_switch_linear_ext {e}",
                     bb8.build_decrypt(sk8_new, encoding=e)(*out), a8.cpu())
     out = run_mesh("key_switch_linear", bb8.build_key_switch_linear(lin_hint, rd_mesh),
@@ -2025,7 +2124,7 @@ def main() -> int:
     for e in ("lsd", "msd"):
         out = run_mesh(f"step {e} m=18432", bb_g.build_step(hint_g, e, rd_mesh),
                        shard(*ct_g[e][0], *ct_g[e][1]), step_g[e](*ct_g[e][0], *ct_g[e][1]),
-                       {n2_g: sf}, {n2_g: si}, nrns, (nrns,))
+                       {n2_g: sf}, {n2_g: si}, nrns, (nrns,), (nrns,) * 2)
         decrypts_to(f"mesh step {e} m=18432", bb_gd.build_decrypt(
             sk_gd, f=bb_g.step_f(1, 1, e), encoding=e)(*out), pt_muls(a_g, b_g, params_g))
     out = run_mesh("pt_round", serving.build_pt_round(bb_pr, rh, mesh=rd_mesh)[0], shard(*ct_pr),
@@ -2105,9 +2204,9 @@ def main() -> int:
     obj_calls = Counter()
     real_ntt, real_ctm = ring_mod.ntt_cm, she.ct_mul_cm
 
-    def ntt_shim(x_, plan_, inverse=False, pre_digit_q=None, alg="gs"):
+    def ntt_shim(x_, plan_, inverse=False, pre_digit_q=None, alg="gs", factor=1):
         obj_calls["ntt_inv" if inverse else "ntt_fwd", x_.shape[0]] += 1
-        return real_ntt(x_, plan_, inverse, pre_digit_q, alg)
+        return real_ntt(x_, plan_, inverse, pre_digit_q, alg, factor)
 
     def ctm_shim(*a_, **k_):
         obj_calls["ct_mul", 0] += 1
@@ -2453,13 +2552,15 @@ def main() -> int:
     cols8 = [t_[..., first8].contiguous() for t_ in (c0, c1, d0, d1)]
     out = run_3i("step (reloaded hint)", lambda: bb.build_step(loaded["step_hint"])(*cols8),
                  {"ntt_fwd": step_calls["ntt_fwd"] * passes(n),
-                  "ntt_inv": step_calls["ntt_inv"] * passes(n), "ct_mul": nrns, "ks_inner": 1})
+                  "ntt_inv": step_calls["ntt_inv"] * passes(n), "ct_mul": nrns, "ks_inner": 1,
+                  "rescale_out": 2})
     if not all(torch.equal(a_, b_[..., first8]) for a_, b_ in zip(out, (e0, e1))):
         raise AssertionError("phase 3i: the step on the reloaded hint != the original's")
     cx = [t_[..., first8].contiguous() for t_ in (*c8["lsd"][0], *c8["lsd"][1])]
     out = run_3i("ext step (reloaded hint)", lambda: bb8.build_step_ext(loaded["ext_hint"])(*cx),
                  {"ntt_fwd": (ks_fwd + 2 * (Lb - 1)) * passes(n8),
-                  "ntt_inv": (ks_inv + 2) * passes(n8), "ct_mul": Lb})
+                  "ntt_inv": (ks_inv + 2) * passes(n8), "ct_mul": Lb,
+                  "rescale_out": 2 * len(special) + 2})
     if not all(torch.equal(a_, b_[..., first8]) for a_, b_ in zip(out, ext["lsd"])):
         raise AssertionError("phase 3i: the ext step on the reloaded hint != the original's")
     out = run_3i("tunnel (reloaded hint)", lambda: bb.build_tunnel(loaded["tunnel_hint"])(
@@ -2753,6 +2854,13 @@ def main() -> int:
         for want in (pw.ks_inner_cm_ref(*args), int64_chain(*args[:3], *kh, kv)):
             err["ks_inner"] = max(err["ks_inner"], *(max_err(a, b) for a, b in zip(got, want)))
             checks += 1
+    # the rescale's epilogue at the step's width ((nrns - 1, n, B) and the
+    # dropped channel) and at n = 6144: the kernel == its plain version
+    rs_in = {n_k: rescale_inputs(dev, g, nrns - 1, n_k, B) for n_k in (n, 6144)}
+    for args in rs_in.values():
+        err["rescale_out"] = max(err["rescale_out"], max_err(pw.rescale_out(*args),
+                                                             pw.rescale_out_ref(*args)))
+        checks += 1
     if any(err.values()):
         raise AssertionError(f"kernel != plain on the timed inputs: max abs err {err}")
     mark(f"phase 4: {checks} kernel-vs-plain checks on the step channel bit-exact")
@@ -2832,7 +2940,20 @@ def main() -> int:
         timings[f"ks_inner_ms{sfx}"] = statistics.mean(runs["ks_inner"])
         timings[f"ks_inner_plain_ms{sfx}"] = statistics.mean(runs["chain"])
         timings[f"ks_inner_ms_runs{sfx}"] = runs
-    del x4, x65, ks_in
+    # the rescale's epilogue on the device alone, each shape's kernel and
+    # its plain version (int64 torch) in turns (kernel, plain, plain, kernel)
+    for n_k, args in rs_in.items():
+        runs = {"rescale_out": [], "plain": []}
+        for arm in ("rescale_out", "plain", "plain", "rescale_out"):
+            fn = (lambda: pw.rescale_out(*args)) if arm == "rescale_out" else (
+                lambda: pw.rescale_out_ref(*args))
+            runs[arm].append(time_ms(fn, 20 if arm == "rescale_out" else 3,
+                                     device_only=True)[0])
+        sfx = "" if n_k == n else f"_n{n_k}"
+        timings[f"rescale_out_ms{sfx}"] = statistics.mean(runs["rescale_out"])
+        timings[f"rescale_out_plain_ms{sfx}"] = statistics.mean(runs["plain"])
+        timings[f"rescale_out_ms_runs{sfx}"] = runs
+    del x4, x65, ks_in, rs_in
     # the u32 ceiling (the chain kernel's path; its input was checked in
     # phase 2) and a copy's bandwidth
     reset_counts()
@@ -3045,6 +3166,15 @@ def main() -> int:
           f"{timings['ks_inner_ms_n6144']:.4f} "
           f"({100 * ks_bound[6144][0] / timings['ks_inner_ms_n6144']:.1f}%), "
           f"chain {timings['ks_inner_plain_ms_n6144']:.4f} on {card}", flush=True)
+    rs_bound = {n_k: roofline.bound(*roofline.rescale_out_work(nrns - 1, n_k, B))
+                for n_k in (n, 6144)}
+    print(f"rescale_out at ({nrns - 1}, {n}, {B}): {timings['rescale_out_ms']:.4f} ms on the "
+          f"device ({100 * rs_bound[n][0] / timings['rescale_out_ms']:.1f}% of its "
+          f"{rs_bound[n][0]:.4f} ms bound, {rs_bound[n][1]}); its plain version (int64 torch) "
+          f"{timings['rescale_out_plain_ms']:.4f}; n = 6144: "
+          f"{timings['rescale_out_ms_n6144']:.4f} "
+          f"({100 * rs_bound[6144][0] / timings['rescale_out_ms_n6144']:.1f}%), "
+          f"plain {timings['rescale_out_plain_ms_n6144']:.4f} on {card}", flush=True)
     ntt_src = "lol_tpu_torch/csrc/ntt.cu"
     ring_src = "lol_tpu_torch/csrc/remote_ntt.cu"
     ring_path = "ring-sharded NTT (ntt_/intt_ring_sharded_cm), D=4 shards on one card"
@@ -3218,6 +3348,27 @@ def main() -> int:
          "ms_n6144": timings["ks_inner_ms_n6144"],
          "plain_ms_n6144": timings["ks_inner_plain_ms_n6144"],
          "bound_ms_n6144": ks_bound[6144][0]},
+        # no pallas_call: the reference's rescale after its transforms is
+        # XLA u32 code; plain_ms: rescale_out_ref (int64 torch) on the same
+        # inputs
+        {"name": "rescale_out", "route": "cuda", "source": "lol_tpu_torch/csrc/rescale.cu",
+         "replaces": "lol_tpu/she_batched.py:707-734 (XLA's u32 chain of the rescale's "
+                     "centering, re-expansion, subtraction and q_l^-1; no pallas_call)",
+         "path": "the exact rescale's epilogue (BatchedBGV._rescale_apply)",
+         "launches": launches["rescale_out"], "max_abs_err": err["rescale_out"],
+         "launches_builders": path_launches["3c"]["rescale_out"],
+         "launches_serving": path_launches["3e"]["rescale_out"],
+         "launches_ext": path_launches["3e_ext"]["rescale_out"],
+         "launches_general": path_launches["3f"]["rescale_out"],
+         "launches_mesh": path_launches["3g"]["rescale_out"],
+         "launches_3i": path_launches["3i"]["rescale_out"],
+         "launches_3m": launches_3m("rescale_out"),
+         "shape": f"({nrns - 1}, {n}, {B})",
+         "ms": timings["rescale_out_ms"], "plain_ms": timings["rescale_out_plain_ms"],
+         "bound_ms": rs_bound[n][0], "bound_by": rs_bound[n][1], "library_ms": None,
+         "ms_n6144": timings["rescale_out_ms_n6144"],
+         "plain_ms_n6144": timings["rescale_out_plain_ms_n6144"],
+         "bound_ms_n6144": rs_bound[6144][0]},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -57,6 +57,10 @@ pass schedule, and `work` is the one place that states them:
   modmuls and two modadds a digit, and e0, e1 and the nd digit stacks
   read and e0, e1 written once, 4 (4 + nd) k n B bytes (the hint, read
   once a row, not counted: 16 nd k n bytes, under 0.2% at B = 1024).
+- the exact rescale's epilogue (`ops/cuda/pointwise.rescale_out`,
+  `rescale_out_work`) over k surviving (n, B) channels: per word two
+  modmuls and a modsub, and the component and the forward transforms
+  read and the result written once, 12 k n B bytes.
 
 `bound` turns a count into the least time the H100 could take: the
 larger of the bytes over the data sheet's 3.35 TB/s and the u32 ops
@@ -174,6 +178,13 @@ def ks_inner_work(nd: int, k: int, n: int, B: int) -> tuple[int, int]:
     nd digits over k (n, B) channels."""
     words = k * n * B
     return 2 * nd * (9 + 2) * words, 4 * (4 + nd) * words
+
+
+def rescale_out_work(k: int, n: int, B: int) -> tuple[int, int]:
+    """(u32 ops, least bytes moved) of one rescale epilogue over k
+    surviving (n, B) channels."""
+    words = k * n * B
+    return (2 * 9 + 2) * words, 12 * words
 
 
 @contextlib.contextmanager

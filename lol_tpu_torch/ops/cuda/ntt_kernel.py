@@ -7,7 +7,11 @@ and `alg` picks the inverse's route, "gs" (Gentleman-Sande, the default
 and the BGV step's) or "dit" (route B: DIT-bitrev-input DFTs with a
 twist and a per-row n^-1 psi^-j scale, `ops/ntt.py`), with the
 reference's checks.  The TPU-only knobs (lanes, window, radix,
-full_tables, scale=False, interpret) have no counterpart here.
+full_tables, scale=False, interpret) have no counterpart here.  The
+port's own `factor` multiplies the GS inverse's result mod q: it rides
+the n^-1 constants of global stage 0 (`scale_consts`), so the kernels
+and launches are the plain inverse's (the exact rescale folds p^-1
+there).
 
 For a CUDA tensor `ntt_cm` launches the hand-written Hopper kernels of
 `csrc/ntt.cu` (`ntt_fwd_pass`, replacing `_kernel_cross` + `_kernel_block`
@@ -209,13 +213,16 @@ def redigit(x: torch.Tensor, q_src: int, q: int) -> torch.Tensor:
 
 
 def ntt_cm_ref(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
-               pre_digit_q: int | None = None, alg: str = "gs") -> torch.Tensor:
+               pre_digit_q: int | None = None, alg: str = "gs",
+               factor: int = 1) -> torch.Tensor:
     """Plain torch version of `ntt_cm` (int64 stages), int32 out."""
     _check_alg(inverse, alg)
+    _check_factor(inverse, alg, factor)
     if inverse and alg == "dit":
         return ntt_inverse_dit_cm(x, plan, _dit_block_rows(plan.n)).to(torch.int32)
     if inverse:
-        return ntt_inverse_cm(x, plan).to(torch.int32)
+        y = ntt_inverse_cm(x, plan)
+        return (y if factor % plan.q == 1 else y * (factor % plan.q) % plan.q).to(torch.int32)
     if pre_digit_q is not None:
         x = redigit(x, pre_digit_q, plan.q)
     return ntt_forward_cm(x, plan).to(torch.int32)
@@ -226,6 +233,12 @@ def _check_alg(inverse, alg):
         raise ValueError(f"ntt_cm: unknown alg {alg!r}")
     if alg == "dit" and not inverse:
         raise ValueError("ntt_cm: alg='dit' is an inverse-only route")
+
+
+def _check_factor(inverse, alg, factor):
+    if factor != 1 and not (inverse and alg == "gs"):
+        raise ValueError("ntt_cm: factor folds into the GS inverse's n^-1 "
+                         "(inverse=True, alg='gs') only")
 
 
 def _check_args(x, plan, inverse, pre_digit_q):
@@ -244,7 +257,8 @@ def _check_args(x, plan, inverse, pre_digit_q):
 
 
 def ntt_cm(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
-           pre_digit_q: int | None = None, alg: str = "gs") -> torch.Tensor:
+           pre_digit_q: int | None = None, alg: str = "gs",
+           factor: int = 1) -> torch.Tensor:
     """Negacyclic NTT over axis 0 of a coefficient-major (n, B) int32
     tensor of residues in [0, q).
 
@@ -252,18 +266,21 @@ def ntt_cm(x: torch.Tensor, plan: NTTPlan, inverse: bool = False,
     the reverse, 1/n applied once.  pre_digit_q: the input holds residues
     mod pre_digit_q, re-expanded (centered) into Z_q before the forward
     transform (`redigit`).  alg: the inverse's route, "gs" or "dit"
-    (inverse only); both give the same result."""
+    (inverse only); both give the same result.  factor: the GS inverse's
+    result times factor mod q, folded into its n^-1 (`scale_consts`), so
+    the kernel launches are the same; 1 by default."""
     _check_args(x, plan, inverse, pre_digit_q)
     _check_alg(inverse, alg)
+    _check_factor(inverse, alg, factor)
     if x.device.type == "cpu":
-        return ntt_cm_ref(x, plan, inverse, pre_digit_q, alg)
+        return ntt_cm_ref(x, plan, inverse, pre_digit_q, alg, factor)
     if x.device.type != "cuda":
         raise ValueError(f"ntt_cm: unsupported device {x.device}")
     if not x.is_contiguous():
         raise ValueError("ntt_cm: the CUDA kernel needs a contiguous (n, B) tensor")
     if inverse and alg == "dit":
         return _ntt_invb_cuda(x, plan)
-    return _ntt_cuda(x, plan, inverse, pre_digit_q)
+    return _ntt_cuda(x, plan, inverse, pre_digit_q, factor)
 
 
 def ntt_batched(x: torch.Tensor, plan: NTTPlan, inverse: bool = False) -> torch.Tensor:
@@ -314,38 +331,50 @@ def invb_pass(x: torch.Tensor, y: torch.Tensor, plan: NTTPlan, p: Pass, tab: dic
     LAUNCHES["ntt_invb_cross" if stage == "cross" else "ntt_invb_block"] += 1
 
 
-def _ntt_cuda(x, plan, inverse, pre_q):
+def _ntt_cuda(x, plan, inverse, pre_q, factor=1):
     passes = cm_schedule(x.shape[0])
     return run_passes(x, plan, passes[::-1] if inverse else passes, inverse,
-                      pre_q=pre_q)
+                      pre_q=pre_q, factor=factor)
 
 
-def scale_consts(plan: NTTPlan) -> tuple[int, int, int, int]:
+def scale_consts(plan: NTTPlan, factor: int = 1) -> tuple[int, int, int, int]:
     """(n^-1, its Shoup word, ipsi_rev[1]*n^-1, its Shoup word): the GS
-    inverse's global stage 0 with the 1/n scale folded in."""
+    inverse's global stage 0 with the 1/n scale folded in; factor
+    multiplies both constants mod q (the transform is linear, so its
+    result comes out times factor)."""
     q = plan.q
-    w0n = int(plan.ipsi_rev[1 % plan.n]) * plan.n_inv % q
-    return plan.n_inv, plan.n_inv_sh, w0n, zq.shoup(w0n, q)
+    f = factor % q
+    if f == 1:
+        ninv, ninv_sh = plan.n_inv, plan.n_inv_sh
+    else:
+        ninv = plan.n_inv * f % q
+        ninv_sh = zq.shoup(ninv, q)
+    w0n = int(plan.ipsi_rev[1 % plan.n]) * ninv % q
+    return ninv, ninv_sh, w0n, zq.shoup(w0n, q)
 
 
 def run_passes(x: torch.Tensor, plan: NTTPlan, passes: list[Pass], inverse: bool,
                last: bool = True, out: torch.Tensor | None = None,
-               pre_q: int | None = None) -> torch.Tensor:
+               pre_q: int | None = None, factor: int = 1) -> torch.Tensor:
     """Launch `passes` (forward or GS inverse kernels) over the contiguous
     (rows, B) CUDA tensor x: the first from x into `out` (a new tensor, or
     x itself), the rest in place there (each block owns its tile).  last:
     the final pass folds to [0, q), and an inverse one also scales its
     local stage 0 by n^-1, so it must hold global stage 0; otherwise the
     output stays lazy (forward [0, 4q), inverse [0, 2q)).  pre_q: the
-    forward digit prologue on the first pass."""
-    lib = _lib()
+    forward digit prologue on the first pass.  factor: an inverse's
+    result times factor mod q (`scale_consts`)."""
     B = x.shape[1]
     q = plan.q
+    if factor % q != 1 and not (inverse and last):
+        raise ValueError("run_passes: factor rides the last inverse pass's n^-1")
+    lib = _lib()
     w, wsh, iw, iwsh = plan.tables(x.device)
     tw, twsh = (iw, iwsh) if inverse else (w, wsh)
     has_pre = pre_q is not None and pre_q != q
     pre_q = pre_q if has_pre else q
     name = "ntt_inv" if inverse else "ntt_fwd"
+    consts = scale_consts(plan, factor)
     y = torch.empty_like(x) if out is None else out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     src = x
@@ -358,7 +387,7 @@ def run_passes(x: torch.Tensor, plan: NTTPlan, passes: list[Pass], inverse: bool
                 p.base_step, p.G, p.TB, kernel_threads(p), p.cluster.bit_length() - 1,
                 int(inverse), int(fold), q,
                 int(has_pre and i == 0), pre_q, (pre_q + 1) // 2, pre_q % q,
-                zq.shoup(1, q), *scale_consts(plan), stream,
+                zq.shoup(1, q), *consts, stream,
             )
             build.check(err, f"{name} pass {i} (rows={x.shape[0]}, B={B}, L={p.L})")
             LAUNCHES[name] += 1

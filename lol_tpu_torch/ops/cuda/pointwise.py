@@ -21,6 +21,13 @@ companions), which the reference leaves to XLA (`she_batched.py`'s
 per `KS_MAX_DIGITS` digits, on the CPU its plain int64 version
 `ks_inner_cm_ref`.  It tags the innermost open `trace` span with the
 route that ran ("ks_inner" or "int64").
+
+`rescale_out` is the exact BGV rescale's epilogue over the surviving
+channels, (c_j q_l^-1 - nd_j p q_l^-1) mod q_j, which the reference also
+leaves to XLA u32 ops (`she_batched.py`'s `_rescale_crt`); on the card
+one launch of `csrc/rescale.cu` per `RESCALE_MAX_CHANNELS` channels, on
+the CPU its plain int64 version `rescale_out_ref`.  It tags the
+innermost open span likewise ("rescale_out" or "int64").
 """
 
 from __future__ import annotations
@@ -34,8 +41,9 @@ from ... import trace, zq
 from . import build
 
 # One per kernel launch.  Reset by callers that check which kernels a path ran.
-LAUNCHES = {"ct_mul": 0, "ks_inner": 0}
+LAUNCHES = {"ct_mul": 0, "ks_inner": 0, "rescale_out": 0}
 KS_MAX_DIGITS = 8  # digits one ks_inner launch takes (csrc/keyswitch.cu)
+RESCALE_MAX_CHANNELS = 16  # channels one rescale_out launch takes (csrc/rescale.cu)
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint32,
@@ -49,6 +57,11 @@ _KS_ARGTYPES = (
 )
 
 
+_RESCALE_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load()
     if lib.lol_ct_mul.argtypes is None:
@@ -56,6 +69,8 @@ def _lib() -> ctypes.CDLL:
         lib.lol_ct_mul.restype = ctypes.c_int
         lib.lol_ks_inner.argtypes = _KS_ARGTYPES
         lib.lol_ks_inner.restype = ctypes.c_int
+        lib.lol_rescale_out.argtypes = _RESCALE_ARGTYPES
+        lib.lol_rescale_out.restype = ctypes.c_int
     return lib
 
 
@@ -219,3 +234,82 @@ def ks_inner_cm(e0, e1, digits, hint, qs):
             LAUNCHES["ks_inner"] += 1
             a0, a1 = o0.data_ptr(), o1.data_ptr()
     return o0, o1
+
+
+# --- the exact rescale's epilogue -------------------------------------------
+
+
+def rescale_out_ref(comp, nd, qs, a, b):
+    """Plain torch version of `rescale_out` (int64 products), int32 out."""
+    k = len(qs)
+    qv, av, bv = (torch.tensor(list(v), dtype=torch.int64, device=comp.device).view(-1, 1, 1)
+                  for v in (qs, a, b))
+    d = torch.stack([x.long() for x in nd])
+    return ((comp[:k].long() * av - d * bv) % qv).to(torch.int32)
+
+
+def _check_rescale_args(comp, nd, qs, a, b):
+    k = len(qs)
+    if comp.dim() != 3 or comp.dtype != torch.int32 or comp.shape[0] < k:
+        raise ValueError(f"rescale_out: comp must be an int32 (>= {k}, n, B) stack, got "
+                         f"{comp.dtype} {tuple(comp.shape)}")
+    if k < 1 or len(nd) != k or len(a) != k or len(b) != k:
+        raise ValueError(f"rescale_out: {len(nd)} transforms and {len(a)} / {len(b)} "
+                         f"constants for {k} channels")
+    for t in nd:
+        if t.dtype != torch.int32 or t.shape != comp.shape[1:] or t.device != comp.device:
+            raise ValueError(
+                f"rescale_out: need int32 (n, B) transforms on {comp.device} of shape "
+                f"{tuple(comp.shape[1:])}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if comp[0].numel() < 1:
+        raise ValueError("rescale_out: empty operands")
+    for q, x, y in zip(qs, a, b):
+        if not (2 <= q < (1 << zq.MAX_MODULUS_BITS)):
+            raise ValueError(f"rescale_out: modulus {q} out of range [2, 2^30)")
+        if not (0 <= x < q and 0 <= y < q):
+            raise ValueError(f"rescale_out: constants {x}, {y} not residues mod {q}")
+
+
+@functools.lru_cache(maxsize=None)
+def _rescale_words(qs: tuple[int, ...], a: tuple[int, ...], b: tuple[int, ...]):
+    """The kernel's 5 k constant words, rows (q, a, a_sh, b, b_sh), made once."""
+    rows = (qs, a, [zq.shoup(x, q) for x, q in zip(a, qs)],
+            b, [zq.shoup(y, q) for y, q in zip(b, qs)])
+    words = [w for row in rows for w in row]
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def rescale_out(comp, nd, qs, a, b):
+    """The exact rescale's epilogue over k = len(qs) surviving channels:
+    out_j = (comp_j a_j - nd_j b_j) mod q_j for the first k channels of
+    the int32 (>= k, n, B) stack comp and the k int32 (n, B) forward
+    transforms nd (residues in [0, q_j)), with constants a_j, b_j in
+    [0, q_j).  Returns a new int32 (k, n, B) stack in [0, q_j); the inputs
+    are not written.  On the card one launch of `csrc/rescale.cu` per
+    RESCALE_MAX_CHANNELS channels, over contiguous copies of strided
+    inputs, the transforms read by pointer (no stack)."""
+    qs, a, b = (tuple(int(x) for x in v) for v in (qs, a, b))
+    nd = tuple(nd)
+    _check_rescale_args(comp, nd, qs, a, b)
+    if comp.device.type == "cpu":
+        trace.tag("int64")
+        return rescale_out_ref(comp, nd, qs, a, b)
+    if comp.device.type != "cuda":
+        raise ValueError(f"rescale_out: unsupported device {comp.device}")
+    k = len(qs)
+    comp = comp[:k].contiguous()  # copies only where a view is strided
+    nd = tuple(t.contiguous() for t in nd)
+    trace.tag("rescale_out")
+    out = torch.empty_like(comp)
+    N = comp[0].numel()
+    with torch.cuda.device(comp.device):
+        lib, stream = _lib(), torch.cuda.current_stream(comp.device).cuda_stream
+        for lo in range(0, k, RESCALE_MAX_CHANNELS):
+            hi = min(k, lo + RESCALE_MAX_CHANNELS)
+            ptrs = (ctypes.c_void_p * (hi - lo))(*(t.data_ptr() for t in nd[lo:hi]))
+            err = lib.lol_rescale_out(comp[lo].data_ptr(), ptrs, out[lo].data_ptr(),
+                                      _rescale_words(qs[lo:hi], a[lo:hi], b[lo:hi]),
+                                      hi - lo, N, stream)
+            build.check(err, f"rescale_out (shape {tuple(comp.shape)}, channels {lo}..{hi - 1})")
+            LAUNCHES["rescale_out"] += 1
+    return out

@@ -213,16 +213,21 @@ def general_plan(m: int, q: int) -> GeneralPlan:
 
 
 def crt_cm(plan: GeneralPlan, x: torch.Tensor, inverse: bool = False,
-           pre_digit_q: int | None = None) -> torch.Tensor:
+           pre_digit_q: int | None = None, factor: int = 1) -> torch.Tensor:
     """(n, B) int32 coefficient-major CRT (powerful -> CRT basis) or its
     inverse over one channel.  The 2-power axis runs `ntt_cm` on the free
     (n2, rest * B) reshape, the odd axes `matvec_mod` in place (the
     int8-limb kernel from MXU_MIN_AXIS on).
     pre_digit_q: the RNS-gadget digit re-expansion (forward only).  It is
     elementwise, so it runs before any axis transform: as the 2-axis
-    kernel's prologue, or by `redigit` when the ring has no 2-axis."""
+    kernel's prologue, or by `redigit` when the ring has no 2-axis.
+    factor: the inverse's result times factor mod q (inverse only).  The
+    map is linear, so it rides the 2-axis inverse's n^-1 (`ntt_cm`'s
+    factor); a ring with no 2-axis multiplies at the end."""
     if pre_digit_q is not None and inverse:
         raise ValueError("crt_cm: pre_digit_q is a forward-only prologue")
+    if factor != 1 and not inverse:
+        raise ValueError("crt_cm: factor is an inverse-only scale")
     n, B = x.shape
     shape = plan.phi_shape
     if n != math.prod(shape):
@@ -231,7 +236,8 @@ def crt_cm(plan: GeneralPlan, x: torch.Tensor, inverse: bool = False,
     if axes and axes[0].ntt2 is not None:
         n2 = shape[0]
         x = ntt_cm(x.reshape(n2, (n // n2) * B).contiguous(), axes[0].ntt2,
-                   inverse=inverse, pre_digit_q=pre_digit_q).view(n, B)
+                   inverse=inverse, pre_digit_q=pre_digit_q, factor=factor).view(n, B)
+        factor = 1
     elif pre_digit_q is not None:
         x = redigit(x, pre_digit_q, plan.q)
     for i, ax in enumerate(axes):
@@ -240,6 +246,8 @@ def crt_cm(plan: GeneralPlan, x: torch.Tensor, inverse: bool = False,
         with trace.span("crt.odd"):  # matvec_mod tags it with its route
             x = matvec_mod(ax.Minv if inverse else ax.M, x.reshape(*shape, B), plan.q,
                            axis=i).view(n, B)
+    if factor % plan.q != 1:
+        x = (x.long() * (factor % plan.q) % plan.q).to(torch.int32)
     return x
 
 

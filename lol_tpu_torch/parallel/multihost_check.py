@@ -57,25 +57,31 @@ SEED = 20261017
 def step_launches(L: int, n: int) -> dict[str, int]:
     """Launches of one BGV step at L primes over one data column of the
     mesh (`cm_schedule` passes per transform): L (L - 1) + 2 (L - 1)
-    forwards, L + 2 GS inverses, L ct_mul, and L `ks_inner`: the mesh's
-    rns axis has one row a prime, and each block makes one inner-product
-    launch."""
+    forwards, L + 2 GS inverses, L ct_mul, L `ks_inner` and 2 (L - 1)
+    `rescale_out`: the mesh's rns axis has one row a prime, each block
+    makes one inner-product launch, and each block that keeps a surviving
+    channel one epilogue launch a rescaled component."""
     from ..ops.cuda import ntt_kernel as tk
 
     passes = len(tk.cm_schedule(n))
     return {"ntt_fwd": (L * (L - 1) + 2 * (L - 1)) * passes, "ntt_inv": (L + 2) * passes,
-            "ct_mul": L, "ks_inner": L}
+            "ct_mul": L, "ks_inner": L, "rescale_out": 2 * (L - 1)}
 
 
 def ext_step_launches(Lb: int, nsp: int, n: int) -> dict[str, int]:
-    """Launches of one unsharded extended-modulus step: the digits into
-    every extended channel but their own, a rescale pair per special prime,
-    and the step's own rescale."""
+    """Launches of one extended-modulus step over one data column of the
+    mesh (one rns row a base prime, the special primes on the last): the
+    digits into every extended channel but their own, a rescale pair per
+    special prime, and the step's own rescale.  The transforms are the
+    unsharded step's; `rescale_out` runs once a block that keeps a
+    surviving channel: Lb blocks a special prime's drop, Lb - 1 the
+    step's own, each for both components."""
     from ..ops.cuda import ntt_kernel as tk
 
     passes, Lx = len(tk.cm_schedule(n)), Lb + nsp
     fwd = Lb * (Lx - 1) + sum(2 * (Lb + k - 1) for k in range(1, nsp + 1)) + 2 * (Lb - 1)
-    return {"ntt_fwd": fwd * passes, "ntt_inv": (Lb + 2 * nsp + 2) * passes, "ct_mul": Lb}
+    return {"ntt_fwd": fwd * passes, "ntt_inv": (Lb + 2 * nsp + 2) * passes, "ct_mul": Lb,
+            "rescale_out": 2 * nsp * Lb + 2 * (Lb - 1)}
 
 
 def _counters():

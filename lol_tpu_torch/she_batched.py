@@ -21,8 +21,12 @@ leaves the Hadamards to XLA, which overlaps them with its NTT calls
 (`she_batched.py:828-837` there); eager PyTorch overlaps nothing, so
 the port fuses them.  The key switch's hint inner products go through
 `ops.cuda.pointwise.ks_inner_cm`, one launch for all its digits on the
-card.  The rescale and the arithmetic of every other `build_*` function
-are plain int64 torch elementwise ops.  While torch's profiler records,
+card.  The exact rescale runs on u32 paths: p^-1 rides the dropped
+channel's inverse transform (`ntt_cm`'s factor), the correction's
+centering and re-expansion are each surviving channel's forward digit
+prologue, and `ops.cuda.pointwise.rescale_out` finishes every channel in
+one launch.  The arithmetic of every other `build_*` function is plain
+int64 torch elementwise ops.  While torch's profiler records,
 the step's layers are spans of `trace` (`bgv.step`, `bgv.ct_mul`,
 `bgv.ks.intt`, `bgv.ks.digits`, `bgv.ks.inner`, `bgv.rescale`), and the
 inner products and the rescale count the bytes they take and give
@@ -81,7 +85,7 @@ from .linear import Linear
 from .ops import general as gen
 from .ops import ntt as ntt_mod
 from .ops.cuda.ntt_kernel import ntt_cm
-from .ops.cuda.pointwise import ct_mul_cm, ks_hint, ks_inner_cm
+from .ops.cuda.pointwise import ct_mul_cm, ks_hint, ks_inner_cm, rescale_out
 from .parallel import sharding as sh
 from .ring import RingContext
 from . import she
@@ -202,7 +206,6 @@ class BatchedBGV:
         self.qs = params.qs
         self.chans = range(len(self.qs)) if chans is None else chans
         self.cqs = tuple(self.qs[c] for c in self.chans)
-        self._rescale_k = {}  # device -> the rescale's constants
 
     def _view(self, chans: range, device) -> "BatchedBGV":
         """This pipeline over the channels chans on device."""
@@ -239,15 +242,17 @@ class BatchedBGV:
                 for b in range(arrs[0].shape[-1])]
 
     # --- per-channel transforms -----------------------------------------
-    def _crt_one(self, x2d, ch, inverse=False, ctx=None, pre_digit_q=None):
+    def _crt_one(self, x2d, ch, inverse=False, ctx=None, pre_digit_q=None, factor=1):
         """(n, B) single-channel CRT transform of ring ctx (this one's by
         default): `ntt_cm` at 2-power m, `ops.general.crt_cm` otherwise;
-        pre_digit_q fuses the digit re-expansion into the forward kernel."""
+        pre_digit_q fuses the digit re-expansion into the forward kernel,
+        factor multiplies the inverse's result (folded into its n^-1)."""
         ctx = self.ctx if ctx is None else ctx
         if not ctx.fm.is_pow2():
             return gen.crt_cm(ctx.general_plans()[ch], x2d, inverse=inverse,
-                              pre_digit_q=pre_digit_q)
-        return ntt_cm(x2d, ctx.ntt_plans()[ch], inverse=inverse, pre_digit_q=pre_digit_q)
+                              pre_digit_q=pre_digit_q, factor=factor)
+        return ntt_cm(x2d, ctx.ntt_plans()[ch], inverse=inverse, pre_digit_q=pre_digit_q,
+                      factor=factor)
 
     def _ntt(self, x, inverse=False, ctx=None):
         """(len(chans), n, B) per-channel CRT transform (named for the
@@ -277,52 +282,42 @@ class BatchedBGV:
             for k, j in enumerate(self.chans)
         ])
 
-    def _rescale_consts(self, device):
+    def _rescale_consts(self) -> tuple[tuple[int, ...], ...]:
         """The rescale's per-channel constants over this pipeline's
-        surviving channels, on device, made once: the moduli, ql^-1 and p
-        (for LSD), each (k, 1, 1) int64."""
-        key = torch.device(device)
-        if key not in self._rescale_k:
-            ql = self.qs[-1]
-            surv = [q for c, q in zip(self.chans, self.cqs) if c < len(self.qs) - 1]
-            self._rescale_k[key] = tuple(
-                _channel_consts(vals, key) for vals in (
-                    surv, [nt.modinv(ql % q, q) for q in surv],
-                    [self.params.p % q for q in surv]))
-        return self._rescale_k[key]
+        surviving channels, host ints: the moduli q_j, ql^-1 mod q_j and
+        p ql^-1 mod q_j."""
+        ql, p = self.qs[-1], self.params.p
+        surv = tuple(q for c, q in zip(self.chans, self.cqs) if c < len(self.qs) - 1)
+        inv = tuple(nt.modinv(ql % q, q) for q in surv)
+        return surv, inv, tuple(p * a % q for a, q in zip(inv, surv))
 
     def _rescale_v(self, last: torch.Tensor, encoding: str = "lsd") -> torch.Tensor:
         """The rescale's read of the dropped channel: its (n, B) CRT
-        residues inverse-transformed, times p^-1 mod ql for LSD; int32 in
-        [0, ql).  On a mesh it is gathered to every block of its column."""
+        residues inverse-transformed, times p^-1 mod ql for LSD (folded
+        into the inverse's n^-1); int32 in [0, ql).  On a mesh it is
+        gathered to every block of its column."""
         ql = self.qs[-1]
-        v = self._crt_one(last, len(self.qs) - 1, inverse=True)
-        if _check_encoding(encoding) == "msd":
-            return v
-        return (v.long() * nt.modinv(self.params.p % ql, ql) % ql).to(torch.int32)
+        msd = _check_encoding(encoding) == "msd"
+        return self._crt_one(last, len(self.qs) - 1, inverse=True,
+                             factor=1 if msd else nt.modinv(self.params.p % ql, ql))
 
     def _rescale_apply(self, comp: torch.Tensor, v: torch.Tensor,
                        encoding: str = "lsd") -> torch.Tensor:
         """The rescale of this pipeline's channels of comp but the dropped
-        one, given the dropped channel's read v (`_rescale_v`): the
-        correction delta (p * centered v for LSD, centered v for MSD's
-        round-to-nearest) is forward-transformed into each surviving
-        channel, subtracted, and the difference times ql^-1.  int32."""
+        one, given the dropped channel's read v (`_rescale_v`): centered v
+        re-expanded into each surviving channel by its forward transform's
+        digit prologue (`redigit`), then (comp ql^-1 - nd (p ql^-1)) mod q_j
+        (`rescale_out`; for MSD's round-to-nearest the factor is ql^-1).
+        The transforms are linear, so this is comp minus the transformed
+        correction p * centered v (LSD), times ql^-1.  int32."""
         msd = _check_encoding(encoding) == "msd"
-        qv_s, inv_s, p_s = self._rescale_consts(comp.device)
-        k = qv_s.shape[0]
+        qs_s, ql_inv, p_ql_inv = self._rescale_consts()
+        k = len(qs_s)
         if k == 0:
             return comp[:0].clone()
         ql = self.qs[-1]
-        v = v.long()
-        centered = torch.where(v >= (ql + 1) // 2, v - ql, v)
-        delta = centered[None] % qv_s
-        if not msd:
-            delta = delta * p_s % qv_s
-        delta = delta.to(torch.int32)
-        nd = torch.stack([self._crt_one(delta[t], self.chans[t]) for t in range(k)])
-        d = _submod_ch(qv_s, comp[:k], nd)
-        return (d * inv_s % qv_s).to(torch.int32)
+        nd = [self._crt_one(v, self.chans[t], pre_digit_q=ql) for t in range(k)]
+        return rescale_out(comp, nd, qs_s, ql_inv, ql_inv if msd else p_ql_inv)
 
     def _rescale_crt(self, comp: torch.Tensor, encoding: str = "lsd") -> torch.Tensor:
         """Exact BGV drop-last rescale of one (nrns, n, B) component in the
@@ -614,15 +609,12 @@ class BatchedBGV:
         if mesh is not None:
             blocks = _Blocks(mesh, self)
             views = blocks.build(lambda view: view)
-            for view in views.flat:
-                view._rescale_consts(view.device)
 
             def ms_mesh(c0, c1):
                 blocks.check(c0, c1)
                 return blocks.rescale(views, c0, encoding), blocks.rescale(views, c1, encoding)
 
             return ms_mesh
-        self._rescale_consts(self.device)
 
         def ms(c0, c1):
             return self._rescale_crt(c0, encoding), self._rescale_crt(c1, encoding)
@@ -1071,7 +1063,6 @@ class BGVStep(KeySwitchLinear):
     def __init__(self, bb: BatchedBGV, hint: KSHint, encoding: str = "lsd"):
         super().__init__(bb, hint)
         self.encoding = _check_encoding(encoding)
-        bb._rescale_consts(bb.device)
 
     @torch.no_grad()
     def ct_mul(self, c0, c1, d0, d1):
@@ -1125,8 +1116,6 @@ class KeySwitchLinearExt(nn.Module):
         self.register_buffer("qv_ext", self.ext._consts(lambda q: q))
         self.register_buffer("h0", hint.h0[:, lo:hi].to(bb.device, torch.int64)[..., None])
         self.register_buffer("h1", hint.h1[:, lo:hi].to(bb.device, torch.int64)[..., None])
-        for drop in self.drops:
-            drop._rescale_consts(bb.device)
 
     @torch.no_grad()
     def digits(self, xc, x):
@@ -1181,7 +1170,6 @@ class BGVStepExt(KeySwitchLinearExt):
     def __init__(self, bb: BatchedBGV, hint: KSHintExt, encoding: str = "lsd"):
         super().__init__(bb, hint)
         self.encoding = _check_encoding(encoding)
-        bb._rescale_consts(bb.device)
 
     @torch.no_grad()
     def front(self, c0, c1, d0, d1):

@@ -30,7 +30,8 @@ The program's spans, by name (per BGV step at nrns channels):
 inverse of e2, 1), `bgv.ks.digits` (each digit's forward transforms,
 nrns), `bgv.ks.inner` (the hint inner products of every digit, 1, tagged
 with its route, "ks_inner" or "int64"), `bgv.rescale`
-(`BatchedBGV._rescale_crt`, 2), and `crt.odd` (each odd axis of a
+(`BatchedBGV._rescale_crt`, 2, tagged with its epilogue's route,
+"rescale_out" or "int64"), and `crt.odd` (each odd axis of a
 general-m `ops.general.crt_cm`, tagged with its route, "int64" or
 "modmat_s8").  Per ring tunnel R -> S (`Tunnel`, d relative basis
 elements): `tunnel` (`Tunnel.forward`, 1), `tunnel.intt` (both inverse

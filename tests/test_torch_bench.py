@@ -88,6 +88,21 @@ def test_roofline_ks_inner_work(nd, k, n):
         assert nbytes == 1_409_286_144 and round(ms, 3) == 0.421
 
 
+@pytest.mark.parametrize("k,n", [(2, 16384), (2, 6144), (1, 6144)])
+def test_roofline_rescale_out_work(k, n):
+    """The rescale's epilogue: the component and the transforms in, the
+    result out, 12 B a word; two modmuls and a modsub a word.  At the
+    step's width ((2, 16384, 1024)) 402,653,184 B a component, which bytes
+    bound at 0.120 ms."""
+    B = 1024
+    ops, nbytes = roofline.rescale_out_work(k, n, B)
+    assert (ops, nbytes) == (20 * k * n * B, 12 * k * n * B)
+    ms, by = roofline.bound(ops, nbytes)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    if (k, n) == (2, 16384):
+        assert nbytes == 402_653_184 and round(ms, 3) == 0.120
+
+
 @pytest.mark.parametrize("D", [2, 4, 8])
 def test_roofline_ring_work_and_bound(D):
     n, B = 16384, 1024

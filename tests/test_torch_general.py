@@ -128,6 +128,35 @@ def test_crt_cm_prologue_matches_reference(m):
         gen.crt_cm(plan, torch.zeros((n, 1), dtype=torch.int32), inverse=True, pre_digit_q=src)
 
 
+@pytest.mark.parametrize("m", [9, 36, 72, 90])
+def test_crt_cm_inverse_factor_is_the_inverse_times_it(m, monkeypatch):
+    """crt_cm's inverse with factor f == the unscaled inverse times f mod q
+    (== the JAX package's np_crt inverse times f): at m = 36 and 72 the
+    factor rides the 2-axis inverse (`ntt_cm`'s factor, no other
+    multiply), at odd m = 9 and at m = 90 (its 2-axis has phi = 1) the
+    ring has no 2-axis kernel and multiplies at the end."""
+    q = _q(m)
+    plan, jplan = gen.general_plan(m, q), jgen.general_plan(m, q)
+    n = plan.fm.phi
+    x = np.random.default_rng(m + 1).integers(0, q, (n, B)).astype(np.uint32)
+    x[0, 0], x[-1, -1] = q - 1, 0
+    xt = torch.from_numpy(x.astype(np.int32))
+    plain = gen.crt_cm(plan, xt, inverse=True).long()
+    jinv = jgen.np_crt(jplan, x.T, True).T.astype(np.int64)
+    seen, real = [], gen.ntt_cm
+    monkeypatch.setattr(gen, "ntt_cm", lambda *a, **k: seen.append(k["factor"]) or real(*a, **k))
+    for f in (1, q - 1, 12345, q + 7):
+        got = gen.crt_cm(plan, xt, inverse=True, factor=f)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.long(), plain * (f % q) % q)
+        np.testing.assert_array_equal(_u32(got), jinv * (f % q) % q)
+    has_2axis = plan.axes[0].ntt2 is not None
+    assert has_2axis == (m in (36, 72))
+    assert seen == ([1, q - 1, 12345, q + 7] if has_2axis else [])
+    with pytest.raises(ValueError, match="inverse-only"):
+        gen.crt_cm(plan, xt, factor=3)
+
+
 @pytest.mark.parametrize("m_sub,m_sup", TOWERS)
 def test_index_tables_match_reference(m_sub, m_sup):
     for name in ("embed_pow_table", "rel_coeff_table", "rel_pow_basis_positions"):

@@ -190,6 +190,101 @@ def test_ks_inner_matches_plain(cuda, name):
         assert a.dtype == torch.int32 and torch.equal(a.cpu(), b)
 
 
+RESCALE_SHAPES = {  # name -> (surviving channels k, n, B, offset of every operand in words)
+    "m32768": (2, 16384, 1024, 0),
+    "n6144": (2, 6144, 1024, 0),
+    "n6144_ragged_B_k1": (1, 6144, 1000, 0),  # B off the 4-word tile, one channel
+    "misaligned": (2, 256, 1024, 1),  # 4 bytes off: the scalar kernel
+    "odd_words": (3, 1, 7, 0),  # n B = 7 words a channel: the scalar kernel
+    "past_the_limit": (pw.RESCALE_MAX_CHANNELS + 1, 64, 8, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESCALE_SHAPES))
+@pytest.mark.parametrize("encoding", ["lsd", "msd"])
+def test_rescale_out_matches_plain(cuda, name, encoding):
+    """`rescale_out` against `rescale_out_ref` with the rescale's own
+    constants (ql^-1, and p ql^-1 for LSD): comp holds the dropped channel
+    too, q - 1 and 0 planted; launches one a RESCALE_MAX_CHANNELS
+    channels, inputs unwritten."""
+    k, n, B, off = RESCALE_SHAPES[name]
+    chain = tuple(nt.ntt_primes(2 ** 15, 30, k + 1))
+    qs, ql = chain[:k], chain[-1]
+    a = tuple(nt.modinv(ql % q, q) for q in qs)
+    b = a if encoding == "msd" else tuple(257 * x % q for x, q in zip(a, qs))
+    g = torch.Generator(device=cuda).manual_seed(k * 1000 + n + B)
+
+    def res(mods, shape):  # residues, q - 1 and 0 planted, `off` words into storage
+        qv = torch.tensor(mods, device=cuda).view(-1, 1, 1)
+        x = torch.randint(0, 1 << 62, (len(mods), *shape), generator=g, device=cuda) % qv
+        x[:, :, 0], x[:, 0, :] = qv[..., 0] - 1, 0
+        flat = torch.empty(x.numel() + off, dtype=torch.int32, device=cuda)
+        out = flat[off:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    comp = res(chain, (n, B))
+    nd = list(res(qs, (n, B)).unbind(0))
+    keep = [t.clone() for t in (comp, *nd)]
+    before = pw.LAUNCHES["rescale_out"]
+    got = pw.rescale_out(comp, nd, qs, a, b)
+    torch.cuda.synchronize()
+    assert pw.LAUNCHES["rescale_out"] - before == -(-k // pw.RESCALE_MAX_CHANNELS)
+    assert all(torch.equal(x, y) for x, y in zip(keep, (comp, *nd)))  # inputs untouched
+    want = pw.rescale_out_ref(comp.cpu(), [t.cpu() for t in nd], qs, a, b)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 256, 4096, 8192, 16384, 65536])
+def test_scaled_inverse_matches_plain(cuda, n):
+    """The GS inverse with `ntt_cm`'s factor (folded into n^-1, the same
+    kernel and launches) == the plain inverse times the factor == the
+    unscaled kernel's output times it."""
+    q = nt.ntt_primes(max(2 * n, 4), 30, 1)[0]
+    plan = ntt.ntt_plan(n, q)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(0, q, (n, 1000), generator=g, device=cuda, dtype=torch.int32)
+    x[0] = q - 1
+    plain = tk.ntt_cm(x, plan, inverse=True)
+    for f in (1, q - 1, nt.modinv(257, q), 12345 + q):
+        before = dict(tk.LAUNCHES)
+        got = tk.ntt_cm(x, plan, inverse=True, factor=f)
+        torch.cuda.synchronize()
+        assert {k: tk.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(
+            before, 0) | {"ntt_inv": len(tk.cm_schedule(n))}
+        assert torch.equal(got.cpu(), tk.ntt_cm_ref(x.cpu(), plan, inverse=True, factor=f))
+        assert torch.equal(got.long(), plain.long() * (f % q) % q)
+
+
+@pytest.mark.parametrize("m,p", [(512, 257), (2304, 7)])
+@pytest.mark.parametrize("encoding", ["lsd", "msd"])
+def test_rescale_on_card_equals_cpu(cuda, m, p, encoding):
+    """The whole `_rescale_crt` on the card == on the CPU, at a 2-power
+    ring and a general one with a 2-power axis: one inverse, a forward a
+    surviving channel, one `rescale_out`, nothing else; under the profiler
+    its span `bgv.rescale` is tagged with the kernel's route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lol_tpu_torch import sampling, trace
+
+    params = she.SHEParams(m=m, p=p, qs=tuple(nt.ntt_primes(m, 30, 3)), var=2.0)
+    bb, bb_cpu = BatchedBGV(params, cuda), BatchedBGV(params, "cpu")
+    comp = sampling.uniform_residues(params.qs, (params.ctx.n, 40), prng.KeyChain(m)(), cuda)
+    before = dict(tk.LAUNCHES, **pw.LAUNCHES)
+    got = bb._rescale_crt(comp, encoding)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in dict(tk.LAUNCHES, **pw.LAUNCHES).items() if v - before[k]}
+    fm = params.ctx.fm
+    passes = len(tk.cm_schedule(params.ctx.n if fm.is_pow2() else fm.phi_shape[0]))
+    assert ran == {"ntt_inv": passes, "ntt_fwd": 2 * passes, "rescale_out": 1}
+    assert torch.equal(got.cpu(), bb_cpu._rescale_crt(comp.cpu(), encoding))
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        bb._rescale_crt(comp, encoding)
+    tags = [r.tag for r in trace.records() if r.name == "bgv.rescale"]
+    assert tags == ["rescale_out"]
+
+
 @pytest.mark.parametrize("shape,iters", [((1,), 0), ((33, 7), 5), ((512, 512), 64),
                                          ((mx.GRID * mx.ROWS, mx.LANES), mx.ITERS)])
 def test_chain_matches_plain(cuda, shape, iters):
@@ -295,6 +390,7 @@ def test_step_on_card_equals_step_on_cpu(cuda):
     e_gpu = bb.build_step(hint)(*cts)
     assert pw.LAUNCHES["ct_mul"] - before["ct_mul"] == len(params.qs)
     assert pw.LAUNCHES["ks_inner"] - before["ks_inner"] == 1  # every digit in one launch
+    assert pw.LAUNCHES["rescale_out"] - before["rescale_out"] == 2  # one a component
     e_cpu = BatchedBGV(params, "cpu").build_step(hint)(*(c.cpu() for c in cts))
     for a, b in zip(e_gpu, e_cpu):
         assert torch.equal(a.cpu(), b)
@@ -585,6 +681,7 @@ def test_general_m_step_and_tunnel_on_card_equal_cpu(cuda, encoding):
     out = bb.build_step(hint, encoding)(*a, *b)
     assert pw.LAUNCHES["ct_mul"] - before["ct_mul"] == 3
     assert pw.LAUNCHES["ks_inner"] - before["ks_inner"] == 1
+    assert pw.LAUNCHES["rescale_out"] - before["rescale_out"] == 2
     assert tk.LAUNCHES["ntt_inv"] - before["ntt_inv"] == 5
     _same(out, bb_cpu.build_step(hint, encoding)(*(c.cpu() for c in (*a, *b))))
     f = linear.linear_pow(ps.ctx, params.ctx, ps.ctx,
@@ -670,6 +767,14 @@ def _same_any(a, b):
         assert all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
 
+# rescale_out launches of each builder (unsharded, over the mesh): one a
+# rescaled component unsharded; on the mesh one a block that keeps a
+# surviving channel, per data column (2): the base chain's rescale 2 rows,
+# a special prime's drop all 3 (the specials ride the last row)
+MESH_RESCALES = {"step_lsd": (2, 8), "step_msd": (2, 8), "mod_switch": (2, 8),
+                 "step_ext": (6, 32), "key_switch_linear_ext": (4, 24)}
+
+
 @pytest.mark.parametrize("builder", ["step_lsd", "step_msd", "mod_switch", "key_switch_linear",
                                      "step_ext", "key_switch_linear_ext", "galois",
                                      "galois_many", "tunnel", "pt_ops"])
@@ -677,7 +782,9 @@ def test_mesh_builders_on_card_equal_unsharded(cuda, builder):
     """Each mesh builder over make_mesh({"rns": 3, "data": 2}) at m = 256,
     three primes, B = 40: unsharded, the card's unsharded output, its
     launches exactly twice the unsharded call's (one per data column),
-    but the key switch's inner products, one launch a block (six)."""
+    but the key switch's inner products, one launch a block (six), and the
+    rescale's epilogue, one a block that keeps a surviving channel
+    (`MESH_RESCALES`)."""
     bb, hints, cts = _mesh_setup(cuda)
     mesh = sh.make_mesh({"rns": 3, "data": 2})
     make, k = _mesh_builders(bb, hints)[builder]
@@ -690,7 +797,10 @@ def test_mesh_builders_on_card_equal_unsharded(cuda, builder):
     before = dict(tk.LAUNCHES, **pw.LAUNCHES)
     got = make(mesh)(*blocks)
     mesh_launches = {key: v - before[key] for key, v in dict(tk.LAUNCHES, **pw.LAUNCHES).items()}
-    assert mesh_launches == {key: (6 if key == "ks_inner" else 2) * v for key, v in one.items()}
+    one_rs, mesh_rs = MESH_RESCALES.get(builder, (0, 0))
+    assert one["rescale_out"] == one_rs and mesh_launches["rescale_out"] == mesh_rs
+    assert mesh_launches == {key: mesh_rs if key == "rescale_out" else
+                             (6 if key == "ks_inner" else 2) * v for key, v in one.items()}
     _same_any(_unshard_all(got), want)
 
 

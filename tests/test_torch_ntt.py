@@ -203,13 +203,17 @@ def test_route_b_and_ring_schedules_are_pinned(n):
             assert rn.phase_b_passes(tS, D, d) == want
 
 
-def _run_rounds(x, plan, passes, inverse, scale=True):
+def _run_rounds(x, plan, passes, inverse, scale=True, fold=None):
     """A plain int64 run of the forward / GS kernels' register rounds
     (csrc/ntt_rounds.cuh `ntt_round`), in their order: for each pass, each
     round of `tk.rounds` (the inverse from the last), each unit of 2^rs
     rows row0 | m << LK, and each stage's twiddle index
     ((base0 + sq*base_step) << (A + s)) + (j << s) + grp; exact mod q.
-    scale: the inverse ends with n^-1 (not so the ring's phase B')."""
+    scale: the inverse ends with n^-1 (not so the ring's phase B').
+    fold: `tk.scale_consts`' words (ninv, _, w0n, _), applied as the GS
+    kernel applies them: global stage 0 (the last pass's stage A = s = 0)
+    multiplies its sum by ninv and its difference by w0n in place of its
+    twiddle, and a pass of no stages multiplies by ninv."""
     q = plan.q
     w = plan.tables("cpu")[2 if inverse else 0].long()
     x = x.long() % q
@@ -239,13 +243,17 @@ def _run_rounds(x, plan, passes, inverse, scale=True):
                      + torch.arange(1 << s)[None, None, :])
                 wt = w[t].view(p.nseq, 1 << A, 1, 1 << s, 1, 1)
                 a0, a1 = vv[:, :, :, :, 0], vv[:, :, :, :, 1]
-                if inverse:
+                if inverse and fold is not None and p is passes[-1] and A == s == 0:
+                    out = ((a0 + a1) * fold[0] % q, (a0 - a1) * fold[2] % q)
+                elif inverse:
                     out = ((a0 + a1) % q, (a0 - a1) * wt % q)
                 else:
                     out = ((a0 + a1 * wt) % q, (a0 - a1 * wt) % q)
                 v = torch.stack(out, dim=4).reshape(v.shape)
             y[:, idx] = v
         x[rows] = y
+    if inverse and fold is not None:
+        return x * fold[0] % q if plan.n == 1 else x
     return x * plan.n_inv % q if inverse and scale else x
 
 
@@ -270,6 +278,48 @@ def test_register_rounds_equal_the_plain_networks(n, inverse, rng):
         pallas = pk.ntt_cm(jnp.asarray(a), jntt.ntt_plan(n, q), inverse=inverse,
                            interpret=True)
         np.testing.assert_array_equal(want.numpy(), np.asarray(pallas).astype(np.int64))
+
+
+@pytest.mark.parametrize("n", [1, 2, 256, 16384])
+@pytest.mark.parametrize("factor", ["one", "q-1", "random"])
+def test_register_rounds_fold_the_factor_into_stage_0(n, factor, rng):
+    """The GS kernel's inverse with `ntt_cm`'s factor: `scale_consts`'
+    words folded into global stage 0 (or the length-1 pass) as
+    ntt_inv_pass folds them give the unscaled inverse times the factor mod
+    q, over both schedules; so does the plain version, and a factor of 1
+    keeps the constants the kernel always had."""
+    q = nt.ntt_primes(2 * n, 30, 1)[0]
+    plan = ntt.ntt_plan(n, q)
+    f = {"one": 1, "q-1": q - 1, "random": int(rng.integers(2, q))}[factor]
+    consts = tk.scale_consts(plan, f)
+    ninv, ninv_sh, w0n, w0n_sh = consts
+    assert ninv == plan.n_inv * f % q and w0n == int(plan.ipsi_rev[1 % n]) * ninv % q
+    assert (ninv_sh, w0n_sh) == (zq.shoup(ninv, q), zq.shoup(w0n, q))
+    assert tk.scale_consts(plan, f + q) == consts
+    if f == 1:
+        assert (ninv, ninv_sh) == (plan.n_inv, plan.n_inv_sh)
+    B = 8
+    a = rng.integers(0, q, (n, B), dtype=np.uint64).astype(np.uint32)
+    a[0, :] = q - 1
+    x = torch.from_numpy(a.astype(np.int64))
+    want = ntt.ntt_inverse_cm(x, plan) * f % q
+    for sched in (tk.schedule(n), tk.cm_schedule(n)):
+        assert torch.equal(_run_rounds(x, plan, sched[::-1], True, fold=consts), want)
+    x32 = x.to(torch.int32)
+    assert torch.equal(tk.ntt_cm(x32, plan, inverse=True, factor=f).long(), want)
+    assert torch.equal(tk.ntt_cm_ref(x32, plan, inverse=True, factor=f + q).long(), want)
+
+
+def test_ntt_cm_refuses_a_factor_off_the_gs_inverse():
+    plan = ntt.ntt_plan(64, nt.ntt_primes(128, 30, 1)[0])
+    x = torch.zeros((64, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="GS inverse"):
+        tk.ntt_cm(x, plan, factor=3)
+    with pytest.raises(ValueError, match="GS inverse"):
+        tk.ntt_cm(x, plan, inverse=True, alg="dit", factor=3)
+    with pytest.raises(ValueError, match="last inverse pass"):
+        tk.run_passes(x, plan, tk.cm_schedule(64), inverse=True, last=False, factor=3)
+    assert torch.equal(tk.ntt_cm(x, plan, inverse=True, alg="dit", factor=1), x)
 
 
 def _smem_words(p, A, rs, u, rank, m):

@@ -8,7 +8,10 @@ bit, at the largest 30-bit primes with the extremal residues 0, 1 and
 q - 1 in every operand.  `ks_inner_cm`'s plain version must equal the
 step's former per-digit int64 chain, the reference's Shoup chain
 (`_addmod_ch(e, _mulmod_sh_ch(d_i, h_i, hs_i))`) and the kernel's own u32
-steps run plainly.
+steps run plainly.  The rescale through `rescale_out` (p^-1 folded into
+the inverse, the correction re-expanded by the forward prologue) must
+equal the rescale's former int64 formula, and `rescale_out_ref` the
+kernel's u32 steps run plainly.
 """
 
 import jax.numpy as jnp
@@ -243,3 +246,139 @@ def test_ks_inner_rejects_bad_arguments(rng):
         pw.ks_inner_cm(e0, e1, ds, hint, (*qs[:2], 1))
     pw.ks_inner_cm(e0, e1, ds, hint, qs)
     assert pw.LAUNCHES["ks_inner"] == before  # a CPU tensor never reaches the kernel
+
+
+# --- the exact rescale's epilogue (rescale_out) ------------------------------
+
+
+def _former_rescale(bb, comp, encoding):
+    """The rescale's int64 formula before `rescale_out`: v = iNTT(c_l)
+    (times p^-1 mod ql for LSD), delta = (p) centered v mod q_j, forward
+    transformed, subtracted, times ql^-1."""
+    ql, p = bb.qs[-1], bb.params.p
+    v = bb._crt_one(comp[-1], len(bb.qs) - 1, inverse=True).long()
+    if encoding == "lsd":
+        v = v * nt.modinv(p % ql, ql) % ql
+    surv = bb.qs[:-1]
+    qv = torch.tensor(surv).view(-1, 1, 1)
+    centered = torch.where(v >= (ql + 1) // 2, v - ql, v)
+    delta = centered[None] % qv
+    if encoding == "lsd":
+        delta = delta * (p % qv) % qv
+    nd = torch.stack([bb._crt_one(delta[t].to(torch.int32), t) for t in range(len(surv))])
+    inv = torch.tensor([nt.modinv(ql % q, q) for q in surv]).view(-1, 1, 1)
+    return ((comp[:-1].long() - nd.long()) % qv * inv % qv).to(torch.int32)
+
+
+def _rescale_kernel_words(comp, nd, qs, a, b):
+    """csrc/rescale.cu's u32 steps, plainly: two lazy Shoup products in
+    [0, 2q), their difference plus 2q in (0, 4q), two conditional
+    subtractions."""
+    k = len(qs)
+    qv = torch.tensor(qs).view(-1, 1, 1)
+    av, bv = (torch.tensor(list(v)).view(-1, 1, 1) for v in (a, b))
+    ash, bsh = (torch.tensor([zq.shoup(w, q) for w, q in zip(v, qs)]).view(-1, 1, 1)
+                for v in (a, b))
+    x = zq.mul_shoup_lazy(comp[:k], av, ash >> 16, ash & 0xFFFF, qv)
+    y = zq.mul_shoup_lazy(torch.stack(list(nd)), bv, bsh >> 16, bsh & 0xFFFF, qv)
+    assert bool((x < 2 * qv).all()) and bool((y < 2 * qv).all())
+    r = x + 2 * qv - y
+    assert bool((r > 0).all()) and bool((r < 4 * qv).all()) and bool((r < 1 << 32).all())
+    r = torch.where(r >= 2 * qv, r - 2 * qv, r)
+    return torch.where(r >= qv, r - qv, r).to(torch.int32)
+
+
+RESCALE_CASES = {  # name -> (m, p, chain order of the three largest primes, encoding)
+    "lsd_ql_below": (64, 17, (0, 1, 2), "lsd"),
+    "lsd_ql_above": (64, 17, (2, 1, 0), "lsd"),
+    "lsd_ql_between": (64, 17, (0, 2, 1), "lsd"),
+    "msd_ql_below": (64, 17, (0, 1, 2), "msd"),
+    "msd_ql_above": (64, 17, (2, 1, 0), "msd"),
+    "lsd_general_m72": (72, 5, (2, 0, 1), "lsd"),
+    "msd_general_m72": (72, 5, (0, 1, 2), "msd"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESCALE_CASES))
+def test_rescale_out_matches_the_former_int64_rescale(case, rng):
+    """`_rescale_crt` (the inverse times p^-1 through its n^-1, the
+    correction's centering as the forward prologue, `rescale_out`) == the
+    rescale's former int64 formula bit for bit, LSD and MSD, with ql above,
+    below and between the surviving moduli, at 2-power and general m; a
+    mesh block's view of the surviving channels (and of the dropped one
+    alone, k = 0) gives its rows of it; `rescale_out_ref` == the kernel's
+    u32 steps run plainly."""
+    m, p, order, enc = RESCALE_CASES[case]
+    primes = nt.ntt_primes(m, 30, 3)
+    qs = tuple(primes[i] for i in order)
+    params = she.SHEParams(m=m, p=p, qs=qs, var=2.0)
+    bb = she_batched.BatchedBGV(params, "cpu")
+    n, B = params.ctx.n, 6
+    qv = torch.tensor(qs).view(-1, 1, 1)
+    comp = torch.from_numpy(rng.integers(0, 1 << 40, (3, n, B))) % qv
+    comp[:, 0, 0], comp[:, 1, 0] = (qv - 1)[:, 0, 0], 0
+    comp[-1, 2, :2] = torch.tensor([(qs[-1] - 1) // 2, (qs[-1] + 1) // 2])  # the centering edge
+    comp = comp.to(torch.int32)
+    want = _former_rescale(bb, comp, enc)
+    got = bb._rescale_crt(comp, enc)
+    assert got.dtype == torch.int32 and got.shape == (2, n, B)
+    assert torch.equal(got, want)
+    v = bb._rescale_v(comp[-1], enc)
+    assert v.dtype == torch.int32 and bool((v >= 0).all()) and bool((v < qs[-1]).all())
+    for chans, rows in ((range(1, 3), slice(1, 2)), (range(2, 3), slice(0, 0))):
+        view = bb._view(chans, "cpu")
+        assert torch.equal(view._rescale_apply(comp[chans.start:], v, enc), want[rows])
+    surv, inv, p_ql_inv = bb._rescale_consts()
+    assert surv == qs[:-1] and inv == tuple(nt.modinv(qs[-1] % q, q) for q in surv)
+    assert p_ql_inv == tuple(p * a % q for a, q in zip(inv, surv))
+    nd = [bb._crt_one(v, t, pre_digit_q=qs[-1]) for t in range(2)]
+    for k in (1, 2):
+        b = (inv if enc == "msd" else p_ql_inv)[:k]
+        ref = pw.rescale_out_ref(comp, nd[:k], surv[:k], inv[:k], b)
+        assert torch.equal(ref, want[:k])
+        assert torch.equal(_rescale_kernel_words(comp, nd[:k], surv[:k], inv[:k], b), ref)
+
+
+def test_rescale_out_ref_at_the_extremes(rng):
+    """Every combination of 0, 1 and q - 1 in comp and the transform, with
+    constants 0, 1, q - 1 and random: `rescale_out` on the CPU ==
+    `rescale_out_ref` == the kernel's u32 steps == exact int64."""
+    qs = tuple(nt.ntt_primes(2 ** 15, 30, 2))
+    ext = torch.tensor([0, 1])
+    comp = torch.stack([torch.cat([ext, torch.tensor([q - 1])]).repeat_interleave(3)
+                        for q in qs]).view(2, 9, 1).to(torch.int32)
+    nd = [torch.cat([ext, torch.tensor([q - 1])]).repeat(3).view(9, 1).to(torch.int32)
+          for q in qs]
+    for a, b in ((0, 1), (1, 0), (qs[1] - 1, qs[1] - 1), tuple(int(x) for x in rng.integers(2, qs[1], 2))):
+        got = pw.rescale_out(comp, nd, qs, (a, a), (b, b))
+        exact = ((comp.long() * a - torch.stack(nd).long() * b) % torch.tensor(qs).view(-1, 1, 1))
+        assert torch.equal(got.long(), exact)
+        assert torch.equal(_rescale_kernel_words(comp, nd, qs, (a, a), (b, b)), got)
+
+
+def test_rescale_out_rejects_bad_arguments(rng):
+    qs = tuple(nt.ntt_primes(2 ** 15, 30, 3))[:2]
+    comp = torch.zeros((3, 8, 4), dtype=torch.int32)
+    nd = [torch.zeros((8, 4), dtype=torch.int32) for _ in qs]
+    a = b = (1, 1)
+    before = pw.LAUNCHES["rescale_out"]
+    with pytest.raises(ValueError, match="int32"):
+        pw.rescale_out(comp.long(), nd, qs, a, b)
+    with pytest.raises(ValueError, match=r"\(>= 2, n, B\)"):
+        pw.rescale_out(comp[:1], nd, qs, a, b)
+    with pytest.raises(ValueError, match="transforms"):
+        pw.rescale_out(comp, nd[:1], qs, a, b)
+    with pytest.raises(ValueError, match="constants"):
+        pw.rescale_out(comp, nd, qs, a[:1], b)
+    with pytest.raises(ValueError, match=r"\(n, B\) transforms"):
+        pw.rescale_out(comp, [nd[0], nd[1][:4]], qs, a, b)
+    with pytest.raises(ValueError, match=r"\(n, B\) transforms"):
+        pw.rescale_out(comp, [nd[0], nd[1].long()], qs, a, b)
+    with pytest.raises(ValueError, match="out of range"):
+        pw.rescale_out(comp, nd, (qs[0], 1 << 30), a, b)
+    with pytest.raises(ValueError, match="not residues"):
+        pw.rescale_out(comp, nd, qs, (1, qs[1]), b)
+    with pytest.raises(ValueError, match="transforms"):
+        pw.rescale_out(comp, [], (), (), ())
+    pw.rescale_out(comp, nd, qs, a, b)
+    assert pw.LAUNCHES["rescale_out"] == before  # a CPU tensor never reaches the kernel

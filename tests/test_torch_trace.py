@@ -72,7 +72,7 @@ def test_off_a_site_is_one_flag_read_and_records_nothing(step, monkeypatch):
     odd = ODD_PER_STEP if m == 72 else 0
     spans = sum(STEP_SPANS.values()) + odd
     counts = 2 + 2  # the inner product's in and out, each rescale's one
-    tags = odd + 1  # matvec_mod's route tag, ks_inner_cm's
+    tags = odd + 1 + 2  # matvec_mod's route tag, ks_inner_cm's, each rescale_out's
     assert flag.reads == spans + counts + tags
     assert trace.records() == [] and trace.anchor() is None and trace.dropped() == 0
 
@@ -98,7 +98,8 @@ def test_the_step_records_its_span_tree(step):
             assert r.tag == "int64"  # phi = 6, below the int8-limb route's axis
         else:
             assert parent is root
-            assert r.tag == ("int64" if r.name == "bgv.ks.inner" else None)  # the CPU's route
+            # the CPU's route of ks_inner_cm and rescale_out
+            assert r.tag == ("int64" if r.name in ("bgv.ks.inner", "bgv.rescale") else None)
     assert trace.anchor() is None  # no card in use: no anchor event
 
 
