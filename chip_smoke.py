@@ -1881,7 +1881,7 @@ def main() -> int:
     ext, ksl_ext = {}, {}
     for e in ("lsd", "msd"):
         ext[e] = run("3e_ext", f"step_ext {e}", bb8.build_step_ext(quad_ext, e), *c8[e][0],
-                     *c8[e][1], fwd=ks_fwd + 2 * (Lb - 1), inv=ks_inv + 2, ct_mul=Lb,
+                     *c8[e][1], fwd=ks_fwd + 2 * (Lb - 1), inv=ks_inv + 2, ct_mul=Lb, ks=1,
                      rs=2 * len(special) + 2, n_fwd=n8, n_inv=n8)
         decrypts_to(f"step_ext {e}", dec(e, ext[e], f"step_ext {e}", bb8.step_f(1, 1, e), bb8d,
                                          sk8d, phase="3e_ext"), pt_muls(a8, b8, params8))
@@ -1889,7 +1889,7 @@ def main() -> int:
                     *c8[e][0], *c8[e][1])
         ksl_ext[e] = run("3e_ext", f"key_switch_linear_ext {e}",
                          bb8.build_key_switch_linear_ext(lin_ext), *c8[e][0], fwd=ks_fwd,
-                         inv=ks_inv, rs=2 * len(special), n_fwd=n8, n_inv=n8)
+                         inv=ks_inv, ks=1, rs=2 * len(special), n_fwd=n8, n_inv=n8)
         decrypts_to(f"key_switch_linear_ext {e}", dec(e, ksl_ext[e], "ksl_ext", key=sk8_new,
                                                       phase="3e_ext"), a8.cpu())
         same_on_cpu(f"key_switch_linear_ext {e}", ksl_ext[e],
@@ -1992,7 +1992,7 @@ def main() -> int:
     ct_gal = run("3f_galois", "encrypt", enc, mg, nk(), fwd=nrns, n_fwd=n)
     rot_fwd, rot_inv = nrns * (nrns - 1), nrns
     outs_many = run("3f_galois", "galois_many", gal_many, *ct_gal, fwd=rot_fwd, inv=rot_inv,
-                    n_fwd=n, n_inv=n)
+                    ks=len(ks), n_fwd=n, n_inv=n)
     dec_gal = bb.build_decrypt(sk)
     for k in ks:
         out = run("3f_galois", f"galois k={k}", gal_one[k], *ct_gal, fwd=rot_fwd, inv=rot_inv,
@@ -2095,12 +2095,13 @@ def main() -> int:
             sk8d, f=bb8.mod_switch_f(1) if e == "lsd" else 1, encoding=e)(*out), a8.cpu())
         out = run_mesh(f"step_ext {e}", bb8.build_step_ext(quad_ext, e, rd_mesh),
                        shard(*c8[e][0], *c8[e][1]), ext[e], {n8: ks_fwd + 2 * (Lb - 1)},
-                       {n8: ks_inv + 2}, Lb, rs=(Lb,) * 2, rs_drops=(Lb,) * 2 * len(special))
+                       {n8: ks_inv + 2}, Lb, ks=(Lb,), rs=(Lb,) * 2,
+                       rs_drops=(Lb,) * 2 * len(special))
         decrypts_to(f"mesh step_ext {e}", bb8d.build_decrypt(
             sk8d, f=bb8.step_f(1, 1, e), encoding=e)(*out), pt_muls(a8, b8, params8))
         out = run_mesh(f"key_switch_linear_ext {e}", bb8.build_key_switch_linear_ext(
             lin_ext, rd_mesh), shard(*c8[e][0]), ksl_ext[e], {n8: ks_fwd}, {n8: ks_inv},
-            rs_drops=(Lb,) * 2 * len(special))
+            ks=(Lb,), rs_drops=(Lb,) * 2 * len(special))
         decrypts_to(f"mesh key_switch_linear_ext {e}",
                     bb8.build_decrypt(sk8_new, encoding=e)(*out), a8.cpu())
     out = run_mesh("key_switch_linear", bb8.build_key_switch_linear(lin_hint, rd_mesh),
@@ -2108,7 +2109,7 @@ def main() -> int:
                    {n8: nrns}, ks=(nrns,))
     decrypts_to("mesh key_switch_linear", bb8.build_decrypt(sk8_new)(*out), a8.cpu())
     outs_mesh = run_mesh("galois_many", bb.build_galois_many(ghints, rd_mesh), shard(*ct_gal),
-                         gal_many(*ct_gal), {n: rot_fwd}, {n: rot_inv})
+                         gal_many(*ct_gal), {n: rot_fwd}, {n: rot_inv}, ks=(nrns,) * len(ks))
     for k in ks:
         decrypts_to(f"mesh galois k={k}", dec_gal(*outs_mesh[k]),
                     np.stack([she.galois_ints(m, mg[:, c].cpu().numpy(), k, p)
@@ -2559,7 +2560,7 @@ def main() -> int:
     cx = [t_[..., first8].contiguous() for t_ in (*c8["lsd"][0], *c8["lsd"][1])]
     out = run_3i("ext step (reloaded hint)", lambda: bb8.build_step_ext(loaded["ext_hint"])(*cx),
                  {"ntt_fwd": (ks_fwd + 2 * (Lb - 1)) * passes(n8),
-                  "ntt_inv": (ks_inv + 2) * passes(n8), "ct_mul": Lb,
+                  "ntt_inv": (ks_inv + 2) * passes(n8), "ct_mul": Lb, "ks_inner": 1,
                   "rescale_out": 2 * len(special) + 2})
     if not all(torch.equal(a_, b_[..., first8]) for a_, b_ in zip(out, ext["lsd"])):
         raise AssertionError("phase 3i: the ext step on the reloaded hint != the original's")
@@ -3332,7 +3333,9 @@ def main() -> int:
         {"name": "ks_inner", "route": "cuda", "source": "lol_tpu_torch/csrc/keyswitch.cu",
          "replaces": "lol_tpu/she_batched.py:782-783 (XLA's u32 chain of _addmod_ch and "
                      "_mulmod_sh_ch; no pallas_call)",
-         "path": "the key switch's hint inner products (KeySwitchLinear.inner_product)",
+         "path": "every key switch's hint inner products but the tunnel's "
+                 "(BatchedBGV._ks_inner: the step, the linear, Galois and hoisted Galois "
+                 "key switches, the ext step and key switch)",
          "launches": launches["ks_inner"], "max_abs_err": err["ks_inner"],
          "launches_builders": path_launches["3c"]["ks_inner"],
          "launches_serving": path_launches["3e"]["ks_inner"],

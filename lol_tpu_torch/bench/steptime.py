@@ -74,7 +74,7 @@ def build_legs(step: BGVStep, c0, c1, d0, d1) -> dict:
     with every leg's inputs made up front."""
     bb, nrns = step.bb, len(step.bb.qs)
     c1c = bb._ntt(c1, inverse=True)
-    ds = [bb._digit_crt(c1c[i], i, c1) for i in range(nrns)]
+    ds = bb._ks_digits(c1c, c1, nrns)
 
     def hadamard():
         e0, e1, _ = step.ct_mul(c0, c1, d0, d1)
@@ -83,7 +83,7 @@ def build_legs(step: BGVStep, c0, c1, d0, d1) -> dict:
     he0, he1 = hadamard()
     return {
         "intt": lambda: bb._ntt(c1, inverse=True),
-        "digits": lambda: [bb._digit_crt(c1c[i], i, c1) for i in range(nrns)],
+        "digits": lambda: bb._ks_digits(c1c, c1, nrns),
         "hadamard": hadamard,
         "rescale": lambda: (bb._rescale_crt(he0, step.encoding),
                             bb._rescale_crt(he1, step.encoding)),

@@ -19,8 +19,12 @@ digit with a constant hint (`ks_hint`: the hint and its Shoup
 companions), which the reference leaves to XLA (`she_batched.py`'s
 `_mulmod_sh_ch` chain); on the card one launch of `csrc/keyswitch.cu`
 per `KS_MAX_DIGITS` digits, on the CPU its plain int64 version
-`ks_inner_cm_ref`.  It tags the innermost open `trace` span with the
-route that ran ("ks_inner" or "int64").
+`ks_inner_cm_ref`.  Every key switch of the port's batched pipeline
+calls it (the step, the linear key switch, the Galois rotations, hoisted
+or not, and the extended-modulus step and key switch, through
+`she_batched.BatchedBGV._ks_inner`), except the ring tunnel, which keeps
+its int64 torch products.  It tags the innermost open `trace` span with
+the route that ran ("ks_inner" or "int64").
 
 `rescale_out` is the exact BGV rescale's epilogue over the surviving
 channels, (c_j q_l^-1 - nd_j p q_l^-1) mod q_j, which the reference also

@@ -80,14 +80,17 @@ _TERMS_PER_REDUCE = 7
 MXU_MIN_AXIS = 16  # from this axis on, the int8-limb route (as the reference)
 
 
-def _int64_matrix(M, device) -> torch.Tensor:
-    """M as int64 on `device`; a read-only numpy matrix (the plans') is
-    copied there once."""
-    if isinstance(M, torch.Tensor):
-        return M.to(device, torch.int64)
-    dev = torch.device(device)
-    return once_per_matrix(M, ("int64", dev),
-                           lambda: torch.from_numpy(np.asarray(M, dtype=np.int64)).to(dev))
+def _int64_columns(M, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """M's columns as int64 (1, a, 1) views on `device`; a read-only numpy
+    matrix's (the plans') are made there once."""
+    a, b = M.shape
+
+    def make():
+        Mt = (M.to(device, torch.int64) if isinstance(M, torch.Tensor)
+              else torch.from_numpy(np.asarray(M, dtype=np.int64)).to(device))
+        return tuple(Mt[:, j].view(1, a, 1) for j in range(b))
+
+    return once_per_matrix(M, ("int64 columns", device), make)
 
 
 def matvec_mod(M, x: torch.Tensor, q: int, axis: int = -1,
@@ -98,26 +101,27 @@ def matvec_mod(M, x: torch.Tensor, q: int, axis: int = -1,
     last axis), with its dispatch: use_mxu=None takes the int8-limb route
     (`modmat_s8`) where min(a, b) >= MXU_MIN_AXIS, the exact int64 one
     below.  No data moves: x is viewed as (pre, b, post); the int64 route
-    accumulates over b, reduced every seven terms."""
+    accumulates over b in place, reduced every seven terms, from views
+    made once (the host's work per call is its launches)."""
     a, b = M.shape
     if use_mxu is None:
         use_mxu = min(a, b) >= MXU_MIN_AXIS
     trace.tag("modmat_s8" if use_mxu else "int64")
     if use_mxu:
         return modmat_s8(M, x, q, axis)
-    Mt = _int64_matrix(M, x.device)
+    cols = _int64_columns(M, x.device)
     axis = axis % x.dim()
     if x.shape[axis] != b:
         raise ValueError(f"matvec_mod: axis of length {x.shape[axis]}, matrix {a}x{b}")
     pre, post = math.prod(x.shape[:axis]), math.prod(x.shape[axis + 1:])
-    xv = x.reshape(pre, b, post).long()
+    xs = x.reshape(pre, b, post).long().split(1, 1)
     acc = None
     for j0 in range(0, b, _TERMS_PER_REDUCE):
         s = acc
         for j in range(j0, min(b, j0 + _TERMS_PER_REDUCE)):
-            t = Mt[:, j].view(1, a, 1) * xv[:, j:j + 1, :]
-            s = t if s is None else s + t
-        acc = s % q
+            t = cols[j] * xs[j]
+            s = t if s is None else s.add_(t)
+        acc = s.remainder_(q)
     return acc.to(torch.int32).view(*x.shape[:axis], a, *x.shape[axis + 1:])
 
 

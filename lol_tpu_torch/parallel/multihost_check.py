@@ -73,15 +73,16 @@ def ext_step_launches(Lb: int, nsp: int, n: int) -> dict[str, int]:
     mesh (one rns row a base prime, the special primes on the last): the
     digits into every extended channel but their own, a rescale pair per
     special prime, and the step's own rescale.  The transforms are the
-    unsharded step's; `rescale_out` runs once a block that keeps a
-    surviving channel: Lb blocks a special prime's drop, Lb - 1 the
-    step's own, each for both components."""
+    unsharded step's; `ks_inner` runs once a block (its view of the
+    extended chain's one inner product), Lb in all; `rescale_out` once a
+    block that keeps a surviving channel: Lb blocks a special prime's
+    drop, Lb - 1 the step's own, each for both components."""
     from ..ops.cuda import ntt_kernel as tk
 
     passes, Lx = len(tk.cm_schedule(n)), Lb + nsp
     fwd = Lb * (Lx - 1) + sum(2 * (Lb + k - 1) for k in range(1, nsp + 1)) + 2 * (Lb - 1)
     return {"ntt_fwd": fwd * passes, "ntt_inv": (Lb + 2 * nsp + 2) * passes, "ct_mul": Lb,
-            "rescale_out": 2 * nsp * Lb + 2 * (Lb - 1)}
+            "ks_inner": Lb, "rescale_out": 2 * nsp * Lb + 2 * (Lb - 1)}
 
 
 def _counters():

@@ -19,14 +19,17 @@ digit's re-expansion fused into the forward NTT kernel as its
 prologue), and on the CPU their plain torch versions.  The JAX step
 leaves the Hadamards to XLA, which overlaps them with its NTT calls
 (`she_batched.py:828-837` there); eager PyTorch overlaps nothing, so
-the port fuses them.  The key switch's hint inner products go through
-`ops.cuda.pointwise.ks_inner_cm`, one launch for all its digits on the
-card.  The exact rescale runs on u32 paths: p^-1 rides the dropped
-channel's inverse transform (`ntt_cm`'s factor), the correction's
-centering and re-expansion are each surviving channel's forward digit
-prologue, and `ops.cuda.pointwise.rescale_out` finishes every channel in
-one launch.  The arithmetic of every other `build_*` function is plain
-int64 torch elementwise ops.  While torch's profiler records,
+the port fuses them.  The key switches of the step, the linear, Galois
+and hoisted Galois builders and both ext builders share one core
+(`BatchedBGV._ks_planes`, `_ks_digits`, `_ks_inner`): the hint inner
+products of all digits are one `ops.cuda.pointwise.ks_inner_cm` call;
+`build_tunnel` alone keeps int64 torch products.  The exact rescale runs
+on u32 paths: p^-1 rides the dropped channel's inverse transform
+(`ntt_cm`'s factor), the correction's centering and re-expansion are
+each surviving channel's forward digit prologue, and
+`ops.cuda.pointwise.rescale_out` finishes every channel in one launch.
+Every other `build_*` function is plain int64 torch elementwise ops.
+While torch's profiler records,
 the step's layers are spans of `trace` (`bgv.step`, `bgv.ct_mul`,
 `bgv.ks.intt`, `bgv.ks.digits`, `bgv.ks.inner`, `bgv.rescale`), and the
 inner products and the rescale count the bytes they take and give
@@ -270,17 +273,46 @@ class BatchedBGV:
         return torch.stack([gen.l_cm(gps[self.chans[k]], x[k], inverse)
                             for k in range(x.shape[0])])
 
-    def _digit_crt(self, src_i, i, known_crt):
-        """Digit i's CRT stack over this pipeline's channels, from the
-        coefficient-domain channel src_i = iNTT(x)[i]: channel j's
-        re-expansion runs as the prologue of its forward NTT.  Channel i
-        itself, where this pipeline holds it, is known_crt's (the free
-        diagonal: iNTT then NTT round-trips exactly)."""
-        return torch.stack([
-            known_crt[k] if j == i
-            else self._crt_one(src_i, j, pre_digit_q=self.qs[i])
-            for k, j in enumerate(self.chans)
-        ])
+    # --- the key switches' core (the tunnel's aside) --------------------
+    def _ks_planes(self, hint, ell: int, what: str, inv=None) -> torch.Tensor:
+        """The hint's (ell, len(qs), n) h0 and h1 (a `KSHint`, or a
+        `KSHintExt` over its extended view), checked, over this pipeline's
+        channels, slot-permuted along n by inv if given (permuting first
+        gives the same Shoup words), as `ks_hint`'s planes on the device."""
+        shape = (ell, len(self.qs), self.ctx.n)
+        if hint.h0.shape != shape or hint.h1.shape != hint.h0.shape:
+            raise ValueError(f"{what} of shape {tuple(hint.h0.shape)} "
+                             f"!= (ell, nrns, n) = {shape}")
+        lo, hi = self.chans.start, self.chans.stop
+        h0, h1 = (h[:, lo:hi].to(self.device) for h in (hint.h0, hint.h1))
+        if inv is not None:
+            inv = inv.to(self.device)
+            h0, h1 = h0[..., inv], h1[..., inv]
+        return ks_hint(h0, h1, self.cqs)
+
+    def _ks_digits(self, xc, x, ell: int) -> list[torch.Tensor]:
+        """The CRT stacks over this pipeline's channels of x's first ell
+        RNS-gadget digits, a `bgv.ks.digits` span each, from xc = iNTT(x)
+        over the whole chain (on a mesh, gathered): digit i into channel j
+        is the prologue of j's forward NTT, and channel i itself, where
+        this pipeline holds it, is x's (iNTT then NTT round-trips)."""
+        ds = []
+        for i in range(ell):
+            with trace.span("bgv.ks.digits"):
+                ds.append(torch.stack([
+                    x[k] if j == i else self._crt_one(xc[i], j, pre_digit_q=self.qs[i])
+                    for k, j in enumerate(self.chans)]))
+        return ds
+
+    def _ks_inner(self, e0, e1, ds, planes):
+        """(e0 + sum_i ds[i] h0[i], e1 + sum_i ds[i] h1[i]) mod q, e1 None
+        for zeros, planes from `_ks_planes`: one `ks_inner_cm` call in a
+        `bgv.ks.inner` span that counts `glue_io_bytes`; int32 out."""
+        with trace.span("bgv.ks.inner"):
+            trace.count("glue_io_bytes", e0, *(() if e1 is None else (e1,)), *ds)
+            out = ks_inner_cm(e0, e1, ds, planes, self.cqs)
+            trace.count("glue_io_bytes", *out)
+            return out
 
     def _rescale_consts(self) -> tuple[tuple[int, ...], ...]:
         """The rescale's per-channel constants over this pipeline's
@@ -738,10 +770,6 @@ class BatchedBGV:
                              f"pipeline chain (ext={ext_qs}, base={qs})")
         if hint.params.m != self.params.m or hint.params.p != self.params.p:
             raise ValueError("extended-modulus hint of another ring or plaintext modulus")
-        shape = (nrns, len(ext_qs), self.ctx.n)
-        if hint.h0.shape != shape or hint.h1.shape != shape:
-            raise ValueError(f"extended-modulus hint of shape {tuple(hint.h0.shape)} != "
-                             f"(ell, nrns_ext, n) = {shape}")
         lo, hi = self.chans.start, self.chans.stop
         hi_ext = hi + hint.n_special if hi == nrns else hi
         ext = BatchedBGV(replace(self.params, qs=ext_qs), self.device, range(lo, hi_ext))
@@ -1002,7 +1030,7 @@ class Sharded(nn.Module):
 class KeySwitchLinear(nn.Module):
     """The RNS-gadget key switch with a hint (`build_key_switch_linear`):
     the hint of the pipeline's channels (`hint_sh`: h0 and h1 with their
-    Shoup companions, `ks_hint`'s planes) and their moduli are buffers,
+    Shoup companions, `BatchedBGV._ks_planes`) and their moduli are buffers,
     so `.to(device)` moves it.  Its digit path, which the step and the
     rotations share: an inverse NTT per channel, then `digits` (on a
     mesh, on the gathered inverse): each digit's re-expansion as the
@@ -1012,39 +1040,25 @@ class KeySwitchLinear(nn.Module):
     def __init__(self, bb: BatchedBGV, hint: KSHint):
         super().__init__()
         _check_rns_gadget(hint.spec)
-        nrns = len(bb.qs)
-        if hint.h0.shape != (nrns, nrns, bb.ctx.n) or hint.h1.shape != hint.h0.shape:
-            raise ValueError(f"key switch: hint shape {tuple(hint.h0.shape)} "
-                             f"!= (ell, nrns, n) = {(nrns, nrns, bb.ctx.n)}")
         self.bb = bb
-        lo, hi = bb.chans.start, bb.chans.stop
         self.register_buffer("qv", bb._consts(lambda q: q))
-        self.register_buffer("hint_sh", ks_hint(hint.h0[:, lo:hi].to(bb.device),
-                                                hint.h1[:, lo:hi].to(bb.device), bb.cqs))
+        self.register_buffer("hint_sh", bb._ks_planes(hint, len(bb.qs), "key switch: hint"))
 
     @torch.no_grad()
     def inner_product(self, e0, e1, ds):
         """(e0 + sum_i ds[i] h0[i], e1 + sum_i ds[i] h1[i]) mod q over the
         digits' CRT stacks ds, e1 None for zeros: the key switch's hint
-        inner products (`ks_inner_cm`), int32 out."""
-        with trace.span("bgv.ks.inner"):
-            trace.count("glue_io_bytes", e0, *(() if e1 is None else (e1,)), *ds)
-            out = ks_inner_cm(e0, e1, ds, self.hint_sh, self.bb.cqs)
-            trace.count("glue_io_bytes", *out)
-            return out
+        inner products (`BatchedBGV._ks_inner`), int32 out."""
+        return self.bb._ks_inner(e0, e1, ds, self.hint_sh)
 
     @torch.no_grad()
     def digits(self, e0, e1, xc, x):
         """(e0, e1) plus the inner products of x's digits with the hint,
         e1 None for zeros: xc is iNTT(x) over every channel of the chain
         (on a mesh, the gathered stack), x the pipeline's channels of the
-        CRT stack.  Every digit's stack first, then one `inner_product`;
-        int32 out."""
-        ds = []
-        for i in range(len(self.bb.qs)):
-            with trace.span("bgv.ks.digits"):
-                ds.append(self.bb._digit_crt(xc[i], i, x))
-        return self.inner_product(e0, e1, ds)
+        CRT stack.  Every digit's stack first (as many as the hint has),
+        then one `inner_product`; int32 out."""
+        return self.inner_product(e0, e1, self.bb._ks_digits(xc, x, self.hint_sh.shape[1]))
 
     @torch.no_grad()
     def forward(self, c0, c1):
@@ -1056,11 +1070,12 @@ class KeySwitchLinear(nn.Module):
         return blocks.map(lambda k, a, b, f: k.digits(a, None, f, b), parts, c0, c1, xc)
 
 
-class BGVStep(KeySwitchLinear):
-    """The compiled BGV step; the hint and the per-channel moduli are
-    buffers, so `.to(device)` moves the whole step."""
+class _StepFront:
+    """The BGV step up to its key switch's digits, which `BGVStep` and
+    `BGVStepExt` share; mixed in before their key switch, whose
+    constructor it extends by the encoding."""
 
-    def __init__(self, bb: BatchedBGV, hint: KSHint, encoding: str = "lsd"):
+    def __init__(self, bb: BatchedBGV, hint, encoding: str = "lsd"):
         super().__init__(bb, hint)
         self.encoding = _check_encoding(encoding)
 
@@ -1079,6 +1094,11 @@ class BGVStep(KeySwitchLinear):
         e0, e1, e2 = self.ct_mul(c0, c1, d0, d1)
         with trace.span("bgv.ks.intt"):
             return e0, e1, e2, self.bb._ntt(e2, inverse=True)
+
+
+class BGVStep(_StepFront, KeySwitchLinear):
+    """The compiled BGV step; the hint and the per-channel moduli are
+    buffers, so `.to(device)` moves the whole step."""
 
     @torch.no_grad()
     def forward(self, c0, c1, d0, d1):
@@ -1099,7 +1119,8 @@ class BGVStep(KeySwitchLinear):
 
 class KeySwitchLinearExt(nn.Module):
     """The extended-modulus key switch (`build_key_switch_linear_ext`):
-    the hint over Q*P and both chains' moduli are buffers.  Its digit path,
+    the hint's planes over Q*P (`hint_sh`, `BatchedBGV._ks_planes` of the
+    extended view) and the base chain's moduli are buffers.  Its digit path,
     which the ext step shares: an inverse NTT per base channel, each digit
     re-expanded into every channel of the extended chain as the prologue
     of its forward NTT (the free diagonal in base channel i), the hint
@@ -1111,25 +1132,20 @@ class KeySwitchLinearExt(nn.Module):
         _check_rns_gadget(hint.spec)
         self.bb = bb
         self.ext, self.drops = bb._ext_hint_setup(hint)
-        lo, hi = self.ext.chans.start, self.ext.chans.stop
         self.register_buffer("qv", bb._consts(lambda q: q))
-        self.register_buffer("qv_ext", self.ext._consts(lambda q: q))
-        self.register_buffer("h0", hint.h0[:, lo:hi].to(bb.device, torch.int64)[..., None])
-        self.register_buffer("h1", hint.h1[:, lo:hi].to(bb.device, torch.int64)[..., None])
+        self.register_buffer("hint_sh", self.ext._ks_planes(hint, len(bb.qs),
+                                                            "extended-modulus hint"))
 
     @torch.no_grad()
     def digits(self, xc, x):
         """The inner products over Q*P of the base-chain digits of x with
         the hint, over the extended pipeline's channels: xc is iNTT(x) over
         every base channel (on a mesh, gathered), x the pipeline's channels
-        of the CRT stack; int32 (a0, a1)."""
-        ext = self.ext
-        a0 = a1 = 0
-        for i in range(len(self.bb.qs)):
-            di = ext._digit_crt(xc[i], i, x).long()
-            a0 = (a0 + di * self.h0[i]) % self.qv_ext
-            a1 = (a1 + di * self.h1[i]) % self.qv_ext
-        return a0.to(torch.int32), a1.to(torch.int32)
+        of the CRT stack: `KeySwitchLinear.digits` over the extended view,
+        from zeros; int32 (a0, a1)."""
+        ext, ell = self.ext, self.hint_sh.shape[1]
+        zeros = x.new_zeros((len(ext.chans), *x.shape[1:]))
+        return ext._ks_inner(zeros, None, ext._ks_digits(xc, x, ell), self.hint_sh)
 
     @torch.no_grad()
     def drop_specials(self, a0, a1):
@@ -1163,21 +1179,9 @@ class KeySwitchLinearExt(nn.Module):
                           parts, c0, a0, a1)
 
 
-class BGVStepExt(KeySwitchLinearExt):
+class BGVStepExt(_StepFront, KeySwitchLinearExt):
     """The BGV step with the extended-modulus key switch
     (`build_step_ext`); `.to(device)` moves it, as the step."""
-
-    def __init__(self, bb: BatchedBGV, hint: KSHintExt, encoding: str = "lsd"):
-        super().__init__(bb, hint)
-        self.encoding = _check_encoding(encoding)
-
-    @torch.no_grad()
-    def front(self, c0, c1, d0, d1):
-        """(e0, e1, e2, iNTT(e2)), as `BGVStep.front`."""
-        if self.encoding == "msd":  # the second operand to LSD: times p
-            d0, d1 = _lsd_operand(self.qv, self.bb.params.p, d0, d1)
-        e0, e1, e2 = _ct_mul(self.bb.cqs, c0, c1, d0, d1)
-        return e0, e1, e2, self.bb._ntt(e2, inverse=True)
 
     @torch.no_grad()
     def forward(self, c0, c1, d0, d1):
@@ -1325,47 +1329,34 @@ class Galois(KeySwitchLinear):
 
 class GaloisMany(nn.Module):
     """Hoisted Galois automorphisms (`build_galois_many`): per k, the hint
-    tables pre-permuted by sigma_k^-1 on the host and the slot permutation
-    are buffers, so e_k = sigma_k(c + sum_i d_i sigma_k^-1(h_i)) runs on
-    the digits d_i of c1, made once for all k (slot permutations commute
-    with the pointwise products)."""
+    planes pre-permuted by sigma_k^-1 (`hint_sh_{k}`) and the slot
+    permutation are buffers, so e_k = sigma_k(c + sum_i d_i sigma_k^-1(h_i))
+    runs on the digits d_i of c1, made once for all k (slot permutations
+    commute with the pointwise products), one inner product a rotation."""
 
     def __init__(self, bb: BatchedBGV, hints: dict):
         super().__init__()
         _check_rns_gadget(*(h.spec for h in hints.values()))
-        nrns = len(bb.qs)
         self.bb = bb
         self.ks = tuple(sorted(hints))
-        lo, hi = bb.chans.start, bb.chans.stop
-        self.register_buffer("qv", bb._consts(lambda q: q))
         for k in self.ks:
-            h = hints[k]
-            if h.h0.shape != (nrns, nrns, bb.ctx.n) or h.h1.shape != h.h0.shape:
-                raise ValueError(f"galois: hint {k} of shape {tuple(h.h0.shape)} "
-                                 f"!= (ell, nrns, n) = {(nrns, nrns, bb.ctx.n)}")
             perm = zmstar.automorphism_slot_perm(bb.ctx.m, bb.qs[0], k)
-            inv = torch.from_numpy(np.argsort(perm))
             self.register_buffer(f"perm_{k}", torch.from_numpy(perm).to(bb.device))
-            for name in ("h0", "h1"):
-                self.register_buffer(f"{name}_{k}", getattr(h, name)[:, lo:hi].to(torch.int64)[
-                    :, :, inv].to(bb.device)[..., None])  # (ell, len(chans), n, 1)
+            self.register_buffer(f"hint_sh_{k}", bb._ks_planes(
+                hints[k], len(bb.qs), f"galois: hint {k}", inv=torch.from_numpy(np.argsort(perm))))
 
     @torch.no_grad()
     def rotations(self, c0, c1, xc):
         """{k: (e0_k, e1_k)} from c1's inverse xc over every channel (on a
-        mesh, gathered)."""
-        bb, qv = self.bb, self.qv
-        digits = [bb._digit_crt(xc[i], i, c1).long() for i in range(len(bb.qs))]
+        mesh, gathered): the digit stacks once, then per k one inner
+        product from c0 and the output permutation."""
+        bb, ell = self.bb, len(self.bb.qs)
+        ds = bb._ks_digits(xc, c1, ell)
         outs = {}
         for k in self.ks:
-            h0, h1 = getattr(self, f"h0_{k}"), getattr(self, f"h1_{k}")
-            e0, e1 = c0.long(), 0
-            for i, di in enumerate(digits):
-                e0 = (e0 + di * h0[i]) % qv
-                e1 = (e1 + di * h1[i]) % qv
+            e0, e1 = bb._ks_inner(c0, None, ds, getattr(self, f"hint_sh_{k}"))
             perm = getattr(self, f"perm_{k}")
-            outs[k] = (e0.to(torch.int32).index_select(1, perm),
-                       e1.to(torch.int32).index_select(1, perm))
+            outs[k] = (e0.index_select(1, perm), e1.index_select(1, perm))
         return outs
 
     @torch.no_grad()

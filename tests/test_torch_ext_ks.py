@@ -85,7 +85,7 @@ def _same(got, want):
 def test_step_ext_matches_jax(st, encoding):
     bb = BatchedBGV(PARAMS, "cpu")
     step = bb.build_step_ext(st["quad"], encoding=encoding)
-    assert {k for k, _ in step.named_buffers()} == {"qv", "qv_ext", "h0", "h1"}
+    assert {k for k, _ in step.named_buffers()} == {"qv", "hint_sh"}
     got = step(*_port(st["cts"][encoding]))
     assert got[0].shape == (len(QS) - 1, M // 2, B)
     with jax.disable_jit():

@@ -115,7 +115,10 @@ def test_build_galois_many_matches_reference(m):
     them (other digits) and decrypt the same."""
     st = _state(m)
     bb, dec = st["bb"], st["bb"].build_decrypt(st["sk"])
-    many = bb.build_galois_many(st["hints"])(*st["c"])
+    gal_many = bb.build_galois_many(st["hints"])
+    assert {name for name, _ in gal_many.named_buffers()} == {
+        f"{name}_{k}" for k in KS[m] for name in ("hint_sh", "perm")}
+    many = gal_many(*st["c"])
     assert list(many) == sorted(KS[m])
     differs = False
     for k in KS[m]:
