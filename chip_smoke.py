@@ -33,7 +33,10 @@ then runs its phases and exits non-zero on the first failure:
    inputs); the key switch's inner products (`ks_inner`) and the
    rescale's epilogue (`rescale_out`: the step's width, n = 6144 with a
    ragged B and one channel, the scalar kernel, past its channel limit;
-   LSD and MSD constants);
+   LSD and MSD constants); the short-axis product (`modmat_small`: the
+   phi = 6 axis of m = 18432 at (1024, 6, 6, 1024), its CRT matrix and
+   the inverse, every other instance, a view 4 bytes off, every entry 0
+   and q - 1; one launch a call, its input unwritten);
 3. the batched BGV slice at full width (m = 32768 so n = 2^14, three
    30-bit primes, p = 257, var = 2.0, B = 1024): keygen, encrypt, the
    ct-mult + key-switch + rescale step, decrypt, every draw from `prng`
@@ -90,7 +93,10 @@ then runs its phases and exits non-zero on the first failure:
    budget against the base-gadget builders' (printed, and it must be
    lower);
 3f. general m and the Galois automorphisms, launches counted as in 3e
-   (per n; a general-m transform is one `ntt_cm` over its 2-power axis):
+   (per n; a general-m transform is one `ntt_cm` over its 2-power axis
+   and one `modmat_small` over its phi = 6 axis, exactly; none at the
+   2-power ring; a profile of `crt_cm` both ways at m = 18432 holds the
+   NTT passes and `modmat_small` alone, no torch op):
    (a) `bench.py`'s config-3 step, m = 18432 = 2^11 3^2 (n = 6144), p = 7,
    3 primes, B = 1024, LSD and MSD, keys and the quad hint made on the
    card: columns 0-7 decrypted against the general-m `pt_mul`, the output
@@ -189,14 +195,15 @@ then runs its phases and exits non-zero on the first failure:
    B = 1024), every count reset just before it and read just after: each
    `crt_cm` call one `ntt_cm` pass over the 2-power axis and one
    `modmat_s8` launch, exactly; decrypt of columns 0-7 == `pt_mul`; card
-   == CPU over columns 0-15; the int64 route's output == the kernel
-   route's; (d) the C++ host backend == the kernels (the NTT both ways at
-   n = 4096, `axis_matvec` on the 17-axis); (e) the kernel's time beside
-   its bound, the int64 route's, the plain version's and `torch._int_mm`'s
-   over the reference's centred int8 limb products (a yardstick),
-   `mxu_ntt` against `ntt_cm`,
+   == CPU over columns 0-15; the short-axis route's output (`modmat_small`
+   forced onto the axis) == the kernel route's; (d) the C++ host backend
+   == the kernels (the NTT both ways at n = 4096, `axis_matvec` on the
+   17-axis); (e) the kernel's time beside its bound, the short-axis
+   kernel's and its int64 twin's on the same axis, the plain version's and
+   `torch._int_mm`'s over the reference's centred int8 limb products (a
+   yardstick), `mxu_ntt` against `ntt_cm`,
    and the step and its odd axes on each route in interleaved windows
-   (`metric bgv_m34816_ops_per_sec` / `..._int64_route_ops_per_sec`);
+   (`metric bgv_m34816_ops_per_sec` / `..._small_route_ops_per_sec`);
    (f) each bench tool (`she_bench`, `micro`, `scaling`, `invgap`,
    `smallb`, `mxu_ntt`) once at a small size;
 3l. every NTT route at a non-canonical root (`phase_3l`): plans
@@ -211,8 +218,9 @@ then runs its phases and exits non-zero on the first failure:
 3m. the user surface (`phase_3m`): the port's five demos
    (`lol_tpu_torch.examples.*.main`) on the card, each one's standard
    output equal line for line to its run on the CPU (the plain versions)
-   and its launches (every NTT pass, ct_mul, prng_draw, modmat_s8 and
-   ring kernel) exactly those the CPU run's plain calls stand for;
+   and its launches (every NTT pass, ct_mul, prng_draw, modmat_s8,
+   modmat_small and ring kernel) exactly those the CPU run's plain calls
+   stand for;
    `BatchedBGV(params, use_pallas=False)` against `BatchedBGV(params)` at
    m = 32768, B = 1024 (the same outputs and launches); `entry()`'s step
    on the card == its CPU run; `dryrun_multichip(4)` on a mesh of four
@@ -235,7 +243,10 @@ then runs its phases and exits non-zero on the first failure:
    (`ks_inner`, 3 digits over (3, 2^14, 1024) and over n = 6144) against
    the int64 torch chain and casts they replaced, in turns; the rescale's
    epilogue (`rescale_out` over (2, 2^14, 1024) and n = 6144) against its
-   plain int64 version, in turns, beside its bound; the u32 ceiling (the chain kernel's
+   plain int64 version, in turns, beside its bound; the short-axis
+   product (`modmat_small` at (1024, 6, 6, 1024) over four inputs in
+   turn) against its int64 twin and `modmat_s8` forced onto the axis, in
+   turns, beside its bound; the u32 ceiling (the chain kernel's
    path); a device copy's bandwidth; the roofline rows from those times
    against both; the steptime breakdown of the step, whose step leg
    gives the ops/s at n = 2^14; the ops/s at n = 4096; the ring-sharded
@@ -276,6 +287,7 @@ take for the same work, `bench.roofline.bound`), and
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -561,11 +573,13 @@ def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
     its counts reset just before and read just after: every `crt_cm` call
     one `ntt_cm` over the 2-power axis and one `modmat_s8` launch, exactly;
     decrypt of columns 0-7 == `pt_mul`; card == CPU over 16 columns; the
-    step on the int64 route (`steptime.mxu_route(False)`) == on the kernel;
+    step on the short-axis route (`steptime.mxu_route(False)`: the
+    run-time instance of `modmat_small`) == on the kernel;
     (d) the C++ host backend (`tensor/cpp_backend`) == the kernels: the NTT
     both ways at n_ntt and `axis_matvec` on the 17-axis; (e) the kernel's
     time at the 17-axis shape on the device alone beside its bound
-    (`roofline.modmat_work`), the int64 route's, the plain version's and
+    (`roofline.modmat_work`), `modmat_small`'s and its int64 twin's, the
+    plain version's and
     `torch._int_mm`'s on the same 16 limb products (a yardstick only), the
     two stage matmuls and `mxu_ntt` against `ntt_cm`; the step and
     `steptime.odd_axis` on each route in interleaved windows; (f) (tools)
@@ -695,11 +709,12 @@ def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
     with steptime.mxu_route(False):
         i0, i1 = step(*cts)
     if not (torch.equal(i0, e0) and torch.equal(i1, e1)):
-        raise AssertionError(f"phase 3k step m={m}: the int64 route != the int8 kernel route")
+        raise AssertionError(f"phase 3k step m={m}: the short-axis route != the int8 kernel "
+                             f"route")
     out["checks"] += 4
     mark(f"phase 3k: step m = {m} (n = {n}, phi_shape ({n2}, {phi})), B = {B}: launches {got} "
          f"({sum(calls.values())} crt_cm calls, one modmat_s8 each); decrypt of columns 0-7 "
-         f"== pt_mul; card == CPU over columns 0-{cols - 1}; int64 route == kernel route")
+         f"== pt_mul; card == CPU over columns 0-{cols - 1}; short-axis route == kernel route")
 
     # (d) the C++ host backend against the kernels
     pl = plans_n[0]
@@ -719,7 +734,9 @@ def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
     if time_it:
         M, x = plans[0].axes[1].M, residues((n2, phi, B), q0)
         out["ms"] = time_ms(lambda: mm.modmat_s8(M, x, q0, 1), 20, device_only=True)[0]
-        out["int64_ms"] = time_ms(lambda: gen.matvec_mod(M, x, q0, 1, use_mxu=False), 10,
+        out["small_ms"] = time_ms(lambda: mm.modmat_small(M, x, q0, 1), 20,
+                                  device_only=True)[0]
+        out["int64_ms"] = time_ms(lambda: mm.modmat_small_ref(M, x, q0, 1), 10,
                                   device_only=True)[0]
         out["plain_ms"] = time_ms(lambda: mm.modmat_ref(M, x, q0, 1), 2)[0]
         out["bound"] = roofline.bound(*roofline.modmat_work(n2, phi, phi, B, q0),
@@ -749,14 +766,14 @@ def phase_3k(dev, m=M_3K, B=1024, n_ntt=4096, P=64, time_it=True, tools=True,
         out["mxu_ntt_ms"] = time_ms(lambda: mx.mxu_ntt(xv, pl, P), 10, device_only=True)[0]
         out["ntt_cm_ms"] = time_ms(lambda: tk.ntt_cm(xv, pl), 10, device_only=True)[0]
 
-        def step_int64():
+        def step_small():
             with steptime.mxu_route(False):
                 return step(*cts)
 
-        med, wins = steptime.ab({"mxu": lambda: step(*cts), "int64": step_int64})
-        out["step_ms"], out["step_int64_ms"] = med["mxu"], med["int64"]
+        med, wins = steptime.ab({"mxu": lambda: step(*cts), "small": step_small})
+        out["step_ms"], out["step_small_ms"] = med["mxu"], med["small"]
         out["step_windows"] = wins
-        for route, use in (("mxu", None), ("int64", False)):
+        for route, use in (("mxu", None), ("small", False)):
             out[f"odd_axis_{route}"] = steptime.odd_axis(step, cts, plans[0], use_mxu=use)
     if tools:
         from lol_tpu_torch.bench import invgap, micro, scaling, she_bench, smallb
@@ -934,7 +951,8 @@ def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 
     prints, line for line, and launches exactly what the CPU run's plain
     calls stand for: while the CPU run goes, the plain versions the
     wrappers fall back to there (`ntt_cm_ref`, `ct_mul_cm_ref`, `draw_ref`
-    and the twin's `random_bits_ref` / `randint_ref`, `modmat_ref`) are
+    and the twin's `random_bits_ref` / `randint_ref`, `modmat_ref`,
+    `modmat_small_ref`) are
     wrapped to count, per call, the launches the card makes in its place
     (a transform: its `cm_schedule` passes, route B its `dit_schedule`
     passes; one for the rest); the card run sits between a reset and a
@@ -970,7 +988,8 @@ def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 
         calls made inside the block."""
         want = Counter()
         real = (tk.ntt_cm_ref, pw.ct_mul_cm_ref, pk.draw_ref, twin.random_bits_ref,
-                twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref, pw.rescale_out_ref)
+                twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref, pw.rescale_out_ref,
+                mm.modmat_small_ref)
 
         def ntt_ref(x, plan, inverse=False, pre_digit_q=None, alg="gs", factor=1):
             n_ = x.shape[0]
@@ -991,6 +1010,7 @@ def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 
         pw.ct_mul_cm_ref = one("ct_mul", real[1])
         pk.draw_ref, twin.random_bits_ref, twin.randint_ref = (one("prng", f) for f in real[2:5])
         mm.modmat_ref = one("modmat_s8", real[5])
+        mm.modmat_small_ref = one("modmat_small", real[8])
 
         def ks_ref(e0, e1, digits, hint, qs):
             want["ks_inner"] += -(-len(digits) // pw.KS_MAX_DIGITS)
@@ -1007,7 +1027,8 @@ def phase_3m(dev, full_width=((32768, 257, "lsd"), (32768, 257, "msd"), (18432, 
             yield want
         finally:
             (tk.ntt_cm_ref, pw.ct_mul_cm_ref, pk.draw_ref, twin.random_bits_ref,
-             twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref, pw.rescale_out_ref) = real
+             twin.randint_ref, mm.modmat_ref, pw.ks_inner_cm_ref, pw.rescale_out_ref,
+             mm.modmat_small_ref) = real
 
     def captured(fn, *a, **k):
         buf = io.StringIO()
@@ -1228,6 +1249,64 @@ def check_rescale_out(dev, g) -> tuple[int, int]:
     return worst, checks
 
 
+M_SMALL = 18432  # the ring whose phi = 6 axis `modmat_small` is checked and timed at
+
+
+def small_axis(dev, g, B=1024):
+    """The phi = 6 axis of m = M_SMALL at the step's width: its first
+    prime q, the CRT matrix and its inverse, and x (1024, 6, B) residues
+    with 0, 1 and q - 1 planted."""
+    from lol_tpu_torch import numtheory as nt
+    from lol_tpu_torch.ops import general as gen
+
+    q = nt.ntt_primes(M_SMALL, 30, 3)[0]
+    plan = gen.general_plan(M_SMALL, q)
+    n2, phi = plan.phi_shape
+    x = torch.randint(0, q, (n2, phi, B), generator=g, device=dev, dtype=torch.int32)
+    x.view(-1)[:3] = torch.tensor([0, 1, q - 1], device=dev)
+    return q, plan.axes[1].M, plan.axes[1].Minv, x
+
+
+def check_modmat_small(dev, g) -> tuple[int, int]:
+    """`modmat_small` (csrc/modmat_small.cu) against `modmat_small_ref`:
+    the phi = 6 axis of m = 18432 at the step's width ((pre, a, b, post) =
+    (1024, 6, 6, 1024)), its CRT matrix and the inverse; the other fixed
+    instances (phi 2, 4, 10, 12) and the run-time one at (15, 40) and
+    (6, 3) over B = 1000; a view 4 bytes off and 7 columns (the one-word
+    path); every entry 0 and q - 1 at (15, 40).  Each call one launch, a
+    new int32 output, its input unwritten.  Returns (max abs error,
+    checks)."""
+    from lol_tpu_torch.ops.cuda import modmat as mm
+
+    q, M, Minv, x6 = small_axis(dev, g)
+    rng = np.random.default_rng(SEED + 27)
+    cases = [(M, x6), (Minv, x6)]
+    for a, b, pre, post, off in ((2, 2, 64, 1000, 0), (4, 4, 64, 1000, 0), (10, 10, 64, 1000, 0),
+                                 (12, 12, 64, 1000, 0), (15, 40, 64, 1000, 0),
+                                 (6, 3, 64, 1000, 0), (6, 6, 33, 1024, 1), (6, 6, 5, 7, 0)):
+        Mc = rng.integers(0, q, (a, b)).astype(np.uint32)
+        Mc.flat[:2] = (0, q - 1)
+        x = torch.randint(0, q, (pre * b * post + off,), generator=g, device=dev,
+                          dtype=torch.int32)[off:].view(pre, b, post)
+        x.view(-1)[:3] = torch.tensor([0, 1, q - 1], device=dev)
+        cases.append((Mc, x))
+    for v in (0, q - 1):
+        cases.append((np.full((15, 40), v, np.uint32),
+                      torch.full((3, 40, 64), v, dtype=torch.int32, device=dev)))
+    worst = 0
+    for Mc, x in cases:
+        keep = x.clone()
+        before = mm.LAUNCHES["modmat_small"]
+        got = mm.modmat_small(Mc, x, q, 1)
+        torch.cuda.synchronize()
+        if mm.LAUNCHES["modmat_small"] - before != 1:
+            raise AssertionError(f"modmat_small: {mm.LAUNCHES['modmat_small'] - before} launches")
+        if not torch.equal(x, keep) or got.data_ptr() == x.data_ptr() or got.dtype != torch.int32:
+            raise AssertionError("modmat_small wrote into its input or not into a new int32 tensor")
+        worst = max(worst, max_err(got, mm.modmat_small_ref(Mc, x, q, 1)))
+    return worst, len(cases)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1243,7 +1322,7 @@ def main() -> int:
     from lol_tpu_torch.bench import mxu_ntt as mx, ntt_ab, roofline, steptime, time_ms
     from lol_tpu_torch.ops import general as gen, ntt
     from lol_tpu_torch.ops.cuda import build, ntt_kernel as tk, pointwise as pw, prng as pk
-    from lol_tpu_torch.ops.cuda import remote_ntt as rn
+    from lol_tpu_torch.ops.cuda import modmat as mm, remote_ntt as rn
     from lol_tpu_torch.parallel import sharding as sh
     from lol_tpu_torch.ring import ring_context
     from lol_tpu_torch.she_batched import BatchedBGV
@@ -1437,7 +1516,8 @@ def main() -> int:
         checks += 3
     err["ks_inner"], ks_checks = check_ks_inner(dev, g)
     err["rescale_out"], rs_checks = check_rescale_out(dev, g)
-    checks += ks_checks + rs_checks
+    err["modmat_small"], small_checks = check_modmat_small(dev, g)
+    checks += ks_checks + rs_checks + small_checks
     torch.cuda.synchronize()
     if any(err.values()):
         raise AssertionError(f"kernel != plain: max abs err {err}")
@@ -1561,24 +1641,33 @@ def main() -> int:
     path_launches = {ph: dict.fromkeys(counts(), 0)
                      for ph in ("3c", "3d", "3e", "3e_ext", "3f", "3f_galois", "3g", "3g_slots",
                                 "3h", "3i")}
+    small_launches = Counter()  # modmat_small by phase, held to a closed form in 3f
 
     def run(phase, name, fn, *args, fwd=0, inv=0, ct_mul=0, ks=0, rs=0, n_fwd=None,
-            n_inv=None):
+            n_inv=None, small=None):
         return run_by_n(phase, name, fn, *args, fwd={n_fwd: fwd} if fwd else {},
-                        inv={n_inv: inv} if inv else {}, ct_mul=ct_mul, ks=ks, rs=rs)
+                        inv={n_inv: inv} if inv else {}, ct_mul=ct_mul, ks=ks, rs=rs,
+                        small=small)
 
-    def run_by_n(phase, name, fn, *args, fwd, inv, ct_mul=0, ks=0, rs=0):
+    def run_by_n(phase, name, fn, *args, fwd, inv, ct_mul=0, ks=0, rs=0, small=None):
         """fn(*args) between a reset and a read of the counts, which must
         be fwd[n] forward and inv[n] GS ntt_cm calls at each n, each
         `cm_schedule(n)`'s passes, ct_mul ct_mul launches, ks ks_inner
         launches (one a key switch: every chain here has at most
         KS_MAX_DIGITS primes), rs rescale_out launches (one a rescaled
         component: every chain here has at most RESCALE_MAX_CHANNELS
-        surviving primes), and nothing else."""
+        surviving primes), and nothing else; and where `small` is given,
+        `small` modmat_small launches (phase 3f's general rings: one a
+        `crt_cm` call, each with one odd axis below MXU_MIN_AXIS)."""
         reset_counts()
+        small0 = mm.LAUNCHES["modmat_small"]
         out = fn(*args)
         torch.cuda.synchronize()
         got = counts()
+        small_launches[phase] += mm.LAUNCHES["modmat_small"] - small0
+        if small is not None and mm.LAUNCHES["modmat_small"] - small0 != small:
+            raise AssertionError(f"phase {phase} {name}: modmat_small launched "
+                                 f"{mm.LAUNCHES['modmat_small'] - small0} times, want {small}")
         want = dict.fromkeys(got, 0)
         want.update(ntt_fwd=sum(k * len(tk.cm_schedule(n_)) for n_, k in fwd.items()),
                     ntt_inv=sum(k * len(tk.cm_schedule(n_)) for n_, k in inv.items()),
@@ -1600,12 +1689,14 @@ def main() -> int:
             return real(x_, plan_, inverse, pre_digit_q, alg, factor)
 
         reset_counts()
+        small0 = mm.LAUNCHES["modmat_small"]
         ring_mod.ntt_cm = gen.ntt_cm = shim
         try:
             out = fn()
             torch.cuda.synchronize()
         finally:
             ring_mod.ntt_cm = gen.ntt_cm = real
+        small_launches[phase] += mm.LAUNCHES["modmat_small"] - small0
         got = counts()
         want = dict.fromkeys(got, 0)
         want.update(rec)
@@ -1924,8 +2015,8 @@ def main() -> int:
     # (a) bench.py's config-3 step (bench.py:543-547): m = 18432 = 2^11 3^2
     # (n = 6144, phi_shape (1024, 6)), p = 7, three primes, B = 1024.  Each
     # CRT transform is one ntt_cm over the 2-power axis (n2 = 1024, B' =
-    # 6 B), so the 2-power step's counts hold at n2, and the 3^2 axis is
-    # plain torch.
+    # 6 B), so the 2-power step's counts hold at n2, and one modmat_small
+    # over the 3^2 axis (phi = 6): `small`, the crt_cm calls, exactly.
     m_g, p_g, cols_g = 18432, 7, 16
     params_g = she.SHEParams(m=m_g, p=p_g, qs=tuple(nt.ntt_primes(m_g, 30, 3)), var=2.0)
     n_g, n2_g = params_g.ctx.n, params_g.ctx.fm.phi_shape[0]
@@ -1935,24 +2026,45 @@ def main() -> int:
     bb_gd = BatchedBGV(pg_d, dev)
     sk_gd = she.SK(pg_d, sk_g.s_ints, sk_g.var)
     hint_g = run("3f", "gen_ks_quad_hint m=18432", bb_g.gen_ks_quad_hint, sk_g, nk(),
-                 fwd=nrns, n_fwd=n2_g)
+                 fwd=nrns, n_fwd=n2_g, small=nrns)
     a_g, b_g = she.pt_random(params_g, rng, (B,)), she.pt_random(params_g, rng, (B,))
     ct_g, step_g = {}, {}
     for e in ("lsd", "msd"):
         enc_g = bb_g.build_encrypt(sk_g, e)
-        ct_g[e] = [run("3f", f"encrypt {e} m=18432", enc_g, x, nk(), fwd=nrns, n_fwd=n2_g)
-                   for x in (a_g, b_g)]
+        ct_g[e] = [run("3f", f"encrypt {e} m=18432", enc_g, x, nk(), fwd=nrns, n_fwd=n2_g,
+                       small=nrns) for x in (a_g, b_g)]
         step_g[e] = bb_g.build_step(hint_g, encoding=e)
         out = run("3f", f"step {e} m=18432", step_g[e], *ct_g[e][0], *ct_g[e][1],
                   fwd=step_calls["ntt_fwd"], inv=step_calls["ntt_inv"], ct_mul=nrns, ks=1,
-                  rs=2, n_fwd=n2_g, n_inv=n2_g)
+                  rs=2, n_fwd=n2_g, n_inv=n2_g, small=sum(step_calls.values()))
         got = run("3f", f"decrypt {e} m=18432", bb_gd.build_decrypt(
-            sk_gd, f=bb_g.step_f(1, 1, e), encoding=e), *out, inv=nrns - 1, n_inv=n2_g)
+            sk_gd, f=bb_g.step_f(1, 1, e), encoding=e), *out, inv=nrns - 1, n_inv=n2_g,
+            small=nrns - 1)
         decrypts_to(f"step {e} m=18432", got, pt_muls(a_g, b_g, params_g))
         same_on_cpu(f"step {e} m=18432", out, bb_g_cpu.build_step(hint_g, encoding=e),
                     *ct_g[e][0], *ct_g[e][1], ncols=cols_g)
     mark(f"phase 3f: step LSD and MSD at m = {m_g} (n = {n_g}), p = {p_g}, B = {B}: decrypt of "
-         f"columns 0-7 == pt_mul; GPU == CPU over columns 0-{cols_g - 1}")
+         f"columns 0-7 == pt_mul; GPU == CPU over columns 0-{cols_g - 1}; modmat_small "
+         f"{small_launches['3f']} launches, one a crt_cm call")
+    # no torch op from the odd axis: a profile of crt_cm both ways on one
+    # channel of the step's width holds the NTT passes and modmat_small alone
+    from torch.profiler import ProfilerActivity, profile
+
+    plan_g = gen.general_plan(m_g, params_g.qs[0])
+    xg = torch.randint(0, plan_g.q, (n_g, B), generator=g, device=dev, dtype=torch.int32)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for inverse in (False, True):
+            gen.crt_cm(plan_g, xg, inverse=inverse)
+        torch.cuda.synchronize()
+    ran = {e.key: e.count for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and not e.is_user_annotation}
+    odd = {k: c for k, c in ran.items() if "modmat_small" in k}
+    if (sum(odd.values()) != 2 or not ran
+            or any("modmat_small" not in k and "ntt_" not in k for k in ran)):
+        raise AssertionError(f"phase 3f: crt_cm at m = {m_g} ran {ran}; want the NTT passes "
+                             f"and one modmat_small each way")
+    mark(f"phase 3f: crt_cm both ways at m = {m_g}, B = {B} ran only {sorted(ran)}")
+    del xg
     # (b) the tunnel 18432 -> 9216 (bench.py:454-496 at m_gt): E = S,
     # ys = [1, 0]: 2 nrns inverses at n2 = 1024, d nrns + d nrns^2 forwards
     # at n2 = 512
@@ -1962,14 +2074,16 @@ def main() -> int:
     fmap_g = linear.linear_pow(ps_g.ctx, params_g.ctx, ps_g.ctx,
                                [np.eye(1, n_gs, dtype=np.int64)[0], np.zeros(n_gs, dtype=np.int64)])
     th_g = run("3f", "gen_tunnel_hint m=18432", bb_g.gen_tunnel_hint, fmap_g, sk_gs, sk_g, nk(),
-               fwd=nrns, n_fwd=n2_gs)
+               fwd=nrns, n_fwd=n2_gs, small=nrns)
     tun_g = bb_g.build_tunnel(th_g)
     mt_g = she.pt_random(params_g, rng, (B,))
-    ctt_g = run("3f", "encrypt m=18432", bb_g.build_encrypt(sk_g), mt_g, nk(), fwd=nrns, n_fwd=n2_g)
+    ctt_g = run("3f", "encrypt m=18432", bb_g.build_encrypt(sk_g), mt_g, nk(), fwd=nrns, n_fwd=n2_g,
+                small=nrns)
     tg = run_by_n("3f", "tunnel m=18432", tun_g, *ctt_g,
-                  fwd={n2_gs: fmap_g.d * nrns * (1 + nrns)}, inv={n2_g: 2 * nrns})
+                  fwd={n2_gs: fmap_g.d * nrns * (1 + nrns)}, inv={n2_g: 2 * nrns},
+                  small=fmap_g.d * nrns * (1 + nrns) + 2 * nrns)
     got = run("3f", "decrypt over S m=9216", bb_g.target_pipeline(th_g).build_decrypt(sk_gs), *tg,
-              inv=nrns, n_inv=n2_gs)
+              inv=nrns, n_inv=n2_gs, small=nrns)
     # decrypt gives decoding-basis coefficients, eval_lin takes and gives
     # powerful-basis ones: L and L^-1 mod p on either side
     decrypts_to("tunnel m=18432", got, np.stack([gen.l_host(m_g // 2, linear.eval_lin_ints(
@@ -1985,33 +2099,34 @@ def main() -> int:
     # them once for all k
     ks = (3, 5, 9)
     ghints = {k: run("3f_galois", f"gen_galois_hint k={k}", bb.gen_galois_hint, k, sk, nk(),
-                     fwd=nrns, n_fwd=n) for k in ks}
+                     fwd=nrns, n_fwd=n, small=0) for k in ks}
     gal_many = bb.build_galois_many(ghints)
     gal_one = {k: bb.build_galois(ghints[k], k) for k in ks}
     mg = she.pt_random(params, rng, (B,))
-    ct_gal = run("3f_galois", "encrypt", enc, mg, nk(), fwd=nrns, n_fwd=n)
+    ct_gal = run("3f_galois", "encrypt", enc, mg, nk(), fwd=nrns, n_fwd=n, small=0)
     rot_fwd, rot_inv = nrns * (nrns - 1), nrns
     outs_many = run("3f_galois", "galois_many", gal_many, *ct_gal, fwd=rot_fwd, inv=rot_inv,
-                    ks=len(ks), n_fwd=n, n_inv=n)
+                    ks=len(ks), n_fwd=n, n_inv=n, small=0)
     dec_gal = bb.build_decrypt(sk)
     for k in ks:
         out = run("3f_galois", f"galois k={k}", gal_one[k], *ct_gal, fwd=rot_fwd, inv=rot_inv,
-                  ks=1, n_fwd=n, n_inv=n)
+                  ks=1, n_fwd=n, n_inv=n, small=0)
         if not all(torch.equal(a, b) for a, b in zip(out, outs_many[k])):
             raise AssertionError(f"galois_many != build_galois at k={k} over all {B} columns")
         decrypts_to(f"galois k={k}", run("3f_galois", f"decrypt galois k={k}", dec_gal, *out,
-                                         inv=nrns, n_inv=n),
+                                         inv=nrns, n_inv=n, small=0),
                     np.stack([she.galois_ints(m, mg[:, c].cpu().numpy(), k, p) for c in range(8)], -1))
         same_on_cpu(f"galois k={k}", out, BatchedBGV(params, "cpu").build_galois(ghints[k], k),
                     *ct_gal, ncols=cols_g)
     # one rotation at the general ring, m = 18432, k = 5
     gh_g = run("3f_galois", "gen_galois_hint m=18432", bb_g.gen_galois_hint, 5, sk_g, nk(),
-               fwd=nrns, n_fwd=n2_g)
+               fwd=nrns, n_fwd=n2_g, small=nrns)
     gal_g = bb_g.build_galois(gh_g, 5)
     out = run("3f_galois", "galois k=5 m=18432", gal_g, *ct_g["lsd"][0], fwd=rot_fwd,
-              inv=rot_inv, ks=1, n_fwd=n2_g, n_inv=n2_g)
+              inv=rot_inv, ks=1, n_fwd=n2_g, n_inv=n2_g, small=rot_fwd + rot_inv)
     decrypts_to("galois k=5 m=18432", run("3f_galois", "decrypt galois m=18432",
-                                          bb_g.build_decrypt(sk_g), *out, inv=nrns, n_inv=n2_g),
+                                          bb_g.build_decrypt(sk_g), *out, inv=nrns, n_inv=n2_g,
+                                          small=nrns),
                 np.stack([she.galois_ints(m_g, a_g[:, c].cpu().numpy(), 5, p_g)
                           for c in range(8)], -1))
     same_on_cpu("galois k=5 m=18432", out, bb_g_cpu.build_galois(gh_g, 5), *ct_g["lsd"][0],
@@ -2794,21 +2909,22 @@ def main() -> int:
     k3_bound_ms, k3_bound_by = k3["bound"]
     print(f"modmat_s8 at (G, a, b, N) = (1024, 16, 16, {B}), the 17-axis of m = {M_3K}: "
           f"{k3['ms']:.4f} ms on the device ({100 * k3_bound_ms / k3['ms']:.1f}% of its "
-          f"{k3_bound_ms:.4f} ms bound, {k3_bound_by}); the int64 route {k3['int64_ms']:.4f}; "
+          f"{k3_bound_ms:.4f} ms bound, {k3_bound_by}); modmat_small forced onto it "
+          f"{k3['small_ms']:.4f}, its int64 twin {k3['int64_ms']:.4f}; "
           f"plain {k3['plain_ms']:.3f}; torch._int_mm over the 16 limb products "
           f"{k3['library_ms']:.4f}; on {card}", flush=True)
     print(f"mxu_ntt n = 4096, P = 64, B = {B}: {k3['mxu_ntt_ms']:.4f} ms (stage A "
           f"{k3['stage_a_ms']:.4f}, bound {k3['stage_a_bound'][0]:.4f}; stage B "
           f"{k3['stage_b_ms']:.4f}, bound {k3['stage_b_bound'][0]:.4f}) against ntt_cm "
           f"{k3['ntt_cm_ms']:.4f}; on {card}", flush=True)
-    for route in ("mxu", "int64"):
+    for route in ("mxu", "small"):
         oa = k3[f"odd_axis_{route}"]
         print(f"odd axes of the step at m = {M_3K}, {route} route: "
               f"{oa['matvec_mod_device_ms_per_call']:.3f} device ms of "
               f"{oa['span_device_ms_per_call']:.3f} ({oa['matvec_mod_pct_of_span']:.1f}%); alone "
               f"{oa['alone_device_ms']}; on {card}", flush=True)
     for key, ms in (("bgv_m34816_ops_per_sec", k3["step_ms"]),
-                    ("bgv_m34816_int64_route_ops_per_sec", k3["step_int64_ms"])):
+                    ("bgv_m34816_small_route_ops_per_sec", k3["step_small_ms"])):
         print(f"metric {key} = {B / (ms / 1e3)} on {card}", flush=True)
     mark(f"phase 3k: {k3['checks']} checks; the step at m = {M_3K} launched modmat_s8 "
          f"{k3['launches']} times")
@@ -2862,6 +2978,19 @@ def main() -> int:
         err["rescale_out"] = max(err["rescale_out"], max_err(pw.rescale_out(*args),
                                                              pw.rescale_out_ref(*args)))
         checks += 1
+    # the short axis at the step's width: the phi = 6 axis of m = 18432,
+    # (1024, 6, 6, 1024), four inputs taken in turn (100 MB with their
+    # outputs, past the 50 MB L2), each checked kernel == its int64 twin ==
+    # modmat_s8 forced onto the axis, the CRT matrix and its inverse
+    q6, M6, M6inv, _ = small_axis(dev, g, B)
+    x6s = [small_axis(dev, g, B)[3] for _ in range(4)]
+    for M_ in (M6, M6inv):
+        for x_ in x6s:
+            want6 = mm.modmat_small_ref(M_, x_, q6, 1)
+            err["modmat_small"] = max(err["modmat_small"],
+                                      max_err(mm.modmat_small(M_, x_, q6, 1), want6),
+                                      max_err(mm.modmat_s8(M_, x_, q6, 1), want6))
+            checks += 2
     if any(err.values()):
         raise AssertionError(f"kernel != plain on the timed inputs: max abs err {err}")
     mark(f"phase 4: {checks} kernel-vs-plain checks on the step channel bit-exact")
@@ -2954,7 +3083,21 @@ def main() -> int:
         timings[f"rescale_out_ms{sfx}"] = statistics.mean(runs["rescale_out"])
         timings[f"rescale_out_plain_ms{sfx}"] = statistics.mean(runs["plain"])
         timings[f"rescale_out_ms_runs{sfx}"] = runs
-    del x4, x65, ks_in, rs_in
+    # the short axis on the device alone: the kernel, its int64 twin and
+    # modmat_s8 forced onto the axis in turns (kernel, twin, s8, s8, twin,
+    # kernel), each call on the next of the four inputs
+    turn = itertools.cycle(x6s)
+    arms = {"modmat_small": lambda: mm.modmat_small(M6, next(turn), q6, 1),
+            "twin": lambda: mm.modmat_small_ref(M6, next(turn), q6, 1),
+            "modmat_s8": lambda: mm.modmat_s8(M6, next(turn), q6, 1)}
+    runs = {k: [] for k in arms}
+    for arm in ("modmat_small", "twin", "modmat_s8", "modmat_s8", "twin", "modmat_small"):
+        runs[arm].append(time_ms(arms[arm], 3 if arm == "twin" else 20, device_only=True)[0])
+    for arm, key in (("modmat_small", "modmat_small_ms"), ("twin", "modmat_small_plain_ms"),
+                     ("modmat_s8", "modmat_small_s8_ms")):
+        timings[key] = statistics.mean(runs[arm])
+    timings["modmat_small_ms_runs"] = runs
+    del x4, x65, ks_in, rs_in, x6s, turn, arms
     # the u32 ceiling (the chain kernel's path; its input was checked in
     # phase 2) and a copy's bandwidth
     reset_counts()
@@ -3176,6 +3319,13 @@ def main() -> int:
           f"{timings['rescale_out_ms_n6144']:.4f} "
           f"({100 * rs_bound[6144][0] / timings['rescale_out_ms_n6144']:.1f}%), "
           f"plain {timings['rescale_out_plain_ms_n6144']:.4f} on {card}", flush=True)
+    small_bound = roofline.bound(*roofline.modmat_small_work(1024, 6, 6, B))
+    print(f"modmat_small at (1024, 6, 6, {B}), the phi = 6 axis of m = {M_SMALL}: "
+          f"{timings['modmat_small_ms']:.4f} ms on the device "
+          f"({100 * small_bound[0] / timings['modmat_small_ms']:.1f}% of its "
+          f"{small_bound[0]:.4f} ms bound, {small_bound[1]}); its int64 twin "
+          f"{timings['modmat_small_plain_ms']:.4f}; modmat_s8 forced onto the axis "
+          f"{timings['modmat_small_s8_ms']:.4f}; on {card}", flush=True)
     ntt_src = "lol_tpu_torch/csrc/ntt.cu"
     ring_src = "lol_tpu_torch/csrc/remote_ntt.cu"
     ring_path = "ring-sharded NTT (ntt_/intt_ring_sharded_cm), D=4 shards on one card"
@@ -3372,6 +3522,24 @@ def main() -> int:
          "ms_n6144": timings["rescale_out_ms_n6144"],
          "plain_ms_n6144": timings["rescale_out_plain_ms_n6144"],
          "bound_ms_n6144": rs_bound[6144][0]},
+        # no pallas_call: below MXU_MIN_AXIS the reference's matvec_mod_jnp
+        # is XLA's broadcast mul_mod and mod-sum tree; plain_ms: the int64
+        # twin `modmat_small_ref` on the same inputs; s8_ms: modmat_s8
+        # forced onto the axis, a yardstick (no torch call computes the
+        # product mod q)
+        {"name": "modmat_small", "route": "cuda", "source": "lol_tpu_torch/csrc/modmat_small.cu",
+         "replaces": "lol_tpu/ops/general.py:108-109 (matvec_mod_jnp below MXU_MIN_AXIS: XLA's "
+                     "broadcast mul_mod and _modsum_tree; no pallas_call)",
+         "path": "every odd axis below MXU_MIN_AXIS (ops.general.matvec_mod: crt_cm, the g ops)",
+         "launches_general": small_launches["3f"],
+         "launches_galois": small_launches["3f_galois"],
+         "launches_mesh": small_launches["3g"], "launches_object": small_launches["3h"],
+         "launches_3i": small_launches["3i"], "launches_3m": launches_3m("modmat_small"),
+         "max_abs_err": err["modmat_small"],
+         "shape": f"(pre, a, b, post) = (1024, 6, 6, {B}), the phi = 6 axis of m = {M_SMALL}",
+         "ms": timings["modmat_small_ms"], "plain_ms": timings["modmat_small_plain_ms"],
+         "bound_ms": small_bound[0], "bound_by": small_bound[1], "library_ms": None,
+         "s8_ms": timings["modmat_small_s8_ms"]},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,9 @@ has one and the torch glue otherwise (CUDA events, as the caller sees it,
 m = 2n (the ring-element layout (batch, nrns, n)), the index ops between
 it and its half ring, L and g on the odd ring m = 2^k 17 of the same n
 (its 17-axis, phi = 16: the cpp backend's one-axis stencils), and the
-dense odd-axis DFT at phi = 96 by each route.  Every op's backends are
+dense odd-axis DFT at phi = 96 by each route (on the card both kernels:
+`modmat_small`, forced there by use_mxu=False, and `modmat_s8`; CUDA
+events for every card leg).  Every op's backends are
 checked equal on its inputs before any timing.
 
 Run on the card: python -m lol_tpu_torch.bench.micro [--n 4096]
@@ -70,7 +72,8 @@ def run(n: int = 4096, batch: int = 1024, nrns: int = 2, iters: int = 10,
         """fns: backend -> zero-argument call; checked equal, then timed."""
         _same(op, {b: f() for b, f in fns.items()})
         for backend, f in fns.items():
-            ms = time_ms(f, iters)[0] if backend == "cuda" else host_ms(f, host_iters, 3)
+            ms = (time_ms(f, iters)[0] if backend.startswith("cuda")
+                  else host_ms(f, host_iters, 3))
             rows.append((op, backend, ms, count / (ms / 1e3)))
 
     def per_q(fn, d):
@@ -157,7 +160,7 @@ def run(n: int = 4096, batch: int = 1024, nrns: int = 2, iters: int = 10,
     bench(f"denseDFT p{phi}", {
         "torch": lambda: gen.matvec_mod(Md, xv, q0, use_mxu=False),
         "cpp": lambda: cpp.axis_matvec(Md, xv, q0),
-        "cuda": lambda: gen.matvec_mod(Md, xvd, q0, use_mxu=False),
+        "cuda modmat_small": lambda: gen.matvec_mod(Md, xvd, q0, use_mxu=False),
         "cuda modmat_s8": lambda: modmat.modmat_s8(Md, xvd, q0)}, count=batch)
 
     print(f"\nlol_tpu_torch microbench: n={n}, batch={batch}, nrns={nrns}, "

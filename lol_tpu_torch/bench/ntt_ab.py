@@ -49,11 +49,14 @@ call on the device alone after a check == `modmat_ref` on its input:
 1024), the CRT matrix of its first 30-bit prime), `mxu_ntt`'s stage A
 (64 x 64 shared over 65536 columns) and stage B (64 stacked 64 x 64 over
 1024) at n = 4096, P = 64, B = 1024, and the phi = 6 axis of m = 18432
-((1024, 6, 6, 1024), the kernel forced) beside the int64 `matvec_mod` on
-the same input; then the general-m step at m = 34816 (LSD, p = 257,
-three 30-bit primes, B = 1024) on the kernel route and the int64 route
-(`steptime.mxu_route(False)`), checked equal, each as its caller sees it;
-with each leg's bound (`roofline.modmat_work`).
+((1024, 6, 6, 1024)) three ways: the short-axis kernel `modmat_small`
+(`small_`, where the tree has it), `modmat_s8` forced onto it, and the
+int64 torch route (`modmat_small_ref`; `matvec_mod(use_mxu=False)` in a
+tree before the kernel) on the same input; then the general-m step at
+m = 34816 (LSD, p = 257, three 30-bit primes, B = 1024) on the kernel
+route and the short-axis route (`steptime.mxu_route(False)`), checked
+equal, each as its caller sees it; with each leg's bound
+(`roofline.modmat_work`, `roofline.modmat_small_work`).
 
 Times are `bench.time_ms` medians of 5 CUDA-event windows.  `ring_phase_b`
 builds the ring's timed phase-B calls for this script and `chip_smoke.py`.
@@ -252,12 +255,26 @@ def modmat(nt, she, BatchedBGV, bench, roofline, dev, g, out: dict, B: int = 102
     plan6 = gen.general_plan(18432, q6)
     M6, (n6, phi6) = plan6.axes[1].M, plan6.phi_shape
     x6 = residues((n6, phi6, B), q6)
-    if not torch.equal(gen.matvec_mod(M6, x6, q6, 1, use_mxu=False),
-                       mm.modmat_ref(M6, x6, q6, 1)):
-        raise AssertionError("matvec_mod (int64) != modmat_ref on the phi = 6 axis")
+    # the phi = 6 axis three ways, each checked == modmat_ref first: the
+    # short-axis kernel (a tree before it has none), modmat_s8 forced onto
+    # it, and the int64 torch route (the twin `modmat_small_ref`, or
+    # `matvec_mod(use_mxu=False)` in a tree before the kernel)
+    want6 = mm.modmat_ref(M6, x6, q6, 1)
+    small = getattr(mm, "modmat_small", None)
+    int64 = getattr(mm, "modmat_small_ref", None) or (
+        lambda M_, x_, q_, axis: gen.matvec_mod(M_, x_, q_, axis, use_mxu=False))
+    if small is not None:
+        if not torch.equal(small(M6, x6, q6, 1), want6):
+            raise AssertionError("modmat_small != modmat_ref on the phi = 6 axis")
+        out["small_phi6_dev_ms"] = bench.time_ms(lambda: small(M6, x6, q6, 1), 20,
+                                                 device_only=True)[0]
+        out["small_phi6_bound_ms"] = roofline.bound(
+            *roofline.modmat_small_work(n6, phi6, phi6, B))[0]
     leg("modmat_phi6", M6, x6, q6, 1, roofline.modmat_work(n6, phi6, phi6, B, q6))
-    out["int64_phi6_dev_ms"] = bench.time_ms(
-        lambda: gen.matvec_mod(M6, x6, q6, 1, use_mxu=False), 20, device_only=True)[0]
+    if not torch.equal(int64(M6, x6, q6, 1), want6):
+        raise AssertionError("the int64 route != modmat_ref on the phi = 6 axis")
+    out["int64_phi6_dev_ms"] = bench.time_ms(lambda: int64(M6, x6, q6, 1), 20,
+                                             device_only=True)[0]
 
     gen_sk, key, pt, _ = draws(she, dev, 4)
     params = she.SHEParams(m=m, p=257, qs=qs, var=2.0)
@@ -269,12 +286,12 @@ def modmat(nt, she, BatchedBGV, bench, roofline, dev, g, out: dict, B: int = 102
     with steptime.mxu_route(False):
         want = step(*cts)
     if not all(torch.equal(a, b) for a, b in zip(step(*cts), want)):
-        raise AssertionError("the m = 34816 step: kernel route != int64 route")
+        raise AssertionError("the m = 34816 step: kernel route != short-axis route")
 
-    def step_int64():
+    def step_small():
         with steptime.mxu_route(False):
             return step(*cts)
-    for route, fn in (("mxu", lambda: step(*cts)), ("int64", step_int64)):
+    for route, fn in (("mxu", lambda: step(*cts)), ("small", step_small)):
         ms, wins = bench.time_ms(fn, 5)
         out[f"step_m{m}_{route}_ops_per_s"] = B / (ms / 1e3)
         out[f"step_m{m}_{route}_ms_windows"] = wins

@@ -52,6 +52,12 @@ pass schedule, and `work` is the one place that states them:
   does 2 a b N G nl^2 int8 tensor-core operations (a multiply and an add
   each, over the real b), and reads X and M and writes Y once:
   4 G N (a + b) + 4 a b bytes (M shared; G of them when stacked).
+- the short-axis modular matrix product (`ops/cuda/modmat.modmat_small`,
+  `modmat_small_work`): Y (pre, a, post) = M @ X (pre, b, post) mod q
+  does per (p, c) column a b wide multiply-adds (2 u32 ops each) and a
+  64-bit Barrett reduction an output (7: the high product's 4, q qhat,
+  the subtraction, the conditional one), and reads X and writes Y once:
+  4 pre post (a + b) bytes (M, a few hundred bytes, not counted).
 - the key switch's hint inner products (`ops/cuda/pointwise.ks_inner_cm`,
   `ks_inner_work`) over nd digits and k (n, B) channels: per word two
   modmuls and two modadds a digit, and e0, e1 and the nd digit stacks
@@ -171,6 +177,12 @@ def modmat_work(G: int, a: int, b: int, N: int, q: int, shared: bool = True) -> 
     Y (G, a, N) = M @ X (G, b, N) mod q, M shared or one per g."""
     nl = ((q - 1).bit_length() + 7) // 8
     return 2 * a * b * N * G * nl * nl, 4 * G * N * (a + b) + 4 * a * b * (1 if shared else G)
+
+
+def modmat_small_work(pre: int, a: int, b: int, post: int) -> tuple[int, int]:
+    """(u32 ops, least bytes moved) of one `modmat_small` call:
+    Y (pre, a, post) = M @ X (pre, b, post) mod q."""
+    return (2 * a * b + 7 * a) * pre * post, 4 * pre * post * (a + b)
 
 
 def ks_inner_work(nd: int, k: int, n: int, B: int) -> tuple[int, int]:

@@ -37,8 +37,8 @@ in interleaved windows (`galois_ab`), and --trace profiles five calls of
 each arm.  The two general legs also print the odd axes' share
 (`odd_axis`): the device time of the program's `crt.odd` spans inside
 the call (`lol_tpu_torch.trace`), and alone on one channel
-(`use_mxu=False`: on the int64 route; `mxu_route` puts any call on
-either).  --mesh times the step at m and the tunnel m -> m/2 over
+(`use_mxu=False`: on the short-axis kernel `modmat_small`; `mxu_route`
+puts any call on either).  --mesh times the step at m and the tunnel m -> m/2 over
 `make_mesh({"rns": 3, "data": 4})` (the cards round-robin; on one card,
 twelve entries of it; the tunnel on the mesh's data-only view) against
 their unsharded runs on the same inputs, in interleaved windows
@@ -161,7 +161,8 @@ def by_kernel(fn, args, trace_dir: str, steps: int = 5) -> dict:
 @contextlib.contextmanager
 def mxu_route(use_mxu: bool | None):
     """Every `ops.general.matvec_mod` call inside the block takes the given
-    route (True: the int8-limb kernel, False: int64; None: by the axis, the
+    route (True: the int8-limb kernel, False: the short-axis kernel
+    `modmat_small`, int64 torch on the CPU; None: by the axis, the
     default)."""
     inner = gen.matvec_mod
     gen.matvec_mod = functools.partial(inner, use_mxu=use_mxu)

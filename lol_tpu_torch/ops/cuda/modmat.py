@@ -27,6 +27,19 @@ error; M's tables are made on the host, once per read-only matrix and
 device (`prepare`), the kernel reading them in its fragment order
 (`_fragments`).  For a CPU tensor, and only then, it runs the plain torch
 version `modmat_ref`, which contracts the same tables exactly in int64.
+
+`modmat_small(M, x, q, axis)` computes the same product for the short
+axes below `ops.general.MXU_MIN_AXIS` (the reference's `matvec_mod_jnp`
+route there: XLA's broadcast `mul_mod` and mod-sum tree, no
+`pallas_call`).  For a CUDA tensor it launches the hand-written kernel of
+`csrc/modmat_small.cu` (u64 sums of at most 15 products, a 64-bit Barrett
+reduction, one launch a call, a new int32 output) on the int32
+(pre, b, post) view and raises on any build or launch error; M and its
+Barrett constant are a device table made once per read-only matrix and
+device (`small_table`).  For a CPU tensor, and only then, it runs the
+plain int64 torch version `modmat_small_ref`, reduced every seven terms.
+Both tag the innermost open `trace` span with the route that ran
+("modmat_small" or "int64").
 """
 
 from __future__ import annotations
@@ -38,11 +51,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ... import zq
+from ... import trace, zq
 from . import build
 
 # One per kernel launch.  Reset by callers that check which kernels a path ran.
-LAUNCHES = {"modmat_s8": 0}
+LAUNCHES = {"modmat_s8": 0, "modmat_small": 0}
 MAX_B = 4096  # the reference's refusal (lol_tpu/ops/general.py:130-133)
 ROW_TILE, K_ROWS = 16, 8  # the instruction's m, and the rows of x in its k of 32 bytes
 
@@ -238,3 +251,112 @@ def modmat_s8(M, x: torch.Tensor, q: int, axis: int = -1) -> torch.Tensor:
     build.check(err, f"modmat_s8 ((G, a, b, N) = ({G}, {prep.a}, {b}, {N}), q={q})")
     LAUNCHES["modmat_s8"] += 1
     return y.view(out_shape)
+
+
+# ---------------------------------------------------------------------------
+# the short axes: modmat_small
+# ---------------------------------------------------------------------------
+
+# products of two residues are below 2^60, so seven of them and a residue
+# sum below 2^63: the int64 version reduces once per seven terms
+_TERMS_PER_REDUCE = 7
+SMALL_TERMS = 15  # the kernel's u64 sums: fifteen products and a residue below 2^64
+
+
+def _int64_columns(M, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """M's columns as int64 (1, a, 1) views on `device`; a read-only numpy
+    matrix's (the plans') are made there once."""
+    a, b = M.shape
+
+    def make():
+        Mt = (M.to(device, torch.int64) if isinstance(M, torch.Tensor)
+              else torch.from_numpy(np.asarray(M, dtype=np.int64)).to(device))
+        return tuple(Mt[:, j].view(1, a, 1) for j in range(b))
+
+    return once_per_matrix(M, ("int64 columns", device), make)
+
+
+def modmat_small_ref(M, x: torch.Tensor, q: int, axis: int = -1) -> torch.Tensor:
+    """Plain torch version of `modmat_small`: (a, b) @ x along `axis` mod q
+    in int64, x viewed as (pre, b, post) with no data moved, accumulated
+    over b in place and reduced every seven terms, from M's columns made
+    once (`_int64_columns`).  int32 residues with a at `axis`."""
+    a, b = M.shape
+    cols = _int64_columns(M, x.device)
+    axis = axis % x.dim()
+    if x.shape[axis] != b:
+        raise ValueError(f"modmat_small_ref: axis of length {x.shape[axis]}, matrix {a}x{b}")
+    pre, post = math.prod(x.shape[:axis]), math.prod(x.shape[axis + 1:])
+    xs = x.reshape(pre, b, post).long().split(1, 1)
+    acc = None
+    for j0 in range(0, b, _TERMS_PER_REDUCE):
+        s = acc
+        for j in range(j0, min(b, j0 + _TERMS_PER_REDUCE)):
+            t = cols[j] * xs[j]
+            s = t if s is None else s.add_(t)
+        acc = s.remainder_(q)
+    return acc.to(torch.int32).view(*x.shape[:axis], a, *x.shape[axis + 1:])
+
+
+def small_words(M, q: int) -> np.ndarray:
+    """The kernel's table as u32 words: q, mu = floor((2^64 - 1) / q) (low
+    word, high word), 0, then M (a, b) row-major; M's entries must be
+    residues below q."""
+    Mu = _as_u32(M)
+    if Mu.ndim != 2 or 0 in Mu.shape:
+        raise ValueError(f"modmat_small: need one (a, b) matrix, got shape {Mu.shape}")
+    if int(Mu.max()) >= q:
+        raise ValueError("modmat_small: matrix entries must be residues below q")
+    mu = ((1 << 64) - 1) // q
+    head = np.array([q, mu & 0xFFFFFFFF, mu >> 32, 0], np.uint32)
+    return np.concatenate([head, Mu.reshape(-1)])
+
+
+def small_table(M, q: int, device) -> torch.Tensor:
+    """`small_words` on `device` as int32 (`once_per_matrix`)."""
+    dev = torch.device(device)
+    return once_per_matrix(M, ("modmat_small", q, dev), lambda: torch.from_numpy(
+        small_words(M, q).view(np.int32)).to(dev))
+
+
+def _small_lib() -> ctypes.CDLL:
+    lib = build.load()
+    if lib.lol_modmat_small.argtypes is None:
+        lib.lol_modmat_small.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                                         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.lol_modmat_small.restype = ctypes.c_int
+    return lib
+
+
+def modmat_small(M, x: torch.Tensor, q: int, axis: int = -1) -> torch.Tensor:
+    """M (a, b) @ x along `axis` mod q for residues x (int32 or int64) in
+    [0, q) with x.shape[axis] == b; a new int32 tensor of residues with a
+    at `axis`, x not written.  The route of the short axes; any (a, b)
+    runs (the kernel's fixed instances are the square axes below 16)."""
+    q = int(q)
+    if not (2 <= q < (1 << zq.MAX_MODULUS_BITS)):
+        raise ValueError(f"modmat_small: modulus {q} out of range [2, 2^30)")
+    if x.device.type == "cpu":
+        trace.tag("int64")
+        return modmat_small_ref(M, x, q, axis)
+    if x.device.type != "cuda":
+        raise ValueError(f"modmat_small: unsupported device {x.device}")
+    a, b = M.shape
+    axis %= x.dim()
+    if x.shape[axis] != b:
+        raise ValueError(f"modmat_small: axis of length {x.shape[axis]}, matrix {a}x{b}")
+    trace.tag("modmat_small")
+    table = small_table(M, q, x.device)
+    pre, post = math.prod(x.shape[:axis]), math.prod(x.shape[axis + 1:])
+    x3 = x.reshape(pre, b, post).to(torch.int32).contiguous()
+    y = torch.empty((*x.shape[:axis], a, *x.shape[axis + 1:]), dtype=torch.int32,
+                    device=x.device)
+    if y.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        err = _small_lib().lol_modmat_small(
+            table.data_ptr(), x3.data_ptr(), y.data_ptr(), pre, post, a, b,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"modmat_small ((pre, a, b, post) = ({pre}, {a}, {b}, {post}), q={q})")
+    LAUNCHES["modmat_small"] += 1
+    return y

@@ -14,11 +14,12 @@ per-axis ones:
   (n2, rest * B) is a free reshape and the axis runs on the same
   `ntt_cm` kernels as the 2-power pipeline, the digit prologue included;
 - an odd p^e axis: a dense phi x phi matrix-vector product mod q
-  (`matvec_mod`): below MXU_MIN_AXIS exact int64 torch, from it on (as in
-  the reference's `matvec_mod_jnp`) the int8-limb route of
-  `ops/cuda/modmat.py`, the Hopper tensor-core kernel `modmat_s8` on the
-  card (the reference's `matvec_mod_mxu`).  Both routes are exact, so the
-  dispatch never changes a result.
+  (`matvec_mod`), with the reference's `matvec_mod_jnp` dispatch: below
+  MXU_MIN_AXIS the short-axis route `modmat_small` of `ops/cuda/modmat.py`
+  (one hand-written u32 kernel launch on the card, int64 torch on the
+  CPU), from it on the int8-limb route, the Hopper tensor-core kernel
+  `modmat_s8` on the card (the reference's `matvec_mod_mxu`).  Both
+  routes are exact, so the dispatch never changes a result.
 
 CRT slot order: slot multi-index (u_1, ..., u_k), axis i enumerating the
 units of Z_{p_i^{e_i}} (the 2-axis in NTT order, odd axes ascending);
@@ -42,7 +43,7 @@ import torch
 from .. import numtheory as nt, trace
 from ..factored import Factored, PrimePower, fact
 from . import ntt
-from .cuda.modmat import modmat_s8, once_per_matrix
+from .cuda.modmat import modmat_s8, modmat_small
 from .cuda.ntt_kernel import ntt_cm, redigit
 
 # ---------------------------------------------------------------------------
@@ -74,23 +75,7 @@ def _mat_inv_mod(M: np.ndarray, q: int) -> np.ndarray:
     return inv_m.astype(np.uint32)
 
 
-# products of two residues are below 2^60, so seven of them and a residue
-# sum below 2^63: the int64 route reduces once per seven terms
-_TERMS_PER_REDUCE = 7
 MXU_MIN_AXIS = 16  # from this axis on, the int8-limb route (as the reference)
-
-
-def _int64_columns(M, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """M's columns as int64 (1, a, 1) views on `device`; a read-only numpy
-    matrix's (the plans') are made there once."""
-    a, b = M.shape
-
-    def make():
-        Mt = (M.to(device, torch.int64) if isinstance(M, torch.Tensor)
-              else torch.from_numpy(np.asarray(M, dtype=np.int64)).to(device))
-        return tuple(Mt[:, j].view(1, a, 1) for j in range(b))
-
-    return once_per_matrix(M, ("int64 columns", device), make)
 
 
 def matvec_mod(M, x: torch.Tensor, q: int, axis: int = -1,
@@ -99,30 +84,16 @@ def matvec_mod(M, x: torch.Tensor, q: int, axis: int = -1,
     with x.shape[axis] == b, and the result (int32 residues) has a there.
     The counterpart of the reference's `matvec_mod_jnp` (which takes the
     last axis), with its dispatch: use_mxu=None takes the int8-limb route
-    (`modmat_s8`) where min(a, b) >= MXU_MIN_AXIS, the exact int64 one
-    below.  No data moves: x is viewed as (pre, b, post); the int64 route
-    accumulates over b in place, reduced every seven terms, from views
-    made once (the host's work per call is its launches)."""
+    (`modmat_s8`) where min(a, b) >= MXU_MIN_AXIS, the short-axis route
+    (`modmat_small`: one kernel launch on the card, int64 torch on the
+    CPU) below.  x is viewed as (pre, b, post), no data moved."""
     a, b = M.shape
     if use_mxu is None:
         use_mxu = min(a, b) >= MXU_MIN_AXIS
-    trace.tag("modmat_s8" if use_mxu else "int64")
     if use_mxu:
+        trace.tag("modmat_s8")
         return modmat_s8(M, x, q, axis)
-    cols = _int64_columns(M, x.device)
-    axis = axis % x.dim()
-    if x.shape[axis] != b:
-        raise ValueError(f"matvec_mod: axis of length {x.shape[axis]}, matrix {a}x{b}")
-    pre, post = math.prod(x.shape[:axis]), math.prod(x.shape[axis + 1:])
-    xs = x.reshape(pre, b, post).long().split(1, 1)
-    acc = None
-    for j0 in range(0, b, _TERMS_PER_REDUCE):
-        s = acc
-        for j in range(j0, min(b, j0 + _TERMS_PER_REDUCE)):
-            t = cols[j] * xs[j]
-            s = t if s is None else s.add_(t)
-        acc = s.remainder_(q)
-    return acc.to(torch.int32).view(*x.shape[:axis], a, *x.shape[axis + 1:])
+    return modmat_small(M, x, q, axis)  # tags the span with its route
 
 
 def matvec_mod_mxu(M, x: torch.Tensor, q: int) -> torch.Tensor:
@@ -220,8 +191,8 @@ def crt_cm(plan: GeneralPlan, x: torch.Tensor, inverse: bool = False,
            pre_digit_q: int | None = None, factor: int = 1) -> torch.Tensor:
     """(n, B) int32 coefficient-major CRT (powerful -> CRT basis) or its
     inverse over one channel.  The 2-power axis runs `ntt_cm` on the free
-    (n2, rest * B) reshape, the odd axes `matvec_mod` in place (the
-    int8-limb kernel from MXU_MIN_AXIS on).
+    (n2, rest * B) reshape, the odd axes `matvec_mod` on their views
+    (`modmat_small` below MXU_MIN_AXIS, `modmat_s8` from it on).
     pre_digit_q: the RNS-gadget digit re-expansion (forward only).  It is
     elementwise, so it runs before any axis transform: as the 2-axis
     kernel's prologue, or by `redigit` when the ring has no 2-axis.

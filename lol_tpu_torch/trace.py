@@ -32,8 +32,8 @@ nrns), `bgv.ks.inner` (the hint inner products of every digit, 1, tagged
 with its route, "ks_inner" or "int64"), `bgv.rescale`
 (`BatchedBGV._rescale_crt`, 2, tagged with its epilogue's route,
 "rescale_out" or "int64"), and `crt.odd` (each odd axis of a
-general-m `ops.general.crt_cm`, tagged with its route, "int64" or
-"modmat_s8").  Per ring tunnel R -> S (`Tunnel`, d relative basis
+general-m `ops.general.crt_cm`, tagged with its route, "modmat_small",
+"int64" or "modmat_s8").  Per ring tunnel R -> S (`Tunnel`, d relative basis
 elements): `tunnel` (`Tunnel.forward`, 1), `tunnel.intt` (both inverse
 transforms over R, 1), `tunnel.forward` (each stack of forward
 transforms over S with its gather and embed, d (1 + nrns)) and

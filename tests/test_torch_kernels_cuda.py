@@ -1010,9 +1010,64 @@ def test_modmat_s8_stacks_and_mxu_ntt(cuda):
         assert torch.equal(mx.mxu_ntt(x, plan, P), tk.ntt_cm(x, plan))
 
 
+MODMAT_SMALL_QS = [nt.ntt_primes(18432, 30, 1)[0], (1 << 30) - 1, 257]
+
+
+@pytest.mark.parametrize("q", MODMAT_SMALL_QS)
+@pytest.mark.parametrize("a,b,pre,post", [(6, 6, 1024, 1024), (2, 2, 3, 1000), (4, 4, 3, 1000),
+                                          (10, 10, 3, 1001), (12, 12, 5, 64), (15, 40, 2, 96),
+                                          (6, 3, 5, 33), (16, 16, 2, 64), (1, 1, 7, 1)])
+def test_modmat_small_matches_plain(cuda, q, a, b, pre, post):
+    """The short-axis kernel == its plain version over (pre, b, post): one
+    launch, a new int32 output, x not written; 0, 1 and q - 1 planted; at
+    every entry 0 and q - 1; an int64 x; a view 4 bytes off (the one-word
+    path)."""
+    from lol_tpu_torch.ops.cuda import modmat as mm
+
+    rng = np.random.default_rng(a * b + q % 1000)
+    M = rng.integers(0, q, (a, b)).astype(np.uint32)
+    M.flat[:2] = (0, q - 1)[:M.size]
+    g = torch.Generator(device=cuda).manual_seed(a + b)
+    x = torch.randint(0, q, (pre, b, post), generator=g, device=cuda, dtype=torch.int32)
+    x.view(-1)[:3] = torch.tensor([0, 1, q - 1], device=cuda)[:x.numel()]
+    before, x0 = mm.LAUNCHES["modmat_small"], x.clone()
+    got = mm.modmat_small(M, x, q, 1)
+    assert mm.LAUNCHES["modmat_small"] == before + 1
+    assert got.shape == (pre, a, post) and got.dtype == torch.int32
+    assert torch.equal(got, mm.modmat_small_ref(M, x, q, 1)) and torch.equal(x, x0)
+    assert torch.equal(mm.modmat_small(M, x.long(), q, 1), got)
+    off = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda)[1:].view_as(x)
+    off.copy_(x)
+    assert torch.equal(mm.modmat_small(M, off, q, 1), got)
+    for v in (0, q - 1):
+        Mv, xv = np.full((a, b), v, np.uint32), torch.full((2, b, 64), v, dtype=torch.int32,
+                                                          device=cuda)
+        assert torch.equal(mm.modmat_small(Mv, xv, q, 1), mm.modmat_small_ref(Mv, xv, q, 1))
+
+
+def test_general_crt_on_the_short_axis_kernel(cuda):
+    """crt_cm and its inverse at m = 18432 (the phi = 6 axis) and m = 105
+    (three odd axes, no 2-power axis): one modmat_small launch an odd axis
+    and no modmat_s8, == the CPU."""
+    from lol_tpu_torch.ops import general as gen
+    from lol_tpu_torch.ops.cuda import modmat as mm
+
+    for m, cols in ((18432, 1024), (105, 64)):
+        q = nt.ntt_primes(m, 30, 1)[0]
+        plan = gen.general_plan(m, q)
+        odd = sum(ax.ntt2 is None and ax.phi > 1 for ax in plan.axes)
+        x = torch.randint(0, q, (plan.fm.phi, cols), device=cuda, dtype=torch.int32)
+        for inverse in (False, True):
+            before = dict(mm.LAUNCHES)
+            got = gen.crt_cm(plan, x, inverse=inverse)
+            assert mm.LAUNCHES == dict(before, modmat_small=before["modmat_small"] + odd)
+            assert torch.equal(got, gen.crt_cm(plan, x.cpu(), inverse=inverse).to(cuda))
+
+
 def test_general_crt_on_the_kernel_route(cuda):
     """crt_cm at m = 34816 (the 17-axis, phi = 16): one modmat_s8 launch a
-    call, == the int64 route on the card and == the CPU."""
+    call, == the short-axis kernel forced onto the axis
+    (`steptime.mxu_route(False)`) on the card and == the CPU."""
     from lol_tpu_torch.ops import general as gen
     from lol_tpu_torch.ops.cuda import modmat as mm
 

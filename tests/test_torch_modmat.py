@@ -2,7 +2,9 @@
 package's MXU route, on the CPU.
 
 `lol_tpu_torch.ops.cuda.modmat` (`modmat_ref`, the plain version the
-Hopper kernel `modmat_s8` is held to; `class_sums`), `ops.general`'s
+Hopper kernel `modmat_s8` is held to; `class_sums`; `modmat_small_ref`,
+the plain version of the short-axis kernel `modmat_small`, and that
+kernel's arithmetic emulated in numpy), `ops.general`'s
 dispatch (`matvec_mod(use_mxu=)`, `MXU_MIN_AXIS`, `matvec_mod_mxu`), the
 general-m transforms and the g ops at rings with a phi = 16 axis (m = 68
 and 136), the general step at m = 68 on the port's keys and hints carried
@@ -243,6 +245,135 @@ def test_route_choice_matches_the_reference(monkeypatch):
         jax.eval_shape(lambda M_, x_: jgen.matvec_mod_jnp(M_, x_, Q30), M, x)
         assert len(mine) == len(ref) == int(min(a, b) >= 16), (a, b)
         np.testing.assert_array_equal(_u32(got), (M.astype(object) @ x.T.astype(object)).T % Q30)
+
+
+# ---------------------------------------------------------------------------
+# the short axes: modmat_small's plain version and its arithmetic
+# ---------------------------------------------------------------------------
+
+_SMALL_SHAPES = [(2, 2), (4, 4), (6, 6), (10, 10), (12, 12), (15, 40), (6, 3)]
+_Q18432 = tuple(nt.ntt_primes(18432, 30, 3))  # bgv_m18432's chain
+
+
+@functools.lru_cache(maxsize=None)
+def _small_case(a: int, b: int):
+    """M (a, b), x (4, 5, b) at Q30 (0, 1 and q - 1 planted), and the
+    reference's matvec_mod_jnp below the int8-limb route on them."""
+    M, x = _operands(Q30, a, b, (4, 5), 7 * a + b)
+    want = jax.jit(lambda M_, x_: jgen.matvec_mod_jnp(M_, x_, Q30, use_mxu=False))(M, x)
+    return M, x, np.asarray(want)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("a,b", _SMALL_SHAPES)
+def test_small_route_matches_the_exact_product_and_the_reference(a, b, axis):
+    """modmat_small_ref, modmat_small and matvec_mod(use_mxu=None) on the
+    CPU == the exact object-integer product == the reference's
+    matvec_mod_jnp (use_mxu=False), with b moved to the first, the middle
+    and the last axis; x is not written."""
+    M, x, want = _small_case(a, b)
+    exact = (x.astype(object) @ M.T.astype(object)) % Q30
+    np.testing.assert_array_equal(want, exact.astype(np.uint32))
+    xt = torch.from_numpy(np.moveaxis(x, -1, axis).astype(np.int64))
+    before = xt.clone()
+    for fn in (mm.modmat_small_ref, mm.modmat_small, gen.matvec_mod):
+        got = fn(M, xt, Q30, axis)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(np.moveaxis(_u32(got), axis, -1), want, err_msg=fn.__name__)
+    assert torch.equal(xt, before)
+
+
+def _umulhi64(t: np.ndarray, mu: int) -> np.ndarray:
+    """The high 64 bits of t mu for u64 t, from 32-bit halves (numpy wraps
+    mod 2^64), as __umul64hi computes them."""
+    m32 = np.uint64(0xFFFFFFFF)
+    s32 = np.uint64(32)
+    t0, t1 = t & m32, t >> s32
+    m0, m1 = np.uint64(mu & 0xFFFFFFFF), np.uint64(mu >> 32)
+    lo, mid0, mid1 = t0 * m0, t1 * m0, t0 * m1
+    carry = ((lo >> s32) + (mid0 & m32) + (mid1 & m32)) >> s32
+    return t1 * m1 + (mid0 >> s32) + (mid1 >> s32) + carry
+
+
+def _emu_small(M: np.ndarray, x3: np.ndarray, q: int) -> np.ndarray:
+    """csrc/modmat_small.cu's arithmetic over x3 (pre, b, post) u32 words:
+    each output's products of M's words (read from `small_words`' table)
+    summed in a u64, SMALL_TERMS at a time, each sum reduced by the 64-bit
+    Barrett step with the table's mu (qhat = umulhi64(t, mu), r = t -
+    qhat q in u32, one conditional subtraction) and carried into the
+    next."""
+    words = mm.small_words(M, q)
+    qw, mu = int(words[0]), int(words[1]) | int(words[2]) << 32
+    a, b = M.shape
+    Mw = words[4:].reshape(a, b).astype(np.uint64)
+    xs = x3.astype(np.uint64)
+    y = np.empty((x3.shape[0], a, x3.shape[2]), np.uint32)
+
+    def reduce(t):
+        assert t.dtype == np.uint64
+        r = (t.astype(np.uint32) - (_umulhi64(t, mu).astype(np.uint32) * np.uint32(qw)))
+        assert int(r.max()) < 2 * qw
+        return np.where(r >= qw, r - np.uint32(qw), r)
+
+    for i in range(a):
+        acc = np.zeros((x3.shape[0], x3.shape[2]), np.uint64)
+        for j0 in range(0, b, mm.SMALL_TERMS):
+            for j in range(j0, min(b, j0 + mm.SMALL_TERMS)):
+                acc = acc + Mw[i, j] * xs[:, j]
+            if j0 + mm.SMALL_TERMS < b:
+                acc = reduce(acc).astype(np.uint64)
+        y[:, i] = reduce(acc)
+    return y
+
+
+@pytest.mark.parametrize("q", [(1 << 30) - 1, *_Q18432, Q8])
+def test_small_kernel_arithmetic_emulated_matches_the_twin(q):
+    """The kernel's u64 sums of at most 15 products and its 64-bit
+    Barrett reduction with the host's constants == modmat_small_ref, at a
+    q just under 2^30, bgv_m18432's three primes and 257: random operands
+    at phi = 6 and the non-square (15, 40) and (6, 3), and every entry
+    q - 1 at b = 15 and 40, where the sums come nearest 2^64."""
+    rng = np.random.default_rng(q % 9973)
+    cases = [(rng.integers(0, q, (a, b)).astype(np.uint32),
+              rng.integers(0, q, (3, b, 8)).astype(np.uint32)) for a, b in ((6, 6), (15, 40), (6, 3))]
+    cases += [(np.full((a, b), q - 1, np.uint32), np.full((2, b, 4), q - 1, np.uint32))
+              for a, b in ((6, 15), (15, 40))]
+    for M, x3 in cases:
+        want = _u32(mm.modmat_small_ref(M, torch.from_numpy(x3.astype(np.int64)), q, 1))
+        np.testing.assert_array_equal(_emu_small(M, x3, q), want, err_msg=str(M.shape))
+
+
+@pytest.mark.parametrize("b", [15, 40])
+def test_small_route_at_the_extremes(b):
+    """M = x = q - 1 at b = 15 (one u64 sum) and 40 (three): the twin ==
+    the exact product == the reference's route, and 0 everywhere at 0."""
+    q = (1 << 30) - 1
+    for v in (q - 1, 0):
+        M, x = np.full((15, b), v, np.uint32), np.full((3, b), v, np.uint32)
+        got = _u32(mm.modmat_small(M, torch.from_numpy(x.astype(np.int64)), q))
+        np.testing.assert_array_equal(got, (x.astype(object) @ M.T.astype(object)) % q)
+        np.testing.assert_array_equal(got, np.asarray(
+            jgen.matvec_mod_jnp(jnp.asarray(M), jnp.asarray(x), q, use_mxu=False)))
+
+
+@pytest.mark.parametrize("m", [20, 28, 44, 52, 72, 105])
+def test_crt_on_small_odd_axes_matches_the_reference(m):
+    """crt_cm and its inverse on rings whose odd axes all lie below
+    MXU_MIN_AXIS, the short-axis route in both packages: m = 4 5, 4 7,
+    4 11, 4 13 (phi 4, 6, 10, 12 beside the 2-power axis), 8 9 and the
+    odd 3 5 7 (three axes, phi 2, 4, 6, no 2-power axis) == the
+    reference's crt_cm (both in one compiled program)."""
+    q = nt.ntt_primes(m, 30, 1)[0]
+    plan, jplan = gen.general_plan(m, q), jgen.general_plan(m, q)
+    assert all(ax.phi < gen.MXU_MIN_AXIS for ax in plan.axes if ax.ntt2 is None)
+    x = np.random.default_rng(m).integers(0, q, (plan.fm.phi, 5)).astype(np.uint32)
+    x[0, 0], x[-1, -1] = q - 1, 0
+    xt = torch.from_numpy(x.astype(np.int32))
+    want = jax.jit(lambda v: [jgen.crt_cm(jplan, v, inverse=i) for i in (False, True)])(
+        jnp.asarray(x))
+    for inverse, w in zip((False, True), want):
+        np.testing.assert_array_equal(_u32(gen.crt_cm(plan, xt, inverse=inverse)), np.asarray(w),
+                                      err_msg=f"inverse={inverse}")
 
 
 @pytest.mark.parametrize("m", [68, 136, 76, 900, 323])
